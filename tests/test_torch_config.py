@@ -1,0 +1,71 @@
+"""The port's package boundary: its copied config/utils modules equal their
+lvt_tpu originals, all 7 configs merge to the same tree in both packages,
+and lvt_tpu_torch (with its entry points) imports neither JAX nor lvt_tpu."""
+
+import glob
+import os
+import subprocess
+import sys
+import tokenize
+
+import pytest
+
+from lvt_tpu.config import get_cfg as jax_get_cfg
+from lvt_tpu_torch.config import get_cfg as torch_get_cfg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
+COPIES = ["config/__init__.py", "config/config.py", "config/defaults.py",
+          "utils/registry.py", "utils/image.py", "utils/strings.py", "utils/labels.py"]
+
+
+def test_all_seven_configs_found():
+    assert len(CONFIGS) == 7
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: os.path.relpath(p, ROOT))
+def test_merged_configs_equal(path):
+    a, b = jax_get_cfg(), torch_get_cfg()
+    a.merge_from_file(path)
+    b.merge_from_file(path)
+    assert a == b
+    assert a.dump() == b.dump()
+
+
+def _code_tokens(path):
+    """The file's Python tokens, comments and layout aside (the port's copies
+    drop the JAX package's TPU measurements from their comments)."""
+    skip = (tokenize.COMMENT, tokenize.NL, tokenize.NEWLINE, tokenize.INDENT,
+            tokenize.DEDENT, tokenize.ENCODING)
+    with open(path, "rb") as f:
+        return [(t.type, t.string) for t in tokenize.tokenize(f.readline)
+                if t.type not in skip]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_equals_original(rel):
+    assert _code_tokens(os.path.join(ROOT, "lvt_tpu_torch", rel)) == \
+        _code_tokens(os.path.join(ROOT, "lvt_tpu", rel))
+
+
+def test_port_imports_neither_jax_nor_lvt_tpu():
+    """Every module of lvt_tpu_torch, the generation script and chip_smoke.py,
+    imported in a fresh interpreter, pull in no jax and no lvt_tpu."""
+    code = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {scripts!r})
+import lvt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lvt_tpu_torch.__path__, "lvt_tpu_torch.")]
+for name in names + ["generate_videos_torch", "chip_smoke"]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lvt_tpu"))
+print(len(names), bad)
+assert not bad, bad
+""".format(root=ROOT, scripts=os.path.join(ROOT, "scripts"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 20  # the walk saw the whole package
