@@ -1,3 +1,11 @@
-from .convert import from_jax_vqvae, from_jax_vt
+from .convert import flatten, from_jax_vqvae, from_jax_vt
+from .io import (
+    latest_checkpoint,
+    load_checkpoint,
+    prune_checkpoints,
+    resume_or_load,
+    save_checkpoint,
+)
 
-__all__ = ["from_jax_vqvae", "from_jax_vt"]
+__all__ = ["flatten", "from_jax_vqvae", "from_jax_vt", "latest_checkpoint", "load_checkpoint",
+           "prune_checkpoints", "resume_or_load", "save_checkpoint"]

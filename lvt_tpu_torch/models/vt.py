@@ -19,12 +19,17 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..ops import subscale as ss
 from ..ops.attention import _layer_norm, block_local_attention
 from ..ops.conv import masked_conv3d, subscale_context_encode
+from ..ops.embedding import take_rows
 from ..ops.posenc import add_positional_encoding
 from . import to_device
+
+# the ROADMAP item that brings TPU.FUSED_LAYER (kernels 7, 8 and 9)
+FUSED_LAYER_ITEM = "ROADMAP.md queue 1 item 1 (the fused layer, kernels 7, 8, 9)"
 
 class VTConfig(NamedTuple):
     nc: int
@@ -137,14 +142,20 @@ def init_vt_params(gen: torch.Generator, c: VTConfig) -> Dict[str, Any]:
 # Forward passes
 # --------------------------------------------------------------------------
 
-def _apply_attn_stack(x, layers, blocks, causal: bool):
-    """Run a stack of BlockLocalAttention layers."""
+def _apply_attn_stack(x, layers, blocks, causal: bool, remat: bool = False):
+    """Run a stack of BlockLocalAttention layers. remat=True (TPU.REMAT with
+    the policy "") keeps only each layer's input for the backward and
+    recomputes the layer there, as jax.checkpoint with no saved names does."""
     for p, blk in zip(layers, blocks):
-        x = block_local_attention(x, p, tuple(blk), causal)
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(block_local_attention, x, p, tuple(blk),
+                                                  causal, use_reentrant=False)
+        else:
+            x = block_local_attention(x, p, tuple(blk), causal)
     return x
 
 
-def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None):
+def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None, remat: bool = False):
     """Context branch. ctx: (b, nc, T', H', W') codes with pad_value at
     invisible positions; slice_idx: (b,). Returns zl (b, t, h, w, d)."""
     enc = params["encoder"]
@@ -154,18 +165,18 @@ def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None):
         cls = enc["class_embedding"][class_idx.long()][:, None, None, None, :]
         x = torch.cat([x, cls.expand(x.shape)], dim=-1)
     x = x @ enc["projector"]
-    return _apply_attn_stack(x, enc["layers"], c.blocks_e, False)
+    return _apply_attn_stack(x, enc["layers"], c.blocks_e, False, remat)
 
 
 def _embed_sum_codes(dec, c: VTConfig, codes):
     """Summed per-channel embeddings: codes (..., nc) -> (..., de)."""
-    out = dec["ch_embed"][0][codes[..., 0].long()]
+    out = take_rows(dec["ch_embed"][0], codes[..., 0])
     for k in range(1, c.nc):
-        out = out + dec["ch_embed"][k][codes[..., k].long()]
+        out = out + take_rows(dec["ch_embed"][k], codes[..., k])
     return out
 
 
-def vt_decode(params, c: VTConfig, slice_codes, zl):
+def vt_decode(params, c: VTConfig, slice_codes, zl, remat: bool = False):
     """Slice branch. slice_codes: (b, nc, t, h, w) int; zl: (b, t, h, w, d).
     Returns yl (b, t, h, w, d)."""
     dec = params["decoder"]
@@ -173,7 +184,7 @@ def vt_decode(params, c: VTConfig, slice_codes, zl):
     x = masked_conv3d(emb, dec["conv_w"], dec["conv_b"])
     x = add_positional_encoding(x)
     x = x + zl @ dec["projector"]
-    return _apply_attn_stack(x, dec["layers"], c.blocks_d, True)
+    return _apply_attn_stack(x, dec["layers"], c.blocks_d, True, remat)
 
 
 def _predictor_head(pred, c: VTConfig, k: int, u, dec_params):
@@ -194,15 +205,16 @@ def _predictor_u(pred, c: VTConfig, k: int, y, codes):
     d, nv = y.shape[-1], c.nv
     u = y @ w[:d] + pred["U_b"][k]
     for j in range(k):
-        u = u + w[d + j * nv: d + (j + 1) * nv][codes[..., j].long()]
+        u = u + take_rows(w[d + j * nv: d + (j + 1) * nv], codes[..., j])
     return u
 
 
-def vt_logits(params, c: VTConfig, ctx, slice_codes, slice_idx, class_idx=None):
+def vt_logits(params, c: VTConfig, ctx, slice_codes, slice_idx, class_idx=None,
+              remat: bool = False):
     """Teacher-forced logits for all positions/channels: (b, t, h, w, nc, nv)
     in the parameter dtype."""
-    zl = vt_encode(params, c, ctx, slice_idx, class_idx)
-    yl = vt_decode(params, c, slice_codes, zl)
+    zl = vt_encode(params, c, ctx, slice_idx, class_idx, remat)
+    yl = vt_decode(params, c, slice_codes, zl, remat)
     pred = params["predictor"]
     y = _layer_norm(yl, pred["ln_scale"], pred["ln_bias"])
     codes = slice_codes.movedim(1, -1)
@@ -243,23 +255,143 @@ class VideoTransformer:
         self.c = VTConfig.from_cfg(cfg)
         self.T, self.H, self.W = T, H, W
         self.plan = self._plan_for(T, H, W)
+        self._maps = {}
+        # False | True (per-layer remat) | "dots" | "qkv", as lvt_tpu reads
+        # TPU.REMAT / TPU.REMAT_POLICY; the port runs only True
+        policy = getattr(cfg.TPU, "REMAT_POLICY", "")
+        if policy not in ("", "dots", "qkv"):
+            raise ValueError(f"TPU.REMAT_POLICY must be '' (full remat), 'dots' or 'qkv', "
+                             f"got {policy!r}")
+        self.remat = (policy or True) if cfg.TPU.REMAT else False
+        self.fused = bool(getattr(cfg.TPU, "FUSED_LAYER", False))
 
     def _plan_for(self, T: int, H: int, W: int):
         return ss.build_plan(*self.c.stride, T, H, W, *self.c.kernel)
+
+    def _device_maps(self, plan, device):
+        """The plan's per-slice maps as tensors on ``device``, made once."""
+        key = (plan.T, plan.H, plan.W, str(device))
+        if key not in self._maps:
+            def t(a):
+                return None if a is None else torch.as_tensor(np.asarray(a, np.int64),
+                                                              device=device)
+            self._maps[key] = {"slice_src": t(plan.slice_src), "ctx_src": t(plan.ctx_src),
+                               "ctx_frame_src": t(plan.ctx_frame_src)}
+        return self._maps[key]
 
     def init(self, gen: torch.Generator, device="cpu"):
         """Returns (params, model_state); the VT keeps no mutable state."""
         return {"netG": to_device(init_vt_params(gen, self.c), device)}, {}
 
-    def _gather_ctx(self, plan, vflat, s: int):
-        """Context codes of slice s: (b, nc, T', H', W')."""
-        b, nc = vflat.shape[:2]
+    # -- training ------------------------------------------------------------
+    def prepare_slices(self, video, slice_idx):
+        """Per-sample slice preparation. video: (b, nc, T, H, W) codes;
+        slice_idx: (b,) int tensor on video's device. Returns (context
+        (b, nc, T', H', W'), slice codes (b, nc, t, h, w), ignore (b, t, h, w)
+        bool: positions in primed frames)."""
+        b, nc, T, H, W = video.shape
+        plan = self._plan_for(T, H, W)
+        maps = self._device_maps(plan, video.device)
+        vflat = video.reshape(b, nc, -1)
+        slice_idx = slice_idx.to(video.device).long()
+        src = maps["slice_src"][slice_idx]  # (b, t, h, w)
+        sl = ss.gather_slice(vflat, src)
+        ignore = src // (H * W) < self.c.n_prime
         if plan.ctx_frame_src is not None:
-            fmap = plan.ctx_frame_src[s]
-            v4 = vflat.reshape(b, nc, plan.T, plan.H * plan.W)
-            ctx = ss.gather_context_frames(v4, fmap, self.c.pad_value)
-            return ctx.reshape(b, nc, fmap.shape[-1], plan.H, plan.W)
-        return ss.gather_context(vflat, plan.ctx_src[s], self.c.pad_value)
+            fmap = maps["ctx_frame_src"][slice_idx]  # (b, T')
+            ctx = ss.gather_context_frames(vflat.reshape(b, nc, T, H * W), fmap, self.c.pad_value)
+            ctx = ctx.reshape(b, nc, fmap.shape[-1], H, W)
+        else:
+            ctx = ss.gather_context(vflat, maps["ctx_src"][slice_idx], self.c.pad_value)
+        return ctx, sl, ignore
+
+    def sample_train_slice_idx(self, gen: Optional[torch.Generator], batch: int,
+                               T: Optional[int] = None) -> torch.Tensor:
+        """Random slice index per sample, on the CPU, from ``gen``. For the
+        single-frame geometry (t == 1, sh == sw == 1) the draw starts at
+        n_prime, so fully-primed slices are never trained."""
+        st, sh, sw = self.c.stride
+        t = (self.T if T is None else T) // st
+        lo = self.c.n_prime if (t == 1 and sh == 1 and sw == 1) else 0
+        return torch.randint(lo, st * sh * sw, (batch,), generator=gen)
+
+    def _check_trainable(self):
+        if self.fused:
+            raise NotImplementedError(
+                "TPU.FUSED_LAYER True (the fused-layer kernels 7, 8, 9) is not ported to "
+                f"lvt_tpu_torch yet: {FUSED_LAYER_ITEM}. Set TPU.FUSED_LAYER False to train "
+                "with the unfused layers")
+        if self.remat not in (False, True):
+            raise NotImplementedError(
+                f"TPU.REMAT_POLICY {self.remat!r} is not ported to lvt_tpu_torch yet; "
+                "use '' (per-layer remat) or TPU.REMAT False")
+
+    def loss(self, params, batch, gen: Optional[torch.Generator] = None, *, slice_idx=None):
+        """Cross-entropy over one random slice per video, as lvt_tpu's
+        VideoTransformer.loss. batch: {"video": (b, nc, T, H, W) int, optional
+        "class": (b,)}; slice_idx: optional fixed (b,) slice indices instead
+        of the draw from ``gen``. Returns (loss, {"loss_cross_entropy": loss})."""
+        self._check_trainable()
+        video = batch["video"]
+        b = video.shape[0]
+        if slice_idx is None:
+            slice_idx = self.sample_train_slice_idx(gen, b, T=video.shape[2])
+        slice_idx = torch.as_tensor(slice_idx).to(video.device).long()
+        ctx, slice_codes, ignore = self.prepare_slices(video, slice_idx)
+        class_idx = batch.get("class") if self.c.class_num > 0 else None
+        logits = vt_logits(params["netG"], self.c, ctx, slice_codes, slice_idx, class_idx,
+                           remat=bool(self.remat))  # (b, t, h, w, nc, nv)
+        targets = slice_codes.movedim(1, -1).long()  # (b, t, h, w, nc)
+        # CE as logsumexp minus the true logit: the one-hot contraction of
+        # lvt_tpu read as the gather of the one logit it keeps (the same
+        # value: the other terms are exact zeros)
+        logits32 = logits.float()
+        lse = torch.logsumexp(logits32, dim=-1)
+        true_logit = torch.gather(logits32, -1, targets[..., None])[..., 0]
+        ce = lse - true_logit
+        valid = (~ignore)[..., None].expand(ce.shape).float()
+        # per-channel mean over non-primed positions, then mean over channels
+        num = (ce * valid).sum(dim=(0, 1, 2, 3))
+        den = valid.sum(dim=(0, 1, 2, 3)).clamp(min=1.0)
+        loss = (num / den).mean()
+        return loss, {"loss_cross_entropy": loss}
+
+    def train_loss(self, params, model_state, batch, gen=None):
+        """Uniform trainer interface; the VT has no mutable model state."""
+        loss, metrics = self.loss(params, batch, gen)
+        return loss, (metrics, model_state)
+
+    def visualize_training(self, params, state, batch):
+        """Sample one slice given its context and show the ground-truth and
+        sampled code maps as grayscale grids (lvt_tpu's visualize_training)."""
+        from ..utils.image import array2im
+        from .vt_incremental import sample_slice_incremental
+
+        device = params["netG"]["decoder"]["conv_w"].device
+        video = torch.as_tensor(np.asarray(batch["video"][:1])).to(device)
+        plan = self._plan_for(*video.shape[2:])
+        s = min(self.c.n_prime, plan.num_slices - 1)
+        slice_idx = torch.full((1,), s, dtype=torch.int64, device=device)
+        ctx, gt_slice, _ = self.prepare_slices(video, slice_idx)
+        class_idx = batch.get("class") if self.c.class_num > 0 else None
+        if class_idx is not None:
+            class_idx = torch.as_tensor(np.asarray(class_idx[:1])).to(device)
+        with torch.no_grad():
+            zl = vt_encode(params["netG"], self.c, ctx, slice_idx, class_idx)
+            t, h, w = plan.slice_shape
+            gen = torch.Generator(device=device).manual_seed(0)
+            sampled = sample_slice_incremental(params["netG"], self.c, (t, h, w), zl,
+                                               torch.zeros_like(gt_slice), gen,
+                                               np.zeros(t * h * w, bool), 0.9)
+
+        def to_img(sl):  # (1, nc, t, h, w) codes -> (C, H, W) uint8 grid
+            x = sl[0].cpu().numpy().astype(np.float32) / self.c.nv  # (nc, t, h, w)
+            img = array2im(x.transpose(1, 0, 2, 3), normalize=False, tile=True)
+            if img.ndim == 2:
+                img = img[:, :, None]
+            return img.transpose(2, 0, 1)
+
+        return {"gt_slice": to_img(gt_slice), "sampled_slice": to_img(sampled)}
 
     def sample_video(self, params, video, gen: Optional[torch.Generator] = None, *,
                      temp: float = 1.0, n_prime: Optional[int] = None, class_idx=None,
@@ -287,9 +419,8 @@ class VideoTransformer:
             primed = plan.slice_src[s].reshape(-1) // (H * W) < n_prime  # host (thw,)
             if primed.all():
                 continue
-            sl = ss.gather_slice(vflat, plan.slice_src[s])
-            ctx = self._gather_ctx(plan, vflat, s)
             sidx = torch.full((b,), s, dtype=torch.int64, device=video.device)
+            ctx, sl, _ = self.prepare_slices(vflat.reshape(b, nc, T, H, W), sidx)
             zl = vt_encode(params["netG"], c, ctx, sidx, class_idx)
             if incremental:
                 from .vt_incremental import sample_slice_incremental

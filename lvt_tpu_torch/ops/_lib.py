@@ -31,6 +31,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lvt_block_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "lvt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "lvt_block_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _P],
 }
 
 

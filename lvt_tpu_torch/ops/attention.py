@@ -9,9 +9,10 @@
   its own residual.
 
 Layout is channels-last (b, T, H, W, d) throughout. ``attention_core`` is
-the one place the attention product runs: on a CUDA tensor it launches the
-hand-written kernel (csrc/block_attention.cu), on a CPU tensor it runs the
-plain PyTorch version of the same function. A layer's parameters are a dict
+the one place the attention product runs, forward and backward: on a CUDA
+tensor it launches the hand-written kernels (csrc/block_attention.cu, and
+csrc/block_attention_bwd.cu for the gradient), on a CPU tensor it runs the
+plain PyTorch versions of the same functions. A layer's parameters are a dict
 with the field names of lvt_tpu's ``BlockAttnParams``.
 """
 
@@ -28,17 +29,10 @@ LayerParams = Dict[str, torch.Tensor]
 
 
 @lru_cache(maxsize=64)
-def _delta_indices(block_size: Tuple[int, int, int]):
-    """Flattened per-axis delta index arrays (thw, thw), values in
-    [0, 2*axis-2], into the dt/dh/dw banks."""
-    t, h, w = block_size
-    tt = np.arange(t).repeat(h * w)
-    hh = np.tile(np.arange(h).repeat(w), t)
-    ww = np.tile(np.arange(w), t * h)
-    dt = tt[:, None] - tt[None, :] + (t - 1)
-    dh = hh[:, None] - hh[None, :] + (h - 1)
-    dw = ww[:, None] - ww[None, :] + (w - 1)
-    return dt, dh, dw
+def _axis_delta(s: int) -> np.ndarray:
+    """(s, s) index into a (2s-1) bank: i - j + s - 1."""
+    r = np.arange(s)
+    return r[:, None] - r[None, :] + (s - 1)
 
 
 def causal_mask(n: int, device=None) -> torch.Tensor:
@@ -48,13 +42,23 @@ def causal_mask(n: int, device=None) -> torch.Tensor:
 
 
 def relative_bias(dt_bank, dh_bank, dw_bank, block_size) -> torch.Tensor:
-    """Banks (na, 2s-1) -> bias (na, thw, thw) in the banks' dtype, summed
-    in fp32 (the JAX package sums the same three terms in a membership
-    matmul with fp32 accumulation)."""
+    """Banks (na, 2s-1) -> bias (na, thw, thw) in the banks' dtype, the three
+    terms summed in fp32. Each bank is gathered per axis, (na, s, s), and the
+    three are broadcast over the (t, h, w) x (t, h, w) token pairs, so the
+    backward is a sum over the broadcast axes plus a scatter of s*s values.
+    A gather of the whole (na, thw, thw) would scatter thw^2 values into ~2s
+    slots per head in the backward, and the colliding indices serialize on
+    the card (2.2 ms per bank at thw = 256, half a DSFVT train step's device
+    time); the JAX package avoids the same scatter with a membership matmul
+    (lvt_tpu/ops/attention.py:relative_bias)."""
+    t, h, w = block_size
     dev = dt_bank.device
-    dt, dh, dw = (torch.as_tensor(i, device=dev) for i in _delta_indices(tuple(block_size)))
-    bias = dt_bank.float()[:, dt] + dh_bank.float()[:, dh] + dw_bank.float()[:, dw]
-    return bias.to(dt_bank.dtype)
+    bt, bh, bw = (bank.float()[:, torch.as_tensor(_axis_delta(s), device=dev)]
+                  for bank, s in ((dt_bank, t), (dh_bank, h), (dw_bank, w)))
+    na = bt.shape[0]
+    bias = (bt.reshape(na, t, 1, 1, t, 1, 1) + bh.reshape(na, 1, h, 1, 1, h, 1)
+            + bw.reshape(na, 1, 1, w, 1, 1, w))
+    return bias.reshape(na, t * h * w, t * h * w).to(dt_bank.dtype)
 
 
 def split_blocks(x: torch.Tensor, block_size):
@@ -92,40 +96,46 @@ def attention_core_plain(q, k, v, bias, causal: bool) -> torch.Tensor:
     return torch.einsum("banm,bamd->band", p, v.float()).to(q.dtype)
 
 
+def _check_kernel_inputs(name, q, k, v, bias, *more):
+    """Raise unless q, k, v (and ``more`` of their shape) and the bias are
+    what kernels 1 and 10 take: one CUDA device (the current one), float32 or
+    bfloat16 (n <= 256) io, da in {64, 128}, n <= 1024, a float32 (na, n, n)
+    bias, contiguous, 16-byte aligned."""
+    io = (q, k, v, *more)
+    if not (q.is_cuda and all(t.device == q.device for t in (*io, bias))):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in io):
+        raise ValueError(f"{name}: q, k, v{', g' if more else ''} must share float32 or "
+                         f"bfloat16, got {[t.dtype for t in io]}")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"{name}: bias must be float32, got {bias.dtype}")
+    if q.dim() != 4 or any(t.shape != q.shape for t in io):
+        raise ValueError(f"{name}: q, k, v{', g' if more else ''} must share one "
+                         f"(nb, na, n, da) shape, got {[tuple(t.shape) for t in io]}")
+    nb, na, n, da = q.shape
+    if da not in (64, 128) or not 1 <= n <= 1024:
+        raise ValueError(f"{name}: needs da in (64, 128) and n <= 1024, got da={da}, n={n}")
+    if q.dtype == torch.bfloat16 and n > 256:
+        raise ValueError(f"{name}: bfloat16 needs n <= 256, got n={n}")
+    if bias.shape != (na, n, n):
+        raise ValueError(f"{name}: bias must be {(na, n, n)}, got {tuple(bias.shape)}")
+    if not all(t.is_contiguous() for t in (*io, bias)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in io):  # the kernels read them 16 bytes at a time
+        raise ValueError(f"{name}: q, k, v{', g' if more else ''} must be 16-byte aligned")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: inputs must lie on the current CUDA device")
+
+
 def block_attention_fwd_cuda(q, k, v, bias, causal: bool) -> torch.Tensor:
     """Kernel 1 (csrc/block_attention.cu) on CUDA tensors. q, k, v:
     (nb, na, n, da) contiguous, float32 or bfloat16, da in {64, 128},
     n <= 1024 in float32 and n <= 256 in bfloat16; bias (na, n, n)
     contiguous float32."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device
-            and bias.device == q.device):
-        raise ValueError("block_attention_fwd_cuda: all inputs must be on one CUDA device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"block_attention_fwd_cuda: q, k, v must share float32 or "
-                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if bias.dtype != torch.float32:
-        raise ValueError(f"block_attention_fwd_cuda: bias must be float32, got {bias.dtype}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"block_attention_fwd_cuda: q, k, v must share one (nb, na, n, da) "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check_kernel_inputs("block_attention_fwd_cuda", q, k, v, bias)
     nb, na, n, da = q.shape
-    if da not in (64, 128) or not 1 <= n <= 1024:
-        raise ValueError(f"block_attention_fwd_cuda: needs da in (64, 128) and n <= 1024, "
-                         f"got da={da}, n={n}")
-    if q.dtype == torch.bfloat16 and n > 256:
-        raise ValueError(f"block_attention_fwd_cuda: bfloat16 needs n <= 256, got n={n}")
-    if bias.shape != (na, n, n):
-        raise ValueError(f"block_attention_fwd_cuda: bias must be {(na, n, n)}, "
-                         f"got {tuple(bias.shape)}")
-    if not all(t.is_contiguous() for t in (q, k, v, bias)):
-        raise ValueError("block_attention_fwd_cuda: inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):  # the kernel reads them 16 bytes at a time
-        raise ValueError("block_attention_fwd_cuda: q, k, v must be 16-byte aligned")
     lib = LIBRARY.get()
     out = torch.empty_like(q)
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError("block_attention_fwd_cuda: inputs must lie on the current CUDA device")
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.lvt_block_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -139,13 +149,96 @@ def block_attention_fwd_cuda(q, k, v, bias, causal: bool) -> torch.Tensor:
 block_attention_fwd_cuda.launches = 0
 
 
-def attention_core(q, k, v, bias, causal: bool) -> torch.Tensor:
-    """Kernel 1 on a CUDA tensor, its plain version on a CPU tensor."""
-    if q.device.type == "cuda":
-        return block_attention_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        bias.float().contiguous(), causal)
-    if q.device.type == "cpu":
+def attention_core_bwd_plain(q, k, v, bias, g, causal: bool):
+    """Plain PyTorch version of kernel 10, the recompute backward of kernel 1
+    (lvt_tpu/ops/attention.py:attention_core_pallas_bwd), with its rounding
+    points: s and p in fp32; dv = p_io^T g with p rounded to the io dtype;
+    ds = p (dp - rowsum(dp p)) in fp32, 0 where masked; dq = ds_io k / sqrt(da)
+    and dk = ds_io^T q / sqrt(da) with ds rounded to the io dtype; dbias = ds
+    summed over the nb blocks in fp32, then cast to the bias dtype.
+    Returns (dq, dk, dv, dbias)."""
+    n, da = q.shape[-2:]
+    io = q.dtype
+    scale = 1.0 / math.sqrt(da)
+    s = torch.einsum("bani,bami->banm", q.float(), k.float()) * scale
+    s = s + bias.float()[None]
+    mask = causal_mask(n, q.device) if causal else None
+    if causal:
+        s = s.masked_fill(mask, -1e4)
+    p = torch.softmax(s, dim=-1)
+    gf = g.float()
+    dv = torch.einsum("banm,band->bamd", p.to(io).float(), gf)
+    dp = torch.einsum("band,bamd->banm", gf, v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if causal:
+        ds = ds.masked_fill(mask, 0.0)
+    ds_io = ds.to(io).float()
+    dq = torch.einsum("banm,bamd->band", ds_io, k.float()) * scale
+    dk = torch.einsum("banm,band->bamd", ds_io, q.float()) * scale
+    return dq.to(io), dk.to(io), dv.to(io), ds.sum(dim=0).to(bias.dtype)
+
+
+def block_attention_bwd_cuda(q, k, v, bias, g, causal: bool):
+    """Kernel 10 (csrc/block_attention_bwd.cu) on CUDA tensors: the inputs
+    kernel 1 takes, plus its output's cotangent g of q's shape and dtype.
+    Returns (dq, dk, dv) in the io dtype and dbias (na, n, n) float32,
+    bit-identical from call to call (no atomics)."""
+    _check_kernel_inputs("block_attention_bwd_cuda", q, k, v, bias, g)
+    nb, na, n, da = q.shape
+    lib = LIBRARY.get()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(bias)
+    stats = torch.empty((3, nb, na, n), dtype=torch.float32, device=q.device)
+    part = torch.empty((nb, na, n, n), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.lvt_block_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
+        part.data_ptr(), nb, na, n, da, int(causal), 0 if q.dtype == torch.float32 else 1,
+        1.0 / math.sqrt(da), stream)
+    check_launch("block_attention_bwd", err)
+    block_attention_bwd_cuda.launches += 1
+    return dq, dk, dv, dbias
+
+
+block_attention_bwd_cuda.launches = 0
+
+
+class _AttentionCore(torch.autograd.Function):
+    """Kernel 1 forward, kernel 10 backward (lvt_tpu's
+    ``_attention_core_pallas_ad``): the forward saves q, k, v and the bias,
+    and the backward recomputes the softmax from them. On CPU tensors the
+    same Function runs the plain forward and the explicit plain backward
+    (not autograd of the plain forward), so the CPU tests exercise its glue:
+    what is saved, the order of the gradients, their dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, bias)
+        if q.device.type == "cuda":
+            return block_attention_fwd_cuda(q, k, v, bias, causal)
         return attention_core_plain(q, k, v, bias, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        if q.device.type == "cuda":
+            dq, dk, dv, dbias = block_attention_bwd_cuda(q, k, v, bias, g.contiguous(),
+                                                         ctx.causal)
+        else:
+            dq, dk, dv, dbias = attention_core_bwd_plain(q, k, v, bias, g, ctx.causal)
+        return dq, dk, dv, dbias.to(bias.dtype), None
+
+
+def attention_core(q, k, v, bias, causal: bool) -> torch.Tensor:
+    """softmax(q k^T / sqrt(da) + bias [causal -1e4 fill]) v, differentiable:
+    kernels 1 and 10 on CUDA tensors, their plain versions on CPU tensors."""
+    if q.device.type == "cuda":
+        return _AttentionCore.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    bias.float().contiguous(), causal)
+    if q.device.type == "cpu":
+        return _AttentionCore.apply(q, k, v, bias, causal)
     raise ValueError(f"attention_core: no kernel for device {q.device}")
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .embedding import take_rows
+
 
 def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
@@ -95,5 +97,5 @@ def subscale_context_encode(ctx: torch.Tensor, table: torch.Tensor,
     gidx = (idx + base).reshape(b, nc * K, t * h * w)
     flat = table.reshape(nc * K, nv, de)
     flat = torch.cat([flat.new_zeros(nc * K, 1, de), flat], dim=1).reshape(-1, de)
-    emb = flat[gidx].sum(dim=1).reshape(b, t, h, w, de)
+    emb = take_rows(flat, gidx).sum(dim=1).reshape(b, t, h, w, de)
     return emb + bias if bias is not None else emb

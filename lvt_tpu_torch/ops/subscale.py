@@ -176,37 +176,43 @@ def plan_from_cfg(cfg, T, H, W) -> SubscalePlan:
 
 
 # --------------------------------------------------------------------------
-# Device-side appliers (torch; the maps are host numpy, moved per call)
+# Device-side appliers (torch). The gathers take per-sample maps, tensors
+# on the video's device (a model caches them); scatter_slice takes one host
+# numpy map for the whole batch.
 # --------------------------------------------------------------------------
 
 def _index(src, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(src, np.int64).reshape(-1), device=device)
 
 
-def gather_context_frames(video4: torch.Tensor, frame_src, pad_value: int) -> torch.Tensor:
-    """Frame-row gather_context. video4: (b, nc, T, H*W); frame_src: (T',)
-    frame indices with -1 = pad. Returns (b, nc, T', H*W)."""
-    frame_src = np.asarray(frame_src)
-    safe = np.clip(frame_src, 0, video4.shape[2] - 1)
-    ctx = video4.index_select(2, _index(safe, video4.device))
-    pad = torch.as_tensor(frame_src < 0, device=video4.device)[None, None, :, None]
-    return ctx.masked_fill(pad, pad_value)
+def gather_context_frames(video4: torch.Tensor, frame_src: torch.Tensor,
+                          pad_value: int) -> torch.Tensor:
+    """Frame-row gather_context. video4: (b, nc, T, H*W); frame_src: (b, T')
+    per-sample frame indices with -1 = pad, on video4's device. Returns
+    (b, nc, T', H*W)."""
+    b, nc, _, hw = video4.shape
+    safe = frame_src.clamp(0, video4.shape[2] - 1).long()
+    ctx = torch.gather(video4, 2, safe[:, None, :, None].expand(b, nc, -1, hw))
+    return ctx.masked_fill((frame_src < 0)[:, None, :, None], pad_value)
 
 
-def gather_context(video_flat: torch.Tensor, ctx_src, pad_value: int) -> torch.Tensor:
-    """video_flat: (..., T*H*W) int codes; ctx_src: (T', H', W') index map.
-    Returns (..., T', H', W') with ``pad_value`` at masked positions."""
-    ctx_src = np.asarray(ctx_src)
-    ctx = video_flat.index_select(-1, _index(np.maximum(ctx_src, 0), video_flat.device))
-    ctx = ctx.reshape(video_flat.shape[:-1] + ctx_src.shape)
-    pad = torch.as_tensor(ctx_src < 0, device=video_flat.device)
-    return ctx.masked_fill(pad, pad_value)
+def gather_context(video_flat: torch.Tensor, ctx_src: torch.Tensor, pad_value: int) -> torch.Tensor:
+    """video_flat: (b, nc, T*H*W) int codes; ctx_src: (b, T', H', W')
+    per-sample index maps on its device (-1 = pad). Returns
+    (b, nc, T', H', W') with ``pad_value`` at pad positions."""
+    b, nc = video_flat.shape[:2]
+    idx = ctx_src.clamp(min=0).reshape(b, 1, -1).long().expand(b, nc, -1)
+    ctx = torch.gather(video_flat, 2, idx).reshape((b, nc) + tuple(ctx_src.shape[1:]))
+    return ctx.masked_fill((ctx_src < 0)[:, None], pad_value)
 
 
-def gather_slice(video_flat: torch.Tensor, slice_src) -> torch.Tensor:
-    """Extract slice values: (..., T*H*W) -> (..., t, h, w)."""
-    out = video_flat.index_select(-1, _index(slice_src, video_flat.device))
-    return out.reshape(video_flat.shape[:-1] + np.shape(slice_src))
+def gather_slice(video_flat: torch.Tensor, slice_src: torch.Tensor) -> torch.Tensor:
+    """Extract each sample's slice: video_flat (b, nc, T*H*W), slice_src
+    (b, t, h, w) per-sample index maps on its device. Returns
+    (b, nc, t, h, w)."""
+    b, nc = video_flat.shape[:2]
+    idx = slice_src.reshape(b, 1, -1).long().expand(b, nc, -1)
+    return torch.gather(video_flat, 2, idx).reshape((b, nc) + tuple(slice_src.shape[1:]))
 
 
 def scatter_slice(video_flat: torch.Tensor, slice_src, values: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""The port's package boundary: its copied config/utils modules equal their
-lvt_tpu originals, all 7 configs merge to the same tree in both packages,
-and lvt_tpu_torch (with its entry points) imports neither JAX nor lvt_tpu."""
+"""The port's package boundary: its copied config/utils/engine/data modules
+equal their lvt_tpu originals (events.py apart from its one device-memory
+probe), all 7 configs merge to the same tree in both packages, and
+lvt_tpu_torch (with its entry points) imports neither JAX nor lvt_tpu."""
 
+import ast
 import glob
 import os
 import subprocess
@@ -16,7 +18,9 @@ from lvt_tpu_torch.config import get_cfg as torch_get_cfg
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
 COPIES = ["config/__init__.py", "config/config.py", "config/defaults.py",
-          "utils/registry.py", "utils/image.py", "utils/strings.py", "utils/labels.py"]
+          "utils/registry.py", "utils/image.py", "utils/strings.py", "utils/labels.py",
+          "utils/logger.py", "engine/train_loop.py", "data/catalog.py",
+          "data/datasets/latents.py", "data/samplers.py"]
 
 
 def test_all_seven_configs_found():
@@ -48,24 +52,40 @@ def test_copied_module_equals_original(rel):
         _code_tokens(os.path.join(ROOT, "lvt_tpu", rel))
 
 
+def test_copied_events_equals_original_but_its_memory_probe():
+    """utils/events.py: every statement equal to lvt_tpu's but
+    _device_memory_mb, which reads torch.cuda instead of jax."""
+    def body(rel):
+        with open(os.path.join(ROOT, rel)) as f:
+            tree = ast.parse(f.read())
+        return {getattr(n, "name", f"#{i}"): ast.dump(n) for i, n in enumerate(tree.body)}
+
+    port, orig = body("lvt_tpu_torch/utils/events.py"), body("lvt_tpu/utils/events.py")
+    assert set(port) == set(orig)
+    differ = sorted(k for k in orig if port[k] != orig[k])
+    assert differ == ["_device_memory_mb"]
+
+
 def test_port_imports_neither_jax_nor_lvt_tpu():
-    """Every module of lvt_tpu_torch, the generation script and chip_smoke.py,
-    imported in a fresh interpreter, pull in no jax and no lvt_tpu."""
+    """Every module of lvt_tpu_torch, the generation and training scripts and
+    chip_smoke.py, imported in a fresh interpreter, pull in no jax and no
+    lvt_tpu."""
     code = r"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {root!r})
 sys.path.insert(0, {scripts!r})
+sys.path.insert(0, {tools!r})
 import lvt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lvt_tpu_torch.__path__, "lvt_tpu_torch.")]
-for name in names + ["generate_videos_torch", "chip_smoke"]:
+for name in names + ["generate_videos_torch", "train_net_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lvt_tpu"))
 print(len(names), bad)
 assert not bad, bad
-""".format(root=ROOT, scripts=os.path.join(ROOT, "scripts"))
+""".format(root=ROOT, scripts=os.path.join(ROOT, "scripts"), tools=os.path.join(ROOT, "tools"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20  # the walk saw the whole package
+    assert int(proc.stdout.split()[0]) >= 35  # the walk saw the whole package

@@ -167,13 +167,27 @@ def test_subscale_plan_arrays_equal(name):
 
 @pytest.mark.parametrize("stride,kernel", [((4, 1, 1), (3, 1, 1)), ((2, 2, 2), (3, 3, 3))])
 def test_subscale_appliers_match(rng, stride, kernel):
+    """The port's gathers take one map per sample: sample 0 reads slice s,
+    sample 1 slice s + 1, each against lvt_tpu's one-map gather of its row."""
     plan = jss.build_plan(*stride, 4, 4, 4, *kernel)
     video = rng.integers(0, 8, size=(2, 3, 64)).astype(np.int64)
-    for s in range(plan.num_slices):
-        want = np.asarray(jss.gather_context(jnp.asarray(video), jnp.asarray(plan.ctx_src[s]), -1))
-        np.testing.assert_array_equal(tss.gather_context(T(video), plan.ctx_src[s], -1).numpy(), want)
+    S = plan.num_slices
+
+    def per_sample(maps, s):  # (2, ...) int64 tensor: rows s and s + 1
+        return T(np.stack([maps[s], maps[(s + 1) % S]]).astype(np.int64))
+
+    def jax_rows(fn, v, maps, s):
+        return np.stack([np.asarray(fn(jnp.asarray(v[i:i + 1]), jnp.asarray(maps[(s + i) % S])))[0]
+                         for i in range(2)])
+
+    for s in range(S):
+        want = jax_rows(lambda v, m: jss.gather_context(v, m, -1), video, plan.ctx_src, s)
+        np.testing.assert_array_equal(
+            tss.gather_context(T(video), per_sample(plan.ctx_src, s), -1).numpy(), want)
+        want = jax_rows(jss.gather_slice, video, plan.slice_src, s)
+        np.testing.assert_array_equal(
+            tss.gather_slice(T(video), per_sample(plan.slice_src, s)).numpy(), want)
         sl = np.asarray(jss.gather_slice(jnp.asarray(video), jnp.asarray(plan.slice_src[s])))
-        np.testing.assert_array_equal(tss.gather_slice(T(video), plan.slice_src[s]).numpy(), sl)
         new = rng.integers(0, 8, size=sl.shape).astype(np.int64)
         want = np.asarray(jss.scatter_slice(jnp.asarray(video), jnp.asarray(plan.slice_src[s]),
                                             jnp.asarray(new)))
@@ -181,10 +195,11 @@ def test_subscale_appliers_match(rng, stride, kernel):
             tss.scatter_slice(T(video), plan.slice_src[s], T(new)).numpy(), want)
         if plan.ctx_frame_src is not None:
             v4 = video.reshape(2, 3, 4, 16)
-            want = np.asarray(jss.gather_context_frames(
-                jnp.asarray(v4), jnp.asarray(plan.ctx_frame_src[s]), -1))
+            want = jax_rows(lambda v, m: jss.gather_context_frames(v, m, -1), v4,
+                            plan.ctx_frame_src, s)
             np.testing.assert_array_equal(
-                tss.gather_context_frames(T(v4), plan.ctx_frame_src[s], -1).numpy(), want)
+                tss.gather_context_frames(T(v4), per_sample(plan.ctx_frame_src, s), -1).numpy(),
+                want)
 
 
 def test_posenc_matches(rng):

@@ -21,7 +21,6 @@ from lvt_tpu.models.vt import vt_logits as jax_vt_logits
 from lvt_tpu_torch.checkpoint import from_jax_vt
 from lvt_tpu_torch.models.vt import VideoTransformer, vt_encode, vt_logits
 from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
-from lvt_tpu_torch.ops import subscale as ss
 
 NEAR_TIE = 1e-5
 # one compile per geometry instead of an eager op-by-op run
@@ -64,11 +63,9 @@ def _models(case, seed=0):
 
 def _slice_inputs(m, video, s):
     """(ctx, slice codes, slice index) of slice s, on the port's side."""
-    b = video.shape[0]
-    vflat = torch.from_numpy(video).reshape(b, m.c.nc, -1)
-    ctx = m._gather_ctx(m.plan, vflat, s)
-    sl = ss.gather_slice(vflat, m.plan.slice_src[s])
-    return ctx, sl, torch.full((b,), s, dtype=torch.int64)
+    sidx = torch.full((video.shape[0],), s, dtype=torch.int64)
+    ctx, sl, _ = m.prepare_slices(torch.from_numpy(video), sidx)
+    return ctx, sl, sidx
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
