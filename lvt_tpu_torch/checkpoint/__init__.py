@@ -1,4 +1,4 @@
-from .convert import flatten, from_jax_vqvae, from_jax_vt
+from .convert import flatten, from_jax_layer, from_jax_vqvae, from_jax_vt
 from .io import (
     latest_checkpoint,
     load_checkpoint,
@@ -7,5 +7,5 @@ from .io import (
     save_checkpoint,
 )
 
-__all__ = ["flatten", "from_jax_vqvae", "from_jax_vt", "latest_checkpoint", "load_checkpoint",
-           "prune_checkpoints", "resume_or_load", "save_checkpoint"]
+__all__ = ["flatten", "from_jax_layer", "from_jax_vqvae", "from_jax_vt", "latest_checkpoint",
+           "load_checkpoint", "prune_checkpoints", "resume_or_load", "save_checkpoint"]

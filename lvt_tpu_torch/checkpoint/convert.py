@@ -59,6 +59,15 @@ def from_jax_vt(netG_tree) -> Dict[str, Any]:
     return out
 
 
+def from_jax_layer(layer) -> Dict[str, torch.Tensor]:
+    """One attention layer of the JAX VT (a ``BlockAttnParams`` with numpy
+    leaves) -> the port's layer dict."""
+    out = _convert(layer)
+    if not isinstance(out, dict) or "wq" not in out:
+        raise ValueError("from_jax_layer: not a BlockAttnParams")
+    return out
+
+
 def from_jax_vqvae(params, state) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The JAX VQ-VAE's (params, state) -> the port's. The EMA codebook is
     state["netC"], with embedding / running_size / running_sum."""

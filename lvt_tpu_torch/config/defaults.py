@@ -207,10 +207,10 @@ _C.TPU.REMAT = True
 # recomputes only elementwise work (LN/relu/residual stashes traded for VPU
 # recompute — less HBM stash traffic at near-zero FLOP cost)
 _C.TPU.REMAT_POLICY = ""  # "" (save nothing) | "dots" | "qkv" (save q/k/v)
-# run each teacher-forced transformer layer as ONE Pallas kernel (TPU only,
-# geometry-gated with safe fallback; the fused layer is its own remat unit —
-# ops/fused_layer.py); CPU and unsupported geometries fall back to the
-# unfused stack automatically
+# run each teacher-forced transformer layer as the fused layer of
+# ops/fused_layer.py (kernels 7, 8 and 9; it is its own remat unit). A stack
+# whose geometry is outside ops.fused_layer.fused_layer_supported runs the
+# unfused layers
 _C.TPU.FUSED_LAYER = True
 _C.TPU.SHARD_SPATIAL = False  # SP: shard image rows over the model axis
 # (conv halo exchanges inserted by XLA; VQ-VAE stage only)

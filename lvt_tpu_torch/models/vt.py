@@ -22,14 +22,14 @@ import torch
 import torch.utils.checkpoint
 
 from ..ops import subscale as ss
-from ..ops.attention import _layer_norm, block_local_attention
+from ..ops.attention import (_layer_norm, block_local_attention, merge_blocks, relative_bias,
+                             split_blocks)
 from ..ops.conv import masked_conv3d, subscale_context_encode
 from ..ops.embedding import take_rows
+from ..ops.fused_layer import fused_block_layer, fused_layer_supported
 from ..ops.posenc import add_positional_encoding
 from . import to_device
 
-# the ROADMAP item that brings TPU.FUSED_LAYER (kernels 7, 8 and 9)
-FUSED_LAYER_ITEM = "ROADMAP.md queue 1 item 1 (the fused layer, kernels 7, 8, 9)"
 
 class VTConfig(NamedTuple):
     nc: int
@@ -142,10 +142,24 @@ def init_vt_params(gen: torch.Generator, c: VTConfig) -> Dict[str, Any]:
 # Forward passes
 # --------------------------------------------------------------------------
 
-def _apply_attn_stack(x, layers, blocks, causal: bool, remat: bool = False):
+def _apply_attn_stack(x, layers, blocks, causal: bool, remat: bool = False,
+                      fused: bool = False):
     """Run a stack of BlockLocalAttention layers. remat=True (TPU.REMAT with
     the policy "") keeps only each layer's input for the backward and
-    recomputes the layer there, as jax.checkpoint with no saved names does."""
+    recomputes the layer there, as jax.checkpoint with no saved names does.
+    fused=True (TPU.FUSED_LAYER) runs each layer as the fused layer of
+    ops/fused_layer.py when the stack has more than one layer and its
+    geometry passes ``fused_layer_supported``, as lvt_tpu does: the token
+    form round-trips once for the whole stack, and the fused layer is its own
+    remat unit, so ``remat`` adds no checkpoint around it. Any other stack
+    runs the unfused layers."""
+    if fused and len(layers) > 1 and fused_layer_supported(layers, blocks):
+        blk = tuple(blocks[0])
+        tokens, geom = split_blocks(x, blk)
+        for p in layers:
+            bias = relative_bias(p["dt_bank"], p["dh_bank"], p["dw_bank"], blk)
+            tokens = fused_block_layer(tokens, p, bias, causal)
+        return merge_blocks(tokens, geom)
     for p, blk in zip(layers, blocks):
         if remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(block_local_attention, x, p, tuple(blk),
@@ -155,7 +169,8 @@ def _apply_attn_stack(x, layers, blocks, causal: bool, remat: bool = False):
     return x
 
 
-def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None, remat: bool = False):
+def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None, remat: bool = False,
+              fused: bool = False):
     """Context branch. ctx: (b, nc, T', H', W') codes with pad_value at
     invisible positions; slice_idx: (b,). Returns zl (b, t, h, w, d)."""
     enc = params["encoder"]
@@ -165,7 +180,7 @@ def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None, remat: bool =
         cls = enc["class_embedding"][class_idx.long()][:, None, None, None, :]
         x = torch.cat([x, cls.expand(x.shape)], dim=-1)
     x = x @ enc["projector"]
-    return _apply_attn_stack(x, enc["layers"], c.blocks_e, False, remat)
+    return _apply_attn_stack(x, enc["layers"], c.blocks_e, False, remat, fused)
 
 
 def _embed_sum_codes(dec, c: VTConfig, codes):
@@ -176,7 +191,7 @@ def _embed_sum_codes(dec, c: VTConfig, codes):
     return out
 
 
-def vt_decode(params, c: VTConfig, slice_codes, zl, remat: bool = False):
+def vt_decode(params, c: VTConfig, slice_codes, zl, remat: bool = False, fused: bool = False):
     """Slice branch. slice_codes: (b, nc, t, h, w) int; zl: (b, t, h, w, d).
     Returns yl (b, t, h, w, d)."""
     dec = params["decoder"]
@@ -184,7 +199,7 @@ def vt_decode(params, c: VTConfig, slice_codes, zl, remat: bool = False):
     x = masked_conv3d(emb, dec["conv_w"], dec["conv_b"])
     x = add_positional_encoding(x)
     x = x + zl @ dec["projector"]
-    return _apply_attn_stack(x, dec["layers"], c.blocks_d, True, remat)
+    return _apply_attn_stack(x, dec["layers"], c.blocks_d, True, remat, fused)
 
 
 def _predictor_head(pred, c: VTConfig, k: int, u, dec_params):
@@ -210,11 +225,11 @@ def _predictor_u(pred, c: VTConfig, k: int, y, codes):
 
 
 def vt_logits(params, c: VTConfig, ctx, slice_codes, slice_idx, class_idx=None,
-              remat: bool = False):
+              remat: bool = False, fused: bool = False):
     """Teacher-forced logits for all positions/channels: (b, t, h, w, nc, nv)
     in the parameter dtype."""
-    zl = vt_encode(params, c, ctx, slice_idx, class_idx, remat)
-    yl = vt_decode(params, c, slice_codes, zl, remat)
+    zl = vt_encode(params, c, ctx, slice_idx, class_idx, remat, fused)
+    yl = vt_decode(params, c, slice_codes, zl, remat, fused)
     pred = params["predictor"]
     y = _layer_norm(yl, pred["ln_scale"], pred["ln_bias"])
     codes = slice_codes.movedim(1, -1)
@@ -316,11 +331,6 @@ class VideoTransformer:
         return torch.randint(lo, st * sh * sw, (batch,), generator=gen)
 
     def _check_trainable(self):
-        if self.fused:
-            raise NotImplementedError(
-                "TPU.FUSED_LAYER True (the fused-layer kernels 7, 8, 9) is not ported to "
-                f"lvt_tpu_torch yet: {FUSED_LAYER_ITEM}. Set TPU.FUSED_LAYER False to train "
-                "with the unfused layers")
         if self.remat not in (False, True):
             raise NotImplementedError(
                 f"TPU.REMAT_POLICY {self.remat!r} is not ported to lvt_tpu_torch yet; "
@@ -340,7 +350,7 @@ class VideoTransformer:
         ctx, slice_codes, ignore = self.prepare_slices(video, slice_idx)
         class_idx = batch.get("class") if self.c.class_num > 0 else None
         logits = vt_logits(params["netG"], self.c, ctx, slice_codes, slice_idx, class_idx,
-                           remat=bool(self.remat))  # (b, t, h, w, nc, nv)
+                           remat=bool(self.remat), fused=self.fused)  # (b, t, h, w, nc, nv)
         targets = slice_codes.movedim(1, -1).long()  # (b, t, h, w, nc)
         # CE as logsumexp minus the true logit: the one-hot contraction of
         # lvt_tpu read as the gather of the one logit it keeps (the same
@@ -360,6 +370,26 @@ class VideoTransformer:
         """Uniform trainer interface; the VT has no mutable model state."""
         loss, metrics = self.loss(params, batch, gen)
         return loss, (metrics, model_state)
+
+    # -- evaluation ----------------------------------------------------------
+    def logits_for_entire_video(self, params, video, class_idx=None):
+        """Teacher-forced logits of all S slices, scattered to the full-video
+        layout, without grad (lvt_tpu's logits_for_entire_video). video:
+        (b, nc, T, H, W) -> float32 logits (b, T, H, W, nc, nv); the caller
+        applies its own mask over the primed frames."""
+        b, nc, T, H, W = video.shape
+        plan = self._plan_for(T, H, W)
+        src = self._device_maps(plan, video.device)["slice_src"]
+        out = torch.zeros((b, T * H * W, nc, self.c.nv), dtype=torch.float32,
+                          device=video.device)
+        with torch.no_grad():
+            for s in range(plan.num_slices):
+                sidx = torch.full((b,), s, dtype=torch.int64, device=video.device)
+                ctx, sl, _ = self.prepare_slices(video, sidx)
+                lg = vt_logits(params["netG"], self.c, ctx, sl, sidx, class_idx,
+                               fused=self.fused)
+                out[:, src[s].reshape(-1)] = lg.reshape(b, -1, nc, self.c.nv).float()
+        return out.reshape(b, T, H, W, nc, self.c.nv)
 
     def visualize_training(self, params, state, batch):
         """Sample one slice given its context and show the ground-truth and

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``lvt_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded through ``ctypes``. The
-build runs at first use, into ``build/lvt_tpu_torch/`` at the repository
-root, and is redone whenever the sources change (the library's file name
-carries a hash of them). Nothing here runs at import time: this module is
+Each ``lvt_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, loaded through
+``ctypes``; the compilers run side by side. The build runs at first use,
+into ``build/lvt_tpu_torch/`` at the repository root, and is redone whenever
+a source or a header (``*.cuh``) changes (the libraries' file names carry a
+hash of them all). Nothing here runs at import time: this module is
 imported on machines with no CUDA toolkit, where only the kernels' plain
 versions run.
 """
@@ -18,6 +19,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import types
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "lvt_tpu_torch")
@@ -32,6 +34,9 @@ _SIGNATURES = {
     "lvt_block_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "lvt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "lvt_block_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "lvt_fused_layer_fwd": [_P] * 16 + [_I] * 7 + [_F, _P],
+    "lvt_ffn_half_bwd": [_P] * 14 + [_I] * 4 + [_P],
+    "lvt_attn_half_bwd": [_P] * 19 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -48,7 +53,7 @@ def _nvcc() -> str:
 
 
 class KernelLibrary:
-    """The compiled library, built once per process and per source hash."""
+    """The compiled libraries, built once per process and per source hash."""
 
     def __init__(self):
         self._lib = None
@@ -62,41 +67,60 @@ class KernelLibrary:
 
     def _digest(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources():
+        for src in self.sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
             with open(src, "rb") as f:
                 h.update(os.path.basename(src).encode() + b"\0" + f.read())
         return h.hexdigest()[:16]
 
-    def build(self) -> str:
-        """Compile csrc/*.cu unless a library of the same sources exists."""
+    def build(self):
+        """Compile each csrc/*.cu, all at once, unless a library of the same
+        sources exists. Returns the libraries' paths."""
         os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR, f"liblvt_kernels_{self._digest()}.so")
-        if os.path.exists(path):
-            return path
+        digest = self._digest()
+        paths, running = [], []
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *self.sources()]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{self.build_log}")
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-        self.build_seconds = time.perf_counter() - t0
-        return path
+        for src in self.sources():
+            stem = os.path.splitext(os.path.basename(src))[0]
+            path = os.path.join(BUILD_DIR, f"liblvt_{stem}_{digest}.so")
+            paths.append(path)
+            if os.path.exists(path):
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            running.append((cmd, tmp, path, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, tmp, path, proc in running:
+            log = proc.communicate()[0]
+            self.build_log += log
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            else:
+                os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        if running:
+            self.build_seconds = time.perf_counter() - t0
+        return paths
 
-    def get(self) -> ctypes.CDLL:
+    def get(self) -> types.SimpleNamespace:
+        """The C functions of every library, by name."""
         with self._lock:
             if self._lib is None:
-                self.path = self.build()
-                lib = ctypes.CDLL(self.path)
+                paths = self.build()
+                self.path = os.path.dirname(paths[0])
+                libs = [ctypes.CDLL(p) for p in paths]
+                fns = types.SimpleNamespace()
                 for name, argtypes in _SIGNATURES.items():
-                    fn = getattr(lib, name)
+                    fn = next((getattr(lib, name) for lib in libs if hasattr(lib, name)), None)
+                    if fn is None:
+                        raise RuntimeError(f"{name}: in none of {paths}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                self._lib = lib
+                    setattr(fns, name, fn)
+                self._lib = fns
             return self._lib
 
 

@@ -10,8 +10,8 @@
 
 Layout is channels-last (b, T, H, W, d) throughout. ``attention_core`` is
 the one place the attention product runs, forward and backward: on a CUDA
-tensor it launches the hand-written kernels (csrc/block_attention.cu, and
-csrc/block_attention_bwd.cu for the gradient), on a CPU tensor it runs the
+tensor it launches the hand-written kernels (csrc/block_attention.cuh, and
+csrc/block_attention_bwd.cuh for the gradient), on a CPU tensor it runs the
 plain PyTorch versions of the same functions. A layer's parameters are a dict
 with the field names of lvt_tpu's ``BlockAttnParams``.
 """
@@ -128,7 +128,7 @@ def _check_kernel_inputs(name, q, k, v, bias, *more):
 
 
 def block_attention_fwd_cuda(q, k, v, bias, causal: bool) -> torch.Tensor:
-    """Kernel 1 (csrc/block_attention.cu) on CUDA tensors. q, k, v:
+    """Kernel 1 (csrc/block_attention.cuh) on CUDA tensors. q, k, v:
     (nb, na, n, da) contiguous, float32 or bfloat16, da in {64, 128},
     n <= 1024 in float32 and n <= 256 in bfloat16; bias (na, n, n)
     contiguous float32."""
@@ -179,7 +179,7 @@ def attention_core_bwd_plain(q, k, v, bias, g, causal: bool):
 
 
 def block_attention_bwd_cuda(q, k, v, bias, g, causal: bool):
-    """Kernel 10 (csrc/block_attention_bwd.cu) on CUDA tensors: the inputs
+    """Kernel 10 (csrc/block_attention_bwd.cuh) on CUDA tensors: the inputs
     kernel 1 takes, plus its output's cotangent g of q's shape and dtype.
     Returns (dq, dk, dv) in the io dtype and dbias (na, n, n) float32,
     bit-identical from call to call (no atomics)."""

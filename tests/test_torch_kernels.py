@@ -183,3 +183,142 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                       False)
     with pytest.raises(ValueError):  # a CPU cotangent
         tatt.block_attention_bwd_cuda(q, q, q, bias, q.cpu(), False)
+
+
+# --------------------------------------------------------------------------
+# The fused layer: kernels 7, 8 and 9 (ops/fused_layer.py)
+# --------------------------------------------------------------------------
+# Tolerances, |kernel - plain| relative to the output's largest value: fp32
+# 2e-5 (sums of up to 3,072 fp32 terms in another order; 1e-4 for the sums
+# over all rows); bf16 2^-6 (one bf16 rounding of the output, plus
+# intermediates such as qkv, P, f or ds rounded to the other side of a bf16
+# boundary where the two versions' fp32 values differ by an ulp).
+
+FUSED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
+FUSED_SHAPES = [  # nb, block, na, d, da
+    (3, (1, 5, 4), 2, 64, 64), (2, (2, 4, 4), 2, 128, 128), (2, (1, 8, 5), 3, 512, 64),
+    (4, (1, 16, 16), 8, 512, 128)]
+
+
+def _fused_inputs(cuda, dtype, nb, block, na, d, da, seed=0):
+    from lvt_tpu_torch.models.vt import init_block_attn
+
+    g = torch.Generator().manual_seed(seed)
+    p = init_block_attn(g, block, na, d, da)
+    p = {k: (v + 0.1 * torch.randn(v.shape, generator=g)).to(cuda, dtype) for k, v in p.items()}
+    n = block[0] * block[1] * block[2]
+    tok, go = (torch.randn((nb, n, d), generator=g).to(cuda, dtype) for _ in range(2))
+    bias = (tatt.relative_bias(p["dt_bank"], p["dh_bank"], p["dw_bank"], block).float()
+            + 0.3 * torch.randn((na, n, n), generator=g).to(cuda))
+    return p, tok, go, bias.contiguous()
+
+
+def _fused_close(name, got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), name
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= tol * max(scale, 1e-3), f"{name}: max abs err {err:.3g} at scale {scale:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,block,na,d,da", FUSED_SHAPES)
+def test_fused_layer_kernels_match_plain(cuda, dtype, causal, nb, block, na, d, da):
+    import lvt_tpu_torch.ops.fused_layer as tfl
+
+    p, tok, go, bias = _fused_inputs(cuda, dtype, nb, block, na, d, da)
+    tol = FUSED_TOL[dtype]
+    before = (tfl.fused_layer_fwd_cuda.launches, tfl.ffn_half_bwd_cuda.launches,
+              tfl.attn_half_bwd_cuda.launches)
+    out, x2 = tfl.fused_layer_tokens(tok, p, bias, causal, with_x2=True)
+    alone = tfl.fused_layer_tokens(tok, p, bias, causal)
+    want_out, want_x2 = tfl.fused_layer_tokens_plain(tok, p, bias, causal, with_x2=True)
+    _fused_close("out", out, want_out, tol)
+    _fused_close("x2", x2, want_x2, tol)
+    assert torch.equal(out, alone)
+    got = tfl.ffn_half_bwd(want_x2, go, p)
+    want = tfl.ffn_half_bwd_plain(want_x2, go, p)
+    for name, a, b in zip(("dx2", "dw1", "db1", "dw2", "db2", "dls", "dlb"), got, want):
+        _fused_close(name, a, b, 5 * tol if dtype == torch.float32 and name != "dx2" else tol)
+    groups = [(0, na)] + ([(0, na // 2), (na // 2, na)] if na > 1 else [])
+    for h0, h1 in groups:
+        got = tfl.attn_half_bwd(tok, want[0], p, bias, causal, h0, h1)
+        want9 = tfl.attn_half_bwd_plain(tok, want[0], p, bias, causal, h0, h1)
+        for name, a, b in zip(("dy", "dwqkv", "dproj", "dbias"), got, want9):
+            _fused_close(f"{name}[{h0}:{h1}]", a, b,
+                         5 * tol if dtype == torch.float32 and name != "dy" else tol)
+    assert (tfl.fused_layer_fwd_cuda.launches, tfl.ffn_half_bwd_cuda.launches,
+            tfl.attn_half_bwd_cuda.launches) == (before[0] + 2, before[1] + 1,
+                                                 before[2] + len(groups))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_kernels_are_deterministic(cuda, dtype):
+    """Two calls on the same inputs at the DSFVT training shape give
+    bit-identical outputs: the sums over the rows have a fixed order."""
+    import lvt_tpu_torch.ops.fused_layer as tfl
+
+    p, tok, go, bias = _fused_inputs(cuda, dtype, 64, (1, 16, 16), 8, 512, 128)
+    runs = []
+    for _ in range(2):
+        out, x2 = tfl.fused_layer_tokens(tok, p, bias, True, with_x2=True)
+        k8 = tfl.ffn_half_bwd(x2, go, p)
+        k9 = tfl.attn_half_bwd(tok, k8[0], p, bias, True, 0, 8)
+        runs.append((out, x2, *k8, *k9))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_block_layer_gradients_on_the_card(cuda, causal):
+    """fused_block_layer on the card (kernels 7, 8, 9) against the same
+    Function on the CPU (their plain versions), fp32: the value, and every
+    gradient within 1e-4 of its largest value (floored at 1e-2 of the
+    largest gradient of all)."""
+    import lvt_tpu_torch.ops.fused_layer as tfl
+
+    block = (2, 8, 8)
+    p_dev, tok, _, _ = _fused_inputs(cuda, torch.float32, 3, block, 2, 128, 64, seed=3)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.detach().to(dev).requires_grad_(True) for k, v in p_dev.items()}
+        t = tok.detach().to(dev).requires_grad_(True)
+        before = (tfl.fused_layer_fwd_cuda.launches, tfl.ffn_half_bwd_cuda.launches,
+                  tfl.attn_half_bwd_cuda.launches)
+        bias = tatt.relative_bias(p["dt_bank"], p["dh_bank"], p["dw_bank"], block)
+        out = tfl.fused_block_layer(t, p, bias, causal)
+        (out * torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)).sum().backward()
+        if dev == "cuda":
+            assert (tfl.fused_layer_fwd_cuda.launches, tfl.ffn_half_bwd_cuda.launches,
+                    tfl.attn_half_bwd_cuda.launches) == tuple(b + 1 for b in before)
+        res[dev] = (out.detach().cpu(), {**{k: v.grad.cpu() for k, v in p.items()},
+                                         "tok": t.grad.cpu()})
+    _fused_close("out", res["cuda"][0], res["cpu"][0], 2e-5)
+    floor = 1e-2 * max(float(w.abs().max()) for w in res["cpu"][1].values())
+    for k, want in res["cpu"][1].items():
+        bound = 1e-4 * max(float(want.abs().max()), floor)
+        assert float((res["cuda"][1][k] - want).abs().max()) <= bound, k
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    import lvt_tpu_torch.ops.fused_layer as tfl
+
+    p, tok, go, bias = _fused_inputs(cuda, torch.float32, 2, (1, 4, 4), 2, 64, 64)
+    with pytest.raises(ValueError):  # parameters of another dtype
+        tfl.fused_layer_fwd_cuda(tok.to(torch.bfloat16), p, bias, False)
+    with pytest.raises(ValueError):  # a bf16 bias
+        tfl.fused_layer_fwd_cuda(tok, p, bias.to(torch.bfloat16), False)
+    with pytest.raises(ValueError):  # a cotangent of another shape
+        tfl.ffn_half_bwd_cuda(tok, go[:1], p)
+    with pytest.raises(ValueError):  # a head range outside the layer
+        tfl.attn_half_bwd_cuda(tok, go, p, bias, False, 1, 3)
+    with pytest.raises(ValueError):  # a CPU input
+        tfl.fused_layer_fwd_cuda(tok.cpu(), p, bias, False)
+    p96, tok96, _, bias96 = _fused_inputs(cuda, torch.float32, 2, (1, 4, 4), 2, 96, 64)
+    with pytest.raises(ValueError):  # d not a multiple of 64
+        tfl.fused_layer_fwd_cuda(tok96, p96, bias96, False)

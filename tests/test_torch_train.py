@@ -15,9 +15,18 @@ carried across with from_jax_vt (the shapes of tests/test_trajectory_parity.py):
   tests/test_trajectory_parity.py and its tolerances);
 * the LR schedules against build_lr_schedule; a save and resume that
   continues bit-identically; the refusals of what is not ported; the
-  training CLI's main on the CPU.
+  training CLI's main on the CPU;
+* TPU.FUSED_LAYER True on a geometry the fused layer takes (d = da = 128,
+  blocks of 32 tokens, 2 + 2 layers): loss and every gradient against the
+  port's unfused path (2e-4, the bound of tests/test_fused_layer.py) and
+  against lvt_tpu taking its own fused branch, a 5-step trajectory, and
+  logits_for_entire_video. For lvt_tpu to take that branch on the CPU its
+  model gets use_pallas=True and lvt_tpu.ops.fused_layer._FORCE_INTERPRET
+  (the hook of tests/test_fused_layer.py); d and da are multiples of 128
+  because its gate, written for its chip, asks for that.
 """
 
+import contextlib
 import os
 import sys
 
@@ -28,6 +37,7 @@ import pytest
 import torch
 
 import lvt_tpu.ops.attention as jatt
+import lvt_tpu.ops.fused_layer as jfl
 from lvt_tpu.config import get_cfg as jax_get_cfg
 from lvt_tpu.models import cast_floats as jax_cast_floats
 from lvt_tpu.models.vt import VideoTransformer as JaxVT
@@ -47,7 +57,7 @@ T, H, W = 8, 4, 4
 BATCH = 2
 
 
-def _cfg(get=get_cfg, **solver):
+def _cfg(get=get_cfg, fused=False, **solver):
     cfg = get()
     cfg.MODEL.META_ARCHITECTURE = "VideoTransformerModel"
     cfg.MODEL.AUTOREGRESSIVE.NAME = "VideoTransformer"
@@ -65,6 +75,10 @@ def _cfg(get=get_cfg, **solver):
     v.N_PRIME = 1
     v.SHARE_P = False
     cfg.TPU.FUSED_LAYER = False
+    if fused:  # a geometry both packages' fused layers take
+        v.D, v.DA, v.DE = 128, 128, 12
+        v.BLOCKS_D, v.N_HEAD_D = ((2, 4, 4),) * 2, (2, 2)
+        cfg.TPU.FUSED_LAYER = True
     cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.SEED = 3
     for k, val in solver.items():
@@ -76,12 +90,48 @@ def _cfg(get=get_cfg, **solver):
     return cfg
 
 
-def _models(cfg_kwargs=None, seed=0):
+def _models(cfg_kwargs=None, seed=0, fused=False):
     cfg_kwargs = cfg_kwargs or {}
-    jm = JaxVT(_cfg(jax_get_cfg, **cfg_kwargs), T=T, H=H, W=W)
+    jm = JaxVT(_cfg(jax_get_cfg, fused, **cfg_kwargs), T=T, H=H, W=W)
+    jm.use_pallas = True if fused else None
     jp, _ = jm.init(jax.random.key(seed))
-    tm = VideoTransformer(_cfg(**cfg_kwargs), T=T, H=H, W=W)
+    tm = VideoTransformer(_cfg(fused=fused, **cfg_kwargs), T=T, H=H, W=W)
     return jm, jp, tm
+
+
+@contextlib.contextmanager
+def _jax_fused_on_cpu():
+    """lvt_tpu's fused layer with every Pallas kernel in interpret mode;
+    fails unless lvt_tpu traced its fused branch inside."""
+    inner, calls = jfl.fused_block_layer, []
+    jfl._FORCE_INTERPRET = True
+    jfl._fused_layer_ad.cache_clear()
+    jfl.fused_block_layer = lambda *a, **k: calls.append(1) or inner(*a, **k)
+    try:
+        yield
+        assert calls, "lvt_tpu did not take its fused branch"
+    finally:
+        jfl.fused_block_layer = inner
+        jfl._FORCE_INTERPRET = False
+        jfl._fused_layer_ad.cache_clear()
+
+
+@contextlib.contextmanager
+def _count_fused_layers(counts):
+    """Counts the port's fused_block_layer calls into counts[0]."""
+    import lvt_tpu_torch.models.vt as tvt
+
+    inner = tvt.fused_block_layer
+
+    def counted(*a, **k):
+        counts[0] += 1
+        return inner(*a, **k)
+
+    tvt.fused_block_layer = counted
+    try:
+        yield
+    finally:
+        tvt.fused_block_layer = inner
 
 
 def _to_port(jtree):
@@ -200,6 +250,72 @@ def test_loss_and_every_grad_match_jax_bf16_compute(rng):
         assert err <= bound, f"{name}: bf16 error {err:.3g}, lvt_tpu's {jax_err:.3g}"
 
 
+def test_fused_loss_and_every_grad_match_unfused_and_jax_fp32(rng):
+    """TPU.FUSED_LAYER True, fp32: against the port's unfused layers (2e-4 of
+    each leaf's largest gradient: the fused layer keeps x2 in fp32 and sums
+    in other orders) and against lvt_tpu taking its fused branch (1e-5,
+    floored as above)."""
+    jm, jp, tm = _models(fused=True)
+    video = rng.integers(0, 8, size=(BATCH, 2, T, H, W)).astype(np.int32)
+    si = np.asarray([0, 1], np.int32)
+    with _jax_fused_on_cpu():
+        jl, want = _jax_grads(jm, jp, video, si)
+    counts = [0]
+    with _count_fused_layers(counts):
+        tl, _, grads = _port_grads(jp, tm, video, si, remat=True)
+    assert counts[0] == 4  # 2 + 2 layers, once: the fused layer is its own remat unit
+    tm.fused = False
+    ul, _, unfused = _port_grads(jp, tm, video, si)
+    np.testing.assert_allclose(tl, jl, rtol=2e-6)
+    np.testing.assert_allclose(tl, ul, rtol=2e-6)
+    assert set(grads) == set(want) == set(unfused)
+    floor = 1e-2 * max(float(w.abs().max()) for w in want.values())
+    for name, g in grads.items():
+        assert g is not None and g.dtype == torch.float32, name
+        _leaf_close(name + " vs lvt_tpu", g.numpy(), want[name].numpy(), 1e-5, floor)
+        _leaf_close(name + " vs unfused", g.numpy(), unfused[name].numpy(), 2e-4, floor)
+
+
+def test_fused_bf16_compute_gradients_reach_the_fp32_masters(rng):
+    """bf16 compute with the fused layer: fp32 masters get fp32 gradients
+    within the bf16 bound of the unfused test above, against lvt_tpu's fused
+    bf16 gradient (the port rounds dy once where lvt_tpu's two head groups
+    round twice)."""
+    jm, jp, tm = _models(fused=True)
+    video = rng.integers(0, 8, size=(BATCH, 2, T, H, W)).astype(np.int32)
+    si = np.asarray([1, 0], np.int32)
+    with _jax_fused_on_cpu():
+        _, w32 = _jax_grads(jm, jp, video, si)
+        jl, w16 = _jax_grads(jm, jp, video, si, jnp.bfloat16)
+    tl, _, grads = _port_grads(jp, tm, video, si, torch.bfloat16, remat=True)
+    np.testing.assert_allclose(tl, jl, rtol=2e-3)
+    for name, g in grads.items():
+        assert g.dtype == torch.float32, name
+        ref = w32[name].numpy()
+        err = float(np.abs(g.numpy() - ref).max())
+        jax_err = float(np.abs(w16[name].numpy() - ref).max())
+        bound = 5 * jax_err + 2 ** -8 * float(np.abs(ref).max())
+        assert err <= bound, f"{name}: bf16 error {err:.3g}, lvt_tpu's {jax_err:.3g}"
+
+
+def test_logits_for_entire_video_match_jax(rng):
+    """Teacher-forced logits of all slices, with the fused layer's no-grad
+    forward in both packages: 1e-5 of the largest logit."""
+    jm, jp, tm = _models(fused=True)
+    video = rng.integers(0, 8, size=(BATCH, 2, T, H, W)).astype(np.int32)
+    with _jax_fused_on_cpu():
+        want = np.asarray(jm.logits_for_entire_video(jp, jnp.asarray(video)))
+    params = {"netG": _to_port(jp["netG"])}
+    for leaf in flatten(params).values():
+        leaf.requires_grad_(True)  # the method itself runs without grad
+    counts = [0]
+    with _count_fused_layers(counts):
+        got = tm.logits_for_entire_video(params, torch.from_numpy(video))
+    assert counts[0] == 4 * tm.plan.num_slices and not got.requires_grad
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (BATCH, T, H, W, 2, 8)
+    _leaf_close("logits", got.numpy(), want, 1e-5, 0.0)
+
+
 def test_prepare_slices_matches_jax(rng):
     jm, _, tm = _models()
     video = rng.integers(0, 8, size=(3, 2, T, H, W)).astype(np.int32)
@@ -266,7 +382,20 @@ def _port_tree(trainer, name, jparams, jopt, jacc, step):
 
 @pytest.mark.parametrize("name", ["rmsprop", "adam"])
 def test_5_step_trajectory_matches_jax_optimizer(rng, name):
-    jm, jp, _ = _models(_solver(name))
+    _check_5_step_trajectory(rng, name, fused=False)
+
+
+def test_5_step_trajectory_with_the_fused_layer_matches_jax(rng):
+    """The same five steps with TPU.FUSED_LAYER True in both packages: every
+    layer of both stacks runs fused (4 per forward), with no checkpoint."""
+    counts = [0]
+    with _jax_fused_on_cpu(), _count_fused_layers(counts):
+        _check_5_step_trajectory(rng, "rmsprop", fused=True)
+    assert counts[0] == 5 * 4
+
+
+def _check_5_step_trajectory(rng, name, fused):
+    jm, jp, _ = _models(_solver(name), fused=fused)
     jcfg = jm.cfg
     opt = jax_build_optimizer(jcfg)
     jax_schedule = jax_build_lr_schedule(jcfg)
@@ -278,7 +407,7 @@ def test_5_step_trajectory_matches_jax_optimizer(rng, name):
         return jax.value_and_grad(
             lambda p: jm.loss(p, {"video": video}, jax.random.key(0), slice_idx=si)[0])(params)
 
-    trainer = Trainer(_cfg(**_solver(name)), iter(()), device="cpu")
+    trainer = Trainer(_cfg(fused=fused, **_solver(name)), iter(()), device="cpu")
     params, opt_state = jp, opt.init(jp)
     acc = jax.tree_util.tree_map(jnp.zeros_like, jp)
     for i in range(5):
@@ -413,13 +542,21 @@ def test_checkpoint_files_latest_placement_and_pruning(tmp_path):
 
 def test_untaken_configurations_raise(rng):
     video = torch.from_numpy(rng.integers(0, 8, size=(BATCH, 2, T, H, W)))
-    for key, val, word in (("FUSED_LAYER", True, "ROADMAP"), ("REMAT_POLICY", "dots", "dots")):
+    losses = {}
+    for key, val, word in (("FUSED_LAYER", False, None), ("FUSED_LAYER", True, None),
+                           ("REMAT_POLICY", "dots", "dots")):
         cfg = _cfg()
         setattr(cfg.TPU, key, val)
         m = VideoTransformer(cfg, T=T, H=H, W=W)
         params, _ = m.init(torch.Generator().manual_seed(0))
+        if word is None:
+            losses[val] = m.loss(params, {"video": video}, torch.Generator().manual_seed(0))[0]
+            continue
         with pytest.raises(NotImplementedError, match=word):
             m.loss(params, {"video": video}, torch.Generator().manual_seed(0))
+    # TPU.FUSED_LAYER True trains; this geometry (d = 24, da = 12) is outside
+    # the fused layer's gate, so it runs the unfused layers: the same loss
+    assert torch.isfinite(losses[True]) and torch.equal(losses[True], losses[False])
     with pytest.raises(NotImplementedError):
         Trainer(_cfg(OPT_STATE_DTYPE="bfloat16"), iter(()), device="cpu")
 
@@ -430,9 +567,12 @@ def test_batch_guard_refuses_codes_outside_the_vocabulary(rng):
         trainer._put_batch({"video": np.full((1, 2, T, H, W), 8, np.int32)})
 
 
-def test_train_net_torch_main_on_cpu(rng, tmp_path):
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_train_net_torch_main_on_cpu(rng, tmp_path, fused):
     """tools/train_net_torch.py's main: a tiny DefaultTrainer run on
-    latent videos from disk, then --resume continues from its checkpoint."""
+    latent videos from disk, then --resume continues from its checkpoint.
+    "fused" passes no TPU.FUSED_LAYER override (DSFVT's default, True) on a
+    geometry the fused layer takes; "unfused" overrides it to False."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import train_net_torch
     from lvt_tpu_torch.data.catalog import DatasetCatalog
@@ -451,18 +591,25 @@ def test_train_net_torch_main_on_cpu(rng, tmp_path):
             lambda: __import__("lvt_tpu_torch.data.datasets.latents", fromlist=["x"]) \
             .get_latent_video_paths(str(root), use_cache=False)
     vt = "MODEL.AUTOREGRESSIVE.VT."
-    opts = [vt + "NC", "2", vt + "NV", "8", vt + "D", "24", vt + "DA", "12", vt + "DE", "12",
-            vt + "BLOCKS_E", "((2,4,4),)", vt + "N_HEAD_E", "(2,)",
-            vt + "BLOCKS_D", "((2,4,4),)", vt + "N_HEAD_D", "(2,)", vt + "STRIDE", "(4,1,1)",
+    geometry = [vt + "D", "64", vt + "DA", "64", vt + "BLOCKS_E", "((2,4,4),(2,4,4))",
+                vt + "N_HEAD_E", "(2,2)", vt + "BLOCKS_D", "((2,4,4),(2,4,4))",
+                vt + "N_HEAD_D", "(2,2)"] if fused else [
+        vt + "D", "24", vt + "DA", "12", vt + "BLOCKS_E", "((2,4,4),)", vt + "N_HEAD_E", "(2,)",
+        vt + "BLOCKS_D", "((2,4,4),)", vt + "N_HEAD_D", "(2,)", "TPU.FUSED_LAYER", "False"]
+    opts = [vt + "NC", "2", vt + "NV", "8", vt + "DE", "12", *geometry,
+            vt + "STRIDE", "(4,1,1)",
             vt + "KERNEL", "(3,1,1)", "INPUT.N_FRAMES_PER_VIDEO_TRAIN", str(T),
-            "TPU.FUSED_LAYER", "False", "SOLVER.IMS_PER_BATCH", "2",
+            "SOLVER.IMS_PER_BATCH", "2",
             "SOLVER.CHECKPOINT_PERIOD", "2", "DATASETS.TRAIN", "('toy_train_latents',)",
             "DATALOADER.NUM_WORKERS", "0", "OUTPUT_DIR", str(tmp_path / "out")]
     cfg_file = os.path.join(ROOT, "configs", "vt", "DSFVT.yaml")
     parse = default_argument_parser().parse_args
-    tr = train_net_torch.main(parse(["--config-file", cfg_file, "SOLVER.MAX_ITER", "3"] + opts),
-                              device="cpu")
+    counts = [0]
+    with _count_fused_layers(counts):
+        tr = train_net_torch.main(
+            parse(["--config-file", cfg_file, "SOLVER.MAX_ITER", "3"] + opts), device="cpu")
     assert tr.state.step == 3
+    assert tr.model.fused == fused and counts[0] == (3 * 4 if fused else 0)
     ckpts = sorted(os.listdir(tmp_path / "out" / "checkpoints"))
     assert ckpts == ["ckpt_2.pt", "ckpt_3.pt"]
     assert os.path.exists(tmp_path / "out" / "metrics.json")

@@ -4,9 +4,13 @@ GPU; the counterpart of tools/train_net.py for training and --resume.
 
 Examples:
   python tools/train_net_torch.py --config-file configs/vt/DSFVT.yaml \
-      TPU.FUSED_LAYER False OUTPUT_DIR out/dsfvt
+      OUTPUT_DIR out/dsfvt
   python tools/train_net_torch.py --config-file configs/vt/DSFVT.yaml --resume \
-      TPU.FUSED_LAYER False OUTPUT_DIR out/dsfvt
+      OUTPUT_DIR out/dsfvt
+
+DSFVT's default TPU.FUSED_LAYER True trains with the fused layer (kernels 7,
+8 and 9 of lvt_tpu_torch/ops/fused_layer.py); TPU.FUSED_LAYER False runs the
+unfused layers with per-layer remat.
 
 The latent-code datasets named in DATASETS.TRAIN are read from the
 CodesExtractor layout (<root>/video_<i>/<frame>.npy) at the paths of
