@@ -49,7 +49,28 @@ Phases, each fatal on failure (exit code 1, no result line):
                 unfused on the card, and the unfused step with TF32 on, which
                 must fall outside the bound.
 
-The line before the last is {"kernels": [...]}; the last line is
+ 10. i8 kernels — kernels 3, 4 and 5 (decode attention over an int8 KV cache)
+                at b=16 and b=1, na=8, R=256, da=128, live in (1, 64, 200,
+                256), bf16 and fp32 scales, and kernel 11 (the int8-weight
+                product) at b in (1, 8) for DSFVT's three shapes, each against
+                its plain version under the bounds below, with a control that
+                must read above them; device times over inputs larger than
+                the L2, beside kernel 2's at the same shape and, for kernel 11,
+                torch._int_mm plus the scaling (yardsticks, never on a path).
+ 11. main i8  — the quantized sampler at full width, batch 8, bf16, all 11
+                sampled frames, greedy, through generate() with
+                TEST.VT_SAMPLER.KV_DTYPE / ATTN_IMPL / WEIGHT_DTYPE set: a
+                native rollout for reference, then int8 KV + pallas (kernel 3),
+                int8 KV + pallas-live (kernel 4), int8 KV + pallas +
+                int8-pallas weights (kernels 3 and 11). Launch counts set to 0
+                before each and read after: exactly 22,528 of kernel 3 or 4
+                and 90,112 of kernel 11 per rollout. Peak device memory and
+                greedy agreement with the native rollout; one profiled slice.
+ 12. agree i8 — fp32, batch 2, full width: the three modes' teacher-forced
+                logits on the card against the plain path on the CPU.
+
+Phases 10 to 12 run right after phase 5, while the generation models are
+loaded. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -117,7 +138,7 @@ TRAIN_STEPS, RESUME_STEPS = 20, 4  # the fused run; the unfused run takes half
 
 # NVIDIA H100 SXM peaks (NVIDIA's data sheet, dense): the roofs of bound_ms
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def bound_ms(dtype, nbytes, flops):
@@ -138,6 +159,49 @@ def fused_tol(dtype, ref, summed=False):
     boundary; each moves an output by a bf16 ulp of one term: 2^-6."""
     rel = 2 ** -6 if dtype == "bfloat16" else (1e-4 if summed else 2e-5)
     return (rel * max(float(ref.float().abs().max()), 1e-3), 0.0)
+
+# Kernels 3 and 4, |kernel - plain|. Both integer products are exact, so the
+# two differ only where exp or the order of the softmax's fp32 sum leaves a
+# weight on the other side of x.5: it rounds one step apart and moves the
+# outputs of that (batch row, head) by i8_weight_step * |v8|. Bound per output:
+# I8_FLIPS such steps at |v8| = 127, plus 1e-5 of the head's largest output
+# (the scale itself differs by ulps), plus for bf16 outputs one bf16 ulp
+# (2^-7 relative). And at most I8_ROWS_OFF of the (batch row, head) pairs may
+# differ by more than that rounding part. Control: the plain version of the
+# other kernel (per-row against per-tile quantization, another rounding of
+# the same attention) must break the second bound.
+I8_FLIPS, I8_ROWS_OFF = 2, 0.05
+# Kernel 5 keeps everything in fp32: sums in another order, 1e-5 of the
+# largest output (+ one bf16 ulp on bf16 outputs). Control: its plain version
+# with the weights rounded to bf16 before the V product (the sampler's own
+# rounding point) must read above it.
+K5_TOL = 1e-5
+# Kernel 11: the integer sum is exact and the scale arithmetic IEEE on both
+# sides: fp32 outputs within 1e-6 of the largest (bit-equal in practice).
+# Control: the sampler's other weight mode, (y @ W8) * s with no activation
+# rounding, must read above it.
+K11_TOL = 1e-6
+# Quantized sampler, fp32, card vs the plain path on the CPU, teacher-forced
+# logits of one slice. Quantization amplifies fp32 noise: a value within the
+# two sides' rounding difference of x.5 rounds one step apart, the step moves
+# everything after it by ~1e-3 relative, and later roundings then part at a
+# far higher rate. On the CPU (tools/probe_int8_noise_torch.py), scaling every
+# weight by 1 + 1e-6 N(0, 1) moves the int8-KV logits by 0.18 of the mode's own gap to the native sampler (root
+# mean square; 0.41 at the maximum) and, with the activations quantized for
+# kernel 11 as well, by 0.53 (0.73). The card's fp32 noise against the CPU is
+# smaller than that: it read 0.12 (int8 KV + pallas) and 0.34 (pallas-live,
+# whose own gap is a third of pallas's in root mean square: finer weight
+# steps, the same K and V steps). So the bound is a share of the mode's gap
+# in root mean square; the control, the native logits on the card against the
+# mode's on the CPU, reads the whole gap. The kernels themselves are held to
+# their plain versions in phase 10, far tighter.
+AGREE_I8 = {"native": 0.6, "int8-pallas": 0.85}  # by WEIGHT_DTYPE
+# greedy codes of an int8 rollout against the native one, bf16, random
+# weights: the logits are nearly flat, one flipped argmax changes everything
+# after it, and chance agreement is 1/512. Measured 0.87 to 0.88 of all
+# sampled codes (0.94 to 0.96 of the first sampled frame) in the three modes;
+# the floor only says that the rollouts track each other far above chance.
+GREEDY_FLOOR = 0.5
 
 N_PRIME, T_FRAMES = 5, 16
 
@@ -433,10 +497,11 @@ def phase_main(card):
     return total, models, codes
 
 
-def phase_profile(card, models, codes):
+def phase_profile(card, models, codes, label="native", **knobs):
     """Where the time of one slice of the batch-8 bf16 rollout goes: wall
-    time with and without torch.profiler, the device's busy share, and
-    device time by kernel."""
+    time with and without torch.profiler, the device's busy share, device
+    activities per pixel (copies and casts among them), and device time by
+    kernel. ``knobs`` go to sample_slice_incremental (the quantized modes)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -454,7 +519,8 @@ def phase_profile(card, models, codes):
         sidx = torch.full((b,), s, dtype=torch.int64, device=codes.device)
         ctx, sl, _ = vt.prepare_slices(codes, sidx)
         zl = vt_encode(params["netG"], c, ctx, sidx)
-        sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl, gen, primed, 1.0)
+        sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl, gen, primed, 1.0,
+                                 **knobs)
         torch.cuda.synchronize()
 
     with torch.no_grad():
@@ -471,10 +537,13 @@ def phase_profile(card, models, codes):
     for e in kern:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
-    print(f"profile, one slice (256 pixels) of the batch-{b} bf16 rollout [{card}]: "
+    copies = sum(cnt for name, (_, cnt) in by_name.items()
+                 if "copy" in name.lower() or "memcpy" in name.lower())
+    print(f"profile, one slice (256 pixels) of the batch-{b} bf16 rollout, {label} [{card}]: "
           f"wall {wall:.3f} s ({wall_prof:.3f} s under the profiler), device busy "
           f"{busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled wall time, "
-          f"{len(kern)} device activities")
+          f"{100 * busy / wall:.1f}% of the unprofiled; {len(kern)} device activities = "
+          f"{len(kern) / 256:.1f} per pixel, copies and casts {copies / 256:.1f} per pixel")
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
 
@@ -997,6 +1066,338 @@ def phase_train_agree(card):
     return got
 
 
+def _i8_kernels():
+    """The wrappers of the quantized sampler's kernels: 3, 4, 5, 11."""
+    from lvt_tpu_torch.ops.cache_attention import (cache_attention_i8_cuda,
+                                                   decode_attention_i8_cuda,
+                                                   decode_attention_i8_live_cuda)
+    from lvt_tpu_torch.ops.quant import matmul_i8w_cuda
+
+    return (decode_attention_i8_cuda, decode_attention_i8_live_cuda, cache_attention_i8_cuda,
+            matmul_i8w_cuda)
+
+
+def _i8_check(got, want, step, bf16_out):
+    """(max abs err, share of (batch row, head) pairs off by more than
+    rounding, within the per-output bound?) for kernels 3 and 4."""
+    b, na = step.shape
+    got, want = got.float().reshape(b, na, -1), want.float().reshape(b, na, -1)
+    rounding = 1e-5 * want.abs().amax(dim=-1, keepdim=True)
+    if bf16_out:
+        rounding = rounding + 2 ** -7 * want.abs()
+    diff = (got - want).abs()
+    ok = bool(((diff <= I8_FLIPS * 127 * step[:, :, None] + rounding) & got.isfinite()).all())
+    return float(diff.max()), float((diff > rounding).any(dim=-1).float().mean()), ok
+
+
+def phase_i8_kernels(card, kernel2_ms):
+    """Kernels 3, 4, 5 and 11 at the quantized sampler's shapes, each against
+    its plain version with its control; device times over inputs larger than
+    the L2."""
+    import torch
+
+    from lvt_tpu_torch.ops import cache_attention as ca
+    from lvt_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(34)
+    na, R, da = 8, 256, 128
+    scale = da ** -0.5
+    res = {}
+
+    def cache_set(b, scale_dtype):
+        k8, v8 = (torch.randint(-127, 128, (b, na, R, da), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = ((0.02 * torch.rand((b, na, R), generator=g, device=dev) + 1e-3).to(scale_dtype)
+                  for _ in range(2))
+        return k8, ks, v8, vs
+
+    def poison(c, live):  # rows at or past live: what an earlier block run may have left
+        k8, ks, v8, vs = (t.clone() for t in c)
+        k8[:, :, live:], v8[:, :, live:] = 127, -128
+        ks[:, :, live:], vs[:, :, live:] = 1e6, 1e6
+        return k8, ks, v8, vs
+
+    # ---- kernels 3 and 4
+    pairs = {3: (ca.decode_attention_i8_cuda, ca.decode_attention_i8_plain),
+             4: (ca.decode_attention_i8_live_cuda, ca.decode_attention_i8_live_plain)}
+    errs, times = {3: 0.0, 4: 0.0}, {}
+    for b in (16, 1):
+        q8 = torch.randint(-127, 128, (b, na, da), generator=g, device=dev, dtype=torch.int8)
+        sq = 0.01 * torch.rand((b, na), generator=g, device=dev) + 1e-3
+        bias = 0.5 * torch.randn((na, R), generator=g, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            # 8 sets of 8.5 MB at b=16: 68 MB, over the 50 MB L2
+            sets = [cache_set(b, dt) for _ in range(8 if b == 16 else 1)]
+            for live in (1, 64, 200, 256):
+                c = poison(sets[0], live)
+                step = ca.i8_weight_step(q8, sq, c[0], c[1], c[3], live, bias, scale)
+                for k, (kernel, plain) in pairs.items():
+                    got = kernel(q8, sq, *c, live, bias, scale, dt)
+                    want = plain(q8, sq, *c, live, bias, scale, dt)
+                    torch.cuda.synchronize()
+                    e, off, ok = _i8_check(got, want, step, dtype == "bfloat16")
+                    print(f"kernel {k} {kernel.__name__} scales/out {dtype} live={live} (b={b}, "
+                          f"na={na}, R={R}, da={da}): max_abs_err {e:.3g}, pairs off by more than "
+                          f"rounding {off:.3g} (|out| <= {float(want.float().abs().max()):.3g}, "
+                          f"one step * 127 <= {127 * float(step.max()):.3g})")
+                    check(ok and off <= I8_ROWS_OFF,
+                          f"{kernel.__name__} disagrees with its plain version ({dtype}, b={b}, "
+                          f"live={live}): max abs err {e}, pairs off {off}")
+                    errs[k] = max(errs[k], e)
+                    if live == 256 and b == 16 and dtype == "float32":
+                        # control: the other kernel's plain version on the same inputs
+                        twin = {3: 4, 4: 3}[k]
+                        other = pairs[twin][1](q8, sq, *c, live, bias, scale, dt)
+                        ce, coff, _ = _i8_check(got, other, step, False)
+                        print(f"  control, kernel {k} against kernel {twin}'s plain version: "
+                              f"max_abs_err {ce:.3g}, pairs off {coff:.3g}")
+                        check(coff > I8_ROWS_OFF, f"kernel {k}: the control reads {coff} pairs "
+                              f"off, within the bound {I8_ROWS_OFF}")
+                    if b == 16 and live == 256:
+                        times[(k, dtype)] = time_both(
+                            card, [lambda s=s: kernel(q8, sq, *s, live, bias, scale, dt)
+                                   for s in sets],
+                            [lambda s=s: plain(q8, sq, *s, live, bias, scale, dt) for s in sets],
+                            200, f"kernel {k} {dtype} b={b} live={live} ")
+    el = 2  # bf16 scales and output
+    nbytes = (2 * 16 * na * R * da + 2 * 16 * na * R * el + na * R * 4 + 16 * na * (da + 4)
+              + 16 * na * da * el)
+    b34, by34 = bound_ms("int8", nbytes, 4 * 16 * na * R * da)
+    print(f"  kernels 3 and 4 b=16 live={R}: bound {b34:.4f} ms ({by34}: int8 K and V rows, "
+          f"scales, bias, q8, output); kernel 2 (bf16 cache) at the same shape "
+          f"{kernel2_ms:.4f} ms; no single library call computes them [{card}]")
+    for k, name in ((3, "decode_attention_i8"), (4, "decode_attention_i8_live")):
+        res[name] = dict(zip(("ms", "plain_ms"), times[(k, "bfloat16")]), err=errs[k],
+                         bound_ms=b34, bound_by=by34, library_ms=None, kernel2_ms=kernel2_ms,
+                         fp32_scales_ms=times[(k, "float32")][0])
+
+    # ---- kernel 5: q in float, fp32 scales
+    err5, t5 = 0.0, {}
+    for b in (16, 1):
+        extra = 0.5 * torch.randn((1, na, R), generator=g, device=dev)
+        sets = [cache_set(b, torch.float32) for _ in range(8 if b == 16 else 1)]
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((b, na, da), generator=g, device=dev).to(dt)
+            for live in (1, 64, 200, 256):
+                k8, ks, v8, vs = sets[0]
+                k8, v8 = k8.clone(), v8.clone()
+                k8[:, :, live:], v8[:, :, live:] = 127, -128
+                got = ca.cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale, live)
+                want = ca.cache_attention_i8_plain(q, k8, ks, v8, vs, extra, scale, live)
+                torch.cuda.synchronize()
+                top = float(want.float().abs().max())
+                tol = (K5_TOL * top, 2 ** -7 if dtype == "bfloat16" else 0.0)
+                e, ok = _err(got, want, dtype, tol)
+                print(f"kernel 5 cache_attention_i8 {dtype} live={live} (b={b}, na={na}, R={R}, "
+                      f"da={da}): max_abs_err {e:.3g} (|out| <= {top:.3g})")
+                check(ok, f"cache_attention_i8 disagrees with its plain version ({dtype}, b={b}, "
+                          f"live={live}): max abs err {e}")
+                err5 = max(err5, e)
+                if live == 256 and b == 16 and dtype == "float32":
+                    # control: weights rounded to bf16 before the V product
+                    logits = torch.einsum("bad,bajd->baj", q, k8.float()) * scale * ks + extra
+                    w = (torch.softmax(logits, -1).bfloat16().float() * vs)
+                    ctl = torch.einsum("baj,bajd->bad", w, v8.float())
+                    ce, cok = _err(got, ctl, dtype, tol)
+                    print(f"  control, weights rounded to bf16 first: max_abs_err {ce:.3g}; "
+                          f"bound {tol[0]:.3g}")
+                    check(not cok, f"kernel 5: the control reads {ce}, within the bound {tol[0]}")
+                if b == 16 and live == 256:
+                    t5[dtype] = time_both(
+                        card, [lambda s=s: ca.cache_attention_i8_cuda(q, *s, extra, scale, live)
+                               for s in sets],
+                        [lambda s=s: ca.cache_attention_i8_plain(q, *s, extra, scale, live)
+                         for s in sets], 200, f"kernel 5 {dtype} b={b} live={live} ")
+    nbytes = 2 * 16 * na * R * da + 2 * 16 * na * R * 4 + na * R * 4 + 2 * 16 * na * da * 2
+    b5, by5 = bound_ms("float32", nbytes, 4 * 16 * na * R * da)
+    print(f"  kernel 5 b=16 live={R}: bound {b5:.4f} ms ({by5}); kernel 2 at the same shape "
+          f"{kernel2_ms:.4f} ms [{card}]")
+    res["cache_attention_i8"] = dict(zip(("ms", "plain_ms"), t5["bfloat16"]), err=err5,
+                                     bound_ms=b5, bound_by=by5, library_ms=None,
+                                     kernel2_ms=kernel2_ms, fp32_ms=t5["float32"][0])
+
+    # ---- kernel 11 at DSFVT's three shapes
+    err11, shapes = 0.0, {}
+    for K, N in ((512, 3072), (1024, 512), (512, 512)):
+        n_sets = min(256, -(-64 * 2 ** 20 // (K * N)))  # weights of 64 MB in all
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            sets = [quant.quantize_cols(torch.randn((K, N), generator=g, device=dev).to(dt), dt)
+                    for _ in range(n_sets if dtype == "bfloat16" else 1)]
+            sets = [(wi, wi.t().contiguous(), sw) for wi, sw in sets]
+            for b in (1, 8):
+                y = torch.randn((b, K), generator=g, device=dev).to(dt)
+                wi, wt, sw = sets[0]
+                got = quant.matmul_i8w_cuda(y, wt, sw, dt)
+                want = quant.matmul_i8w_plain(y, wt, sw, dt)
+                torch.cuda.synchronize()
+                top = float(want.float().abs().max())
+                tol = (K11_TOL * top, 2 ** -7 if dtype == "bfloat16" else K11_TOL)
+                e, ok = _err(got, want, dtype, tol)
+                ce, cok = _err(got, (y @ wi.to(dt)) * sw, dtype, tol)
+                print(f"kernel 11 matmul_i8w {dtype} ({b}, {K}) x ({K}, {N}): max_abs_err {e:.3g}"
+                      f"{' (bit-equal)' if torch.equal(got, want) else ''} (|out| <= {top:.3g}); "
+                      f"control, int8 weights without activation rounding: {ce:.3g}")
+                check(ok, f"matmul_i8w disagrees with its plain version ({dtype}, b={b}, K={K}, "
+                          f"N={N}): max abs err {e}")
+                check(not cok, f"kernel 11: the control reads {ce}, within the bound")
+                err11 = max(err11, e)
+                if dtype == "bfloat16":
+                    kd, pd = time_both(
+                        card, [lambda s=s: quant.matmul_i8w_cuda(y, s[1], s[2], dt) for s in sets],
+                        [lambda s=s: quant.matmul_i8w_plain(y, s[1], s[2], dt) for s in sets],
+                        2 * n_sets, f"kernel 11 ({b}, {K}) x ({K}, {N}) ")
+                    # yardsticks: the library's bf16 product on the unquantized
+                    # size, and torch._int_mm (which wants more than 16 rows: the
+                    # quantized rows padded to 32) plus the scaling
+                    dense = device_ms([lambda s=s: y @ s[0].to(dt) for s in sets], 2 * n_sets)
+                    y8, sy = quant.quantize_rows_i8(y)
+                    y32 = torch.zeros((32, K), dtype=torch.int8, device=dev)
+                    y32[:b] = y8
+                    try:
+                        int_mm = device_ms(
+                            [lambda s=s: (torch._int_mm(y32, s[0])[:b].float() * sy
+                                          * s[2].float()).to(dt) for s in sets], 2 * n_sets)
+                    except RuntimeError as exc:  # a yardstick only: its shape limits vary
+                        print(f"  torch._int_mm refused the shape: {exc}")
+                        int_mm = None
+                    bd, by = bound_ms("int8", K * N + b * K * 2 + N * 2 + b * N * 2, 2 * b * K * N)
+                    print(f"  kernel 11 ({b}, {K}) x ({K}, {N}) bf16: bound {bd:.4f} ms ({by}); "
+                          f"torch._int_mm on 32 padded rows + scaling "
+                          f"{'refused' if int_mm is None else f'{int_mm:.4f} ms'}; bf16 matmul on "
+                          f"the cast weight (the int8 mode) {dense:.4f} ms [{card}]")
+                    shapes[f"{b}x{K}x{N}"] = {"ms": kd, "plain_ms": pd, "bound_ms": bd,
+                                              "bound_by": by, "library_ms": int_mm,
+                                              "cast_matmul_ms": dense}
+            del sets
+    main = shapes["8x512x3072"]
+    res["matmul_i8w"] = dict(main, err=err11, shapes=shapes)
+    return res
+
+
+def _quantized_vt(vt, **knobs):
+    """The same VideoTransformer with TEST.VT_SAMPLER keys set, as a config
+    file or the command line would set them."""
+    cfg = vt.cfg.clone()
+    cfg.merge_from_list([x for k, v in knobs.items() for x in (f"TEST.VT_SAMPLER.{k}", v)])
+    return type(vt)(cfg, T=vt.T, H=vt.H, W=vt.W)
+
+
+I8_RUNS = (  # label, config keys, expected launches of kernels (2, 3, 4, 11) per rollout
+    ("native", {}, (22528, 0, 0, 0)),
+    ("int8 KV + pallas", {"KV_DTYPE": "int8", "ATTN_IMPL": "pallas"}, (0, 22528, 0, 0)),
+    ("int8 KV + pallas-live", {"KV_DTYPE": "int8", "ATTN_IMPL": "pallas-live"},
+     (0, 0, 22528, 0)),
+    ("int8 KV + pallas + int8-pallas weights",
+     {"KV_DTYPE": "int8", "ATTN_IMPL": "pallas", "WEIGHT_DTYPE": "int8-pallas"},
+     (0, 22528, 0, 90112)),
+)
+
+
+def phase_main_i8(card, models):
+    """The quantized sampler at full width through generate(): b=8, bf16, all
+    11 sampled frames, greedy, each row from differently shifted priming
+    frames. Returns the launches of kernels 3, 4 and 11, each from the run
+    that was driven with the counts at 0."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.ops.attention import block_attention_fwd_cuda
+    from lvt_tpu_torch.ops.cache_attention import decode_attention_cuda
+
+    k3, k4, _, k11 = _i8_kernels()
+    counted = (decode_attention_cuda, k3, k4, k11)
+    vqvae, vq_params, vq_state, vt, vt_params = models
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(gvt.load_priming_frames(os.path.join(ROOT, "example"), N_PRIME))
+    b = 8
+    frames = torch.stack([torch.roll(frames, (3 * i, 5 * i), (1, 2)) for i in range(b)]).to(dev)
+    n_slices = T_FRAMES - N_PRIME
+    out, launches = {}, {}
+    for label, knobs, want in I8_RUNS:
+        model = _quantized_vt(vt, **knobs) if knobs else vt
+        for k in counted + (block_attention_fwd_cuda,):
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        video, codes, primed, seconds = gvt.generate(vqvae, vq_params, vq_state, model, vt_params,
+                                                     frames, N_PRIME, None, greedy=True)
+        peak = torch.cuda.max_memory_allocated()
+        took = tuple(k.launches for k in counted)
+        _check_run(label, video, codes, primed, 512, b)
+        check(took == want and block_attention_fwd_cuda.launches == n_slices * 8,
+              f"{label}: launches of kernels 2, 3, 4, 11 {took}, want exactly {want}; kernel 1 "
+              f"{block_attention_fwd_cuda.launches}, want {n_slices * 8}")
+        out[label], launches[label] = codes, took
+        agree = float((codes[:, :, N_PRIME:] == out["native"][:, :, N_PRIME:]).float().mean())
+        first = float((codes[:, :, N_PRIME] == out["native"][:, :, N_PRIME]).float().mean())
+        print(f"main path batch {b} bf16 greedy, {label} [{card}]: rollout {seconds:.3f} s, "
+              f"{b * n_slices / seconds:.3f} generated frames/s; launches of kernels 2, 3, 4, 11 "
+              f"{took}; max_memory_allocated {peak / 2 ** 20:.1f} MiB; greedy codes equal to the "
+              f"native rollout's: {agree:.4f} of all sampled, {first:.4f} of the first sampled "
+              "frame")
+        if knobs:
+            check(agree >= GREEDY_FLOOR, f"{label}: greedy agreement with the native rollout "
+                                         f"{agree}, under the floor {GREEDY_FLOOR}")
+    check(not torch.equal(out["int8 KV + pallas"], out["native"]),
+          "the int8 rollout's codes equal the native ones: were the config keys read?")
+    return (launches["int8 KV + pallas"][1], launches["int8 KV + pallas-live"][2],
+            launches["int8 KV + pallas + int8-pallas weights"][3])
+
+
+def phase_agree_i8(card):
+    """fp32, b=2, full width, one slice teacher-forced: the three kernel modes
+    of the quantized sampler on the card against the plain path on the CPU."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.models import to_device
+    from lvt_tpu_torch.models.vt import vt_encode
+    from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
+
+    cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"))
+    dev = torch.device("cuda")
+    *_, vt, params = gvt.build_models(cfg, 1, dev, torch.float32)
+    video = np.random.default_rng(0).integers(0, vt.c.nv, size=(2, vt.c.nc, T_FRAMES, 16, 16))
+    modes = {"native": {}, **{label: {"kv_dtype": k["KV_DTYPE"], "attn_impl": k["ATTN_IMPL"],
+                                      "weight_dtype": k.get("WEIGHT_DTYPE", "native")}
+                              for label, k, _ in I8_RUNS[1:]}}
+    out = {}
+    for name, device, p in (("card", dev, params["netG"]),
+                            ("cpu", torch.device("cpu"), to_device(params["netG"], "cpu"))):
+        sidx = torch.full((2,), N_PRIME, dtype=torch.int64, device=device)
+        ctx, sl, _ = vt.prepare_slices(torch.from_numpy(video).to(device), sidx)
+        with torch.no_grad():
+            zl = vt_encode(p, vt.c, ctx, sidx)
+            for label, knobs in modes.items():
+                t0 = time.perf_counter()
+                out[name, label] = sample_slice_incremental(
+                    p, vt.c, vt.plan.slice_shape, zl, sl, None, np.ones(256, bool), 1.0,
+                    teacher_logits=True, **knobs)[1].cpu()
+                print(f"  agree i8 {name} {label}: {time.perf_counter() - t0:.1f} s")
+    def rms(x):
+        return float(x.pow(2).mean().sqrt())
+
+    for label in list(modes)[1:]:
+        gap = out["cpu", label] - out["cpu", "native"]
+        err = out["card", label] - out["cpu", label]
+        ctl = out["card", "native"] - out["cpu", label]
+        bound = AGREE_I8[modes[label]["weight_dtype"]] * rms(gap)
+        print(f"agree i8 fp32 b=2 full width, {label} [{card}]: teacher logits card vs cpu plain "
+              f"rms {rms(err):.3g} (max {float(err.abs().max()):.3g}); the mode's gap to the "
+              f"native sampler rms {rms(gap):.3g} (max {float(gap.abs().max()):.3g}); bound "
+              f"{bound:.3g} rms; control, native logits on the card against this mode's: rms "
+              f"{rms(ctl):.3g}")
+        check(rms(err) <= bound, f"agree i8, {label}: card vs cpu rms {rms(err)}, bound {bound}")
+        check(rms(ctl) > bound, f"agree i8, {label}: the control reads {rms(ctl)}, within the "
+                                f"bound {bound}")
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
         fail(f"no lvt_tpu_torch package beside {__file__}: run from a checkout of the repo")
@@ -1011,6 +1412,12 @@ def main():
     launches, models, codes = phase_main(card)
     phase_profile(card, models, codes)
     phase_agree(card)
+    i8res = phase_i8_kernels(card, kres["decode_attention"]["ms"])
+    i8_launches = phase_main_i8(card, models)
+    phase_profile(card, models, codes, "int8 KV + pallas", kv_dtype="int8", attn_impl="pallas")
+    phase_profile(card, models, codes, "int8 KV + pallas + int8-pallas weights",
+                  kv_dtype="int8", attn_impl="pallas", weight_dtype="int8-pallas")
+    phase_agree_i8(card)
     del models, codes
     k10, err1_train, _ = phase_train_kernels(card)
     fres, fbounds = phase_fused_kernels(card)
@@ -1018,10 +1425,12 @@ def main():
     phase_train_agree(card)
 
     def entry(name, source, replaces, n_launches, r):
+        keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]}
+                "library_ms": r["library_ms"],
+                **{k: v for k, v in r.items() if k not in keys}}
 
     def fused_entry(name, k, replaces, n_launches):
         # bf16, not causal (the encoder's layers), at nb=64; no single library
@@ -1048,6 +1457,18 @@ def main():
                     fused_run["launches"][3]),
         fused_entry("attn_half_bwd", 9, "lvt_tpu/ops/fused_layer.py:281",
                     fused_run["launches"][4]),
+        entry("decode_attention_i8", "lvt_tpu_torch/csrc/decode_attention_i8.cu",
+              "lvt_tpu/ops/cache_attention.py:147", i8_launches[0], i8res["decode_attention_i8"]),
+        entry("decode_attention_i8_live", "lvt_tpu_torch/csrc/decode_attention_i8.cu",
+              "lvt_tpu/ops/cache_attention.py:278", i8_launches[1],
+              i8res["decode_attention_i8_live"]),
+        entry("matmul_i8w", "lvt_tpu_torch/csrc/matmul_i8w.cu",
+              "lvt_tpu/ops/quant_matmul.py:58", i8_launches[2], i8res["matmul_i8w"]),
+        # kernel 5 is on no path of the sampler (in the JAX package only a test
+        # calls it): held against its plain version in phase 10, launches 0
+        dict(entry("cache_attention_i8", "lvt_tpu_torch/csrc/decode_attention_i8.cu",
+                   "lvt_tpu/ops/cache_attention.py:35", 0, i8res["cache_attention_i8"]),
+             on_main_path=False),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -426,7 +426,9 @@ class VideoTransformer:
     def sample_video(self, params, video, gen: Optional[torch.Generator] = None, *,
                      temp: float = 1.0, n_prime: Optional[int] = None, class_idx=None,
                      incremental: bool = True, greedy: bool = False,
-                     kv_cache_dtype: str = "native", kv_seg_size: int = 0):
+                     kv_cache_dtype: str = "native", kv_seg_size: int = 0,
+                     weight_dtype: str = "native", mm_dtype: str = "native",
+                     attn_impl: str = "xla"):
         """AR-sample all non-primed positions, slice by slice.
 
         video: (b, nc, T, H, W) with primed frames filled, others arbitrary.
@@ -435,10 +437,26 @@ class VideoTransformer:
         Slices whose every position is primed are skipped. kv_seg_size is
         accepted and ignored: the port's cache is preallocated, and greedy
         output does not depend on the JAX package's segment size.
+
+        kv_cache_dtype ("native", "int8"), weight_dtype ("native", "int8",
+        "int8-pallas"), mm_dtype ("native", "int8") and attn_impl ("xla",
+        "pallas", "pallas-live") choose the quantized sampler, as
+        ``sample_slice_incremental`` documents them. kv_cache_dtype="int4"
+        raises NotImplementedError; the JAX package's ``streams`` has no
+        counterpart (its greedy output equals one stream's).
         """
-        if kv_cache_dtype != "native":
-            raise NotImplementedError(
-                f"kv_cache_dtype={kv_cache_dtype!r} is not ported to lvt_tpu_torch yet")
+        if not incremental:
+            # the full-recompute path has no KV cache: refuse the knobs it
+            # would silently ignore (kv_cache_dtype and kv_seg_size describe
+            # the cache and mean nothing here)
+            for name, val, default in (("weight_dtype", weight_dtype, "native"),
+                                       ("mm_dtype", mm_dtype, "native"),
+                                       ("attn_impl", attn_impl, "xla")):
+                if val != default:
+                    raise ValueError(
+                        f"sample_video(incremental=False) ignores {name}; got {name}={val!r}: "
+                        "a comparison against the baseline would compare the wrong "
+                        "configuration")
         if n_prime is None:
             n_prime = self.c.n_prime
         c = self.c
@@ -455,8 +473,10 @@ class VideoTransformer:
             if incremental:
                 from .vt_incremental import sample_slice_incremental
 
-                sl = sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl,
-                                              gen, primed, temp, greedy=greedy)
+                sl = sample_slice_incremental(
+                    params["netG"], c, plan.slice_shape, zl, sl, gen, primed, temp,
+                    greedy=greedy, kv_dtype=kv_cache_dtype, weight_dtype=weight_dtype,
+                    mm_dtype=mm_dtype, attn_impl=attn_impl)
             else:
                 sl = self._sample_slice_pixels(params, zl, sl, gen, primed, temp,
                                                greedy=greedy)

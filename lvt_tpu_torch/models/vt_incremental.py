@@ -1,5 +1,6 @@
 """Incremental (KV-cached) subscale decoder for AR sampling (counterpart of
-lvt_tpu/models/vt_incremental.py, native-dtype KV).
+lvt_tpu/models/vt_incremental.py), with the K/V cache in the parameter dtype
+or in int8 and the per-pixel layer weights native or in int8.
 
 Every decoder component is causal in raster order (the masked conv reads
 positions < p, masked block-local attention attends to positions <= p,
@@ -14,11 +15,17 @@ computed and are cached:
 The port owns its cache layout and updates it in place: one buffer of
 (L, b, na, R, da) per K and V, allocated once per slice, with R = the block
 run (the slice when blocks do not tile it as contiguous runs). Pixel p writes
-row p_loc = p mod R and attends to rows [0, p_loc] through
-``ops.cache_attention.decode_attention`` (kernel 2 on the card). Rows left
-from the previous block run lie at or above p_loc + 1 and are never read;
-within a run, cross-block entries carry a -1e9 bias, which gives them
-exactly zero weight as in the JAX package.
+row p_loc = p mod R and attends to rows [0, p_loc] through the functions of
+``ops.cache_attention`` (kernels 2, 3 and 4 on the card). Rows left from the
+previous block run lie at or above p_loc + 1 and are never read; within a
+run, cross-block entries carry a -1e9 bias, which gives them exactly zero
+weight as in the JAX package. The JAX package's fused-lane cache layout,
+block-diagonal q and segmented cache growth answer the TPU and its compiler
+and have no counterpart here: they do not change what is computed.
+
+With ``kv_dtype="int8"`` the caches are int8 with one absmax scale per
+(head, row), kept in the parameter dtype as the JAX package keeps them:
+(L, b, na, R) beside each cache.
 """
 
 import math
@@ -29,8 +36,10 @@ import numpy as np
 import torch
 
 from ..ops.attention import _layer_norm, relative_bias
-from ..ops.cache_attention import decode_attention
+from ..ops.cache_attention import (decode_attention, decode_attention_i8,
+                                   decode_attention_i8_live, decode_attention_i8_plain)
 from ..ops.posenc import _signal_np
+from ..ops.quant import absmax_scale, matmul_i8w, quantize_cols, quantize_rows_i8
 from .vt import (VTConfig, _embed_sum_codes, _predictor_head, _predictor_u,
                  vt_sample_pixel_channels)
 
@@ -105,9 +114,44 @@ def _bias_rows(lp, blk, slice_shape, block_local: bool, R: int):
     return full.permute(1, 0, 2).contiguous()
 
 
+def _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl):
+    """The JAX sampler's refusals, in its order and with its error classes."""
+    if kv_dtype not in ("native", "int8", "int4"):
+        raise ValueError(f"kv_dtype must be 'native', 'int8' or 'int4', got {kv_dtype!r}")
+    if weight_dtype not in ("native", "int8", "int8-pallas"):
+        raise ValueError("weight_dtype must be 'native', 'int8' or 'int8-pallas', "
+                         f"got {weight_dtype!r}")
+    if mm_dtype not in ("native", "int8"):
+        raise ValueError(f"mm_dtype must be 'native' or 'int8', got {mm_dtype!r}")
+    if mm_dtype == "int8" and kv_dtype != "int8":
+        raise ValueError("mm_dtype='int8' requires kv_dtype='int8' "
+                         "(the dots read the int8 cache bytes directly)")
+    if attn_impl not in ("xla", "pallas", "pallas-live"):
+        raise ValueError(f"attn_impl must be 'xla', 'pallas' or 'pallas-live', "
+                         f"got {attn_impl!r}")
+    if attn_impl == "pallas-live" and kv_dtype != "int8":
+        raise ValueError("attn_impl='pallas-live' requires kv_dtype='int8' "
+                         "(full-buffer int8 flash-decode kernel)")
+    if kv_dtype == "int4":
+        raise NotImplementedError("kv_dtype='int4' is not ported to lvt_tpu_torch; "
+                                  "use 'native' or 'int8'")
+
+
+def _quantize_cache_row(x, cdtype):
+    """New K or V rows per head, (..., da) -> (int8 rows, (...) scales).
+    The scale and the division stay in the parameter dtype on purpose (not
+    fp32 as in ``quantize_rows_i8``): these are the numerics the JAX
+    package's int8 cache was measured and tested at."""
+    s = absmax_scale(x.abs().amax(dim=-1).to(cdtype))
+    x8 = torch.clamp(torch.round(x / (s[..., None] + 1e-8)), -127.0, 127.0).to(torch.int8)
+    return x8, s
+
+
 def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, primed, temp,
                              greedy: bool = False, kv_dtype: str = "native",
-                             seg_size: int = 0, teacher_logits: bool = False):
+                             seg_size: int = 0, weight_dtype: str = "native",
+                             mm_dtype: str = "native", attn_impl: str = "xla",
+                             teacher_logits: bool = False):
     """Exact AR sampling of one slice with cached decoder state.
 
     params: the netG tree; zl: (b, t, h, w, d) encoder output; sl: (b, nc,
@@ -120,11 +164,36 @@ def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, prim
     channels (vt_logits semantics), and the fp32 per-pixel channel logits
     (b, thw, nc, nv) are returned as a second output.
 
-    kv_dtype: only "native" (K/V in the parameter dtype) is ported.
+    kv_dtype: "native" keeps K/V in the parameter dtype; "int8" quantizes
+    each cache row with one absmax scale per (head, row). The scales fold
+    exactly into the attention algebra, so only the int8 rounding of K and V
+    differs. "int4" is not ported (NotImplementedError).
+
+    attn_impl: with a native cache, "xla" and "pallas" both run kernel 2
+    (``decode_attention``), the one function the JAX package computes either
+    way. With an int8 cache, "xla" is plain PyTorch over the live rows (the
+    JAX package runs no kernel there): the cache cast to the parameter dtype,
+    fp32 logits and softmax, the weights rounded to the parameter dtype and
+    then multiplied by the V scales in it; "pallas" runs kernel 3
+    (``decode_attention_i8``: int8 q, exact integer products, the weight row
+    quantized to int8 after the V scales are folded in) and "pallas-live"
+    kernel 4 (``decode_attention_i8_live``: the same in 64-row tiles with an
+    online softmax). "pallas-live" needs kv_dtype="int8".
+
+    mm_dtype: "int8" (needs kv_dtype="int8") with attn_impl="xla" computes
+    kernel 3's function through its plain version on any device.
+
+    weight_dtype: "int8" holds the four products of each layer (fused QKV,
+    proj, FFN 1, FFN 2) as int8 weights with per-column scales, quantized
+    once per slice: (y @ W8 cast to the parameter dtype) * s. "int8-pallas"
+    runs them through kernel 11 (``ops.quant.matmul_i8w``), which also
+    quantizes the activation rows. The conv, the projector and the predictor
+    stay native.
+
     seg_size is accepted and ignored (see the module docstring).
     """
-    if kv_dtype != "native":
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported to lvt_tpu_torch yet")
+    _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl)
+    use_int8 = kv_dtype == "int8"
     dec, pred = params["decoder"], params["predictor"]
     layers = dec["layers"]
     t, h, w = slice_shape
@@ -155,14 +224,45 @@ def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, prim
     bias_rows = [_bias_rows(lp, blk, slice_shape, block_local, R)
                  for lp, blk in zip(layers, blocks)]
     # fused QKV: columns [q heads | k heads | v heads], as the JAX sampler
-    wqkv = [torch.cat([lp[n].permute(1, 0, 2).reshape(c.d, na * da)
-                       for n in ("wq", "wk", "wv")], dim=1) for lp in layers]
+    weights = [{"qkv": torch.cat([lp[n].permute(1, 0, 2).reshape(c.d, na * da)
+                                  for n in ("wq", "wk", "wv")], dim=1),
+                "proj": lp["proj"], "ffn1": lp["ffn_w1"], "ffn2": lp["ffn_w2"]} for lp in layers]
+    if weight_dtype != "native":
+        # quantized once here; each product below reads the int8 bytes. Kernel
+        # 11 takes the weight transposed, (N, K).
+        weights = [{k: quantize_cols(w, cdtype) for k, w in lw.items()} for lw in weights]
+        if weight_dtype == "int8-pallas":
+            weights = [{k: (wi.t().contiguous(), s) for k, (wi, s) in lw.items()}
+                       for lw in weights]
+
+    def mm(y, w):
+        if weight_dtype == "native":
+            return y @ w
+        if weight_dtype == "int8-pallas":
+            return matmul_i8w(y, w[0], w[1], cdtype)
+        return (y @ w[0].to(cdtype)) * w[1]
+
+    def attend_i8(l, q, live, bias):
+        kc, vc, ks, vs = kcache[l], vcache[l], kscale[l], vscale[l]
+        if attn_impl == "xla" and mm_dtype == "native":
+            logits = torch.einsum("bak,bajk->baj", q.float(), kc[:, :, :live].to(cdtype).float())
+            logits = logits / math.sqrt(da) * ks[:, :, :live].float() + bias[None, :, :live]
+            wgt = torch.softmax(logits, dim=-1).to(cdtype) * vs[:, :, :live]
+            out = torch.einsum("baj,bajk->bak", wgt.float(), vc[:, :, :live].to(cdtype).float())
+            return out.to(cdtype).reshape(b, na * da)
+        q8, sq = quantize_rows_i8(q)
+        fn = {"xla": decode_attention_i8_plain, "pallas": decode_attention_i8,
+              "pallas-live": decode_attention_i8_live}[attn_impl]
+        return fn(q8, sq[..., 0], kc, ks, vc, vs, live, bias, scale, cdtype)
 
     sl_flat = sl.reshape(b, nc, thw).clone()
     emb = torch.zeros((b, thw + 1, c.de), dtype=cdtype, device=dev)
     emb[:, :thw] = _embed_sum_codes(dec, c, sl_flat.movedim(1, -1)).to(cdtype)
-    kcache = torch.zeros((L, b, na, R, da), dtype=cdtype, device=dev)
+    kcache = torch.zeros((L, b, na, R, da), dtype=torch.int8 if use_int8 else cdtype, device=dev)
     vcache = torch.zeros_like(kcache)
+    if use_int8:
+        kscale = torch.zeros((L, b, na, R), dtype=cdtype, device=dev)
+        vscale = torch.zeros_like(kscale)
     step_logits = []
 
     for p in range(thw):
@@ -172,15 +272,21 @@ def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, prim
         x = x + pos_rows[p] + zlproj[:, p]
         for l, lp in enumerate(layers):
             y = _layer_norm(x, lp["ln_scale"], lp["ln_bias"])
-            qkv = (y @ wqkv[l]).reshape(b, 3, na, da)
-            kcache[l, :, :, p_loc] = qkv[:, 1]  # in place: the one new row
-            vcache[l, :, :, p_loc] = qkv[:, 2]
-            out = decode_attention(qkv[:, 0], kcache[l], vcache[l], p_loc + 1,
-                                   bias_rows[l][p_loc if block_local else p], scale)
-            x = out @ lp["proj"] + x
+            qkv = mm(y, weights[l]["qkv"]).reshape(b, 3, na, da)
+            bias = bias_rows[l][p_loc if block_local else p]
+            if use_int8:
+                kv8, kvs = _quantize_cache_row(qkv[:, 1:], cdtype)  # K and V rows at once
+                kcache[l, :, :, p_loc], vcache[l, :, :, p_loc] = kv8[:, 0], kv8[:, 1]
+                kscale[l, :, :, p_loc], vscale[l, :, :, p_loc] = kvs[:, 0], kvs[:, 1]
+                out = attend_i8(l, qkv[:, 0], p_loc + 1, bias)
+            else:
+                kcache[l, :, :, p_loc] = qkv[:, 1]  # in place: the one new row
+                vcache[l, :, :, p_loc] = qkv[:, 2]
+                out = decode_attention(qkv[:, 0], kcache[l], vcache[l], p_loc + 1, bias, scale)
+            x = mm(out, weights[l]["proj"]) + x
             yf = _layer_norm(x, lp["ffn_ln_scale"], lp["ffn_ln_bias"])
-            yf = torch.relu(yf @ lp["ffn_w1"] + lp["ffn_b1"])
-            x = yf @ lp["ffn_w2"] + lp["ffn_b2"] + x
+            yf = torch.relu(mm(yf, weights[l]["ffn1"]) + lp["ffn_b1"])
+            x = mm(yf, weights[l]["ffn2"]) + lp["ffn_b2"] + x
 
         y_pix = _layer_norm(x, pred["ln_scale"], pred["ln_bias"])
         if teacher_logits:

@@ -37,6 +37,10 @@ _SIGNATURES = {
     "lvt_fused_layer_fwd": [_P] * 16 + [_I] * 7 + [_F, _P],
     "lvt_ffn_half_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "lvt_attn_half_bwd": [_P] * 19 + [_I] * 8 + [_F, _P],
+    "lvt_decode_attention_i8": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "lvt_decode_attention_i8_live": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "lvt_cache_attention_i8": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "lvt_matmul_i8w": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -1,17 +1,33 @@
-"""Per-pixel decode attention over a native-dtype KV cache (counterpart of
-the native-KV step of lvt_tpu/models/vt_incremental.py:510-546 and of its
-Pallas twin lvt_tpu/ops/cache_attention.py:decode_attention_pallas).
+"""Per-pixel decode attention over a KV cache in the parameter dtype or in
+int8 (counterpart of the attention step of lvt_tpu/models/vt_incremental.py
+and of the decode kernels of lvt_tpu/ops/cache_attention.py).
 
 The port's cache keeps heads apart: one layer's K and V are (b, na, R, da),
-preallocated at R = the block run and written in place one row per pixel.
-``decode_attention`` reads rows [0, live) only. On a CUDA tensor it launches
-the hand-written kernel (csrc/decode_attention.cu); on a CPU tensor it runs
-the plain PyTorch version of the same function.
+preallocated at R = the block run and written in place one row per pixel; an
+int8 cache has per-row scales (b, na, R) beside it. Every function here reads
+rows [0, live) only: in the JAX package the rows above carry a -1e9 (or
+-1e30) logit, whose exp is exactly 0, so they add nothing to a maximum, a sum
+or a quantization scale, and leaving them out is the same function.
+
+=================================  ======  ==================================
+function                           kernel  csrc
+=================================  ======  ==================================
+``decode_attention``               2       decode_attention.cu
+``decode_attention_i8``            3       decode_attention_i8.cu
+``decode_attention_i8_live``       4       decode_attention_i8.cu
+``cache_attention_i8``             5       decode_attention_i8.cu
+=================================  ======  ==================================
+
+On a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
+runs the plain PyTorch version of the same function (``*_plain``).
 """
+
+from typing import Optional
 
 import torch
 
 from ._lib import LIBRARY, check_launch
+from .quant import absmax_scale
 
 
 def decode_attention_plain(q, kc, vc, live: int, bias, scale: float) -> torch.Tensor:
@@ -79,3 +95,252 @@ def decode_attention(q, kc, vc, live: int, bias, scale: float) -> torch.Tensor:
     if kc.device.type == "cpu":
         return decode_attention_plain(q, kc, vc, live, bias, scale)
     raise ValueError(f"decode_attention: no kernel for device {kc.device}")
+
+
+# --------------------------------------------------------------------------
+# int8 caches: kernels 3, 4 and 5
+# --------------------------------------------------------------------------
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _i8_logits(q8, sq, k8, ks, live: int, bias, scale: float) -> torch.Tensor:
+    """fp32 logits (b, na, live) of kernels 3 and 4: the exact integer
+    product q8 . k8 (summed in float64), times sq * scale, times ks, plus
+    the bias row."""
+    dots = torch.einsum("bak,bajk->baj", q8.double(), k8[:, :, :live].double()).float()
+    logits = dots * (sq.float() * scale)[:, :, None]
+    return logits * ks[:, :, :live].float() + bias[None, :, :live].float()
+
+
+def _i8_weighted_rows(w8, v8) -> torch.Tensor:
+    """Exact integer sum_j w8_j v8_j (float64), as fp32: (b, na, da)."""
+    return torch.einsum("baj,bajk->bak", w8.double(), v8.double()).float()
+
+
+def i8_weight_step(q8, sq, k8, ks, vs, live: int, bias, scale: float) -> torch.Tensor:
+    """(b, na) fp32: one quantization step of kernel 3's weight row,
+    max_j(softmax_j * vs_j) / 127. A weight that rounds the other way moves
+    an output of kernel 3 by this times one |v8|; kernel 4's per-tile steps,
+    carried to its normalised output, are no larger."""
+    w = torch.softmax(_i8_logits(q8, sq, k8, ks, live, bias, scale), dim=-1)
+    return absmax_scale((w * vs[:, :, :live].float()).abs().amax(dim=-1))
+
+
+def decode_attention_i8_plain(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
+                              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel 3. q8 (b, na, da) int8 with scales sq
+    (b, na) fp32; k8, v8 (b, na, R, da) int8 with row scales ks, vs
+    (b, na, R); bias (na, R) fp32. int32 q8 . k8 -> fp32 softmax -> times vs
+    -> one absmax int8 quantization of the weight row -> int32 w8 . v8 ->
+    times the row's scale. Output (b, na*da) in ``out_dtype`` (default: the
+    scales' dtype)."""
+    b, na, da = q8.shape
+    w = torch.softmax(_i8_logits(q8, sq, k8, ks, live, bias, scale), dim=-1)
+    w = w * vs[:, :, :live].float()
+    sw = absmax_scale(w.abs().amax(dim=-1, keepdim=True))
+    w8 = torch.clamp(torch.round(w / (sw + 1e-8)), -127.0, 127.0)
+    out = _i8_weighted_rows(w8, v8[:, :, :live]) * sw
+    return out.to(out_dtype or ks.dtype).reshape(b, na * da)
+
+
+def decode_attention_i8_live_plain(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
+                                   out_dtype: Optional[torch.dtype] = None,
+                                   rtile: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of kernel 4: kernel 3's operands (bias with no
+    causal mask) walked in tiles of min(rtile, R) rows with the online-softmax
+    recurrence; the unnormalised p * vs is quantized per tile, and the sum is
+    divided by the denominator after the last live tile."""
+    b, na, da = q8.shape
+    R = k8.shape[2]
+    rtile = min(rtile, R)
+    if R % rtile:
+        raise ValueError(f"rtile={rtile} must divide the buffer rows ({R})")
+    logits = _i8_logits(q8, sq, k8, ks, live, bias, scale)
+    m = torch.full((b, na, 1), -1e30, dtype=torch.float32, device=q8.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, na, da), dtype=torch.float32, device=q8.device)
+    for j0 in range(0, live, rtile):
+        j1 = min(j0 + rtile, live)
+        lg = logits[:, :, j0:j1]
+        m_new = torch.maximum(m, lg.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(lg - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pw = p * vs[:, :, j0:j1].float()
+        sw = absmax_scale(pw.abs().amax(dim=-1, keepdim=True))
+        w8 = torch.clamp(torch.round(pw / (sw + 1e-8)), -127.0, 127.0)
+        acc = acc * alpha + _i8_weighted_rows(w8, v8[:, :, j0:j1]) * sw
+        m = m_new
+    out = acc / (l + 1e-30)
+    return out.to(out_dtype or ks.dtype).reshape(b, na * da)
+
+
+def cache_attention_i8_plain(q, k8, ks, v8, vs, extra, scale: float,
+                             live: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel 5. q (b, na, da) float; k8, v8
+    (b, na, CL, da) int8; ks, vs (b, na, CL) fp32; extra (b or 1, na, CL)
+    fp32, the bias row with any mask folded in. Everything in fp32, the
+    weights included; output (b, na, da) in q's dtype. ``live`` reads rows
+    [0, live) only (default: all CL)."""
+    live = k8.shape[2] if live is None else live
+    logits = torch.einsum("bad,bajd->baj", q.float(), k8[:, :, :live].float()) * scale
+    logits = logits * ks[:, :, :live] + extra[:, :, :live]
+    w = torch.softmax(logits, dim=-1) * vs[:, :, :live]
+    return torch.einsum("baj,bajd->bad", w, v8[:, :, :live].float()).to(q.dtype)
+
+
+def _check_i8_cache(name, lead, k8, ks, v8, vs, live, scale_dtypes):
+    """The checks the three int8 wrappers share; returns (b, na, R, da)."""
+    tensors = (lead, k8, ks, v8, vs)
+    if not (lead.is_cuda and all(t.device == lead.device for t in tensors)):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if lead.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: inputs must lie on the current CUDA device")
+    if k8.dtype != torch.int8 or v8.dtype != torch.int8:
+        raise ValueError(f"{name}: the caches must be int8, got {k8.dtype}, {v8.dtype}")
+    if ks.dtype not in scale_dtypes or vs.dtype != ks.dtype:
+        raise ValueError(f"{name}: ks and vs must share a dtype of {scale_dtypes}, got "
+                         f"{ks.dtype}, {vs.dtype}")
+    if lead.dim() != 3 or k8.dim() != 4 or v8.shape != k8.shape:
+        raise ValueError(f"{name}: want a query (b, na, da) and caches (b, na, R, da), got "
+                         f"{tuple(lead.shape)}, {tuple(k8.shape)}, {tuple(v8.shape)}")
+    b, na, R, da = k8.shape
+    if tuple(lead.shape) != (b, na, da) or tuple(ks.shape) != (b, na, R) or vs.shape != ks.shape:
+        raise ValueError(f"{name}: the query must be {(b, na, da)} and the scales {(b, na, R)}, "
+                         f"got {tuple(lead.shape)}, {tuple(ks.shape)}, {tuple(vs.shape)}")
+    if da not in (64, 128) or not 1 <= live <= R or R > 32768:
+        raise ValueError(f"{name}: needs da in (64, 128) and 1 <= live <= R <= 32768, got "
+                         f"da={da}, live={live}, R={R}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (k8, v8)):  # the kernels read rows 16 bytes at a time
+        raise ValueError(f"{name}: the caches must be 16-byte aligned")
+    return b, na, R, da
+
+
+def _check_i8_query(name, q8, sq, bias, b, na, R, out_dtype):
+    if q8.dtype != torch.int8 or q8.data_ptr() % 16:
+        raise ValueError(f"{name}: q8 must be int8 and 16-byte aligned, got {q8.dtype}")
+    if sq.dtype != torch.float32 or tuple(sq.shape) != (b, na) or not sq.is_contiguous() \
+            or sq.device != q8.device:
+        raise ValueError(f"{name}: sq must be contiguous float32 {(b, na)} on q8's device, got "
+                         f"{sq.dtype} {tuple(sq.shape)}")
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (na, R) or not bias.is_contiguous() \
+            or bias.device != q8.device:
+        raise ValueError(f"{name}: bias must be contiguous float32 {(na, R)} on q8's device, "
+                         f"got {bias.dtype} {tuple(bias.shape)}")
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"{name}: the output must be float32 or bfloat16, got {out_dtype}")
+
+
+def decode_attention_i8_cuda(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
+                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Kernel 3 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
+    types of ``decode_attention_i8_plain``, all contiguous, da in {64, 128}."""
+    name = "decode_attention_i8_cuda"
+    out_dtype = out_dtype or ks.dtype
+    b, na, R, da = _check_i8_cache(name, q8, k8, ks, v8, vs, live, _FLOATS)
+    _check_i8_query(name, q8, sq, bias, b, na, R, out_dtype)
+    lib = LIBRARY.get()
+    out = torch.empty((b, na * da), dtype=out_dtype, device=k8.device)
+    err = lib.lvt_decode_attention_i8(
+        q8.data_ptr(), sq.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
+        vs.data_ptr(), bias.data_ptr(), out.data_ptr(), b, na, R, da, int(live),
+        int(ks.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    check_launch("decode_attention_i8", err)
+    decode_attention_i8_cuda.launches += 1
+    return out
+
+
+decode_attention_i8_cuda.launches = 0
+
+
+def decode_attention_i8_live_cuda(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
+                                  out_dtype: Optional[torch.dtype] = None,
+                                  rtile: int = 64) -> torch.Tensor:
+    """Kernel 4 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
+    types of ``decode_attention_i8_live_plain``; min(rtile, R) must divide R."""
+    name = "decode_attention_i8_live_cuda"
+    out_dtype = out_dtype or ks.dtype
+    b, na, R, da = _check_i8_cache(name, q8, k8, ks, v8, vs, live, _FLOATS)
+    _check_i8_query(name, q8, sq, bias, b, na, R, out_dtype)
+    rtile = min(int(rtile), R)
+    if rtile < 1 or R % rtile:
+        raise ValueError(f"{name}: rtile={rtile} must divide the buffer rows ({R})")
+    lib = LIBRARY.get()
+    out = torch.empty((b, na * da), dtype=out_dtype, device=k8.device)
+    err = lib.lvt_decode_attention_i8_live(
+        q8.data_ptr(), sq.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
+        vs.data_ptr(), bias.data_ptr(), out.data_ptr(), b, na, R, da, int(live), rtile,
+        int(ks.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    check_launch("decode_attention_i8_live", err)
+    decode_attention_i8_live_cuda.launches += 1
+    return out
+
+
+decode_attention_i8_live_cuda.launches = 0
+
+
+def cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale: float,
+                            live: Optional[int] = None) -> torch.Tensor:
+    """Kernel 5 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
+    types of ``cache_attention_i8_plain``, all contiguous, da in {64, 128}."""
+    name = "cache_attention_i8_cuda"
+    live = k8.shape[2] if live is None and k8.dim() == 4 else live
+    b, na, R, da = _check_i8_cache(name, q, k8, ks, v8, vs, live, (torch.float32,))
+    if q.dtype not in _FLOATS:
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    if extra.dtype != torch.float32 or extra.dim() != 3 or extra.shape[0] not in (1, b) \
+            or tuple(extra.shape[1:]) != (na, R) or not extra.is_contiguous() \
+            or extra.device != q.device:
+        raise ValueError(f"{name}: extra must be contiguous float32 (b or 1, {na}, {R}) on q's "
+                         f"device, got {extra.dtype} {tuple(extra.shape)}")
+    lib = LIBRARY.get()
+    out = torch.empty((b, na, da), dtype=q.dtype, device=q.device)
+    err = lib.lvt_cache_attention_i8(
+        q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
+        extra.data_ptr(), out.data_ptr(), b, na, R, da, int(live), extra.shape[0],
+        int(q.dtype == torch.bfloat16), float(scale), torch.cuda.current_stream().cuda_stream)
+    check_launch("cache_attention_i8", err)
+    cache_attention_i8_cuda.launches += 1
+    return out
+
+
+cache_attention_i8_cuda.launches = 0
+
+
+def _dispatch(name, device, cuda_fn, plain_fn):
+    if device.type == "cuda":
+        return cuda_fn
+    if device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"{name}: no kernel for device {device}")
+
+
+def decode_attention_i8(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
+                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Kernel 3 on a CUDA tensor, its plain version on a CPU tensor."""
+    fn = _dispatch("decode_attention_i8", k8.device, decode_attention_i8_cuda,
+                   decode_attention_i8_plain)
+    return fn(q8.contiguous(), sq.contiguous(), k8, ks, v8, vs, live, bias, scale, out_dtype)
+
+
+def decode_attention_i8_live(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
+                             out_dtype: Optional[torch.dtype] = None,
+                             rtile: int = 64) -> torch.Tensor:
+    """Kernel 4 on a CUDA tensor, its plain version on a CPU tensor."""
+    fn = _dispatch("decode_attention_i8_live", k8.device, decode_attention_i8_live_cuda,
+                   decode_attention_i8_live_plain)
+    return fn(q8.contiguous(), sq.contiguous(), k8, ks, v8, vs, live, bias, scale, out_dtype,
+              rtile)
+
+
+def cache_attention_i8(q, k8, ks, v8, vs, extra, scale: float,
+                       live: Optional[int] = None) -> torch.Tensor:
+    """Kernel 5 on a CUDA tensor, its plain version on a CPU tensor."""
+    fn = _dispatch("cache_attention_i8", k8.device, cache_attention_i8_cuda,
+                   cache_attention_i8_plain)
+    return fn(q.contiguous(), k8, ks, v8, vs, extra, scale, live)

@@ -1,0 +1,106 @@
+"""Absmax int8 quantization and the int8-weight product of the sampler
+(counterpart of lvt_tpu/ops/quant_matmul.py and of ``_quantize_cols`` in
+lvt_tpu/models/vt_incremental.py).
+
+``matmul_i8w`` launches the hand-written kernel (csrc/matmul_i8w.cu) on a
+CUDA tensor and runs the plain PyTorch version of the same function on a CPU
+tensor. The int8 weight is held transposed, (N, K), so that the kernel finds
+four consecutive K of one output column in one word.
+"""
+
+from functools import lru_cache
+from typing import Optional
+
+import torch
+
+from ._lib import LIBRARY, check_launch
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+@lru_cache(maxsize=None)
+def _qmax(device, dtype):
+    return torch.full((), 127.0, device=device, dtype=dtype)
+
+
+def absmax_scale(amax):
+    """amax / 127 by a true division on every device. Dividing a CUDA tensor
+    by a Python number multiplies by its reciprocal instead, an ulp apart
+    from the CPU's and the kernels' quotient in some cases, and a scale an
+    ulp apart rounds a value at a near-tie to another integer."""
+    return amax / _qmax(amax.device, amax.dtype)
+
+
+def quantize_rows_i8(y):
+    """(..., d) float -> ((..., d) int8, (..., 1) fp32 scales): absmax / 127
+    per row, round half to even, clip to +-127."""
+    sy = absmax_scale(y.abs().amax(dim=-1, keepdim=True).float())
+    yi = torch.clamp(torch.round(y.float() / (sy + 1e-8)), -127.0, 127.0).to(torch.int8)
+    return yi, sy
+
+
+def quantize_cols(w, cdtype):
+    """(in, out) weight -> ((in, out) int8, (out,) scale in ``cdtype``), the
+    arithmetic in w's dtype. Exact fold: y @ (W8 * s) == (y @ W8) * s."""
+    s = absmax_scale(w.abs().amax(dim=0))
+    wi = torch.clamp(torch.round(w / (s[None, :] + 1e-8)), -127, 127).to(torch.int8)
+    return wi, s.to(cdtype)
+
+
+def matmul_i8w_plain(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel 11. y (b, K) float; wt (N, K) int8, the
+    quantized (K, N) weight transposed; sw (N,) column scales. The rows of y
+    are quantized to int8, the integer product is exact (summed in float64),
+    and the output is scaled by sy, then sw, in fp32 and rounded once."""
+    yi, sy = quantize_rows_i8(y)
+    acc = (yi.double() @ wt.double().t()).float()
+    return (acc * sy * sw.reshape(1, -1).float()).to(out_dtype or y.dtype)
+
+
+def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Kernel 11 (csrc/matmul_i8w.cu) on CUDA tensors: the shapes and types of
+    ``matmul_i8w_plain``, all contiguous, K a multiple of 16."""
+    out_dtype = out_dtype or y.dtype
+    if not (y.is_cuda and wt.device == y.device and sw.device == y.device):
+        raise ValueError("matmul_i8w_cuda: all inputs must be on one CUDA device")
+    if y.dtype not in _FLOATS or sw.dtype not in _FLOATS or out_dtype not in _FLOATS \
+            or wt.dtype != torch.int8:
+        raise ValueError(f"matmul_i8w_cuda: wants y, sw and the output in float32 or bfloat16 "
+                         f"and an int8 weight, got {y.dtype}, {sw.dtype}, {out_dtype}, "
+                         f"{wt.dtype}")
+    if y.dim() != 2 or wt.dim() != 2 or wt.shape[1] != y.shape[1] \
+            or tuple(sw.shape) != (wt.shape[0],):
+        raise ValueError(f"matmul_i8w_cuda: want y (b, K), wt (N, K), sw (N,), got "
+                         f"{tuple(y.shape)}, {tuple(wt.shape)}, {tuple(sw.shape)}")
+    b, K = y.shape
+    N = wt.shape[0]
+    if b < 1 or K % 16 or not 16 <= K <= 16384:
+        raise ValueError(f"matmul_i8w_cuda: needs b >= 1 and K a multiple of 16 in "
+                         f"[16, 16384], got b={b}, K={K}")
+    if not all(t.is_contiguous() for t in (y, wt, sw)):
+        raise ValueError("matmul_i8w_cuda: inputs must be contiguous")
+    if wt.data_ptr() % 16:  # the kernel reads the weight 16 bytes at a time
+        raise ValueError("matmul_i8w_cuda: wt must be 16-byte aligned")
+    if y.device.index != torch.cuda.current_device():
+        raise ValueError("matmul_i8w_cuda: inputs must lie on the current CUDA device")
+    lib = LIBRARY.get()
+    out = torch.empty((b, N), dtype=out_dtype, device=y.device)
+    err = lib.lvt_matmul_i8w(
+        y.data_ptr(), wt.data_ptr(), sw.data_ptr(), out.data_ptr(), b, K, N,
+        int(y.dtype == torch.bfloat16), int(sw.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    check_launch("matmul_i8w", err)
+    matmul_i8w_cuda.launches += 1
+    return out
+
+
+matmul_i8w_cuda.launches = 0
+
+
+def matmul_i8w(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Kernel 11 on a CUDA tensor, its plain version on a CPU tensor."""
+    if y.device.type == "cuda":
+        return matmul_i8w_cuda(y.contiguous(), wt, sw, out_dtype)
+    if y.device.type == "cpu":
+        return matmul_i8w_plain(y, wt, sw, out_dtype)
+    raise ValueError(f"matmul_i8w: no kernel for device {y.device}")

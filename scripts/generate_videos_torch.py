@@ -7,6 +7,11 @@ to 16 frames -> DSFVT subscale AR sampling through the KV-cached decoder ->
 VQ-VAE decode -> save pngs. The attention of the encoder stack and of every
 decoded pixel runs in the port's hand-written CUDA kernels.
 
+TEST.VT_SAMPLER.KV_DTYPE (native | int8), ATTN_IMPL (xla | pallas |
+pallas-live) and WEIGHT_DTYPE (native | int8 | int8-pallas) choose the
+quantized sampler, e.g. an int8 KV cache read by the int8 decode kernel:
+  ... TEST.VT_SAMPLER.KV_DTYPE int8 TEST.VT_SAMPLER.ATTN_IMPL pallas
+
 The weights are random, made from --seed: loading trained .pth checkpoints
 comes with the port of the checkpoint code.
 
@@ -83,7 +88,10 @@ def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
              greedy: bool = False):
     """frames (b, n_prime, H, W, 3) floats in [0, 255] on the device ->
     (videos (b, T, H, W, 3) in [0, 1], codes (b, nc, T, h, w), primed codes
-    (b, nc, n_prime, h, w), rollout seconds)."""
+    (b, nc, n_prime, h, w), rollout seconds). The sampler's knobs come from
+    the VT's config: TEST.VT_SAMPLER.KV_DTYPE, ATTN_IMPL and WEIGHT_DTYPE
+    (SEG is accepted and ignored by the port's preallocated cache)."""
+    knobs = vt.cfg.TEST.VT_SAMPLER
     b = frames.shape[0]
     x = frames.reshape((-1,) + frames.shape[2:])
     if vqvae.cfg.INPUT.SCALE_TO_ZEROONE:
@@ -95,7 +103,9 @@ def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
     video[:, :, :n_prime] = primed
     _sync(frames.device)
     t0 = time.perf_counter()
-    sampled = vt.sample_video(vt_params, video, gen, n_prime=n_prime, greedy=greedy)
+    sampled = vt.sample_video(vt_params, video, gen, n_prime=n_prime, greedy=greedy,
+                              kv_cache_dtype=knobs.KV_DTYPE, kv_seg_size=knobs.SEG,
+                              attn_impl=knobs.ATTN_IMPL, weight_dtype=knobs.WEIGHT_DTYPE)
     _sync(frames.device)
     seconds = time.perf_counter() - t0
     idx = sampled.permute(0, 2, 3, 4, 1).reshape(b * vt.T, h, w, nc)

@@ -322,3 +322,219 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     p96, tok96, _, bias96 = _fused_inputs(cuda, torch.float32, 2, (1, 4, 4), 2, 96, 64)
     with pytest.raises(ValueError):  # d not a multiple of 64
         tfl.fused_layer_fwd_cuda(tok96, p96, bias96, False)
+
+
+# --------------------------------------------------------------------------
+# The quantized sampler: kernels 3, 4, 5 (ops/cache_attention.py) and 11
+# (ops/quant.py)
+# --------------------------------------------------------------------------
+# Kernels 3 and 4 against their plain versions: both integer products are
+# exact, so the two differ only where exp or the order of the softmax's fp32
+# sum puts a weight on the other side of x.5: it then rounds one step apart,
+# which moves an output of that (batch row, head) by i8_weight_step * |v8|.
+# Bound per output: I8_FLIPS such steps at |v8| = 127, plus 1e-5 of the
+# head's largest output (sw itself differs by ulps), plus for bf16 outputs one
+# bf16 ulp (2^-7 relative: fp32 values an ulp apart on either side of a
+# rounding boundary). And at most I8_ROWS_OFF of the (batch row, head)
+# pairs may differ by more than the rounding part alone.
+# Kernel 5 keeps everything fp32: sums in another order, 1e-5 of the largest
+# output. Kernel 11: every operation is exact or IEEE-rounded the same way on
+# both sides, so fp32 outputs agree to 1e-6 relative (bit-equal in practice).
+
+I8_FLIPS, I8_ROWS_OFF = 2, 0.05
+
+
+def _i8_cache_inputs(cuda, b, na, R, da, scale_dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q8 = torch.randint(-127, 128, (b, na, da), generator=g, device=cuda, dtype=torch.int8)
+    sq = 0.01 * torch.rand((b, na), generator=g, device=cuda) + 1e-3
+    k8, v8 = (torch.randint(-127, 128, (b, na, R, da), generator=g, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = ((0.02 * torch.rand((b, na, R), generator=g, device=cuda) + 1e-3).to(scale_dtype)
+              for _ in range(2))
+    bias = 0.5 * torch.randn((na, R), generator=g, device=cuda)
+    return q8, sq, k8, ks, v8, vs, bias
+
+
+def _poison(k8, ks, v8, vs, live):
+    """Rows at or past live hold what an earlier block run might have left."""
+    k8[:, :, live:], v8[:, :, live:] = 127, -128
+    ks[:, :, live:], vs[:, :, live:] = 1e6, 1e6
+
+
+def assert_i8_close(got, want, step, out_dtype):
+    """The bound above; got, want (b, na*da), step (b, na) from i8_weight_step."""
+    b, na = step.shape
+    got, want = got.float().reshape(b, na, -1), want.float().reshape(b, na, -1)
+    assert bool(torch.isfinite(got).all())
+    rounding = 1e-5 * want.abs().amax(dim=-1, keepdim=True)
+    if out_dtype == torch.bfloat16:
+        rounding = rounding + 2 ** -7 * want.abs()
+    diff = (got - want).abs()
+    assert bool((diff <= I8_FLIPS * 127 * step[:, :, None] + rounding).all()), float(diff.max())
+    rows_off = float((diff > rounding).any(dim=-1).float().mean())
+    assert rows_off <= I8_ROWS_OFF, rows_off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live_kernel", [False, True], ids=["kernel3", "kernel4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", [1, 64, 100, 200, 256])
+@pytest.mark.parametrize("da", [64, 128])
+def test_decode_attention_i8_kernels_match_plain(cuda, live_kernel, dtype, live, da):
+    b, na, R = 5, 8, 256
+    q8, sq, k8, ks, v8, vs, bias = _i8_cache_inputs(cuda, b, na, R, da, dtype)
+    _poison(k8, ks, v8, vs, live)
+    wrapper = tca.decode_attention_i8_live_cuda if live_kernel else tca.decode_attention_i8_cuda
+    fn, plain = ((tca.decode_attention_i8_live, tca.decode_attention_i8_live_plain) if live_kernel
+                 else (tca.decode_attention_i8, tca.decode_attention_i8_plain))
+    before = wrapper.launches
+    got = fn(q8, sq, k8, ks, v8, vs, live, bias, da ** -0.5, dtype)
+    assert wrapper.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, na * da)
+    want = plain(q8, sq, k8, ks, v8, vs, live, bias, da ** -0.5, dtype)
+    step = tca.i8_weight_step(q8, sq, k8, ks, vs, live, bias, da ** -0.5)
+    assert_i8_close(got, want, step, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rtile", [16, 32, 256])
+def test_decode_attention_i8_live_kernel_takes_other_tiles(cuda, rtile):
+    b, na, R, da, live = 3, 2, 256, 64, 77
+    q8, sq, k8, ks, v8, vs, bias = _i8_cache_inputs(cuda, b, na, R, da, torch.float32, seed=1)
+    got = tca.decode_attention_i8_live(q8, sq, k8, ks, v8, vs, live, bias, 0.125, rtile=rtile)
+    want = tca.decode_attention_i8_live_plain(q8, sq, k8, ks, v8, vs, live, bias, 0.125,
+                                              rtile=rtile)
+    step = tca.i8_weight_step(q8, sq, k8, ks, vs, live, bias, 0.125)
+    assert_i8_close(got, want, step, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", [1, 100, 256])
+@pytest.mark.parametrize("da,eb", [(64, 1), (128, 5)])
+def test_cache_attention_i8_kernel_matches_plain(cuda, dtype, live, da, eb):
+    b, na, R = 5, 8, 256
+    _, _, k8, ks, v8, vs, _ = _i8_cache_inputs(cuda, b, na, R, da, torch.float32, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((b, na, da), generator=g, device=cuda).to(dtype)
+    extra = torch.randn((eb, na, R), generator=g, device=cuda)
+    k8[:, :, live:], v8[:, :, live:] = 127, -128
+    before = tca.cache_attention_i8_cuda.launches
+    got = tca.cache_attention_i8(q, k8, ks, v8, vs, extra, da ** -0.5, live)
+    assert tca.cache_attention_i8_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, na, da)
+    want = tca.cache_attention_i8_plain(q, k8, ks, v8, vs, extra, da ** -0.5, live)
+    atol = 1e-5 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=2 ** -7 if dtype == torch.bfloat16 else 0)
+    if live == R:  # no live length: the whole buffer
+        assert torch.equal(tca.cache_attention_i8(q, k8, ks, v8, vs, extra, da ** -0.5), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,K,N", [(1, 512, 3072), (8, 512, 512), (8, 1024, 512), (5, 64, 40),
+                                   (19, 2048, 33)])
+def test_matmul_i8w_kernel_matches_plain(cuda, dtype, b, K, N):
+    import lvt_tpu_torch.ops.quant as tq
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    y = torch.randn((b, K), generator=g, device=cuda).to(dtype)
+    wi, sw = tq.quantize_cols(torch.randn((K, N), generator=g, device=cuda).to(dtype), dtype)
+    wt = wi.t().contiguous()
+    before = tq.matmul_i8w_cuda.launches
+    got = tq.matmul_i8w(y, wt, sw, dtype)
+    assert tq.matmul_i8w_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, N)
+    want = tq.matmul_i8w_plain(y, wt, sw, dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-6 * float(want.float().abs().max()),
+                               rtol=2 ** -7 if dtype == torch.bfloat16 else 1e-6)
+    # the other weight mode of the sampler is another function: no activation rounding
+    other = ((y @ wi.to(dtype)) * sw).float()
+    assert float((other - want.float()).abs().max()) > 1e-4 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_quantized_sampler_on_the_card_matches_the_cpu(cuda):
+    """One slice, teacher-forced, fp32, in the three kernel modes: the card
+    (kernels 3, 4, 11) against the plain path on the CPU. The two sides'
+    fp32 activations differ by rounding, so a few of the ~65,000 values
+    that are rounded to int8 on the way sit at a near-tie and round one
+    step apart; the bound is half the mode's own gap to the native sampler,
+    which is what ~65,000 such steps add up to."""
+    import numpy as np
+
+    from lvt_tpu_torch.config import get_cfg
+    from lvt_tpu_torch.models import to_device
+    from lvt_tpu_torch.models.vt import VideoTransformer, vt_encode
+    from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
+    import lvt_tpu_torch.ops.quant as tq
+
+    cfg = get_cfg()
+    v = cfg.MODEL.AUTOREGRESSIVE.VT
+    v.NC, v.NV, v.D, v.DA, v.DE = 2, 16, 128, 64, 32
+    v.STRIDE, v.KERNEL = (4, 1, 1), (3, 1, 1)
+    v.BLOCKS_E = v.BLOCKS_D = ((1, 8, 8),) * 2
+    v.N_HEAD_E = v.N_HEAD_D = (2, 2)
+    vt = VideoTransformer(cfg, T=4, H=8, W=8)
+    params, _ = vt.init(torch.Generator().manual_seed(0))
+    video = torch.from_numpy(np.random.default_rng(0).integers(0, 16, (2, 2, 4, 8, 8)))
+    modes = {"pallas": dict(kv_dtype="int8", attn_impl="pallas"),
+             "pallas-live": dict(kv_dtype="int8", attn_impl="pallas-live"),
+             "int8-pallas": dict(kv_dtype="int8", attn_impl="pallas", weight_dtype="int8-pallas")}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = to_device(params, dev)["netG"]
+        sidx = torch.full((2,), 2, dtype=torch.int64, device=dev)
+        ctx, sl, _ = vt.prepare_slices(video.to(dev), sidx)
+        with torch.no_grad():
+            zl = vt_encode(p, vt.c, ctx, sidx)
+            run = lambda **k: sample_slice_incremental(
+                p, vt.c, vt.plan.slice_shape, zl, sl, None, np.ones(64, bool), 1.0,
+                teacher_logits=True, **k)[1].cpu()
+            out[dev, "native"] = run()
+            for name, knobs in modes.items():
+                before = (tca.decode_attention_i8_cuda.launches,
+                          tca.decode_attention_i8_live_cuda.launches, tq.matmul_i8w_cuda.launches)
+                out[dev, name] = run(**knobs)
+                took = (tca.decode_attention_i8_cuda.launches - before[0],
+                        tca.decode_attention_i8_live_cuda.launches - before[1],
+                        tq.matmul_i8w_cuda.launches - before[2])
+                if dev == "cuda":
+                    assert took == {"pallas": (128, 0, 0), "pallas-live": (0, 128, 0),
+                                    "int8-pallas": (128, 0, 512)}[name]
+                else:
+                    assert took == (0, 0, 0)
+    for name in modes:
+        gap = float((out["cpu", name] - out["cpu", "native"]).abs().max())
+        err = float((out["cuda", name] - out["cpu", name]).abs().max())
+        assert err <= 0.5 * gap, (name, err, gap)
+
+
+@pytest.mark.cuda
+def test_i8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    import lvt_tpu_torch.ops.quant as tq
+
+    q8, sq, k8, ks, v8, vs, bias = _i8_cache_inputs(cuda, 2, 2, 32, 64, torch.float32)
+    args = (q8, sq, k8, ks, v8, vs)
+    with pytest.raises(ValueError):  # live beyond the buffer
+        tca.decode_attention_i8_cuda(*args, 33, bias, 0.1)
+    with pytest.raises(ValueError):  # a float q
+        tca.decode_attention_i8_cuda(q8.float(), sq, k8, ks, v8, vs, 4, bias, 0.1)
+    with pytest.raises(ValueError):  # scales of two dtypes
+        tca.decode_attention_i8_cuda(q8, sq, k8, ks, v8, vs.to(torch.bfloat16), 4, bias, 0.1)
+    with pytest.raises(ValueError):  # a tile that does not divide the buffer
+        tca.decode_attention_i8_live_cuda(*args, 4, bias, 0.1, rtile=24)
+    with pytest.raises(ValueError):  # a CPU cache
+        tca.decode_attention_i8_cuda(q8, sq, k8.cpu(), ks, v8, vs, 4, bias, 0.1)
+    with pytest.raises(ValueError):  # kernel 5 takes fp32 scales only
+        tca.cache_attention_i8_cuda(q8.float(), k8, ks.to(torch.bfloat16),
+                                    v8, vs.to(torch.bfloat16), bias[None], 0.1)
+    y = torch.randn((2, 24), device=cuda)
+    wt = torch.zeros((8, 24), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):  # K not a multiple of 16
+        tq.matmul_i8w_cuda(y, wt, torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):  # a weight that is not int8
+        tq.matmul_i8w_cuda(torch.randn((2, 32), device=cuda),
+                           torch.zeros((8, 32), device=cuda), torch.ones(8, device=cuda))

@@ -86,3 +86,44 @@ def test_encode_rollout_decode_matches_jax():
                                want_video, atol=1e-4, rtol=0)
     if np.array_equal(got_codes, want_codes):
         np.testing.assert_allclose(got_video.numpy(), want_video, atol=1e-4, rtol=0)
+
+
+def test_generate_reads_the_sampler_knobs_of_the_config():
+    """TEST.VT_SAMPLER.KV_DTYPE, ATTN_IMPL and WEIGHT_DTYPE reach the sampler
+    through generate(): with them set, the codes are sample_video's in that
+    mode and differ from the native codes, so a run that ignored the keys
+    would not pass for one that read them."""
+    vq_cfg, vt_cfg = _vq_cfg(), _vt_cfg()
+    q_cfg = _vt_cfg()
+    q_cfg.TEST.VT_SAMPLER.KV_DTYPE = "int8"
+    q_cfg.TEST.VT_SAMPLER.ATTN_IMPL = "pallas"
+    q_cfg.TEST.VT_SAMPLER.WEIGHT_DTYPE = "int8-pallas"
+    q_cfg.TEST.VT_SAMPLER.SEG = 4  # accepted and ignored
+    gen = torch.Generator().manual_seed(0)
+    tq = VQVAE(vq_cfg)
+    tqp, tqs = tq.init(gen, "cpu")
+    native_vt = VideoTransformer(vt_cfg, T=T_FRAMES, H=4, W=4)
+    quant_vt = VideoTransformer(q_cfg, T=T_FRAMES, H=4, W=4)
+    tvp, _ = native_vt.init(gen, "cpu")
+    frames = torch.from_numpy(
+        np.random.default_rng(0).random((B, N_PRIME, 16, 16, 3)).astype(np.float32) * 255)
+
+    calls = []
+    inner = quant_vt.sample_video
+    quant_vt.sample_video = lambda *a, **k: calls.append(k) or inner(*a, **k)
+    _, q_codes, primed, _ = gvt.generate(tq, tqp, tqs, quant_vt, tvp, frames, N_PRIME, None,
+                                         greedy=True)
+    assert {k: calls[0][k] for k in ("kv_cache_dtype", "attn_impl", "weight_dtype",
+                                     "kv_seg_size")} == {
+        "kv_cache_dtype": "int8", "attn_impl": "pallas", "weight_dtype": "int8-pallas",
+        "kv_seg_size": 4}
+    video = torch.zeros((B, 4, T_FRAMES, 4, 4), dtype=torch.int64)
+    video[:, :, :N_PRIME] = primed
+    want = native_vt.sample_video(tvp, video, n_prime=N_PRIME, greedy=True,
+                                  kv_cache_dtype="int8", attn_impl="pallas",
+                                  weight_dtype="int8-pallas")
+    assert torch.equal(q_codes, want)
+    _, n_codes, _, _ = gvt.generate(tq, tqp, tqs, native_vt, tvp, frames, N_PRIME, None,
+                                    greedy=True)
+    assert torch.equal(n_codes, native_vt.sample_video(tvp, video, n_prime=N_PRIME, greedy=True))
+    assert not torch.equal(q_codes, n_codes)

@@ -1,0 +1,313 @@
+"""The port's int8 quantization ops and the plain versions of kernels 3, 4,
+5 and 11 held to lvt_tpu on the same inputs, made from a numpy seed. The
+Pallas kernels run in interpret mode, as tests/test_cache_attention.py and
+tests/test_quant_matmul.py run them.
+
+The port keeps heads apart, (b, na, R, da), where lvt_tpu's decode kernels
+take fused-lane (b, R, na*da) caches and a block-diagonal q: the mapping is
+made here. lvt_tpu masks the rows at or past ``live`` with a -1e9 logit (or,
+in the live kernel, from the live length); the port never reads them.
+
+Tolerances (fp32 outputs): kernel 5 1e-5, kernel 3 1e-4, kernel 11 1e-5
+(lvt_tpu's own bounds for its kernels against its XLA references); kernel 4
+1e-4 (the same scheme on both sides, so far tighter than the 3e-2 lvt_tpu
+allows between its two schemes). Quantized integers and scales are equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lvt_tpu.models.vt_incremental import _quantize_cols as jax_quantize_cols
+from lvt_tpu.ops import cache_attention as jca
+from lvt_tpu.ops import quant_matmul as jqm
+from lvt_tpu_torch.ops import cache_attention as tca
+from lvt_tpu_torch.ops import quant as tq
+
+BF16 = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _to_torch(x):
+    """A jax array as a torch tensor of the same dtype (bf16 via fp32)."""
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
+def _same(got, want):
+    """Equal values and dtypes, got a torch tensor and want a jax array."""
+    want = _to_torch(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# quantize_rows_i8, quantize_cols
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 64), (3, 2, 16), (1, 128)])
+def test_quantize_rows_i8_equals_jax(rng, dtype, shape):
+    jdt, tdt = BF16[dtype]
+    y = rng.standard_normal(shape).astype(np.float32)
+    y[0, ..., 0] = 0.5 * np.abs(y[0]).max()  # a half-way case or two for the rounding mode
+    yj = jnp.asarray(y).astype(jdt)
+    wi, ws = jqm.quantize_rows_i8(yj)
+    gi, gs = tq.quantize_rows_i8(_to_torch(yj))
+    _same(gi, wi)
+    _same(gs, ws)
+    assert gs.dtype == torch.float32 and gs.shape == shape[:-1] + (1,)
+
+
+def test_quantize_rows_i8_rounds_half_to_even():
+    # scale 1: absmax 127, so x.5 values hit the rounding mode itself
+    y = torch.tensor([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5]])
+    yi, sy = tq.quantize_rows_i8(y)
+    assert float(sy) == 1.0
+    assert yi.tolist() == [[127, 0, 2, 2, 0, -2, -2, 126]]
+    wi, _ = jqm.quantize_rows_i8(jnp.asarray(y.numpy()))
+    assert np.array_equal(np.asarray(wi), yi.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_cols_equals_jax(rng, dtype):
+    jdt, tdt = BF16[dtype]
+    w = jnp.asarray(rng.standard_normal((48, 40)).astype(np.float32)).astype(jdt)
+    wi, ws = jax_quantize_cols(w, jdt)
+    gi, gs = tq.quantize_cols(_to_torch(w), tdt)
+    _same(gi, wi)
+    _same(gs, ws)
+    assert gs.dtype == tdt and gs.shape == (40,)
+
+
+def test_quantize_cols_zero_column():
+    w = torch.randn((8, 4), generator=torch.Generator().manual_seed(0))
+    w[:, 2] = 0.0
+    wi, s = tq.quantize_cols(w, torch.float32)
+    assert float(s[2]) == 0.0 and not wi[:, 2].any()
+
+
+# --------------------------------------------------------------------------
+# kernel 11: matmul_i8w
+# --------------------------------------------------------------------------
+
+def _cols(rng, d, n):
+    w = rng.standard_normal((d, n))
+    s = np.max(np.abs(w), axis=0) / 127.0
+    wi = np.clip(np.round(w / (s[None, :] + 1e-8)), -127, 127).astype(np.int8)
+    return wi, s.astype(np.float32)
+
+
+@pytest.mark.parametrize("b,d,n", [(4, 32, 96), (6, 64, 48), (8, 128, 128), (1, 1024, 32)])
+def test_matmul_i8w_plain_matches_pallas(rng, b, d, n):
+    y = rng.standard_normal((b, d)).astype(np.float32)
+    wi, sw = _cols(rng, d, n)
+    want = np.asarray(jqm.matmul_i8w_pallas(jnp.asarray(y), jnp.asarray(wi), jnp.asarray(sw),
+                                            interpret=True))
+    ref = np.asarray(jqm.matmul_i8w_xla(jnp.asarray(y), jnp.asarray(wi), jnp.asarray(sw)))
+    wt = torch.from_numpy(wi).t().contiguous()
+    got = tq.matmul_i8w_plain(torch.from_numpy(y), wt, torch.from_numpy(sw))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+    # the dispatcher takes the plain version on a CPU tensor
+    assert torch.equal(tq.matmul_i8w(torch.from_numpy(y), wt, torch.from_numpy(sw)), got)
+
+
+def test_matmul_i8w_plain_bf16(rng):
+    """bf16 activations and scales, as the bf16 sampler calls it: the fp32
+    product is rounded once, so it equals lvt_tpu's to one bf16 ulp."""
+    b, d, n = 4, 64, 48
+    y = jnp.asarray(rng.standard_normal((b, d)).astype(np.float32)).astype(jnp.bfloat16)
+    wi, sw = _cols(rng, d, n)
+    swj = jnp.asarray(sw).astype(jnp.bfloat16)
+    want = jqm.matmul_i8w_pallas(y, jnp.asarray(wi), swj, out_dtype=jnp.bfloat16, interpret=True)
+    got = tq.matmul_i8w_plain(_to_torch(y), torch.from_numpy(wi).t().contiguous(),
+                              _to_torch(swj), torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), _to_torch(want).float(), atol=0, rtol=2 ** -7)
+
+
+def test_matmul_i8w_integer_sum_is_exact():
+    """At K = 2048 the integer sum passes 2^24: an fp32 sum of the products
+    loses bits in most orders, the plain version's float64 sum does not."""
+    K = 2048
+    y = torch.full((1, K), 3.0)
+    wt = torch.full((2, K), 127, dtype=torch.int8)
+    wt[1, ::2] = -126
+    got = tq.matmul_i8w_plain(y, wt, torch.ones(2))
+    sums = torch.tensor([[127 * 127 * K, 127 * (127 - 126) * K // 2]], dtype=torch.int64)
+    assert int(sums[0, 0]) > 2 ** 24
+    want = sums.float() * torch.tensor(3.0 / 127.0)
+    assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# kernels 3, 4, 5: the layouts of the two packages
+# --------------------------------------------------------------------------
+
+def _fused_lane(x):
+    """(b, na, R, da) heads-apart -> (b, R, na*da) fused-lane."""
+    b, na, R, da = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b, R, na * da))
+
+
+def _i8_inputs(rng, b, na, R, da):
+    q8 = rng.integers(-127, 128, size=(b, na, da)).astype(np.int8)
+    sq = (np.abs(rng.standard_normal((b, na))) * 0.01 + 1e-4).astype(np.float32)
+    k8 = rng.integers(-127, 128, size=(b, na, R, da)).astype(np.int8)
+    v8 = rng.integers(-127, 128, size=(b, na, R, da)).astype(np.int8)
+    ks = (np.abs(rng.standard_normal((b, na, R))) * 0.01).astype(np.float32)
+    vs = (np.abs(rng.standard_normal((b, na, R))) * 0.01).astype(np.float32)
+    bias = (rng.standard_normal((na, R)) * 0.1).astype(np.float32)
+    return q8, sq, k8, ks, v8, vs, bias
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("b", [4, 3])  # an odd batch too
+@pytest.mark.parametrize("live", [32, 17, 1])
+def test_decode_attention_i8_plain_matches_pallas(rng, b, live):
+    na, R, da = 2, 32, 16
+    q8, sq, k8, ks, v8, vs, bias = _i8_inputs(rng, b, na, R, da)
+    scale = 1 / np.sqrt(da)
+    extra = np.where(np.arange(R)[None, None, :] >= live, -1e9, bias[None]).astype(np.float32)
+    want = np.asarray(jca.decode_attention_i8_pallas(
+        jca.blockdiag_expand(jnp.asarray(q8)), jnp.asarray(sq[:, :, None]),
+        jnp.asarray(_fused_lane(k8)), jnp.asarray(ks), jnp.asarray(_fused_lane(v8)),
+        jnp.asarray(vs), jnp.asarray(extra), scale, out_dtype=jnp.float32, interpret=True))
+    args = _t(q8, sq, k8, ks, v8, vs)
+    got = tca.decode_attention_i8_plain(*args, live, torch.from_numpy(bias), scale)
+    assert got.dtype == torch.float32 and got.shape == (b, na * da)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(tca.decode_attention_i8(*args, live, torch.from_numpy(bias), scale), got)
+    # rows at or past live are never read
+    for x in (args[2], args[4]):
+        x[:, :, live:] = 127
+    for x in (args[3], args[5]):
+        x[:, :, live:] = 1e6
+    assert torch.equal(tca.decode_attention_i8_plain(*args, live, torch.from_numpy(bias), scale),
+                       got)
+
+
+def test_decode_attention_i8_plain_bf16_scales(rng):
+    """Scales in bf16 (the bf16 sampler's caches) are cast to fp32 inside, and
+    the output is rounded once to bf16, as in lvt_tpu's kernel."""
+    b, na, R, da, live = 2, 2, 32, 16, 20
+    q8, sq, k8, ks, v8, vs, bias = _i8_inputs(rng, b, na, R, da)
+    ksj, vsj = (jnp.asarray(x).astype(jnp.bfloat16) for x in (ks, vs))
+    scale = 1 / np.sqrt(da)
+    extra = np.where(np.arange(R)[None, None, :] >= live, -1e9, bias[None]).astype(np.float32)
+    want = jca.decode_attention_i8_pallas(
+        jca.blockdiag_expand(jnp.asarray(q8)), jnp.asarray(sq[:, :, None]),
+        jnp.asarray(_fused_lane(k8)), ksj, jnp.asarray(_fused_lane(v8)), vsj,
+        jnp.asarray(extra), scale, out_dtype=jnp.bfloat16, interpret=True)
+    q8t, sqt, k8t, v8t = _t(q8, sq, k8, v8)
+    got = tca.decode_attention_i8_plain(q8t, sqt, k8t, _to_torch(ksj), v8t, _to_torch(vsj), live,
+                                        torch.from_numpy(bias), scale)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), _to_torch(want).float(), atol=1e-4, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("live", [1, 7, 16, 21, 48, 64])
+def test_decode_attention_i8_live_plain_matches_pallas(rng, live):
+    b, na, R, da, rtile = 4, 2, 64, 16, 16
+    q8, sq, k8, ks, v8, vs, bias = _i8_inputs(rng, b, na, R, da)
+    scale = 1 / np.sqrt(da)
+    want = np.asarray(jca.decode_attention_i8_live_pallas(
+        live, jca.blockdiag_expand(jnp.asarray(q8)), jnp.asarray(sq[:, None, :]),
+        jnp.asarray(_fused_lane(k8)), jnp.asarray(ks.transpose(0, 2, 1)),
+        jnp.asarray(_fused_lane(v8)), jnp.asarray(vs.transpose(0, 2, 1)),
+        jnp.asarray(bias.T[None]), scale, rtile=rtile, out_dtype=jnp.float32, interpret=True))
+    args = _t(q8, sq, k8, ks, v8, vs)
+    got = tca.decode_attention_i8_live_plain(*args, live, torch.from_numpy(bias), scale,
+                                             rtile=rtile)
+    assert got.dtype == torch.float32 and got.shape == (b, na * da)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(tca.decode_attention_i8_live(*args, live, torch.from_numpy(bias), scale,
+                                                    rtile=rtile), got)
+    # the two schemes (per tile, per row) are views of one attention: lvt_tpu's bar
+    single = tca.decode_attention_i8_plain(*args, live, torch.from_numpy(bias), scale)
+    np.testing.assert_allclose(got.numpy(), single.numpy(), atol=3e-2, rtol=1e-1)
+
+
+def test_decode_attention_i8_live_plain_ignores_stale_rows(rng):
+    """Rows at or past live left from an earlier block run (never zeroed)
+    must be dead: poisoned, they change nothing, in either package."""
+    b, na, R, da, rtile, live = 4, 2, 64, 16, 16, 20
+    q8, sq, k8, ks, v8, vs, bias = _i8_inputs(rng, b, na, R, da)
+    scale = 1 / np.sqrt(da)
+    args = _t(q8, sq, k8, ks, v8, vs)
+    clean = tca.decode_attention_i8_live_plain(*args, live, torch.from_numpy(bias), scale,
+                                               rtile=rtile)
+    k8p, v8p, ksp, vsp = k8.copy(), v8.copy(), ks.copy(), vs.copy()
+    k8p[:, :, live:], v8p[:, :, live:] = 127, -128
+    ksp[:, :, live:], vsp[:, :, live:] = 1e6, 1e6
+    got = tca.decode_attention_i8_live_plain(*_t(q8, sq, k8p, ksp, v8p, vsp), live,
+                                             torch.from_numpy(bias), scale, rtile=rtile)
+    assert torch.equal(got, clean)
+    want = np.asarray(jca.decode_attention_i8_live_pallas(
+        live, jca.blockdiag_expand(jnp.asarray(q8)), jnp.asarray(sq[:, None, :]),
+        jnp.asarray(_fused_lane(k8p)), jnp.asarray(ksp.transpose(0, 2, 1)),
+        jnp.asarray(_fused_lane(v8p)), jnp.asarray(vsp.transpose(0, 2, 1)),
+        jnp.asarray(bias.T[None]), scale, rtile=rtile, out_dtype=jnp.float32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_decode_attention_i8_live_rtile_must_divide(rng):
+    args = _t(*_i8_inputs(rng, 1, 2, 48, 16))
+    with pytest.raises(ValueError, match="rtile"):
+        tca.decode_attention_i8_live_plain(*args[:6], 5, args[6], 0.25, rtile=32)
+    # the default tile of 64 is cut to the buffer
+    out = tca.decode_attention_i8_live_plain(*args[:6], 5, args[6], 0.25)
+    assert out.shape == (1, 32)
+
+
+@pytest.mark.parametrize("b,eb", [(2, 2), (3, 1)])
+def test_cache_attention_i8_plain_matches_pallas(rng, b, eb):
+    na, CL, da = 2, 32, 16
+    q = rng.standard_normal((b, na, da)).astype(np.float32)
+    _, _, k8, ks, v8, vs, _ = _i8_inputs(rng, b, na, CL, da)
+    extra = rng.standard_normal((eb, na, CL)).astype(np.float32)
+    scale = 1 / np.sqrt(da)
+    want = np.asarray(jca.cache_attention_pallas(
+        *(jnp.asarray(x) for x in (q, k8, ks, v8, vs, np.broadcast_to(extra, (b, na, CL)))),
+        scale, interpret=True))
+    args = _t(q, k8, ks, v8, vs, extra)
+    got = tca.cache_attention_i8_plain(*args, scale)
+    assert got.dtype == torch.float32 and got.shape == (b, na, da)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert torch.equal(tca.cache_attention_i8(*args, scale), got)
+    # live < CL against extra = -1e9 on the rows above
+    live = 11
+    masked = np.where(np.arange(CL)[None, None, :] >= live, -1e9,
+                      np.broadcast_to(extra, (b, na, CL))).astype(np.float32)
+    want = np.asarray(jca.cache_attention_pallas(
+        *(jnp.asarray(x) for x in (q, k8, ks, v8, vs, masked)), scale, interpret=True))
+    got = tca.cache_attention_i8_plain(*args, scale, live=live)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_i8_weight_step_is_the_quantization_step(rng):
+    """i8_weight_step is the scale kernel 3 quantizes its weights with: moving
+    one weight by one step moves an output by step * |v8|."""
+    b, na, R, da, live = 2, 2, 32, 16, 32
+    q8, sq, k8, ks, v8, vs, bias = _t(*_i8_inputs(rng, b, na, R, da))
+    step = tca.i8_weight_step(q8, sq, k8, ks, vs, live, bias, 0.25)
+    assert step.shape == (b, na) and step.dtype == torch.float32
+    out = tca.decode_attention_i8_plain(q8, sq, k8, ks, v8, vs, live, bias, 0.25)
+    # the output is an integer multiple of the step, head by head
+    ratio = out.reshape(b, na, da) / step[:, :, None]
+    assert float((ratio - ratio.round()).abs().max()) < 1e-2
+
+
+def test_dispatchers_refuse_other_devices():
+    meta = torch.empty((1, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tca.cache_attention_i8(meta, torch.empty((1, 2, 4, 16), device="meta"), None, None, None,
+                               None, 1.0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tq.matmul_i8w(torch.empty((1, 16), device="meta"), None, None)
