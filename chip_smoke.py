@@ -69,7 +69,33 @@ Phases, each fatal on failure (exit code 1, no result line):
  12. agree i8 — fp32, batch 2, full width: the three modes' teacher-forced
                 logits on the card against the plain path on the CPU.
 
-Phases 10 to 12 run right after phase 5, while the generation models are
+ 13. vq kernel — kernel 6 (nearest codebook entry) against its plain version:
+                N in (1, 8,192, 8,229), K=512, Dc in (64, 256), fp32 and bf16 z,
+                contiguous and strided; exact ties; indices equal except at
+                float64-verified near-ties; a control (the plain version on
+                bf16-rounded z) that must fail the same check; two calls
+                bit-identical; device times beside the plain version,
+                torch.cdist + argmin and the bound; the kernel's indices of
+                the real z_e of example/*.png beside encode_indices' plain ones.
+ 14. vqvae train — tools/train_net_torch.py's main on
+                configs/vqvae/PR-DVQVAE2.yaml with no model override: batch 32,
+                bf16 compute, the config's solver, 512 PNG frames of 64x64
+                written from a numpy seed, 8 workers, 20 steps + 4 after
+                --resume. Exactly 4 kernel-6 launches per step; finite loss
+                terms; the EMA codebook moved, its running_size holds the
+                expected mass, and the resumed run starts from the saved one.
+ 15. vqvae agree — fp32, batch 4, full width: loss terms, every gradient leaf,
+                the new EMA state and the indices on the card (kernel 6)
+                against the plain path on the CPU; a TF32 control that must
+                read above the bounds.
+ 16. probe kernel — kernel 12 (decode attention with an unquantized q over
+                int8 K/V) against its plain version at the probe tool's shape
+                and DSFVT's, bf16 and fp32, live in (1, 64, 200, 256), with a
+                control (kernel 3's scheme) that must read above the bound;
+                tools/probe_decode_kernel_torch.py's timing run, beside
+                kernels 2 and 3.
+
+Phases 10 to 13 run right after phase 5, while the generation models are
 loaded. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -202,6 +228,28 @@ AGREE_I8 = {"native": 0.6, "int8-pallas": 0.85}  # by WEIGHT_DTYPE
 # sampled codes (0.94 to 0.96 of the first sampled frame) in the three modes;
 # the floor only says that the rollouts track each other far above chance.
 GREEDY_FLOOR = 0.5
+
+# Kernel 6 returns indices: equal to the plain version's, or differing only
+# where the float64 distances of the two codes lie within NEAR_TIE_ULPS fp32
+# ulps of the sums that form them (||z||^2 + ||c||^2): the two versions sum in
+# other orders, which can decide such a choice and no other. At most 1 row per
+# 1000 may differ so. Control: the plain version on bf16-rounded z must fail.
+NEAR_TIE_ULPS, NEAR_TIE_SHARE = 8, 1e-3
+# vqvae agree, fp32, card vs CPU: loss terms 1e-5 relative; gradients by the
+# relative-Frobenius measures of the VT's train agree, both held to GRAD_TOL:
+# ReLU gates near 0 flip under fp32 noise here too, and 28 leaves average
+# fewer flips out than the VT's 300, so the whole gradient reads what the
+# worst leaf reads (the card 2.9e-3 per leaf and 2.1e-3 whole; the TF32
+# control, which must read above the bound, 0.157 and 0.112). The new EMA
+# state within 1e-5 of its largest value on every code no differing index
+# touches.
+# Indices there: every difference a verified near-tie, and at most 3 per 1000.
+# A freshly initialised codebook has entries within 1/512, so the two nearest
+# codes of a row lie ~1e-3 apart at distances of ~3: fp32 ulps (2.4e-7) decide
+# about 0.5 rows per 1000, where the seeded trained-scale inputs of phase 13
+# read none.
+VQ_AGREE_SHARE = 3e-3
+VQ_TRAIN_STEPS, VQ_RESUME_STEPS, VQ_FRAMES = 20, 4, 512
 
 N_PRIME, T_FRAMES = 5, 16
 
@@ -948,7 +996,7 @@ def _train_run(card, out, fused, n_steps, n_resume):
             "peak": peak, "busy_ms": busy, "activities": activities}
 
 
-def _print_step_profile(card, batch, step_sec, wall, prof):
+def _print_step_profile(card, batch, step_sec, wall, prof, what="DSFVT"):
     """Device time of one train step by kernel, with each __global__
     function of the hand-written kernels on its own. The
     busy share is given against the profiled step's wall time (the
@@ -962,7 +1010,7 @@ def _print_step_profile(card, batch, step_sec, wall, prof):
     for e in kern:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
-    print(f"profile, one train step DSFVT b={batch} bf16 [{card}]: wall {wall:.4f} s "
+    print(f"profile, one train step {what} b={batch} bf16 [{card}]: wall {wall:.4f} s "
           f"under the profiler, device busy {busy:.2f} ms = {100 * busy / (1e3 * wall):.1f}% "
           f"of it, {100 * busy / (1e3 * step_sec):.1f}% of the median step ({step_sec:.4f} s); "
           f"{len(kern)} device activities")
@@ -970,11 +1018,13 @@ def _print_step_profile(card, batch, step_sec, wall, prof):
         print(f"  {tot:9.3f} ms {cnt:5d}x  {name[:110]}")
     # the hand-written kernels' __global__ functions: the attention device
     # code (shared by kernels 1, 10 and, inside the fused layer, 7 and 9), the
-    # fixed-order reduction (kernels 8, 9, 10) and the fused layer's own
+    # fixed-order reduction (kernels 8, 9, 10), the fused layer's own, and
+    # kernel 6's
     groups = (("attention forward", "block_attention_"), ("query tiles", "::bwd_rows_"),
               ("key tiles", "::bwd_keys_"), ("fixed-order reductions", "dbias_reduce"),
               ("ln_qkv", "ln_qkv"), ("proj_ffn", "proj_ffn"), ("ffn_bwd_rows", "ffn_bwd_rows"),
-              ("gemm_nt", "gemm_nt"), ("gemm_tn", "gemm_tn"))
+              ("gemm_nt", "gemm_nt"), ("gemm_tn", "gemm_tn"),
+              ("nearest_indices (kernel 6)", "nearest_indices_kernel"))
     sums = {label: (sum(t for name, (t, _) in by_name.items() if key in name),
                     sum(c for name, (_, c) in by_name.items() if key in name))
             for label, key in groups}
@@ -1398,6 +1448,472 @@ def phase_agree_i8(card):
                                 f"bound {bound}")
 
 
+def _near_ties(got, want, z, codebook):
+    """(rows that differ, rows among them that are no near-tie) of two index
+    vectors over z (N, Dc) and codebook (K, Dc), by float64 distances."""
+    import torch
+
+    rows = torch.nonzero(got != want).flatten()
+    if not len(rows):
+        return 0, 0
+    z64, c64 = z[rows].double(), codebook.double()
+    dg = ((z64 - c64[got[rows].long()]) ** 2).sum(1)
+    dw = ((z64 - c64[want[rows].long()]) ** 2).sum(1)
+    size = (z64 ** 2).sum(1) + (c64[want[rows].long()] ** 2).sum(1)
+    return len(rows), int(((dg - dw).abs() > NEAR_TIE_ULPS * 2 ** -23 * size).sum())
+
+
+def _indices_ok(got, want, z, codebook):
+    n_diff, n_far = _near_ties(got, want, z, codebook)
+    return n_diff, n_far, n_far == 0 and n_diff <= max(1, int(NEAR_TIE_SHARE * want.numel()))
+
+
+def phase_vq_kernel(card, models):
+    """Kernel 6 against its plain version at PR-DVQVAE2's training shape and
+    Base-VQVAE's, with ties, a control, determinism, times, and the real z_e
+    of example/*.png."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.ops import vq
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    K, worst = 512, 0
+    for Dc in (64, 256):
+        codebook = torch.randn((K, Dc), generator=g, device=dev)
+        for N in (1, 8192, 8192 + 37):
+            for dtype in ("float32", "bfloat16"):
+                for strided in (False, True):
+                    zz = torch.randn((N, 4, Dc) if strided else (N, Dc), generator=g,
+                                     device=dev).to(getattr(torch, dtype))
+                    z = zz[:, 2, :] if strided else zz
+                    got, again = vq.nearest_indices_cuda(z, codebook), \
+                        vq.nearest_indices_cuda(z, codebook)
+                    want = vq.nearest_indices_plain(z, codebook)
+                    torch.cuda.synchronize()
+                    n_diff, n_far, ok = _indices_ok(got, want, z, codebook)
+                    worst = max(worst, n_diff)
+                    print(f"kernel 6 nearest_indices {dtype} N={N} K={K} Dc={Dc} "
+                          f"{'strided' if strided else 'contiguous'}: {n_diff} of {N} indices "
+                          f"differ from the plain version's, {n_far} of them no near-tie; two "
+                          "calls bit-identical")
+                    check(got.dtype == torch.int32 and tuple(got.shape) == (N,),
+                          f"nearest_indices: output {got.dtype} {tuple(got.shape)}")
+                    check(ok, f"nearest_indices disagrees with its plain version ({dtype}, N={N}, "
+                              f"Dc={Dc}, strided={strided}): {n_diff} differ, {n_far} no near-tie")
+                    check(torch.equal(got, again), "nearest_indices: two calls differ")
+    # exact ties: four copies of every code, and rows of z that equal a code
+    base = torch.randn((128, 64), generator=g, device=dev)
+    codebook = base.repeat(4, 1)
+    z = torch.cat([base[[5, 127, 0]], torch.randn((8192, 64), generator=g, device=dev)])
+    got, want = vq.nearest_indices_cuda(z, codebook), vq.nearest_indices_plain(z, codebook)
+    check(got[:3].tolist() == [5, 127, 0] and int(got.max()) < 128 and torch.equal(got, want),
+          f"nearest_indices: ties do not go to the lowest index (max index {int(got.max())}, "
+          f"{int((got != want).sum())} differ from the plain version)")
+    print("kernel 6 ties (512 codes = 4 copies of 128; 3 rows of z equal a code): the lowest "
+          "index everywhere, equal to the plain version")
+    # control: the plain version on bf16-rounded z is another function
+    codebook = torch.randn((K, 64), generator=g, device=dev)
+    z = torch.randn((8192, 64), generator=g, device=dev)
+    got = vq.nearest_indices_cuda(z, codebook)
+    n_diff, n_far, ok = _indices_ok(got, vq.nearest_indices_plain(z.bfloat16(), codebook), z,
+                                    codebook)
+    print(f"  control, the plain version on bf16-rounded z: {n_diff} of 8192 differ, {n_far} no "
+          "near-tie")
+    check(not ok, "nearest_indices: the control passes the near-tie check")
+
+    # times at the training shape: z_e of one step, (8192, 4, 64), one
+    # sub-codebook per call, read in place; 8 sets (64 MB in fp32) cycle
+    times = {}
+    for dtype in ("bfloat16", "float32"):
+        sets = [torch.randn((8192, 4, 64), generator=g, device=dev).to(getattr(torch, dtype))
+                for _ in range(8)]
+        views = [zs[:, i, :] for zs in sets for i in range(4)]
+        kd, pd = time_both(card, [lambda v=v: vq.nearest_indices_cuda(v, codebook) for v in views],
+                           [lambda v=v: vq.nearest_indices_plain(v, codebook) for v in views],
+                           128, f"kernel 6 {dtype} N=8192 K=512 Dc=64 strided ")
+        lib = device_ms([lambda v=v: torch.cdist(v.float(), codebook).argmin(1) for v in views],
+                        128)
+        times[dtype] = (kd, pd, lib)
+        del sets, views
+    cb256 = torch.randn((K, 256), generator=g, device=dev)
+    sets = [torch.randn((8192, 256), generator=g, device=dev) for _ in range(8)]
+    t256 = time_both(card, [lambda v=v: vq.nearest_indices_cuda(v, cb256) for v in sets],
+                     [lambda v=v: vq.nearest_indices_plain(v, cb256) for v in sets], 32,
+                     "kernel 6 float32 N=8192 K=512 Dc=256 ")
+    del sets
+    bd, by = bound_ms("float32", 8192 * 64 * 2 + K * 64 * 4 + 8192 * 4, 2 * 8192 * K * 64)
+    print(f"  kernel 6 N=8192 K=512 Dc=64: bound {bd:.4f} ms ({by}: 2 N K Dc operations at the "
+          f"non-tensor fp32 peak, {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s; z, codebook and "
+          f"indices are {(8192 * 64 * 2 + K * 64 * 4 + 8192 * 4) / 1e6:.2f} MB); library "
+          f"yardstick torch.cdist(z, c).argmin(1): bf16 z (cast to fp32 first) "
+          f"{times['bfloat16'][2]:.4f} ms, fp32 z {times['float32'][2]:.4f} ms [{card}]")
+
+    # the real z_e of example/*.png: a record for encode_indices' default
+    vqvae, vq_params, vq_state = models[:3]
+    frames = torch.from_numpy(gvt.load_priming_frames(os.path.join(ROOT, "example"), N_PRIME))
+    with torch.no_grad():
+        z_e, _ = vqvae.encode_features(vq_params, vq_state,
+                                       vqvae.normalize(frames.to(dev) / 255.0))
+        plain = vq.encode_indices(z_e, vq_state["netC"])
+        kernel = vq.encode_indices(z_e, vq_state["netC"], use_kernel=True)
+    emb = vq_state["netC"]["embedding"]
+    num, _, Dc = emb.shape
+    z = z_e.reshape(-1, num, Dc)
+    diffs = [_near_ties(kernel.reshape(-1, num)[:, i], plain.reshape(-1, num)[:, i], z[:, i, :],
+                        emb[i]) for i in range(num)]
+    n_diff, n_far = sum(d[0] for d in diffs), sum(d[1] for d in diffs)
+    print(f"kernel 6 on the z_e of example/*.png (seeded random PR-DVQVAE2 weights, "
+          f"{plain.numel()} indices): {n_diff} differ from encode_indices' plain ones, {n_far} "
+          "of them no near-tie")
+    check(n_far == 0, f"nearest_indices on real z_e: {n_far} indices differ at no near-tie")
+    return {"err": float(worst), "ms": times["bfloat16"][0], "plain_ms": times["bfloat16"][1],
+            "bound_ms": bd, "bound_by": by, "library_ms": times["bfloat16"][2],
+            "fp32_ms": times["float32"][0], "fp32_plain_ms": times["float32"][1],
+            "fp32_library_ms": times["float32"][2], "dc256_ms": t256[0],
+            "dc256_plain_ms": t256[1], "err_is": "indices that differ, all at near-ties"}
+
+
+def _write_frames(root, n_videos, n_frames, seed):
+    """PNG frames of 64x64 in the BAIR layout, <root>/train/video_<v>/<f>.png:
+    8x8 colour blocks that drift from frame to frame, plus noise, drawn from a
+    numpy seed."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for v in range(n_videos):
+        d = os.path.join(root, "train", f"video_{v}")
+        os.makedirs(d)
+        blocks = rng.uniform(0, 255, (8, 8, 3))
+        for f in range(n_frames):
+            blocks = np.clip(blocks + rng.normal(0, 12, blocks.shape), 0, 255)
+            frame = np.kron(blocks, np.ones((8, 8, 1))) + rng.normal(0, 6, (64, 64, 3))
+            Image.fromarray(np.clip(frame, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{f}.png"))
+
+
+def phase_vqvae_train(card):
+    """PR-DVQVAE2 training through tools/train_net_torch.py's main at full
+    width, then --resume; per-step launches of kernel 6 and times recorded
+    around Trainer.train_step."""
+    import shutil
+    import tempfile
+    from contextlib import nullcontext
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_net_torch
+    from lvt_tpu_torch.checkpoint.convert import flatten
+    from lvt_tpu_torch.data.datasets.bair import register_bair
+    from lvt_tpu_torch.engine.defaults import default_argument_parser
+    from lvt_tpu_torch.engine.trainer import Trainer
+    from lvt_tpu_torch.ops.vq import nearest_indices_cuda
+
+    n_steps, n_resume = VQ_TRAIN_STEPS, VQ_RESUME_STEPS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vqvae_")
+    steps, profiled, resumed_from = [], [], []
+    inner = Trainer.train_step
+
+    def recorded(self, batch):
+        if len(steps) == n_steps:  # the resumed run's first step: what it starts from
+            resumed_from.append({k: v.clone() for k, v in flatten(self.state.model_state).items()})
+        torch.cuda.synchronize()
+        c0 = nearest_indices_cuda.launches
+        last = len(steps) == n_steps + n_resume - 1  # outside the medians
+        with profile(activities=[ProfilerActivity.CUDA]) if last else nullcontext() as prof:
+            t0 = time.perf_counter()
+            metrics = inner(self, batch)
+            terms = {k: float(v) for k, v in metrics.items()}  # synchronizes
+            took = time.perf_counter() - t0
+        if last:
+            profiled.append((took, prof))
+        steps.append((took, terms, nearest_indices_cuda.launches - c0, t0))
+        return metrics
+
+    try:
+        t0 = time.perf_counter()
+        _write_frames(os.path.join(tmp, "frames"), VQ_FRAMES // T_FRAMES, T_FRAMES, 0)
+        register_bair("chip_smoke_frames", os.path.join(tmp, "frames"), "train", True)
+        print(f"vqvae train data: {VQ_FRAMES} PNG frames of 64x64 written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        out = os.path.join(tmp, "out")
+        # PR-DVQVAE2 as it stands: no override of the model, batch or solver
+        opts = ["--config-file", os.path.join(ROOT, "configs", "vqvae", "PR-DVQVAE2.yaml"),
+                "SOLVER.CHECKPOINT_PERIOD", str(n_steps // 2),
+                "DATASETS.TRAIN", "('chip_smoke_frames',)", "DATALOADER.NUM_WORKERS", "8",
+                "OUTPUT_DIR", out]
+        parse = default_argument_parser().parse_args
+        Trainer.train_step = recorded
+        torch.cuda.reset_peak_memory_stats()
+        nearest_indices_cuda.launches = 0
+        t0 = time.perf_counter()
+        tr = train_net_torch.main(parse(opts + ["SOLVER.MAX_ITER", str(n_steps)]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = nearest_indices_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        cfg = tr.cfg
+        check(cfg.MODEL.ENCODER.NF == 256 and cfg.MODEL.CODEBOOK.NUM == 4 and cfg.MODEL.CODEBOOK.EMA
+              and cfg.SOLVER.IMS_PER_BATCH == 32 and tr.compute_dtype == torch.bfloat16,
+              "vqvae train: not PR-DVQVAE2 at full width, batch 32, bf16 compute")
+        check(tr.state.step == n_steps and len(steps) == n_steps,
+              f"vqvae train: {tr.state.step} steps taken, want {n_steps}")
+        check(sorted(os.listdir(os.path.join(out, "checkpoints"))) ==
+              sorted([f"ckpt_{n_steps // 2}.pt", f"ckpt_{n_steps}.pt"]),
+              f"vqvae train: checkpoints {os.listdir(os.path.join(out, 'checkpoints'))}")
+        data_time = tr.storage.history("data_time").median(n_steps - 3)
+        end_state = {k: v.clone() for k, v in flatten(tr.state.model_state).items()}
+        fresh = flatten(tr.model.init(torch.Generator().manual_seed(tr.seed))[1])
+        tr2 = train_net_torch.main(parse(["--resume"] + opts + [
+            "SOLVER.MAX_ITER", str(n_steps + n_resume)]))
+        check(tr2.start_iter == n_steps and tr2.state.step == n_steps + n_resume,
+              f"vqvae resume: started at {tr2.start_iter}, ended at {tr2.state.step}")
+    finally:
+        Trainer.train_step = inner
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for name in ("loss_reconstruction", "loss_commitment"):
+        vals = [s[1].get(name, float("nan")) for s in steps]
+        check(all(np.isfinite(vals)), f"vqvae train: non-finite {name} {vals}")
+    per_step = {s[2] for s in steps}
+    check(per_step == {4}, f"vqvae train: kernel-6 launches per step {sorted(per_step)}, want "
+                           "exactly 4 (one per sub-codebook)")
+    # the EMA codebook: moved, holding the mass 8192 (1 - 0.99^n) per sub-codebook
+    check(not torch.equal(end_state["netC.embedding"].cpu(), fresh["netC.embedding"]),
+          "vqvae train: the EMA embedding did not move")
+    rows = cfg.SOLVER.IMS_PER_BATCH * 16 * 16
+    mass, want_mass = end_state["netC.running_size"].sum(dim=1), rows * (1 - 0.99 ** n_steps)
+    check(bool(((mass - want_mass).abs() <= 1e-4 * want_mass).all()),
+          f"vqvae train: running_size sums to {mass.tolist()}, want {want_mass}")
+    check(len(resumed_from) == 1 and all(torch.equal(v, end_state[k])
+                                         for k, v in resumed_from[0].items()),
+          "vqvae resume: the resumed run does not start from the saved model state")
+    check(all(v.grad_fn is None and v.dtype == torch.float32 for v in end_state.values()),
+          "vqvae train: the model state holds a graph or left fp32")
+    used = (end_state["netC.running_size"] > 0).sum(dim=1).tolist()
+
+    sec = float(np.median([s[0] for s in steps[3:n_steps]]))
+    it_sec = float(np.median([b[3] - a[3] for a, b in zip(steps[3:n_steps - 1],
+                                                           steps[4:n_steps])]))
+    batch = cfg.SOLVER.IMS_PER_BATCH
+    first, last = steps[0][1], steps[n_steps - 1][1]
+    print(f"train PR-DVQVAE2 b={batch} bf16 64x64 [{card}]: {n_steps} steps in {wall:.2f} s with "
+          f"set-up; median {sec:.4f} s/step over steps 4-{n_steps} (train_step, synchronized), "
+          f"{it_sec:.4f} s/iteration (with data and hooks) = {batch / it_sec:.2f} frames/s; "
+          f"data_time median {data_time:.4f} s; first step {steps[0][0]:.3f} s; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; kernel-6 launches per step 4 (run: "
+          f"{launches}); loss_reconstruction {first['loss_reconstruction']:.4f} -> "
+          f"{last['loss_reconstruction']:.4f}, loss_commitment {first['loss_commitment']:.5f} -> "
+          f"{last['loss_commitment']:.5f}; codes hit per sub-codebook (of 512) {used}; "
+          f"running_size mass {float(mass[0]):.2f} (want {want_mass:.2f}); resumed at {n_steps} "
+          f"from the saved codebook, {n_resume} more steps")
+    check(len(profiled) == 1, "vqvae train: the last resumed step was not profiled")
+    busy, activities = _print_step_profile(card, batch, sec, *profiled[0], what="PR-DVQVAE2")
+    return {"launches": launches, "sec": sec, "it_sec": it_sec, "frames_per_s": batch / it_sec,
+            "peak": peak, "busy_ms": busy, "activities": activities}
+
+
+def phase_vqvae_agree(card):
+    """fp32, batch 4, PR-DVQVAE2 at full width, the same weights: one loss and
+    backward on the card (kernel 6) against the plain path on the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.checkpoint.convert import flatten
+    from lvt_tpu_torch.models import to_device
+    from lvt_tpu_torch.models.vqvae import VQVAE
+    from lvt_tpu_torch.ops import vq
+    from lvt_tpu_torch.ops.vq import nearest_indices_cuda
+
+    model = VQVAE(gvt.load_config(os.path.join(ROOT, "configs", "vqvae", "PR-DVQVAE2.yaml")))
+    params, state = model.init(torch.Generator().manual_seed(5))
+    frames = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (4, 64, 64, 3))
+                              .astype(np.float32))
+    res, taken = {}, []
+    inner = vq.quantize_st
+
+    def recording(z_e, *a, **k):
+        taken.append((z_e.detach().cpu(), inner(z_e, *a, **k)))
+        return taken[-1][1]
+
+    vq.quantize_st = recording
+    try:
+        for name, device, tf32 in (("cpu", "cpu", False), ("card", "cuda", False),
+                                   ("tf32", "cuda", True)):
+            p = copy.deepcopy(to_device(params, device))
+            for leaf in flatten(p).values():
+                leaf.requires_grad_(True)
+            before = nearest_indices_cuda.launches
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                loss, (terms, new_state) = model.train_loss(
+                    p, to_device(state, device), {"image": frames.to(device)})
+                loss.backward()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            z_e, idx = taken[-1][0], taken[-1][1][2].cpu()
+            res[name] = ({k: float(v.detach()) for k, v in terms.items()},
+                         {k: v.grad.cpu() for k, v in flatten(p).items()},
+                         {k: v.cpu() for k, v in flatten(new_state["netC"]).items()}, idx)
+            took = nearest_indices_cuda.launches - before
+            check(took == (4 if device == "cuda" else 0),
+                  f"vqvae agree ({name}): {took} kernel-6 launches")
+            if name == "cpu":
+                z_cpu = z_e
+    finally:
+        vq.quantize_st = inner
+    del z_e
+
+    def worst(grads, ref):
+        floor = 1e-2 * max(float(g.norm()) for g in ref.values())
+        rel = {k: float((grads[k] - g).norm()) / max(float(g.norm()), floor)
+               for k, g in ref.items()}
+        k = max(rel, key=rel.get)
+        whole = float(torch.stack([(grads[k] - g).norm() for k, g in ref.items()]).norm())
+        return rel[k], k, whole / float(torch.stack([g.norm() for g in ref.values()]).norm())
+
+    emb = state["netC"]["embedding"]
+    out = {}
+    for name in ("card", "tf32"):
+        terms, grads, new_cb, idx = res[name]
+        e, k, w = worst(grads, res["cpu"][1])
+        # indices under the near-tie rule, by float64 distances of the CPU's z_e
+        ref_idx = res["cpu"][3]
+        diffs = [_near_ties(idx.reshape(-1, 4)[:, i], ref_idx.reshape(-1, 4)[:, i],
+                            z_cpu.reshape(-1, 4, 64)[:, i, :], emb[i]) for i in range(4)]
+        n_diff, n_far = sum(d[0] for d in diffs), sum(d[1] for d in diffs)
+        # the new EMA state on the codes no differing index touches
+        touched = torch.zeros((4, 512), dtype=torch.bool)
+        for i in range(4):
+            a, b = idx.reshape(-1, 4)[:, i].long(), ref_idx.reshape(-1, 4)[:, i].long()
+            touched[i, a[a != b]] = True
+            touched[i, b[a != b]] = True
+        # codes the batch hit hold means of z_e (|.| ~ 1), the others the
+        # initial sums over a denominator of ~eps (|.| ~ 1e2): each group of
+        # embedding rows is held to its own largest value
+        hit = res["cpu"][2]["running_size"] > 0
+        state_err = 0.0
+        for field, ref in res["cpu"][2].items():
+            for rows in ((hit, ~hit) if field == "embedding" else (torch.ones_like(hit),)):
+                keep = rows & ~touched
+                keep = keep if ref.dim() == 2 else keep[:, :, None].expand_as(ref)
+                if bool(keep.any()):
+                    state_err = max(state_err, float((new_cb[field] - ref).abs()[keep].max())
+                                    / float(ref.abs()[keep].max()))
+        term_err = max(abs(terms[t] - v) / abs(v) for t, v in res["cpu"][0].items())
+        out[name] = (e, k, w, n_diff, n_far, state_err, term_err)
+    n_idx = res["cpu"][3].numel()
+    print(f"vqvae agree fp32 b=4 full width, one loss+backward [{card}], "
+          f"{len(res['cpu'][1])} gradient leaves: " + "; ".join(
+              f"{label}: loss terms off by {o[6]:.3g} (relative), worst leaf {o[0]:.3g} ({o[1]}), "
+              f"whole gradient {o[2]:.3g}, {o[3]} of {n_idx} indices differ ({o[4]} no near-tie), "
+              f"new EMA state off by {o[5]:.3g} of its largest value"
+              for label, o in (("card vs cpu plain", out["card"]),
+                               ("TF32 control", out["tf32"])))
+          + f"; bound {GRAD_TOL:g} per leaf and whole; losses cpu "
+          + ", ".join(f"{k} {v:.6f}" for k, v in res["cpu"][0].items()))
+    e, k, w, n_diff, n_far, state_err, term_err = out["card"]
+    check(term_err <= 1e-5, f"vqvae agree: loss terms off by {term_err} (relative)")
+    check(e <= GRAD_TOL, f"vqvae agree: gradient {k} off by {e} (relative)")
+    check(w <= GRAD_TOL, f"vqvae agree: the whole gradient is off by {w} (relative)")
+    check(n_far == 0 and n_diff <= max(1, int(VQ_AGREE_SHARE * n_idx)),
+          f"vqvae agree: {n_diff} indices differ, {n_far} of them at no near-tie")
+    check(state_err <= 1e-5, f"vqvae agree: the new EMA state is off by {state_err}")
+    e, _, w = out["tf32"][:3]
+    check(e > GRAD_TOL and w > GRAD_TOL,
+          f"vqvae agree: the TF32 control reads {e} per leaf, {w} whole, within the bound "
+          f"{GRAD_TOL}: it cannot tell TF32 from true fp32")
+
+
+def phase_probe_kernel(card):
+    """Kernel 12 against its plain version at the probe tool's shape and
+    DSFVT's; then the tool's own timing run, with the launch count read
+    around it."""
+    import importlib.util
+
+    import torch
+
+    from lvt_tpu_torch.ops import cache_attention as ca
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_decode_kernel_torch", os.path.join(ROOT, "tools", "probe_decode_kernel_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    err = 0.0
+    for label, (b, na, R, da) in tool.SHAPES.items():
+        scale = da ** -0.5
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k8, ks, v8, vs, extra = tool.make_inputs(12, b, na, R, da, dt, "cuda")
+            extra = 0.5 * torch.randn_like(extra)  # no mask: `live` bounds the rows
+            for live in (1, 64, 200, 256):
+                k8p, v8p = k8.clone(), v8.clone()
+                k8p[:, :, live:], v8p[:, :, live:] = 127, -128  # rows >= live are never read
+                got = ca.decode_attention_i8kv_cuda(q, k8p, ks, v8p, vs, extra, scale, live)
+                want = ca.decode_attention_i8kv_plain(q, k8p, ks, v8p, vs, extra, scale, live)
+                torch.cuda.synchronize()
+                top = float(want.float().abs().max())
+                # fp32: sums in another order, 1e-5 of the largest output. bf16:
+                # one rounding of the output (2^-7 relative) plus two weights
+                # whose fp32 values the two versions put on either side of a
+                # bf16 boundary, each moving an output by ulp_bf16(w) * |v|
+                logits = torch.einsum("bad,bajd->baj", q.float(), k8p[:, :, :live].float())
+                w = torch.softmax(logits * scale * ks[:, :, :live] + extra[:, :, :live], -1) \
+                    * vs[:, :, :live]
+                tol = (1e-5 * top + (2 * 2 ** -8 * 127 * float(w.max())
+                                     if dtype == "bfloat16" else 0.0),
+                       2 ** -7 if dtype == "bfloat16" else 0.0)
+                e, ok = _err(got, want, dtype, tol)
+                print(f"kernel 12 decode_attention_i8kv {dtype} live={live} ({label}: b={b}, "
+                      f"na={na}, R={R}, da={da}): max_abs_err {e:.3g} (|out| <= {top:.3g}, "
+                      f"bound {tol[0]:.3g} + {tol[1]:.3g} relative)")
+                check(ok, f"decode_attention_i8kv disagrees with its plain version ({label}, "
+                          f"{dtype}, live={live}): max abs err {e}")
+                err = max(err, e)
+                if live == 256:
+                    # control: kernel 3's scheme (int8 q and weights) on the same inputs
+                    q8, sq = tool.quantize_q(q)
+                    ctl = ca.decode_attention_i8_plain(q8, sq, k8p, ks, v8p, vs, live, extra[0],
+                                                       scale, dt).reshape(want.shape)
+                    ce, cok = _err(got, ctl, dtype, tol)
+                    print(f"  control, kernel 3's scheme on the same inputs: max_abs_err {ce:.3g}")
+                    check(not cok, f"kernel 12 ({label}, {dtype}): the control reads {ce}, within "
+                                   "the bound")
+    ca.decode_attention_i8kv_cuda.launches = 0
+    times = tool.bench(torch.bfloat16)
+    launches = ca.decode_attention_i8kv_cuda.launches
+    check(launches > 0, "the probe tool launched kernel 12 no time")
+    b, na, R, da = tool.SHAPES["probe"]
+    bd, by = bound_ms("bfloat16", 2 * b * na * R * da + 2 * b * na * R * 4 + na * R * 4
+                      + 2 * b * na * da * 2, 4 * b * na * R * da)
+    b2, na2, R2, da2 = tool.SHAPES["dsfvt"]
+    bd2, _ = bound_ms("bfloat16", 2 * b2 * na2 * R2 * da2 + 2 * b2 * na2 * R2 * 4 + na2 * R2 * 4
+                      + 2 * b2 * na2 * da2 * 2, 4 * b2 * na2 * R2 * da2)
+    probe, dsfvt = times["probe"], times["dsfvt"]
+    k2 = dsfvt["decode_attention (kernel 2, cache in the io dtype)"]
+    k3 = dsfvt["decode_attention_i8 (kernel 3)"]
+    print(f"  kernel 12 bf16 [{card}]: the probe's shape (b={b}, da={da}) "
+          f"{probe['decode_attention_i8kv']:.4f} ms, plain {probe['plain']:.4f}, bound {bd:.4f} "
+          f"({by}); DSFVT's shape (b={b2}, da={da2}) {dsfvt['decode_attention_i8kv']:.4f} ms, "
+          f"plain {dsfvt['plain']:.4f}, bound {bd2:.4f}, kernel 2 {k2:.4f}, kernel 3 {k3:.4f}; no "
+          f"single library call computes it; launches in the tool's run {launches}")
+    return {"err": err, "ms": probe["decode_attention_i8kv"], "plain_ms": probe["plain"],
+            "bound_ms": bd, "bound_by": by, "library_ms": None,
+            "dsfvt_ms": dsfvt["decode_attention_i8kv"], "dsfvt_plain_ms": dsfvt["plain"],
+            "dsfvt_bound_ms": bd2, "kernel2_ms": k2, "kernel3_ms": k3}, launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
         fail(f"no lvt_tpu_torch package beside {__file__}: run from a checkout of the repo")
@@ -1418,11 +1934,15 @@ def main():
     phase_profile(card, models, codes, "int8 KV + pallas + int8-pallas weights",
                   kv_dtype="int8", attn_impl="pallas", weight_dtype="int8-pallas")
     phase_agree_i8(card)
+    k6 = phase_vq_kernel(card, models)
     del models, codes
     k10, err1_train, _ = phase_train_kernels(card)
     fres, fbounds = phase_fused_kernels(card)
     fused_run, unfused_run = phase_train(card)
     phase_train_agree(card)
+    vq_run = phase_vqvae_train(card)
+    phase_vqvae_agree(card)
+    k12, k12_launches = phase_probe_kernel(card)
 
     def entry(name, source, replaces, n_launches, r):
         keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1469,6 +1989,15 @@ def main():
         dict(entry("cache_attention_i8", "lvt_tpu_torch/csrc/decode_attention_i8.cu",
                    "lvt_tpu/ops/cache_attention.py:35", 0, i8res["cache_attention_i8"]),
              on_main_path=False),
+        # kernel 6: the launches of the VQ-VAE training run (4 per step);
+        # max_abs_err counts indices that differ from the plain version's, all
+        # of them verified near-ties
+        entry("nearest_indices", "lvt_tpu_torch/csrc/nearest_indices.cu",
+              "lvt_tpu/ops/vq.py:91", vq_run["launches"], k6),
+        # kernel 12 is a tool's kernel, on no path of the sampler: the
+        # launches are those of the tool's own timing run
+        dict(entry("decode_attention_i8kv", "lvt_tpu_torch/csrc/decode_attention_i8.cu",
+                   "tools/probe_decode_kernel.py:49", k12_launches, k12), on_main_path=False),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

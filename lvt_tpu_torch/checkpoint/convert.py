@@ -1,8 +1,8 @@
 """Weights carried across from the JAX package.
 
-``from_jax_vt`` and ``from_jax_vqvae`` take the JAX package's parameter
-trees with numpy leaves (``jax.tree_util.tree_map(np.asarray, tree)``) and
-return the port's trees: the same nested dicts and lists, NamedTuples
+``from_jax_vt``, ``from_jax_vqvae`` and ``from_jax_autoencoder`` take the JAX
+package's parameter trees with numpy leaves
+(``jax.tree_util.tree_map(np.asarray, tree)``) and return the port's trees: the same nested dicts and lists, NamedTuples
 (``BlockAttnParams``, ``EmaCodebookState``) as dicts of their fields, and
 torch tensors of the same dtype and shape. Nothing here imports JAX; with
 them both packages compute the same function on the same weights.
@@ -69,9 +69,21 @@ def from_jax_layer(layer) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_vqvae(params, state) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The JAX VQ-VAE's (params, state) -> the port's. The EMA codebook is
-    state["netC"], with embedding / running_size / running_sum."""
+    """The JAX VQ-VAE's (params, state) -> the port's, norm statistics and
+    spectral-norm ``u`` included. state["netC"] holds embedding /
+    running_size / running_sum; for a non-EMA codebook its embedding is
+    empty and the trained one is params["netC"]["embedding"]."""
     p, s = _convert(params), _convert(state)
     if set(s.get("netC", {})) != {"embedding", "running_size", "running_sum"}:
-        raise ValueError("from_jax_vqvae: state['netC'] is not an EMA codebook state")
+        raise ValueError("from_jax_vqvae: state['netC'] is not a codebook state")
+    if s["netC"]["embedding"].numel() == 0 and "embedding" not in p.get("netC", {}):
+        raise ValueError("from_jax_vqvae: a non-EMA codebook needs params['netC']['embedding']")
+    return p, s
+
+
+def from_jax_autoencoder(params, state) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The JAX AutoEncoder's (params, state), netE and netG each -> the port's."""
+    p, s = _convert(params), _convert(state)
+    if set(p) != {"netE", "netG"} or set(s) != {"netE", "netG"}:
+        raise ValueError(f"from_jax_autoencoder: want netE and netG, got {sorted(p)}, {sorted(s)}")
     return p, s

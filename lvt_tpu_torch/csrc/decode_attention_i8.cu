@@ -1,10 +1,12 @@
-// Per-pixel decode attention over one layer's int8 KV cache: three kernels,
+// Per-pixel decode attention over one layer's int8 KV cache: four kernels,
 // each one block per (batch row, head) over the cache's live rows.
 //
 // They replace the TPU kernels of lvt_tpu/ops/cache_attention.py:
 //   lvt_decode_attention_i8       decode_attention_i8_pallas (pallas_call at :202)
 //   lvt_decode_attention_i8_live  decode_attention_i8_live_pallas (:409)
 //   lvt_cache_attention_i8        cache_attention_pallas (:58)
+// and the probe kernel of tools/probe_decode_kernel.py:
+//   lvt_decode_attention_i8kv     decode_attn_pallas (pallas_call at :80)
 // Those work on fused-lane (b, cl, na*da) caches with a block-diagonal q, a
 // head mask and row-major scales, which the TPU's matrix unit and tiling ask
 // for. Here the cache keeps heads apart, (b, na, R, da) int8 with scales
@@ -27,6 +29,15 @@
 //            of the function; tiles are walked in order inside one block.
 //   cache:   q in float; logit_j = (q . float(k8_j)) * scale * ks_j + extra_j;
 //            w = softmax(logit) * vs, kept fp32; out = sum_j w_j float(v8_j).
+//   i8kv:    the probe kernel: q in the io dtype (not quantized), K and V
+//            converted from int8 exactly, products summed in fp32; the same
+//            logits as `cache`; the softmax normalised by a division; the
+//            weight row w = softmax * vs rounded once to the io dtype before
+//            the V product; the output rounded to io. In fp32 io that is
+//            `cache`'s function; in bf16 it differs by the weights' rounding.
+//            Its TPU form (fused lanes, block-diagonal q, head mask) is not
+//            kept: per head the function is the same. da 16 (the probe's own
+//            shape), 64 or 128.
 // Both integer products are exact, so only exp and the order of the fp32
 // sums (the softmax denominator) separate a kernel from its plain version:
 // a weight that sits within an ulp of x.5 may round one step apart.
@@ -69,7 +80,7 @@ struct RowMap {
   static constexpr int LPR = DA / VEC;       // lanes per cache row
   static constexpr int RPW = 32 / LPR;       // rows per warp load
   static constexpr int STEP = NWARPS * RPW;  // rows per block load
-  static_assert(DA % VEC == 0 && 32 % LPR == 0, "DA must be 64 or 128");
+  static_assert(DA % VEC == 0 && 32 % LPR == 0, "DA must be 16, 64 or 128");
 };
 
 __device__ __forceinline__ uint4 load_row16(const int8_t* p) {
@@ -286,8 +297,10 @@ decode_attention_i8_live_kernel(const int8_t* __restrict__ q8, const float* __re
     store_scalar(out, head * DA + threadIdx.x, acc / __fadd_rn(l_run, 1e-30f), out_bf16);
 }
 
-// ---------------------------------------------------------------- kernel 5
-template <int DA>
+// ------------------------------------------------------- kernels 5 and 12
+// ROUND_W: round the weight row to the io dtype before the V product (the
+// probe kernel, 12); kernel 5 keeps it fp32.
+template <int DA, bool ROUND_W>
 __global__ void __launch_bounds__(NTHREADS)
 cache_attention_i8_kernel(const void* __restrict__ q, const int8_t* __restrict__ k8,
                           const float* __restrict__ ks, const int8_t* __restrict__ v8,
@@ -349,7 +362,11 @@ cache_attention_i8_kernel(const void* __restrict__ q, const int8_t* __restrict__
     sum += e;
   }
   sum = block_reduce<false, NWARPS>(sum, red);
-  for (int j = threadIdx.x; j < live; j += NTHREADS) s[j] = __fmul_rn(s[j] / sum, vs[rows + j]);
+  for (int j = threadIdx.x; j < live; j += NTHREADS) {
+    float w = __fmul_rn(s[j] / sum, vs[rows + j]);
+    if (ROUND_W && io_bf16) w = __bfloat162float(__float2bfloat16(w));
+    s[j] = w;
+  }
   __syncthreads();
 
   // sum_j w_j float(v8_j) in fp32
@@ -401,6 +418,23 @@ bool bad_shape(int b, int na, int R, int da, int live) {
          (da != 64 && da != 128);
 }
 
+template <bool ROUND_W>
+int launch_cache_attention(const void* q, const void* k8, const float* ks, const void* v8,
+                           const float* vs, const float* extra, void* out, int b, int na, int R,
+                           int da, int live, int eb, int io_bf16, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)R + NWARPS * da + da + NWARPS);
+  auto kernel = da == 128  ? cache_attention_i8_kernel<128, ROUND_W>
+                : da == 64 ? cache_attention_i8_kernel<64, ROUND_W>
+                           : cache_attention_i8_kernel<16, ROUND_W>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(na, b), NTHREADS, smem, stream>>>(
+      q, static_cast<const int8_t*>(k8), ks, static_cast<const int8_t*>(v8), vs, extra, out, na,
+      R, live, eb == 1 ? (size_t)0 : (size_t)na * R, scale, io_bf16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Kernel 3. q8 (b, na, da) int8; sq (b, na) fp32; k8, v8 (b, na, R, da) int8;
@@ -449,12 +483,18 @@ extern "C" int lvt_cache_attention_i8(const void* q, const void* k8, const float
                                       void* out, int b, int na, int R, int da, int live, int eb,
                                       int io_bf16, float scale, cudaStream_t stream) {
   if (bad_shape(b, na, R, da, live) || (eb != 1 && eb != b)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)R + NWARPS * da + da + NWARPS);
-  auto kernel = da == 128 ? cache_attention_i8_kernel<128> : cache_attention_i8_kernel<64>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(na, b), NTHREADS, smem, stream>>>(
-      q, static_cast<const int8_t*>(k8), ks, static_cast<const int8_t*>(v8), vs, extra, out, na,
-      R, live, eb == 1 ? (size_t)0 : (size_t)na * R, scale, io_bf16);
-  return (int)cudaGetLastError();
+  return launch_cache_attention<false>(q, k8, ks, v8, vs, extra, out, b, na, R, da, live, eb,
+                                       io_bf16, scale, stream);
+}
+
+// Kernel 12, the probe kernel: kernel 5's operands and layouts, da also 16;
+// the weight row is rounded to the io dtype before the V product.
+extern "C" int lvt_decode_attention_i8kv(const void* q, const void* k8, const float* ks,
+                                         const void* v8, const float* vs, const float* extra,
+                                         void* out, int b, int na, int R, int da, int live,
+                                         int eb, int io_bf16, float scale, cudaStream_t stream) {
+  if (bad_shape(b, na, R, da == 16 ? 64 : da, live) || (eb != 1 && eb != b))
+    return (int)cudaErrorInvalidValue;
+  return launch_cache_attention<true>(q, k8, ks, v8, vs, extra, out, b, na, R, da, live, eb,
+                                      io_bf16, scale, stream);
 }

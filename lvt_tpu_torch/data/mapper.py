@@ -1,12 +1,15 @@
 """Per-sample transform: dataset dict -> model-ready numpy arrays
 (counterpart of lvt_tpu/data/mapper.py; reference
-vidgen/data/dataset_mapper.py:22-153), for latent-code videos: the dicts of
-data/datasets/latents.py become (nc, T, h, w) int32 arrays under "video",
-with a random temporal crop at train time and the head crop at test time.
-The VT prepares its subscale slices from whole videos on the device
-(models/vt.py:prepare_slices). Short videos return None and the loader
-draws another sample. Image datasets (the VQ-VAE's) come with VQ-VAE
-training.
+vidgen/data/dataset_mapper.py:22-153).
+
+* images and frame sequences come out channels-last, (H, W, C) and
+  (T, H, W, C) float32, divided by 255 when INPUT.SCALE_TO_ZEROONE; frames on
+  disk are read with PIL (``utils/image.read_image``);
+* latent code videos come out as (nc, T, h, w) int32 under "video": the VT
+  prepares its subscale slices from whole videos on the device
+  (models/vt.py:prepare_slices);
+* a random temporal crop at train time, the head crop at test time; short
+  videos return None and the loader draws another sample.
 """
 
 import os
@@ -14,6 +17,8 @@ import random
 from typing import Optional
 
 import numpy as np
+
+from ..utils import image as image_utils
 
 
 class ShortVideoException(Exception):
@@ -24,8 +29,11 @@ class DatasetMapper:
     def __init__(self, cfg, is_train: bool = True):
         self.cfg = cfg
         self.is_train = is_train
+        self.img_format = cfg.INPUT.FORMAT
         self.n_frames = (cfg.INPUT.N_FRAMES_PER_VIDEO_TRAIN if is_train
                          else cfg.INPUT.N_FRAMES_PER_VIDEO_TEST)
+        self.scale_zeroone = cfg.INPUT.SCALE_TO_ZEROONE
+        self.is_vt = cfg.MODEL.META_ARCHITECTURE == "VideoTransformerModel"
         assert self.n_frames > 0 or self.n_frames == -1
 
     def _start_end(self, n: int) -> slice:
@@ -37,25 +45,54 @@ class DatasetMapper:
         end = n if self.n_frames == -1 else start + self.n_frames
         return slice(start, end)
 
+    def _scaled(self, frames) -> np.ndarray:
+        frames = np.asarray(frames).astype(np.float32)
+        if self.scale_zeroone:
+            frames /= 255.0
+        return frames
+
+    @staticmethod
+    def _code_video(seq) -> np.ndarray:
+        """(T, [nc,] h, w) codes -> (nc, T, h, w) int32."""
+        if seq.ndim == 3:
+            seq = seq[:, None]
+        return np.ascontiguousarray(seq.transpose(1, 0, 2, 3)).astype(np.int32)
+
     def __call__(self, dataset_dict: dict) -> Optional[dict]:
         try:
             out = dict(dataset_dict)
 
-            if "latent_names" in out:
-                n = len(out["latent_names"])
-                sel = self._start_end(n)
+            if "image" in out:
+                # raw array handed in directly (reference dataset_mapper.py:63-66)
+                out["image"] = self._scaled(out["image"])
+
+            elif "latent_names" in out:
+                sel = self._start_end(len(out["latent_names"]))
                 paths = [os.path.join(out["video_root"], f)
                          for f in out["latent_names"][sel]]
-                seq = np.stack([np.load(p) for p in paths], axis=0)
-                if seq.ndim == 3:
-                    seq = seq[:, None]
-                out["video"] = np.ascontiguousarray(
-                    seq.transpose(1, 0, 2, 3)).astype(np.int32)  # (nc, T, h, w)
+                out["video"] = self._code_video(np.stack([np.load(p) for p in paths], axis=0))
 
-            else:
-                raise NotImplementedError(
-                    f"DatasetMapper: only latent-code videos ('latent_names') are ported to "
-                    f"lvt_tpu_torch yet, got a dict with keys {sorted(out)}")
+            elif "image_path" in out:
+                out["image"] = self._scaled(
+                    image_utils.read_image(out["image_path"], self.img_format))  # (H, W, C)
+
+            elif "image_names" in out:
+                sel = self._start_end(len(out["image_names"]))
+                frames = [image_utils.read_image(os.path.join(out["video_root"], f),
+                                                 self.img_format)
+                          for f in out["image_names"][sel]]
+                out["image_sequence"] = self._scaled(np.stack(frames, axis=0))  # (T, H, W, C)
+
+            elif "image_sequence" in out:
+                n = len(out["image_sequence"])
+                seq = np.asarray(out["image_sequence"])[self._start_end(n)]
+                if self.is_vt:
+                    # pre-extracted codes handed in directly (generation
+                    # path); they are not frames, so the key goes
+                    out["video"] = self._code_video(seq)
+                    del out["image_sequence"]
+                else:
+                    out["image_sequence"] = self._scaled(seq)
 
             if "class" in out:
                 out["class"] = np.int32(out["class"])

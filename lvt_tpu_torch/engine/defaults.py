@@ -1,7 +1,9 @@
 """Default CLI plumbing, setup and the DefaultTrainer (counterpart of
 lvt_tpu/engine/defaults.py:50-93, :274-314; reference
-vidgen/engine/defaults.py:37-310). Evaluation (run_test, the evaluators,
-EvalHook) comes with the port of evaluation."""
+vidgen/engine/defaults.py:37-310), for VT and VQ-VAE training alike: the
+config's META_ARCHITECTURE picks the model, DATASETS.TRAIN the latent-code or
+image datasets. Evaluation (run_test, the evaluators, EvalHook) comes with
+the port of evaluation."""
 
 import argparse
 import logging

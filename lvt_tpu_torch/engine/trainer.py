@@ -1,10 +1,17 @@
 """The trainer (counterpart of lvt_tpu/engine/trainer.py; reference
 vidgen/engine/trainer.py, defaults.py).
 
-One process, one device. A step is: the batch onto the device, the loss of
-the model's ``train_loss`` on the compute-dtype copy of the fp32 master
-weights, ``backward()`` into the masters' ``.grad``, and every
-ACCUMULATION_STEPS-th step the optimizer update and the LR schedule step.
+One process, one device, for both model families: the Video Transformer on
+latent-code videos and the VQ-VAE (or auto-encoder) on frames. A step is: the
+batch onto the device, the loss of the model's ``train_loss`` on the
+compute-dtype copy of the fp32 master weights, ``backward()`` into the
+masters' ``.grad``, and every ACCUMULATION_STEPS-th step the optimizer update
+and the LR schedule step.
+
+* The model state (the VQ-VAE's EMA codebook, batch-norm statistics,
+  spectral-norm ``u``; empty for the VT) stays fp32, is replaced by the one
+  ``train_loss`` returns each step, holds no autograd graph, and is saved and
+  restored with the checkpoints.
 
 * Mixed precision as lvt_tpu's ``make_train_step``: with TPU.COMPUTE_DTYPE
   bfloat16 the master leaves are cast with a differentiable ``.to()`` inside
@@ -78,8 +85,9 @@ def _compute_dtype(cfg):
 
 
 class Trainer(TrainerBase):
-    """End-to-end trainer for a model exposing init / train_loss
-    (reference Trainer, engine/trainer.py:9-128), on ``device``."""
+    """End-to-end trainer for a model exposing init / train_loss (the VT,
+    the VQ-VAE, the auto-encoder; reference Trainer,
+    engine/trainer.py:9-128), on ``device``."""
 
     def __init__(self, cfg, data_loader, model=None, device="cuda"):
         super().__init__()
@@ -119,7 +127,7 @@ class Trainer(TrainerBase):
         loss, (metrics, new_mstate) = self.model.train_loss(
             p, st.model_state, batch, self.step_generator(st.step))
         loss.float().backward()
-        st.model_state = new_mstate
+        st.model_state = _map_leaves(lambda x: x.detach(), new_mstate)
         st.step += 1
         if st.step % self.accumulation == 0:
             st.optimizer.step()

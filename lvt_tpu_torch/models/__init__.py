@@ -1,5 +1,6 @@
-"""Models of the port: the PR-DVQVAE2 VQ-VAE and the subscale Video
-Transformer with its KV-cached sampler (counterpart of lvt_tpu/models)."""
+"""Models of the port: the VQ-VAE and auto-encoder meta-architectures and
+the subscale Video Transformer with its KV-cached sampler (counterpart of
+lvt_tpu/models)."""
 
 import logging
 
@@ -8,10 +9,11 @@ import torch
 
 def build_model(cfg, **kwargs):
     """The meta-architecture MODEL.META_ARCHITECTURE names."""
-    from .vqvae import VQVAE
+    from .vqvae import VQVAE, AutoEncoder
     from .vt import VideoTransformer
 
-    registry = {"VQVAEModel": VQVAE, "VideoTransformerModel": VideoTransformer}
+    registry = {"VQVAEModel": VQVAE, "AutoEncoderModel": AutoEncoder,
+                "VideoTransformerModel": VideoTransformer}
     name = cfg.MODEL.META_ARCHITECTURE
     if name not in registry:
         raise NotImplementedError(f"meta-architecture {name!r} is not ported to "

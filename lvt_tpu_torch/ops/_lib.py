@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of csrc/*.cu (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "lvt_block_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "lvt_decode_attention_i8_live": [_P] * 8 + [_I] * 8 + [_F, _P],
     "lvt_cache_attention_i8": [_P] * 7 + [_I] * 7 + [_F, _P],
     "lvt_matmul_i8w": [_P] * 4 + [_I] * 6 + [_P],
+    "lvt_nearest_indices": [_P, _P, _P, _I, _I, _I, _L, _I, _P],
+    "lvt_decode_attention_i8kv": [_P] * 7 + [_I] * 7 + [_F, _P],
 }
 
 

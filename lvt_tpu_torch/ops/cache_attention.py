@@ -16,7 +16,12 @@ function                           kernel  csrc
 ``decode_attention_i8``            3       decode_attention_i8.cu
 ``decode_attention_i8_live``       4       decode_attention_i8.cu
 ``cache_attention_i8``             5       decode_attention_i8.cu
+``decode_attention_i8kv``          12      decode_attention_i8.cu
 =================================  ======  ==================================
+
+Kernel 12 is the probe kernel of tools/probe_decode_kernel.py: on no path of
+the sampler, as in the JAX package; tools/probe_decode_kernel_torch.py drives
+it.
 
 On a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
 runs the plain PyTorch version of the same function (``*_plain``).
@@ -190,8 +195,8 @@ def cache_attention_i8_plain(q, k8, ks, v8, vs, extra, scale: float,
     return torch.einsum("baj,bajd->bad", w, v8[:, :, :live].float()).to(q.dtype)
 
 
-def _check_i8_cache(name, lead, k8, ks, v8, vs, live, scale_dtypes):
-    """The checks the three int8 wrappers share; returns (b, na, R, da)."""
+def _check_i8_cache(name, lead, k8, ks, v8, vs, live, scale_dtypes, das=(64, 128)):
+    """The checks the int8 wrappers share; returns (b, na, R, da)."""
     tensors = (lead, k8, ks, v8, vs)
     if not (lead.is_cuda and all(t.device == lead.device for t in tensors)):
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
@@ -209,8 +214,8 @@ def _check_i8_cache(name, lead, k8, ks, v8, vs, live, scale_dtypes):
     if tuple(lead.shape) != (b, na, da) or tuple(ks.shape) != (b, na, R) or vs.shape != ks.shape:
         raise ValueError(f"{name}: the query must be {(b, na, da)} and the scales {(b, na, R)}, "
                          f"got {tuple(lead.shape)}, {tuple(ks.shape)}, {tuple(vs.shape)}")
-    if da not in (64, 128) or not 1 <= live <= R or R > 32768:
-        raise ValueError(f"{name}: needs da in (64, 128) and 1 <= live <= R <= 32768, got "
+    if da not in das or not 1 <= live <= R or R > 32768:
+        raise ValueError(f"{name}: needs da in {das} and 1 <= live <= R <= 32768, got "
                          f"da={da}, live={live}, R={R}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
@@ -284,13 +289,11 @@ def decode_attention_i8_live_cuda(q8, sq, k8, ks, v8, vs, live: int, bias, scale
 decode_attention_i8_live_cuda.launches = 0
 
 
-def cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale: float,
-                            live: Optional[int] = None) -> torch.Tensor:
-    """Kernel 5 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
-    types of ``cache_attention_i8_plain``, all contiguous, da in {64, 128}."""
-    name = "cache_attention_i8_cuda"
+def _float_query_cuda(name, entry, das, q, k8, ks, v8, vs, extra, scale, live):
+    """Kernels 5 and 12 share their operands: a float q over int8 caches with
+    fp32 scales and an fp32 ``extra`` row."""
     live = k8.shape[2] if live is None and k8.dim() == 4 else live
-    b, na, R, da = _check_i8_cache(name, q, k8, ks, v8, vs, live, (torch.float32,))
+    b, na, R, da = _check_i8_cache(name, q, k8, ks, v8, vs, live, (torch.float32,), das)
     if q.dtype not in _FLOATS:
         raise ValueError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
     if extra.dtype != torch.float32 or extra.dim() != 3 or extra.shape[0] not in (1, b) \
@@ -298,18 +301,57 @@ def cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale: float,
             or extra.device != q.device:
         raise ValueError(f"{name}: extra must be contiguous float32 (b or 1, {na}, {R}) on q's "
                          f"device, got {extra.dtype} {tuple(extra.shape)}")
-    lib = LIBRARY.get()
     out = torch.empty((b, na, da), dtype=q.dtype, device=q.device)
-    err = lib.lvt_cache_attention_i8(
+    err = getattr(LIBRARY.get(), entry)(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
         extra.data_ptr(), out.data_ptr(), b, na, R, da, int(live), extra.shape[0],
         int(q.dtype == torch.bfloat16), float(scale), torch.cuda.current_stream().cuda_stream)
-    check_launch("cache_attention_i8", err)
+    check_launch(name, err)
+    return out
+
+
+def cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale: float,
+                            live: Optional[int] = None) -> torch.Tensor:
+    """Kernel 5 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
+    types of ``cache_attention_i8_plain``, all contiguous, da in {64, 128}."""
+    out = _float_query_cuda("cache_attention_i8_cuda", "lvt_cache_attention_i8", (64, 128),
+                            q, k8, ks, v8, vs, extra, scale, live)
     cache_attention_i8_cuda.launches += 1
     return out
 
 
 cache_attention_i8_cuda.launches = 0
+
+
+def decode_attention_i8kv_plain(q, k8, ks, v8, vs, extra, scale: float,
+                                live: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel 12, the probe kernel: kernel 5's
+    operands, q (b, na, da) in the io dtype and not quantized. K and V
+    converted from int8 exactly and the products summed in fp32; logits =
+    (q . K) * scale * ks + extra; the softmax normalised by a division; the
+    weight row softmax * vs rounded once to the io dtype before the V
+    product; output (b, na, da) rounded to io."""
+    live = k8.shape[2] if live is None else live
+    logits = torch.einsum("bad,bajd->baj", q.float(), k8[:, :, :live].float()) * scale
+    logits = logits * ks[:, :, :live] + extra[:, :, :live]
+    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    w = w / w.sum(dim=-1, keepdim=True)
+    w = (w * vs[:, :, :live]).to(q.dtype)
+    return torch.einsum("baj,bajd->bad", w.float(), v8[:, :, :live].float()).to(q.dtype)
+
+
+def decode_attention_i8kv_cuda(q, k8, ks, v8, vs, extra, scale: float,
+                               live: Optional[int] = None) -> torch.Tensor:
+    """Kernel 12 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes
+    and types of ``decode_attention_i8kv_plain``, all contiguous, da in
+    {16, 64, 128}."""
+    out = _float_query_cuda("decode_attention_i8kv_cuda", "lvt_decode_attention_i8kv",
+                            (16, 64, 128), q, k8, ks, v8, vs, extra, scale, live)
+    decode_attention_i8kv_cuda.launches += 1
+    return out
+
+
+decode_attention_i8kv_cuda.launches = 0
 
 
 def _dispatch(name, device, cuda_fn, plain_fn):
@@ -343,4 +385,12 @@ def cache_attention_i8(q, k8, ks, v8, vs, extra, scale: float,
     """Kernel 5 on a CUDA tensor, its plain version on a CPU tensor."""
     fn = _dispatch("cache_attention_i8", k8.device, cache_attention_i8_cuda,
                    cache_attention_i8_plain)
+    return fn(q.contiguous(), k8, ks, v8, vs, extra, scale, live)
+
+
+def decode_attention_i8kv(q, k8, ks, v8, vs, extra, scale: float,
+                          live: Optional[int] = None) -> torch.Tensor:
+    """Kernel 12 on a CUDA tensor, its plain version on a CPU tensor."""
+    fn = _dispatch("decode_attention_i8kv", k8.device, decode_attention_i8kv_cuda,
+                   decode_attention_i8kv_plain)
     return fn(q.contiguous(), k8, ks, v8, vs, extra, scale, live)

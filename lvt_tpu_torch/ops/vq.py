@@ -1,24 +1,46 @@
-"""Vector quantization, inference only (counterpart of the encode/embed half
-of lvt_tpu/ops/vq.py).
+"""Vector quantization: nearest-code lookup, straight-through estimator and
+the EMA codebook update (counterpart of lvt_tpu/ops/vq.py).
 
-Nearest code by the expansion ``||c||^2 + ||z||^2 - 2 z.c`` in fp32, summed
-in the JAX package's order; ``torch.argmin`` takes the lowest index among
-equal minima, as ``jnp.argmin`` does. This is plain PyTorch with TF32 off
-(``lvt_tpu_torch/__init__.py``), the counterpart of the HIGHEST-precision
-XLA path that ``encode_indices`` uses in the JAX package; the Pallas
-nearest-code kernel there serves VQ-VAE training and is not on this path.
+Nearest code by the expansion ``(||c||^2 + ||z||^2) - 2 z.c`` in fp32, summed
+in the JAX package's order; ties go to the lowest index, as ``jnp.argmin``
+and ``torch.argmin`` do. ``nearest_indices`` launches kernel 6
+(``csrc/nearest_indices.cu``: the product on fp32 FMAs fused with the
+arg-reduction, no (N, K) matrix in device memory) on a CUDA tensor and runs
+the plain PyTorch version (``nearest_indices_plain``, TF32 off, see
+``lvt_tpu_torch/__init__.py``) on a CPU tensor. VQ-VAE training reaches the
+kernel through ``quantize_st``; ``encode_indices`` (the generation and
+code-extraction path) defaults to the plain version, as the JAX package's
+defaults to its HIGHEST-precision XLA path.
+
+Update order of ``quantize_st``, as the reference: the straight-through
+output uses the embedding *before* the EMA update, the returned
+differentiable ``z_q`` the embedding *after* it.
 
 A codebook is a dict with the fields of lvt_tpu's ``EmaCodebookState``:
 ``embedding`` (num, K, Dc), ``running_size`` (num, K), ``running_sum``
 (num, K, Dc).
 """
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ._lib import LIBRARY, check_launch
+from .embedding import take_rows
+
 Codebook = Dict[str, torch.Tensor]
 
+
+def init_codebook(gen: torch.Generator, num: int, K: int, D: int) -> Codebook:
+    """Uniform(-1/K, 1/K) embedding; running_sum starts as a copy of it,
+    running_size as zeros (reference vq_embedding.py:12-21)."""
+    emb = torch.empty(num, K, D // num).uniform_(-1.0 / K, 1.0 / K, generator=gen)
+    return {"embedding": emb, "running_size": torch.zeros(num, K), "running_sum": emb.clone()}
+
+
+# --------------------------------------------------------------------------
+# Nearest-neighbor core: kernel 6 and its plain version
+# --------------------------------------------------------------------------
 
 def _distances(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """(N, Dc) x (K, Dc) -> (N, K) squared-distance surrogate in fp32."""
@@ -30,19 +52,154 @@ def _distances(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return c_sqr[None, :] + z_sqr - 2.0 * cross
 
 
-def nearest_indices(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """argmin_k ||z - c_k||^2, ties to the lowest index. z: (N, Dc) -> (N,)
-    int32."""
+def nearest_indices_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6: argmin_k ||z - c_k||^2, ties to the
+    lowest index. z: (N, Dc) -> (N,) int32."""
     return torch.argmin(_distances(z, codebook), dim=1).to(torch.int32)
 
 
-def encode_indices(z_e: torch.Tensor, codebook: Codebook) -> torch.Tensor:
-    """(..., D) -> (..., num) int32 codebook indices."""
+def nearest_indices_cuda(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Kernel 6 (csrc/nearest_indices.cu) on CUDA tensors. z (N, Dc) fp32 or
+    bf16, any row stride with unit column stride (a ``z[:, i, :]`` view of
+    (N, num, Dc) is read in place); codebook (K, Dc) contiguous fp32; N >= 1,
+    K >= 1, Dc a multiple of 4 up to 256. Returns (N,) int32.
+
+    On finite inputs it returns what the plain version returns, up to the
+    order of the fp32 sums (a choice between two codes whose distances lie
+    within rounding of each other). A NaN in a z row makes every distance of
+    the row NaN and both return 0; a NaN in a codebook row is skipped by the
+    kernel, where ``argmin`` would return that row."""
+    if not (z.is_cuda and codebook.device == z.device):
+        raise ValueError("nearest_indices_cuda: z and codebook must be on one CUDA device")
+    if z.device.index != torch.cuda.current_device():
+        raise ValueError("nearest_indices_cuda: inputs must lie on the current CUDA device")
+    if z.dtype not in (torch.float32, torch.bfloat16) or codebook.dtype != torch.float32:
+        raise ValueError(f"nearest_indices_cuda: z must be float32 or bfloat16 and the codebook "
+                         f"float32, got {z.dtype}, {codebook.dtype}")
+    if z.dim() != 2 or codebook.dim() != 2 or z.shape[1] != codebook.shape[1]:
+        raise ValueError(f"nearest_indices_cuda: want z (N, Dc) and codebook (K, Dc), got "
+                         f"{tuple(z.shape)}, {tuple(codebook.shape)}")
+    (N, Dc), K = z.shape, codebook.shape[0]
+    if N < 1 or K < 1 or Dc % 4 or not 4 <= Dc <= 256:
+        raise ValueError(f"nearest_indices_cuda: needs N >= 1, K >= 1 and Dc a multiple of 4 up "
+                         f"to 256, got N={N}, K={K}, Dc={Dc}")
+    if z.stride(1) != 1 or (N > 1 and z.stride(0) < Dc) or not codebook.is_contiguous():
+        raise ValueError(f"nearest_indices_cuda: z needs unit column stride and rows that do not "
+                         f"overlap, the codebook must be contiguous; got z strides {z.stride()}")
+    lib = LIBRARY.get()
+    out = torch.empty((N,), dtype=torch.int32, device=z.device)
+    err = lib.lvt_nearest_indices(
+        z.data_ptr(), codebook.data_ptr(), out.data_ptr(), N, K, Dc, max(z.stride(0), Dc),
+        int(z.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    check_launch("nearest_indices", err)
+    nearest_indices_cuda.launches += 1
+    return out
+
+
+nearest_indices_cuda.launches = 0
+
+
+def nearest_indices(z: torch.Tensor, codebook: torch.Tensor,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """z (N, Dc) -> (N,) int32 nearest codes; no gradient. Kernel 6 on a CUDA
+    tensor, its plain version on a CPU tensor; ``use_kernel=False`` takes the
+    plain version on either, ``True`` the kernel (CUDA tensors only)."""
+    z, codebook = z.detach(), codebook.detach()
+    if use_kernel is None:
+        if z.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"nearest_indices: no kernel for device {z.device}")
+        use_kernel = z.device.type == "cuda"
+    if use_kernel:
+        return nearest_indices_cuda(z, codebook.float().contiguous())
+    return nearest_indices_plain(z, codebook)
+
+
+# --------------------------------------------------------------------------
+# Straight-through quantization + EMA update
+# --------------------------------------------------------------------------
+
+def _ema_stats(z: torch.Tensor, indices: torch.Tensor, K: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-batch cluster size (K,) and vector sum (K, Dc), fp32, no gradient.
+    A one-hot product as in the JAX package, not a scatter-add: atomics would
+    sum in another order on every call on the card."""
+    z = z.detach().float()
+    one_hot = torch.nn.functional.one_hot(indices.long(), K).to(torch.float32)  # (N, K)
+    return one_hot.sum(dim=0), one_hot.T @ z
+
+
+def _ema_update(running_size, running_sum, size, vec_sum, decay: float, eps: float):
+    """The EMA embedding follows from the running sums alone; the current
+    embedding takes no part (reference vq_embedding.py:56-59)."""
+    K = running_size.shape[0]
+    new_size = running_size * decay + (1.0 - decay) * size
+    new_sum = running_sum * decay + (1.0 - decay) * vec_sum
+    n = new_size.sum()
+    denom = (new_size + eps) / (n + K * eps) * n
+    new_emb = new_sum / denom[:, None]
+    return new_emb, new_size, new_sum
+
+
+def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool,
+                decay: float = 0.99, eps: float = 1e-5, use_kernel: Optional[bool] = None):
+    """Straight-through quantization of decomposed codes.
+
+    z_e: (..., D) with D = num * Dc. Returns (z_q_st, z_q, indices,
+    new_codebook): z_q_st carries the identity gradient to z_e; z_q is the
+    lookup in the embedding after the EMA update and carries the codebook's
+    gradient (the non-EMA loss term); the new codebook holds no graph when
+    ``ema and train`` (else it is the old one's tensors).
+    """
     emb = codebook["embedding"]
     num, K, Dc = emb.shape
     lead = z_e.shape[:-1]
     z = z_e.reshape(-1, num, Dc)
-    idx = [nearest_indices(z[:, i, :], emb[i]) for i in range(num)]
+
+    idx_parts, st_parts, q_parts = [], [], []
+    new_emb, new_rs, new_rsum = [], [], []
+    for i in range(num):
+        zi = z[:, i, :]
+        emb_i = emb[i]
+        idx = nearest_indices(zi, emb_i, use_kernel)
+        # straight-through uses the embedding before the update
+        z_q_pre = emb_i.detach()[idx.long()]
+        st = zi + (z_q_pre - zi.detach().to(z_q_pre.dtype)).to(zi.dtype)
+
+        if ema and train:
+            size, vec_sum = _ema_stats(zi, idx, K)
+            e, rs, rsum = _ema_update(codebook["running_size"][i], codebook["running_sum"][i],
+                                      size, vec_sum, decay, eps)
+        else:
+            e, rs, rsum = emb_i, codebook["running_size"][i], codebook["running_sum"][i]
+
+        # the differentiable lookup uses the embedding after the update
+        q = take_rows(e, idx)
+
+        idx_parts.append(idx)
+        st_parts.append(st)
+        q_parts.append(q)
+        new_emb.append(e)
+        new_rs.append(rs)
+        new_rsum.append(rsum)
+
+    z_q_st = torch.stack(st_parts, dim=1).reshape(z_e.shape)
+    z_q = torch.stack(q_parts, dim=1).reshape(lead + (num * Dc,)).to(z_e.dtype)
+    indices = torch.stack(idx_parts, dim=1).reshape(lead + (num,))
+    new_codebook = {"embedding": torch.stack(new_emb), "running_size": torch.stack(new_rs),
+                    "running_sum": torch.stack(new_rsum)}
+    return z_q_st, z_q, indices, new_codebook
+
+
+def encode_indices(z_e: torch.Tensor, codebook: Codebook,
+                   use_kernel: Optional[bool] = False) -> torch.Tensor:
+    """(..., D) -> (..., num) int32 codebook indices. Defaults to the plain
+    fp32 version on every device: on this path (code extraction, generation)
+    indices are held bit-equal to the reference's."""
+    emb = codebook["embedding"]
+    num, K, Dc = emb.shape
+    lead = z_e.shape[:-1]
+    z = z_e.reshape(-1, num, Dc)
+    idx = [nearest_indices(z[:, i, :], emb[i], use_kernel) for i in range(num)]
     return torch.stack(idx, dim=1).reshape(lead + (num,))
 
 

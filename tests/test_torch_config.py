@@ -20,7 +20,8 @@ CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recurs
 COPIES = ["config/__init__.py", "config/config.py", "config/defaults.py",
           "utils/registry.py", "utils/image.py", "utils/strings.py", "utils/labels.py",
           "utils/logger.py", "engine/train_loop.py", "data/catalog.py",
-          "data/datasets/latents.py", "data/samplers.py"]
+          "data/datasets/latents.py", "data/samplers.py", "data/datasets/bair.py",
+          "data/datasets/kinetics.py", "data/datasets/builtin.py"]
 
 
 def test_all_seven_configs_found():
@@ -67,8 +68,8 @@ def test_copied_events_equals_original_but_its_memory_probe():
 
 
 def test_port_imports_neither_jax_nor_lvt_tpu():
-    """Every module of lvt_tpu_torch, the generation and training scripts and
-    chip_smoke.py, imported in a fresh interpreter, pull in no jax and no
+    """Every module of lvt_tpu_torch, the generation and training scripts, the
+    probe tool and chip_smoke.py, imported in a fresh interpreter, pull in no jax and no
     lvt_tpu."""
     code = r"""
 import importlib, pkgutil, sys
@@ -77,7 +78,8 @@ sys.path.insert(0, {scripts!r})
 sys.path.insert(0, {tools!r})
 import lvt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lvt_tpu_torch.__path__, "lvt_tpu_torch.")]
-for name in names + ["generate_videos_torch", "train_net_torch", "chip_smoke"]:
+for name in names + ["generate_videos_torch", "train_net_torch", "probe_decode_kernel_torch",
+                     "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lvt_tpu"))

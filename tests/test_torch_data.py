@@ -1,11 +1,13 @@
-"""The port's latent-video data path held to lvt_tpu's on the same files on
-disk (exact equality throughout: the data are integer codes):
+"""The port's data path held to lvt_tpu's on the same files on disk (exact
+equality throughout: integer codes, and frames decoded from the same PNGs):
 
 * the latent dataset dicts (the CodesExtractor layout walk and its cache);
 * the mapper's test-mode (head crop) and train-mode (seeded random crop)
   arrays;
 * the training sampler's index stream and the collated first batches of
-  build_train_loader, in this process and from worker processes.
+  build_train_loader, in this process and from worker processes;
+* the image datasets (the VQ-VAE's): the BAIR and Kinetics walks, and the
+  mapper's image, image_path, image_names and image_sequence branches.
 """
 
 import random
@@ -85,8 +87,117 @@ def test_mapper_train_mode_crop_equal(latent_root):
 
 
 def test_mapper_refuses_image_datasets():
-    with pytest.raises(NotImplementedError):
-        DatasetMapper(_cfg(get_cfg), is_train=True)({"image_path": "x.png"})
+    """The mapper refused image dicts until the image branches were ported;
+    what it still refuses is a frame that is not on disk, as lvt_tpu does."""
+    for mapper in (DatasetMapper(_cfg(get_cfg), is_train=True),
+                   JaxMapper(_cfg(jax_get_cfg), is_train=True)):
+        with pytest.raises(FileNotFoundError):
+            mapper({"image_path": "x.png"})
+
+
+@pytest.fixture
+def frame_root(tmp_path, rng):
+    """PNG frames in the BAIR layout, <root>/train/video_<v>/<f>.png, and a
+    Kinetics-style class level, <root>/ktrain/<label>/video_0/<f>.png."""
+    from PIL import Image
+
+    from lvt_tpu_torch.utils.labels import KINETICS_LABEL_IDX
+
+    root = tmp_path / "frames"
+    label = sorted(KINETICS_LABEL_IDX)[3]
+    for d, n in [(root / "train" / f"video_{v}", n) for v, n in enumerate((7, 5, 6))] + \
+            [(root / "ktrain" / label / "video_0", 6)]:
+        d.mkdir(parents=True)
+        for f in range(n):
+            Image.fromarray(rng.integers(0, 256, (12, 10, 3), dtype=np.uint8)).save(d / f"{f}.png")
+    (root / "train" / "video_0" / "._0.png").write_bytes(b"\0")
+    return str(root)
+
+
+def _image_cfg(get, scale=True, fmt="RGB", n=5):
+    cfg = get()
+    cfg.MODEL.META_ARCHITECTURE = "VQVAEModel"
+    cfg.INPUT.FORMAT, cfg.INPUT.SCALE_TO_ZEROONE = fmt, scale
+    cfg.INPUT.N_FRAMES_PER_VIDEO_TRAIN = cfg.INPUT.N_FRAMES_PER_VIDEO_TEST = n
+    return cfg
+
+
+@pytest.mark.parametrize("load_images", [True, False], ids=["frames", "videos"])
+def test_image_dataset_dicts_equal(frame_root, load_images):
+    import lvt_tpu.data.datasets.bair as jbair
+    import lvt_tpu.data.datasets.kinetics as jkin
+    from lvt_tpu_torch.data.datasets import bair as tbair
+    from lvt_tpu_torch.data.datasets import kinetics as tkin
+
+    for phase, jmod, tmod in (("train", jbair.load_bair, tbair.load_bair),
+                              ("ktrain", jkin.load_kinetics, tkin.load_kinetics)):
+        got = tmod(frame_root, phase, load_images)
+        assert got == jmod(frame_root, phase, load_images)  # the second walk reads the cache
+        assert len(got) == {("train", True): 18, ("train", False): 3}.get(
+            (phase, load_images), 6 if load_images else 1)
+        assert ("class" in got[0]) == (phase == "ktrain")
+
+
+def test_builtin_image_datasets_are_registered():
+    from lvt_tpu.data import DatasetCatalog as JaxCatalog
+    from lvt_tpu_torch.data import DatasetCatalog
+
+    assert set(JaxCatalog.list()) <= set(DatasetCatalog.list())
+    assert {"bair_train", "bair_test_seq", "kinetics_train_seq"} <= set(DatasetCatalog.list())
+
+
+@pytest.mark.parametrize("scale,fmt", [(True, "RGB"), (False, "RGB"), (True, "L"), (True, "BGR")])
+def test_mapper_image_branches_equal(frame_root, rng, scale, fmt):
+    from lvt_tpu_torch.data.datasets.bair import load_bair
+
+    frames, videos = load_bair(frame_root, "train", True), load_bair(frame_root, "train", False)
+    raw = rng.integers(0, 256, (12, 10, 3)).astype(np.uint8)
+    raw_seq = rng.integers(0, 256, (7, 12, 10, 3)).astype(np.uint8)
+    for is_train in (True, False):
+        jm = JaxMapper(_image_cfg(jax_get_cfg, scale, fmt), is_train=is_train)
+        tm = DatasetMapper(_image_cfg(get_cfg, scale, fmt), is_train=is_train)
+        dicts = [frames[0], frames[-1], {"image": raw, "class": 3}, *videos,
+                 {"image_sequence": raw_seq, "video_idx": 0}]
+        for seed, d in enumerate(dicts):
+            random.seed(seed)
+            want = jm(d)
+            random.seed(seed)
+            got = tm(d)
+            if want is None:
+                assert got is None
+                continue
+            assert set(got) == set(want)
+            key = "image" if "image" in want else "image_sequence"
+            assert got[key].dtype == np.float32 and got[key].shape == want[key].shape
+            np.testing.assert_array_equal(got[key], want[key])
+            if "class" in want:
+                assert got["class"] == want["class"] and got["class"].dtype == np.int32
+    assert got["image_sequence"].shape == (5, 12, 10, 3)  # the raw sequence, head-cropped
+
+
+def test_mapper_code_sequences_for_the_vt_equal(rng):
+    """Pre-extracted codes handed in as an image_sequence become "video" for
+    a VT config, and the frame key goes."""
+    seq = rng.integers(0, 512, (6, 4, 5, 6))
+    want = JaxMapper(_cfg(jax_get_cfg), is_train=False)({"image_sequence": seq})
+    got = DatasetMapper(_cfg(get_cfg), is_train=False)({"image_sequence": seq})
+    assert set(got) == set(want) == {"video"}
+    np.testing.assert_array_equal(got["video"], want["video"])
+
+
+def test_image_train_loader_batches(frame_root, monkeypatch):
+    """build_train_loader on frames: float32 (b, H, W, C) batches in [0, 1]
+    under "image", the file names kept as a list."""
+    from lvt_tpu_torch.data.datasets.bair import load_bair
+
+    dicts = load_bair(frame_root, "train", True)
+    monkeypatch.setattr(tbuild, "get_dataset_dicts", lambda names: dicts)
+    cfg = _image_cfg(get_cfg)
+    cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_WORKERS, cfg.SEED = 4, 2, 7
+    batch = _batches(tbuild.build_train_loader(cfg)[0], 1)[0]
+    assert batch["image"].shape == (4, 12, 10, 3) and batch["image"].dtype == np.float32
+    assert 0.0 <= batch["image"].min() and batch["image"].max() <= 1.0
+    assert len(batch["image_path"]) == 4
 
 
 def test_training_sampler_stream_equal():

@@ -538,3 +538,159 @@ def test_i8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # a weight that is not int8
         tq.matmul_i8w_cuda(torch.randn((2, 32), device=cuda),
                            torch.zeros((8, 32), device=cuda), torch.ones(8, device=cuda))
+
+
+# --------------------------------------------------------------------------
+# Kernel 6 (nearest codebook entry) and kernel 12 (the probe kernel)
+# --------------------------------------------------------------------------
+
+def assert_indices_close(got, want, z, codebook):
+    """Kernel 6 against its plain version: equal, or differing only where the
+    float64 distances of the two codes lie within 8 fp32 ulps of the sums that
+    form them (||z||^2 + ||c||^2), and at most one such row per thousand."""
+    diff = torch.nonzero(got != want).flatten()
+    assert len(diff) <= max(1, want.numel() // 1000), f"{len(diff)} of {want.numel()} differ"
+    z64, c64 = z.double(), codebook.double()
+    for r in diff.tolist():
+        dg = ((z64[r] - c64[got[r]]) ** 2).sum()
+        dw = ((z64[r] - c64[want[r]]) ** 2).sum()
+        size = (z64[r] ** 2).sum() + (c64[want[r]] ** 2).sum()
+        assert abs(float(dg - dw)) <= 8 * 2 ** -23 * float(size), (r, float(dg), float(dw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K,Dc", [(1, 512, 64), (300, 100, 64), (8192 + 37, 512, 64),
+                                    (2048, 512, 256), (100, 7, 4)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_nearest_indices_kernel_matches_plain(cuda, dtype, N, K, Dc, strided):
+    import lvt_tpu_torch.ops.vq as tvq
+
+    g = torch.Generator(device=cuda).manual_seed(N + K)
+    codebook = torch.randn((K, Dc), generator=g, device=cuda)
+    if strided:  # sub-codebook 1 of 3, read in place
+        z = torch.randn((N, 3, Dc), generator=g, device=cuda).to(dtype)[:, 1, :]
+        assert not z.is_contiguous() or N == 1
+    else:
+        z = torch.randn((N, Dc), generator=g, device=cuda).to(dtype)
+    before = tvq.nearest_indices_cuda.launches
+    got = tvq.nearest_indices(z, codebook)
+    assert tvq.nearest_indices_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (N,)
+    assert torch.equal(got, tvq.nearest_indices(z, codebook))  # two calls, the same bits
+    want = tvq.nearest_indices(z, codebook, use_kernel=False)
+    assert tvq.nearest_indices_cuda.launches == before + 2
+    assert_indices_close(got, want, z, codebook)
+
+
+@pytest.mark.cuda
+def test_nearest_indices_kernel_breaks_ties_to_the_lowest_index(cuda):
+    import lvt_tpu_torch.ops.vq as tvq
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    base = torch.randn((50, 64), generator=g, device=cuda)
+    codebook = base.repeat(4, 1)  # rows k, k + 50, k + 100, k + 150 are equal
+    z = torch.cat([base[[7, 49, 0]], torch.randn((200, 64), generator=g, device=cuda)])
+    got = tvq.nearest_indices(z, codebook)
+    assert got[:3].tolist() == [7, 49, 0]  # z equals a code: the first of its copies
+    assert int(got.max()) < 50
+    assert torch.equal(got, tvq.nearest_indices(z, codebook, use_kernel=False))
+
+
+@pytest.mark.cuda
+def test_quantize_st_reaches_kernel_6_on_the_card(cuda):
+    """quantize_st on CUDA tensors launches kernel 6 once per sub-codebook by
+    default, returns the plain path's values, sends the identity gradient to
+    z_e, and its EMA statistics are the same bits on every call."""
+    import lvt_tpu_torch.ops.vq as tvq
+    from lvt_tpu_torch.models import to_device
+
+    cb = to_device(tvq.init_codebook(torch.Generator().manual_seed(0), 4, 64, 64), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    z_e = (0.02 * torch.randn((2, 8, 8, 64), generator=g, device=cuda)).requires_grad_(True)
+    before = tvq.nearest_indices_cuda.launches
+    st, zq, idx, new = tvq.quantize_st(z_e, cb, ema=True, train=True)
+    assert tvq.nearest_indices_cuda.launches == before + 4
+    st.sum().backward()
+    assert torch.equal(z_e.grad, torch.ones_like(z_e))
+    st2, zq2, idx2, new2 = tvq.quantize_st(z_e.detach(), cb, ema=True, train=True,
+                                           use_kernel=False)
+    assert tvq.nearest_indices_cuda.launches == before + 4
+    assert torch.equal(idx, idx2)
+    for k in new:
+        assert torch.equal(new[k], new2[k]) and not new[k].requires_grad, k
+    torch.testing.assert_close(st.detach(), st2, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_nearest_indices_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    import lvt_tpu_torch.ops.vq as tvq
+
+    cb = torch.randn((8, 64), device=cuda)
+    for z, c in ((torch.randn((4, 6), device=cuda), torch.randn((8, 6), device=cuda)),  # Dc % 4
+                 (torch.randn((4, 260), device=cuda), torch.randn((8, 260), device=cuda)),
+                 (torch.randn((4, 64), device=cuda).half(), cb),
+                 (torch.randn((64, 4), device=cuda).T, cb),  # column stride != 1
+                 (torch.randn((4, 64), device=cuda), cb.bfloat16()),
+                 (torch.randn((4, 64)), cb)):
+        with pytest.raises(ValueError):
+            tvq.nearest_indices_cuda(z, c)
+
+
+def _i8kv_inputs(dev, b, na, R, da, dtype, eb, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, na, da), generator=g, device=dev).to(dtype)
+    k8, v8 = (torch.randint(-127, 128, (b, na, R, da), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (0.01 + 0.01 * torch.rand((b, na, R), generator=g, device=dev) for _ in range(2))
+    extra = 0.5 * torch.randn((eb, na, R), generator=g, device=dev)
+    return q, k8, ks, v8, vs, extra
+
+
+def i8kv_tol(q, k8, ks, v8, vs, extra, scale, live, want):
+    """Kernel 12, |kernel - plain|: 1e-5 of the largest output (fp32 sums in
+    another order); with bf16 io one rounding of the output (2^-7 relative)
+    plus two weights whose fp32 values sit on either side of a bf16 boundary
+    in the two versions: each moves an output by ulp_bf16(w) * |v| <=
+    2^-8 * max(w) * 127."""
+    atol = 1e-5 * float(want.float().abs().max())
+    if q.dtype == torch.float32:
+        return atol, 0.0
+    logits = torch.einsum("bad,bajd->baj", q.float(), k8[:, :, :live].float()) * scale
+    w = torch.softmax(logits * ks[:, :, :live] + extra[:, :, :live], -1) * vs[:, :, :live]
+    return atol + 2 * 2 ** -8 * float(w.max()) * 127, 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", [1, 64, 200, 256])
+@pytest.mark.parametrize("b,da,eb", [(32, 16, 1), (5, 64, 5), (16, 128, 1)])
+def test_decode_attention_i8kv_kernel_matches_plain(cuda, dtype, live, b, da, eb):
+    na, R, scale = 8, 256, da ** -0.5
+    q, k8, ks, v8, vs, extra = _i8kv_inputs(cuda, b, na, R, da, dtype, eb, seed=12)
+    k8[:, :, live:], v8[:, :, live:] = 127, -128  # rows >= live are never read
+    before = tca.decode_attention_i8kv_cuda.launches
+    got = tca.decode_attention_i8kv(q, k8, ks, v8, vs, extra, scale, live)
+    assert tca.decode_attention_i8kv_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, na, da)
+    want = tca.decode_attention_i8kv_plain(q, k8, ks, v8, vs, extra, scale, live)
+    atol, rtol = i8kv_tol(q, k8, ks, v8, vs, extra, scale, live, want)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    if live == R:
+        assert torch.equal(tca.decode_attention_i8kv(q, k8, ks, v8, vs, extra, scale), got)
+    if dtype == torch.float32 and da != 16:  # with fp32 io it is kernel 5's function
+        assert torch.equal(got, tca.cache_attention_i8(q, k8, ks, v8, vs, extra, scale, live))
+
+
+@pytest.mark.cuda
+def test_i8kv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k8, ks, v8, vs, extra = _i8kv_inputs(cuda, 2, 2, 32, 32, torch.float32, 1, seed=0)
+    with pytest.raises(ValueError):  # da = 32
+        tca.decode_attention_i8kv_cuda(q, k8, ks, v8, vs, extra, 1.0)
+    q, k8, ks, v8, vs, extra = _i8kv_inputs(cuda, 2, 2, 32, 16, torch.float32, 1, seed=0)
+    with pytest.raises(ValueError):  # bf16 scales
+        tca.decode_attention_i8kv_cuda(q, k8, ks.bfloat16(), v8, vs.bfloat16(), extra, 1.0)
+    with pytest.raises(ValueError):  # live past the buffer
+        tca.decode_attention_i8kv_cuda(q, k8, ks, v8, vs, extra, 1.0, live=33)
+    with pytest.raises(ValueError):  # da = 16 is kernel 12's alone
+        tca.cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, 1.0)

@@ -3,17 +3,24 @@
 GPU; the counterpart of tools/train_net.py for training and --resume.
 
 Examples:
+  python tools/train_net_torch.py --config-file configs/vqvae/PR-DVQVAE2.yaml \
+      OUTPUT_DIR out/prdvqvae2
   python tools/train_net_torch.py --config-file configs/vt/DSFVT.yaml \
       OUTPUT_DIR out/dsfvt
   python tools/train_net_torch.py --config-file configs/vt/DSFVT.yaml --resume \
       OUTPUT_DIR out/dsfvt
 
+A VQ-VAE config (stage 1) trains on the frames of the image datasets named in
+DATASETS.TRAIN (bair_train: PNG frames under datasets/bair/train); its
+quantizer finds the nearest codes with kernel 6 (lvt_tpu_torch/ops/vq.py) and
+keeps the EMA codebook in the model state, saved with every checkpoint.
+
 DSFVT's default TPU.FUSED_LAYER True trains with the fused layer (kernels 7,
 8 and 9 of lvt_tpu_torch/ops/fused_layer.py); TPU.FUSED_LAYER False runs the
 unfused layers with per-layer remat.
 
-The latent-code datasets named in DATASETS.TRAIN are read from the
-CodesExtractor layout (<root>/video_<i>/<frame>.npy) at the paths of
+A VT config's latent-code datasets are read from the CodesExtractor layout
+(<root>/video_<i>/<frame>.npy); all dataset paths are those of
 lvt_tpu_torch/data/datasets/builtin.py. --eval-only waits for the port of
 evaluation.
 """
