@@ -19,46 +19,47 @@
 // does 4 * nb * na * n^2 * da flops (4.3 GFLOP at nb = 16, na = 8) over
 // 4 * nb * na * n * da inputs/outputs (33.5 MB in bf16) plus the bias:
 // 128 flops per byte, under the 295 at which bf16 tensor cores stop waiting
-// on memory, so a tensor-core version is bound by memory and latency, an
-// FMA version by the FMA pipes (67 TFLOP/s fp32).
+// on memory, so the bf16 kernel is bound by bytes (and by the L2 traffic of
+// K, V and the bias, which each of a head's query tiles reads again); the
+// fp32 kernel by the FMA pipes (67 TFLOP/s fp32).
 //
 // Two kernels, picked by dtype:
-// * bf16, n <= 256 (DSFVT; bf16 at wider blocks is refused until a geometry
-//   that needs it is ported):
-//   tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate). One
-//   block of 4 warps per (64 query rows, head, attention block); each warp
-//   owns 16 query rows and keeps their whole score row block (up to 256
-//   keys) in registers, so the softmax is exact and S never reaches shared
-//   or device memory. The C fragments of S are, after the softmax and the
-//   rounding to bf16, the A fragments of P.V as they stand (no shuffle).
-//   K and V go through shared memory one 64-key tile at a time, V
-//   transposed so that each B fragment is one 32-bit read; rows are padded
-//   by 16 bytes so the fragment reads of a warp hit 32 distinct banks.
+// * bf16, n <= 256 (DSFVT): one warpgroup per
+//   (64 query rows, head, attention block), two blocks an SM. Thread 0 loads
+//   every tile by TMA into 128-byte-swizzled shared memory, completing on
+//   mbarriers: Q and the K chunks together, then each chunk's V into its K
+//   buffer as soon as that chunk's q k^T is done, so V lands during the
+//   later chunks' products and the softmax; the fp32 bias
+//   (64 rows x 64 keys a tile) through a ring beside them (where n % 4 is
+//   not 0, TMA cannot take the bias rows, and the bias is read from device
+//   memory at the fragments' positions instead). q k^T is wgmma
+//   m64n64k16 from shared memory, one 64 x 64 fp32 accumulator per 64-key
+//   chunk: the whole 64 x 256 score block stays in registers (128 a
+//   thread), so the softmax is exact. P, rounded to bf16, is the register A
+//   operand of P.V as it stands (the accumulator and A layouts match), and
+//   V is read as wgmma's transposed B from its row-major tile: nothing is
+//   transposed by hand. Building blocks in hopper.cuh.
 // * fp32, n <= 1024 (true fp32: no TF32 tensor-core path exists for it):
 //   FMA register micro-tiles over shared-memory tiles (each
 //   thread keeps a 4x4 block of S and a 4x8 block of O), with the whole
 //   (QT, n) score row block in shared memory, so the softmax is exact there
 //   too and nothing of S reaches device memory.
 // In both, key tiles that the causal mask covers entirely for the block are
-// filled with -1e4 without computing q.k. wgmma/TMA is later work.
+// filled with -1e4 without computing q.k (and, in bf16, without loading K).
 //
 // Shapes: q, k, v, out (nb, na, n, DA) contiguous; bias (na, n, n) fp32
-// contiguous; n <= 1024 in fp32, n <= 256 in bf16; DA in {64, 128}.
+// contiguous; n <= 1024 in fp32, n <= 256 in bf16; DA in {64, 128};
+// q, k, v 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tiles.cuh"
+#include "hopper.cuh"
 
 namespace lvt_fwd {
 namespace {
-
-using lvt_mma::CH;
-using lvt_mma::ld32;
-using lvt_mma::mma_bf16;
-using lvt_mma::pack_bf16;
 
 constexpr int KT = 64;        // key rows per tile
 constexpr int NTHREADS = 256; // 16 x 16 thread grid
@@ -259,126 +260,168 @@ cudaError_t dispatch_qt(const void* q, const void* k, const void* v, const float
 }
 
 // ---------------------------------------------------------------------------
-// bf16, n <= 256: tensor cores
+// bf16, n <= 256: wgmma, tiles by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_QT = 64;        // query rows per block, 16 per warp
-constexpr int MMA_THREADS = 128;  // 4 warps
-constexpr int MMA_KT = 64;        // keys per shared-memory tile
-constexpr int MMA_MAXN = 256;     // keys a warp's score registers hold
+constexpr int WG_THREADS = 128;  // one warpgroup: 64 query rows
+constexpr int WG_MAXN = 256;     // keys the score accumulators hold (4 chunks of 64)
+constexpr int BIAS_CHUNK = 64 * 64 * 4;  // one (64 rows, 64 keys) fp32 bias tile
 
-// Shared-memory layout (bf16): Qs[QT][DA+8] | Ks[KT][DA+8] | Vt[DA][KT+8].
-// A row stride of 4 words more than a multiple of 32 puts the 8 rows x 4
-// words of one fragment read on 32 distinct banks.
 template <int DA>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)MMA_QT * (DA + 8) + (size_t)MMA_KT * (DA + 8) + (size_t)DA * (MMA_KT + 8));
+struct WgSmem {
+  static constexpr int TILE = DA * 128;  // 64 rows x DA bf16
+  static constexpr int NBIAS = DA == 64 ? 4 : 2;  // bias tiles in flight
+  // Q | K or V chunks 0..3 | bias ring | mbarriers: 112 KB at DA = 128 (two
+  // blocks an SM). No static shared memory: the dynamic block starts the
+  // block's window, on the 1024-byte boundary the swizzle atoms need.
+  static constexpr int BARS = 5 * TILE + NBIAS * BIAS_CHUNK;
+  static constexpr int BYTES = BARS + 8 * (5 + NBIAS);
+};
+
+// fp32 bias element (r, c) of a (64, 64) tile loaded as two 32-column boxes
+// with the 128-byte swizzle (16-byte chunks of a row XORed with r % 8)
+__device__ __forceinline__ int bias_at(int r, int c) {
+  const int cc = c & 31;
+  return (c >> 5) * 64 * 32 + r * 32 + ((((cc >> 2) ^ (r & 7)) << 2) | (cc & 3));
 }
 
+// One warpgroup per (64 query rows, head, attention block). Thread 0 issues
+// every load: Q, the K chunks the mask leaves and the first bias tiles at
+// once; a chunk's V into its K buffer once that chunk's q k^T is done;
+// later bias tiles into the ring as earlier ones are used. Each chunk's
+// products are one wgmma stage (fence, products, commit, wait) under a
+// block-uniform condition, so that no stage is cut by divergent code.
 template <int DA>
-__global__ void __launch_bounds__(MMA_THREADS)
-block_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                           int na, int n, int causal, float scale) {
-  constexpr int LDA = DA + 8;         // row stride of Qs and Ks
-  constexpr int LDV = MMA_KT + 8;     // row stride of Vt
-  constexpr int KSTEPS = DA / 16;     // k-steps of q.k^T
-  constexpr int DTILES = DA / 8;      // 8-column tiles of the output
-  constexpr int STILES = MMA_MAXN / 8;  // 8-key tiles of a score row block
-  constexpr int CPR = DA / CH;        // 16-byte chunks per row
+__global__ void __launch_bounds__(WG_THREADS)
+block_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap bmap,
+                             const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                             int na, int n, int causal, float scale) {
+  using namespace lvt_hopper;
+  using S = WgSmem<DA>;
+  constexpr int KSTEPS = DA / 16;
+  constexpr int HALVES = DA / 64;
+  constexpr int HALF = 64 * TILE_ROW_BYTES;  // bytes of one 64-column half
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + MMA_QT * LDA;
-  __nv_bfloat16* Vt = Ks + MMA_KT * LDA;
+  extern __shared__ __align__(1024) unsigned char tile_smem[];
+  unsigned char* smem = tile_smem;
+  if (smem_u32(smem) & 1023) __trap();  // the swizzle atoms need 1024-byte alignment
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t& bar_q = bars[0];
+  uint64_t* bar_kv = bars + 1;
+  uint64_t* bar_b = bars + 5;
+  unsigned char* Qs = smem;
+  unsigned char* KV = smem + S::TILE;
+  float* Bs = reinterpret_cast<float*>(smem + 5 * S::TILE);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * MMA_QT;
-  const int a = blockIdx.y;
-  const size_t head = ((size_t)blockIdx.z * na + a) * (size_t)n * DA;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int qt = blockIdx.x, q0 = qt * 64, a = blockIdx.y;
+  const int plane = blockIdx.z * na + a;
+  const int nkt = (n + 63) / 64;
+  const int kend = causal ? min(nkt, qt + 1) : nkt;  // chunks not wholly masked
+  // TMA needs a bias row stride of a multiple of 16 bytes; other widths read
+  // the bias from device memory at the fragments' positions
+  const bool bias_tma = n % 4 == 0;
   const float* bh = bias + (size_t)a * n * n;
-  const int nkt = (n + MMA_KT - 1) / MMA_KT;
-  const int r_lo = q0 + warp * 16 + g;  // the query rows of this lane's fragments
-  const int r_hi = r_lo + 8;
 
-  // ---- Q tile (rows past n are zero), then this warp's A fragments
-  for (int i = tid; i < MMA_QT * CPR; i += MMA_THREADS) {
-    const int r = i / CPR, c = (i % CPR) * CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < n) val = *reinterpret_cast<const uint4*>(q + head + (size_t)(q0 + r) * DA + c);
-    *reinterpret_cast<uint4*>(Qs + r * LDA + c) = val;
+  auto load_bias = [&](int c) {
+    float* dst = Bs + (c % S::NBIAS) * (BIAS_CHUNK / 4);
+    uint64_t* bar = &bar_b[c % S::NBIAS];
+    mbar_expect_tx(bar, BIAS_CHUNK);
+    tma_load(dst, &bmap, bar, 64 * c, q0, a);
+    tma_load(dst + 64 * 32, &bmap, bar, 64 * c + 32, q0, a);
+  };
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    for (int c = 0; c < 4; ++c) mbar_init(&bar_kv[c], 1);
+    for (int c = 0; c < S::NBIAS; ++c) mbar_init(&bar_b[c], 1);
+    fence_barrier_init();
+    mbar_expect_tx(&bar_q, S::TILE);
+    tma_tile<DA>(Qs, &qmap, &bar_q, q0, plane);
+    for (int c = 0; c < kend; ++c) {
+      mbar_expect_tx(&bar_kv[c], S::TILE);
+      tma_tile<DA>(KV + c * S::TILE, &kmap, &bar_kv[c], 64 * c, plane);
+    }
+    for (int c = 0; bias_tma && c < kend && c < S::NBIAS; ++c) load_bias(c);
   }
   __syncthreads();
-  uint32_t qa[KSTEPS][4];
-  const __nv_bfloat16* qw = Qs + warp * 16 * LDA + 2 * t;
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = ld32(qw + g * LDA + kk * 16);
-    qa[kk][1] = ld32(qw + (g + 8) * LDA + kk * 16);
-    qa[kk][2] = ld32(qw + g * LDA + kk * 16 + 8);
-    qa[kk][3] = ld32(qw + (g + 8) * LDA + kk * 16 + 8);
-  }
 
-  // ---- S = q k^T * scale + bias, causal fill, one 64-key tile at a time.
-  // s[j] is the D fragment of keys 8j..8j+7; keys past n are -inf (not
-  // keys at all), padding rows past n are 0 (never stored).
-  float s[STILES][4];
+  // ---- per 64-key chunk: S = q k^T into its own 64 x 64 accumulator (a
+  // wgmma stage of its own: fence, products, commit, wait), then scale,
+  // bias and causal fill; the chunk's K buffer then takes its V and its bias
+  // ring slot a later chunk's bias. Keys past n are -inf (not keys at all),
+  // query rows past n are 0 (never stored).
+  float s[4][32];
+  mbar_wait(&bar_q, 0);
 #pragma unroll
-  for (int kt = 0; kt < MMA_MAXN / MMA_KT; ++kt) {
-    if (kt >= nkt) break;
-    const int k0 = kt * MMA_KT;
-    if (causal && k0 >= q0 + MMA_QT) {  // above the diagonal for every row of the block
+  for (int c = 0; c < 4; ++c) {
+    if (c >= nkt) break;
+    if (c < kend) {
 #pragma unroll
-      for (int j = 0; j < MMA_KT / 8; ++j) {
+      for (int i = 0; i < 32; ++i) s[c][i] = 0.f;
+      mbar_wait(&bar_kv[c], 0);
+      fence_regs(s[c]);
+      wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[kt * 8 + j][e] = k0 + j * 8 + 2 * t + (e & 1) < n ? -1e4f : -INFINITY;
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int off = (kk / 4) * HALF + (kk % 4) * 32;
+        wgmma_ss(s[c], desc(Qs + off), desc(KV + c * S::TILE + off));
       }
-      continue;  // block-uniform: every thread skips the barriers below alike
-    }
-    __syncthreads();  // previous readers of Ks are done
-    for (int i = tid; i < MMA_KT * CPR; i += MMA_THREADS) {
-      const int r = i / CPR, c = (i % CPR) * CH;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < n) val = *reinterpret_cast<const uint4*>(k + head + (size_t)(k0 + r) * DA + c);
-      *reinterpret_cast<uint4*>(Ks + r * LDA + c) = val;
-    }
-    __syncthreads();
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s[c]);
+      if (bias_tma) mbar_wait(&bar_b[c % S::NBIAS], (c / S::NBIAS) & 1);
+      const float* B = Bs + (c % S::NBIAS) * (BIAS_CHUNK / 4);
 #pragma unroll
-    for (int j = 0; j < MMA_KT / 8; ++j) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* kr = Ks + (j * 8 + g) * LDA + 2 * t;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) mma_bf16(acc, qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+        for (int hi = 0; hi < 2; ++hi) {
+          const int r = acc_row(2 * hi, w, g), cl = acc_col(j, 0, t);
+          const int gr = q0 + r, gc = 64 * c + cl;
+          const float2 b = bias_tma ? *reinterpret_cast<const float2*>(B + bias_at(r, cl))
+                           : make_float2(gr < n && gc < n ? bh[(size_t)gr * n + gc] : 0.f,
+                                         gr < n && gc + 1 < n ? bh[(size_t)gr * n + gc + 1] : 0.f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r_lo : r_hi;
-        const int c = k0 + j * 8 + 2 * t + (e & 1);
-        float x = -INFINITY;
-        if (c < n) {
-          x = 0.f;
-          if (r < n) {
-            x = acc[e] * scale + bh[(size_t)r * n + c];
-            if (causal && c > r) x = -1e4f;
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int col = gc + e1;
+            float x = -INFINITY;
+            if (col < n) {
+              x = 0.f;
+              if (gr < n) {
+                x = s[c][4 * j + 2 * hi + e1] * scale + (e1 ? b.y : b.x);
+                if (causal && col > gr) x = -1e4f;
+              }
+            }
+            s[c][4 * j + 2 * hi + e1] = x;
           }
         }
-        s[kt * 8 + j][e] = x;
       }
+    } else {  // above the diagonal for every row of the tile
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[c][i] = 64 * c + acc_col(i / 4, i % 4, t) < n ? -1e4f : -INFINITY;
+    }
+    __syncthreads();  // every warp is done with chunk c's K and bias slot
+    if (tid == 0) {
+      fence_proxy_async();  // the bias slot was read by generic loads
+      mbar_expect_tx(&bar_kv[c], S::TILE);
+      tma_tile<DA>(KV + c * S::TILE, &vmap, &bar_kv[c], 64 * c, plane);
+      if (bias_tma && c + S::NBIAS < kend) load_bias(c + S::NBIAS);
     }
   }
 
-  // ---- softmax of rows r_lo (e = 0, 1) and r_hi (e = 2, 3) in fp32: a row
-  // lies across the 4 lanes of one quad
+  // ---- softmax of rows lo (e = 0, 1) and hi (e = 2, 3) in fp32: a row lies
+  // across the 4 lanes of one quad
   float m_lo = -INFINITY, m_hi = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < STILES; ++j) {
-    if (j < nkt * 8) {
-      m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
-      m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
+  for (int c = 0; c < 4; ++c) {
+    if (c >= nkt) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m_lo = fmaxf(m_lo, fmaxf(s[c][4 * j], s[c][4 * j + 1]));
+      m_hi = fmaxf(m_hi, fmaxf(s[c][4 * j + 2], s[c][4 * j + 3]));
     }
   }
 #pragma unroll
@@ -388,14 +431,16 @@ block_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-  for (int j = 0; j < STILES; ++j) {
-    if (j < nkt * 8) {
-      s[j][0] = expf(s[j][0] - m_lo);
-      s[j][1] = expf(s[j][1] - m_lo);
-      s[j][2] = expf(s[j][2] - m_hi);
-      s[j][3] = expf(s[j][3] - m_hi);
-      sum_lo += s[j][0] + s[j][1];
-      sum_hi += s[j][2] + s[j][3];
+  for (int c = 0; c < 4; ++c) {
+    if (c >= nkt) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[c][4 * j] = expf(s[c][4 * j] - m_lo);
+      s[c][4 * j + 1] = expf(s[c][4 * j + 1] - m_lo);
+      s[c][4 * j + 2] = expf(s[c][4 * j + 2] - m_hi);
+      s[c][4 * j + 3] = expf(s[c][4 * j + 3] - m_hi);
+      sum_lo += s[c][4 * j] + s[c][4 * j + 1];
+      sum_hi += s[c][4 * j + 2] + s[c][4 * j + 3];
     }
   }
 #pragma unroll
@@ -403,76 +448,76 @@ block_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, o);
     sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, o);
   }
-  // P rounded to bf16; p[j] = (row r_lo, row r_hi) halves of key tile j
-  uint32_t p[STILES][2];
+  // P rounded to bf16, straight into the A operand of P v
+  uint32_t pa[4][4][4];
 #pragma unroll
-  for (int j = 0; j < STILES; ++j) {
-    if (j < nkt * 8) {
-      p[j][0] = pack_bf16(s[j][0] / sum_lo, s[j][1] / sum_lo);
-      p[j][1] = pack_bf16(s[j][2] / sum_hi, s[j][3] / sum_hi);
-    }
+  for (int c = 0; c < 4; ++c) {
+    if (c >= nkt) break;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[c][i] /= (i & 2) ? sum_hi : sum_lo;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[c][kk], s[c], kk);
   }
 
-  // ---- O = P v in fp32; V through shared memory transposed, one tile at a time
-  float o[DTILES][4];
+  // ---- O = P v in fp32; V is the transposed (MN-major) B operand
+  float o[HALVES][32];
 #pragma unroll
-  for (int d = 0; d < DTILES; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int h = 0; h < HALVES; ++h)
 #pragma unroll
-  for (int kt = 0; kt < MMA_MAXN / MMA_KT; ++kt) {
-    if (kt >= nkt) break;
-    const int k0 = kt * MMA_KT;
-    __syncthreads();  // previous readers of Vt are done
-    // neighbouring lanes take neighbouring keys: their 2-byte stores into a
-    // Vt row then fall on distinct banks
-    for (int i = tid; i < MMA_KT * CPR; i += MMA_THREADS) {
-      const int r = i % MMA_KT, c = (i / MMA_KT) * CH;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < n) val = *reinterpret_cast<const uint4*>(v + head + (size_t)(k0 + r) * DA + c);
-      const uint32_t w[4] = {val.x, val.y, val.z, val.w};
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < CH; ++e)
-        Vt[(c + e) * LDV + r] = __ushort_as_bfloat16((unsigned short)(w[e / 2] >> (16 * (e % 2))));
-    }
-    __syncthreads();
+  for (int c = 0; c < 4; ++c) {  // one wgmma stage per chunk, as its V lands
+    if (c >= nkt) break;
+    mbar_wait(&bar_kv[c], c < kend ? 1 : 0);
 #pragma unroll
-    for (int j = 0; j < MMA_KT / 16; ++j) {
-      const int i0 = kt * 8 + 2 * j;  // key tiles 16j.. and 16j+8.. of this tile
-      const uint32_t pa[4] = {p[i0][0], p[i0][1], p[i0 + 1][0], p[i0 + 1][1]};
+    for (int h = 0; h < HALVES; ++h) fence_regs(o[h]);
 #pragma unroll
-      for (int d = 0; d < DTILES; ++d) {
-        const __nv_bfloat16* vr = Vt + (d * 8 + g) * LDV + j * 16 + 2 * t;
-        mma_bf16(o[d], pa, ld32(vr), ld32(vr + 8));
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[c][kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h)
+        wgmma_rs_t(o[h], pa[c][kk], desc(KV + c * S::TILE + h * HALF + kk * 16 * TILE_ROW_BYTES));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) fence_regs(o[h]);
+  }
+
+  __nv_bfloat16* oh = out + (size_t)plane * n * DA;
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int gr = q0 + acc_row(2 * hi, w, g);
+        if (gr < n)
+          *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)gr * DA + 64 * h + acc_col(j, 0, t)) =
+              __floats2bfloat162_rn(o[h][4 * j + 2 * hi], o[h][4 * j + 2 * hi + 1]);
       }
-    }
-  }
-
-  __nv_bfloat16* oh = out + head;
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d) {
-    const int c = d * 8 + 2 * t;
-    if (r_lo < n)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_lo * DA + c) =
-          __floats2bfloat162_rn(o[d][0], o[d][1]);
-    if (r_hi < n)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)r_hi * DA + c) =
-          __floats2bfloat162_rn(o[d][2], o[d][3]);
-  }
 }
 
 template <int DA>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
-                       void* out, int nb, int na, int n, int causal, float scale,
-                       cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<DA>();
-  auto kernel = block_attention_mma_kernel<DA>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                         void* out, int nb, int na, int n, int causal, float scale,
+                         cudaStream_t stream) {
+  using namespace lvt_hopper;
+  CUtensorMap mq, mk, mv, mb;
+  const uint64_t planes = (uint64_t)nb * na;
+  if (!make_bf16_map(&mq, q, planes, n, DA) || !make_bf16_map(&mk, k, planes, n, DA) ||
+      !make_bf16_map(&mv, v, planes, n, DA))
+    return cudaErrorInvalidValue;
+  mb = mq;  // unused where n % 4 != 0: the kernel then reads the bias without TMA
+  if (n % 4 == 0 && !make_map(&mb, bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, na, n, n, 64, 32))
+    return cudaErrorInvalidValue;
+  constexpr int smem = WgSmem<DA>::BYTES;
+  auto kernel = block_attention_wgmma_kernel<DA>;
+  cudaError_t err = set_smem_max(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + MMA_QT - 1) / MMA_QT, na, nb);
-  kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out), na, n,
-      causal, scale);
+  kernel<<<dim3((n + 63) / 64, na, nb), WG_THREADS, smem, stream>>>(
+      mq, mk, mv, mb, bias, static_cast<__nv_bfloat16*>(out), na, n, causal, scale);
   return cudaGetLastError();
 }
 
@@ -484,10 +529,11 @@ inline int block_attention_fwd(const void* q, const void* k, const void* v,
                                        cudaStream_t stream) {
   if (n < 1 || n > 1024 || nb < 1 || na < 1 || nb > 65535 || na > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && n <= MMA_MAXN && da == 128)
-    return (int)launch_mma<128>(q, k, v, bias, out, nb, na, n, causal, scale, stream);
-  if (dtype == 1 && n <= MMA_MAXN && da == 64)
-    return (int)launch_mma<64>(q, k, v, bias, out, nb, na, n, causal, scale, stream);
+  if (dtype == 1 && n > WG_MAXN) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && da == 128)
+    return (int)launch_wgmma<128>(q, k, v, bias, out, nb, na, n, causal, scale, stream);
+  if (dtype == 1 && da == 64)
+    return (int)launch_wgmma<64>(q, k, v, bias, out, nb, na, n, causal, scale, stream);
   if (dtype == 0 && da == 128)
     return (int)dispatch_qt<128>(q, k, v, bias, out, nb, na, n, causal, scale, stream);
   if (dtype == 0 && da == 64)

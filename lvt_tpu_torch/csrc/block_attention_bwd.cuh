@@ -18,55 +18,57 @@
 //
 // What bounds it on the H100: at DSFVT training shapes (nb = 64, na = 8,
 // n = 256, da = 128) one call is ~43 GFLOP of products (q k^T twice, g v^T
-// three times, p^T g, ds k, ds^T q) over ~67 MB of bf16 inputs and outputs,
-// plus a 134 MB fp32 scratch of per-block dbias terms written once and read
-// once. Both are far from the roofs: the simple design below is bound by
-// latency (barriers around each shared-memory tile, no copy overlap).
+// twice, p^T g, ds k, ds^T q) over ~67 MB of bf16 inputs and outputs: the
+// bound is the 43 GFLOP at the bf16 tensor-core rate (0.044 ms at 989
+// TFLOP/s) against 0.020 ms of bytes. The dbias terms go through a scratch
+// of at most 8 fp32 planes (16.8 MB at na = 8, n = 256, so it stays in L2).
 //
 // Design (three kernels, no atomics, so every output is bit-identical from
 // call to call):
-// 1. Query-tile kernel, one block per (query tile, head, attention block).
-//    It needs whole rows: rowsum(dp * p) must use the fp32 p of the full
-//    256-key row, as the TPU kernel does (flash attention's shortcut
-//    rowsum(dO * O) reads the output, which was rounded through p_io, and is
-//    a different number in bf16). The tile's (rows, n) score block lives in
-//    shared memory in fp32: scores, then the softmax in place. A first pass
-//    over the key tiles sums dp * p per row; a second recomputes dp, forms
-//    ds, writes it to the per-block dbias scratch and accumulates dq. The
-//    row statistics (max, sum, rowsum(dp * p)) go to device memory.
+// 1. Query-tile kernel. It needs whole rows: rowsum(dp * p) must use the
+//    fp32 p of the full key row, as the TPU kernel does (flash attention's
+//    shortcut rowsum(dO * O) reads the output, which was rounded through
+//    p_io, and is a different number in bf16). It computes the softmax,
+//    rowsum(dp * p), ds and dq, writes the row statistics (max, sum,
+//    rowsum(dp * p)) to device memory and adds ds to a dbias plane.
 // 2. Key-tile kernel, one block per (key tile, head, attention block). dk
 //    and dv sum over all query rows, so they stay in registers while the
 //    block walks the query tiles, recomputing p and ds for its keys from
-//    the row statistics (the (n, n) block, 256 KB in fp32, never exists).
-// 3. dbias: a reduction over the nb per-block terms in a fixed order (an
-//    fp32 atomicAdd would change dbias from run to run).
-// In bf16 (n <= 256) the products run on tensor cores (mma.sync m16n8k16,
-// bf16 in, fp32 accumulate), with the fragment layout of block_attention.cu;
-// in fp32 (n <= 1024) on FMAs, since TF32 would round the inputs to 10 bits.
+//    the row statistics (the (n, n) block never exists).
+// 3. dbias: a reduction over the planes in a fixed order (an fp32
+//    atomicAdd would change dbias from run to run).
+// In bf16 (n <= 256) the products run on wgmma (bf16 in, fp32 accumulate)
+// over tiles that TMA loads into 128-byte-swizzled shared memory
+// (hopper.cuh). The query-tile kernel has two warpgroups, one per half of
+// the keys: 64 scores and 64 of dp a thread, which with the 64 of the dq
+// accumulator is as much as the registers hold at n = 256; dp is computed
+// once. Each of its blocks walks a fixed run of nb / 8 attention blocks and
+// sums their ds into the run's plane in block order. Every A operand that
+// was an accumulator (p, ds, p^T, ds^T) stays in registers, and every B
+// operand that the product reads transposed (k, g, q) goes through wgmma's
+// transposed mode: nothing is transposed by hand. In fp32 (n <= 1024) the
+// products run on FMAs, since TF32 would round the inputs to 10 bits, and
+// the dbias scratch has one plane per attention block.
 // Key tiles that the causal mask covers entirely are skipped: their p is
 // exp(-1e4 - rowmax) / rowsum, exactly 0 in fp32 unless a row's largest
 // score is below -9,896, and their ds is 0 by definition.
 //
-// Shapes: q, k, v, g, dq, dk, dv (nb, na, n, DA) contiguous in the io dtype;
-// bias and dbias (na, n, n) fp32; stats (3, nb, na, n) fp32 and part
-// (nb, na, n, n) fp32 scratch; DA in {64, 128}; n <= 1024 in fp32, n <= 256
-// in bf16.
+// Shapes: q, k, v, g, dq, dk, dv (nb, na, n, DA) contiguous in the io dtype,
+// 16-byte aligned; bias and dbias (na, n, n) fp32; stats (3, nb, na, np)
+// fp32 with np = n rounded up to 64 (fp32 uses the first (3, nb, na, n) of
+// it); part (planes, na, n, n) fp32 scratch, planes = min(nb, 8) in bf16 and
+// nb in fp32; DA in {64, 128}; n <= 1024 in fp32, n <= 256 in bf16.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tiles.cuh"
+#include "hopper.cuh"
 
 namespace lvt_bwd {
 namespace {
 
-using lvt_mma::CH;
-using lvt_mma::ld32;
-using lvt_mma::load_a;
-using lvt_mma::mma_bf16;
-using lvt_mma::pack_bf16;
 
 constexpr int NTHREADS = 256;  // fp32 kernels
 constexpr int QT = 16;         // fp32 query-tile kernel: rows per block
@@ -323,384 +325,451 @@ bwd_keys_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, n <= 256: tensor cores
+// bf16, n <= 256: wgmma, tiles by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int MT = 64;        // rows (query-tile kernel) or keys (key-tile kernel) per block
-constexpr int MTHREADS = 128; // 4 warps, 16 rows or keys each
-constexpr int MKT = 64;       // keys or query rows per shared-memory tile
-
-// rows [r0, r0 + MKT) of a (n, DA) bf16 matrix into a row-major tile
-// (rows past n are zero)
-template <int DA>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src, int r0, int n) {
-  constexpr int CPR = DA / CH;
-  for (int i = threadIdx.x; i < MKT * CPR; i += MTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * DA + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// the same rows transposed: dst[d][r]; neighbouring lanes take neighbouring
-// rows, so their 2-byte stores into one dst row fall on distinct banks
-template <int DA>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst, int ld,
-                                            const __nv_bfloat16* src, int r0, int n) {
-  constexpr int CPR = DA / CH;
-  for (int i = threadIdx.x; i < MKT * CPR; i += MTHREADS) {
-    const int r = i % MKT, c = (i / MKT) * CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * DA + c);
-    const uint32_t w[4] = {val.x, val.y, val.z, val.w};
-#pragma unroll
-    for (int e = 0; e < CH; ++e)
-      dst[(c + e) * ld + r] = __ushort_as_bfloat16((unsigned short)(w[e / 2] >> (16 * (e % 2))));
-  }
-}
+constexpr int DBIAS_PLANES = 8;  // bf16: dbias partial planes, each a run of blocks
 
 template <int DA>
-constexpr size_t rows_mma_smem_bytes(int np) {
-  return sizeof(__nv_bfloat16) * (3 * (size_t)MT * (DA + 8) + (size_t)DA * (MKT + 8)) +
-         sizeof(float) * (size_t)MT * (np + 4);
-}
+struct RowsSmem {
+  static constexpr int TILE = DA * 128;  // 64 rows x DA bf16
+  // Q | G | K chunks 0..3 | V chunks 0..3 | row reductions (3 x 2 x 64 fp32)
+  // | mbarriers (Q, G, K 0..3, V 0..3). Q and G take the second warpgroup's
+  // dq partial (64 x DA fp32) once both products that read them are done.
+  static constexpr int RED = 10 * TILE;
+  static constexpr int BARS = RED + 3 * 2 * 64 * 4;
+  static constexpr int BYTES = BARS + 8 * 10;
+};
 
-// Query-tile kernel. Shared memory: Qs, Gs, KV [64][DA+8] bf16 | Kt [DA][72]
-// bf16 | S [64][np+4] fp32 (scores, then p).
 template <int DA>
-__global__ void __launch_bounds__(MTHREADS)
-bwd_rows_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-             const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dq,
-             float* __restrict__ stats, float* __restrict__ part, int nb, int na, int n,
-             int causal, float scale) {
-  constexpr int LDA = DA + 8;
-  constexpr int LDT = MKT + 8;
+struct KeysSmem {
+  static constexpr int TILE = DA * 128;
+  // K | V | Q ring (2) | G ring (2) | stats ring (2 x 3 x 64 fp32) | mbarriers
+  static constexpr int STATS = 6 * TILE;
+  static constexpr int BARS = STATS + 2 * 3 * 64 * 4;
+  static constexpr int BYTES = BARS + 8 * 3;
+};
+
+// Query-tile kernel: two warpgroups per (64 query rows, head, run of
+// attention blocks); warpgroup w owns key chunks 2w and 2w + 1, so each
+// thread holds 64 scores (then p) and 64 of dp = g v^T in registers, and the
+// row reductions (max, sum, rowsum(dp p)) meet in shared memory. dp is
+// computed once. ds goes to the run's dbias plane (written by the run's
+// first block, added to by the others, in block order) and, rounded, into
+// the register A operand of dq = ds k; the two warpgroups' dq partials are
+// added through shared memory. Each block of the run loads its tiles anew:
+// the 160 KB of Q, G, K, V (at DA = 128) leave no room for a second set.
+template <int DA>
+__global__ void __launch_bounds__(256, 1)
+bwd_rows_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+               const float* __restrict__ bias, __nv_bfloat16* __restrict__ dq,
+               float* __restrict__ stats, float* __restrict__ part, int nb, int na, int n,
+               int causal, float scale) {
+  using namespace lvt_hopper;
+  using S = RowsSmem<DA>;
   constexpr int KSTEPS = DA / 16;
-  constexpr int DTILES = DA / 8;
+  constexpr int HALVES = DA / 64;
+  constexpr int HALF = 64 * TILE_ROW_BYTES;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Gs = Qs + MT * LDA;
-  __nv_bfloat16* KV = Gs + MT * LDA;
-  __nv_bfloat16* Kt = KV + MT * LDA;
-  float* S = reinterpret_cast<float*>(Kt + DA * LDT);
+  extern __shared__ __align__(1024) unsigned char tile_smem[];
+  unsigned char* smem = tile_smem;
+  if (smem_u32(smem) & 1023) __trap();
+  unsigned char* Qs = smem;
+  unsigned char* Gs = smem + S::TILE;
+  unsigned char* Ks = smem + 2 * S::TILE;
+  unsigned char* Vs = smem + 6 * S::TILE;
+  float* red = reinterpret_cast<float*>(smem + S::RED);  // [3][2][64]
+  float* xq = reinterpret_cast<float*>(smem);            // dq partial, over Q and G
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::BARS);  // Q, G, K 0..3, V 0..3
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * MT, a = blockIdx.y, blk = blockIdx.z;
-  const size_t head = ((size_t)blk * na + a) * (size_t)n * DA;
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int w = wt / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int qt = blockIdx.x, q0 = qt * 64, a = blockIdx.y;
+  const int planes = min(nb, DBIAS_PLANES);
+  const int b0 = (int)((long)blockIdx.z * nb / planes), b1 = (int)((long)(blockIdx.z + 1) * nb / planes);
+  const int nkt = (n + 63) / 64, np = nkt * 64;
+  const int kend = causal ? min(nkt, qt + 1) : nkt;
   const float* bh = bias + (size_t)a * n * n;
-  const int nkt = (n + MKT - 1) / MKT;
-  const int np = nkt * MKT;
-  const int lds = np + 4;
-  const int wr = warp * 16;                // this warp's first row in the tile
-  const int r_lo = q0 + wr + g8, r_hi = r_lo + 8;
-  float* part_h = part + ((size_t)blk * na + a) * (size_t)n * n;
+  float* ph = part + ((size_t)blockIdx.z * na + a) * n * n;
 
-  load_rows<DA>(Qs, LDA, q + head, q0, n);
-  load_rows<DA>(Gs, LDA, g + head, q0, n);
-
-  // ---- S = q k^T * scale + bias, causal fill; keys past n are -inf
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * MKT;
-    if (causal && k0 >= q0 + MT) {
-      for (int i = tid; i < MT * MKT; i += MTHREADS) {
-        const int r = i / MKT, c = k0 + i % MKT;
-        S[r * lds + c] = c < n ? -1e4f : -INFINITY;
-      }
-      continue;  // block-uniform
-    }
-    __syncthreads();  // previous readers of KV are done
-    load_rows<DA>(KV, LDA, k + head, k0, n);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < MKT / 8; ++j) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* kr = KV + (j * 8 + g8) * LDA + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t fa[4];
-        load_a(fa, Qs + wr * LDA, LDA, kk, g8, t);
-        mma_bf16(acc, fa, ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r_lo : r_hi;
-        const int c = k0 + j * 8 + 2 * t + (e & 1);
-        float x = -INFINITY;
-        if (c < n) {
-          x = 0.f;
-          if (r < n) {
-            x = acc[e] * scale + bh[(size_t)r * n + c];
-            if (causal && c > r) x = -1e4f;
-          }
-        }
-        S[(r - q0) * lds + c] = x;
-      }
-    }
+  if (tid == 0) {
+    for (int i = 0; i < 10; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // ---- softmax in place, one warp per row (each warp takes its own 16 rows)
-  for (int rr = wr; rr < wr + 16; ++rr) {
-    float* row = S + rr * lds;
-    const int gr = q0 + rr;
-    if (gr >= n) {
-      for (int c = lane; c < np; c += 32) row[c] = 0.f;
-      continue;
-    }
-    float m = -INFINITY;
-    for (int c = lane; c < n; c += 32) m = fmaxf(m, row[c]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float e = expf(row[c] - m);
-      row[c] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int c = lane; c < np; c += 32) row[c] = c < n ? row[c] / sum : 0.f;
-    if (lane == 0) {
-      stats[stat_index(0, blk, nb, na, a, n, gr)] = m;
-      stats[stat_index(1, blk, nb, na, a, n, gr)] = sum;
-    }
-  }
-  __syncwarp();
-
-  // ---- D = rowsum(dp * p) for rows r_lo, r_hi (dp = g v^T, not stored)
-  float d_lo = 0.f, d_hi = 0.f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * MKT;
-    if (causal && k0 >= q0 + MT) continue;
-    __syncthreads();
-    load_rows<DA>(KV, LDA, v + head, k0, n);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < MKT / 8; ++j) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* vr = KV + (j * 8 + g8) * LDA + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t fa[4];
-        load_a(fa, Gs + wr * LDA, LDA, kk, g8, t);
-        mma_bf16(acc, fa, ld32(vr + kk * 16), ld32(vr + kk * 16 + 8));
+  for (int blk = b0; blk < b1; ++blk) {
+    const uint32_t par = (blk - b0) & 1;
+    const int plane = blk * na + a;
+    if (tid == 0) {
+      fence_proxy_async();  // the dq partial was written over Q and G
+      mbar_expect_tx(&bars[0], S::TILE);
+      tma_tile<DA>(Qs, &qmap, &bars[0], q0, plane);
+      for (int c = 0; c < kend; ++c) {
+        mbar_expect_tx(&bars[2 + c], S::TILE);
+        tma_tile<DA>(Ks + c * S::TILE, &kmap, &bars[2 + c], 64 * c, plane);
       }
-      const int c = k0 + j * 8 + 2 * t;
-      d_lo += acc[0] * S[(wr + g8) * lds + c] + acc[1] * S[(wr + g8) * lds + c + 1];
-      d_hi += acc[2] * S[(wr + g8 + 8) * lds + c] + acc[3] * S[(wr + g8 + 8) * lds + c + 1];
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {  // a row lies across the 4 lanes of a quad
-    d_lo += __shfl_xor_sync(0xffffffffu, d_lo, o);
-    d_hi += __shfl_xor_sync(0xffffffffu, d_hi, o);
-  }
-  if (t == 0) {
-    if (r_lo < n) stats[stat_index(2, blk, nb, na, a, n, r_lo)] = d_lo;
-    if (r_hi < n) stats[stat_index(2, blk, nb, na, a, n, r_hi)] = d_hi;
-  }
-
-  // ---- ds = p (dp - D), 0 where masked; to the dbias scratch; dq += ds_io k
-  float o[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * MKT;
-    if (causal && k0 >= q0 + MT) {  // masked tile: ds = 0
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r_lo : r_hi;
-        if (r >= n) continue;
-        for (int c = k0 + 2 * t + (e & 1); c < k0 + MKT && c < n; c += 8)
-          part_h[(size_t)r * n + c] = 0.f;
+      mbar_expect_tx(&bars[1], S::TILE);
+      tma_tile<DA>(Gs, &gmap, &bars[1], q0, plane);
+      for (int c = 0; c < kend; ++c) {
+        mbar_expect_tx(&bars[6 + c], S::TILE);
+        tma_tile<DA>(Vs + c * S::TILE, &vmap, &bars[6 + c], 64 * c, plane);
       }
-      continue;
     }
-    __syncthreads();
-    load_rows<DA>(KV, LDA, v + head, k0, n);
-    load_rows_t<DA>(Kt, LDT, k + head, k0, n);
-    __syncthreads();
+
+    // ---- S = q k^T and dp = g v^T for this warpgroup's two key chunks,
+    // one wgmma stage per chunk
+    float s[2][32], dp[2][32];
+    mbar_wait(&bars[0], par);
+    mbar_wait(&bars[1], par);
 #pragma unroll
-    for (int jj = 0; jj < MKT / 16; ++jj) {
-      uint32_t fds[4];
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = 2 * wg + cc;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = 2 * jj + h;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* vr = KV + (j * 8 + g8) * LDA + 2 * t;
+      for (int i = 0; i < 32; ++i) s[cc][i] = dp[cc][i] = 0.f;
+      if (c < kend) {
+        mbar_wait(&bars[2 + c], par);
+        mbar_wait(&bars[6 + c], par);
+        fence_regs(s[cc]);
+        fence_regs(dp[cc]);
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
-          uint32_t fa[4];
-          load_a(fa, Gs + wr * LDA, LDA, kk, g8, t);
-          mma_bf16(acc, fa, ld32(vr + kk * 16), ld32(vr + kk * 16 + 8));
+          const int off = (kk / 4) * HALF + (kk % 4) * 32;
+          wgmma_ss(s[cc], desc(Qs + off), desc(Ks + c * S::TILE + off));
+          wgmma_ss(dp[cc], desc(Gs + off), desc(Vs + c * S::TILE + off));
         }
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e < 2 ? r_lo : r_hi;
-          const int c = k0 + j * 8 + 2 * t + (e & 1);
-          const float p = S[(r - q0) * lds + c];
-          ds[e] = 0.f;
-          if (r < n && c < n && !(causal && c > r)) ds[e] = p * (acc[e] - (e < 2 ? d_lo : d_hi));
-          if (r < n && c < n) part_h[(size_t)r * n + c] = ds[e];
-        }
-        fds[2 * h] = pack_bf16(ds[0], ds[1]);
-        fds[2 * h + 1] = pack_bf16(ds[2], ds[3]);
-      }
-      // A fragment of ds (16 rows x keys 16jj..16jj+15): tiles 2jj and 2jj+1
-      const uint32_t fa[4] = {fds[0], fds[1], fds[2], fds[3]};
-#pragma unroll
-      for (int d = 0; d < DTILES; ++d) {
-        const __nv_bfloat16* kr = Kt + (d * 8 + g8) * LDT + jj * 16 + 2 * t;
-        mma_bf16(o[d], fa, ld32(kr), ld32(kr + 8));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s[cc]);
+        fence_regs(dp[cc]);
       }
     }
-  }
 
-  __nv_bfloat16* dqh = dq + head;
+    // ---- scale, bias, causal fill (-1e4 after the bias); keys past n -inf,
+    // rows past n 0
+    const int r_lo = acc_row(0, w, g), r_hi = r_lo + 8;  // rows of the tile
 #pragma unroll
-  for (int d = 0; d < DTILES; ++d) {
-    const int c = d * 8 + 2 * t;
-    if (r_lo < n)
-      *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)r_lo * DA + c) =
-          __floats2bfloat162_rn(o[d][0] * scale, o[d][1] * scale);
-    if (r_hi < n)
-      *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)r_hi * DA + c) =
-          __floats2bfloat162_rn(o[d][2] * scale, o[d][3] * scale);
-  }
-}
-
-template <int DA>
-constexpr size_t keys_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (4 * (size_t)MT * (DA + 8) + 2 * (size_t)DA * (MKT + 8)) +
-         sizeof(float) * 3 * MKT;
-}
-
-// Key-tile kernel. Shared memory: Ks, Vs, Qs, Gs [64][DA+8] bf16 | Qt, Gt
-// [DA][72] bf16 | Ms, Ls, Ds [64] fp32. Each warp owns 16 keys; their dk and
-// dv sit in registers while the block walks the query tiles.
-template <int DA>
-__global__ void __launch_bounds__(MTHREADS)
-bwd_keys_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-             const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dk,
-             __nv_bfloat16* __restrict__ dv, const float* __restrict__ stats, int nb, int na,
-             int n, int causal, float scale) {
-  constexpr int LDA = DA + 8;
-  constexpr int LDT = MKT + 8;
-  constexpr int KSTEPS = DA / 16;
-  constexpr int DTILES = DA / 8;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + MT * LDA;
-  __nv_bfloat16* Qs = Vs + MT * LDA;
-  __nv_bfloat16* Gs = Qs + MKT * LDA;
-  __nv_bfloat16* Qt = Gs + MKT * LDA;
-  __nv_bfloat16* Gt = Qt + DA * LDT;
-  float* Ms = reinterpret_cast<float*>(Gt + DA * LDT);
-  float* Ls = Ms + MKT;
-  float* Ds = Ls + MKT;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * MT, a = blockIdx.y, blk = blockIdx.z;
-  const size_t head = ((size_t)blk * na + a) * (size_t)n * DA;
-  const float* bh = bias + (size_t)a * n * n;
-  const int wk = warp * 16;  // this warp's first key in the tile
-  const int c_lo = k0 + wk + g8, c_hi = c_lo + 8;
-
-  load_rows<DA>(Ks, LDA, k + head, k0, n);
-  load_rows<DA>(Vs, LDA, v + head, k0, n);
-
-  float ak[DTILES][4], av[DTILES][4];
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = 2 * wg + cc;
 #pragma unroll
-  for (int d = 0; d < DTILES; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[d][e] = av[d][e] = 0.f;
-
-  for (int r0 = 0; r0 < n; r0 += MKT) {
-    if (causal && r0 + MKT <= k0) continue;  // block-uniform: all masked
-    __syncthreads();  // previous readers of the row tiles are done
-    load_rows<DA>(Qs, LDA, q + head, r0, n);
-    load_rows<DA>(Gs, LDA, g + head, r0, n);
-    load_rows_t<DA>(Qt, LDT, q + head, r0, n);
-    load_rows_t<DA>(Gt, LDT, g + head, r0, n);
-    for (int e = tid; e < MKT; e += MTHREADS) {
-      const bool in = r0 + e < n;
-      Ms[e] = in ? stats[stat_index(0, blk, nb, na, a, n, r0 + e)] : 0.f;
-      Ls[e] = in ? stats[stat_index(1, blk, nb, na, a, n, r0 + e)] : 1.f;
-      Ds[e] = in ? stats[stat_index(2, blk, nb, na, a, n, r0 + e)] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ch = 0; ch < MKT / 16; ++ch) {  // 16 query rows per step
-      uint32_t fp[4], fds[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rt = ch * 16 + h * 8;  // first row (in the tile) of this 8-row tile
-        float sacc[4] = {0.f, 0.f, 0.f, 0.f}, dacc[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* qr = Qs + (rt + g8) * LDA + 2 * t;
-        const __nv_bfloat16* gr = Gs + (rt + g8) * LDA + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          uint32_t fa[4];
-          load_a(fa, Ks + wk * LDA, LDA, kk, g8, t);
-          mma_bf16(sacc, fa, ld32(qr + kk * 16), ld32(qr + kk * 16 + 8));
-          load_a(fa, Vs + wk * LDA, LDA, kk, g8, t);
-          mma_bf16(dacc, fa, ld32(gr + kk * 16), ld32(gr + kk * 16 + 8));
-        }
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = e < 2 ? c_lo : c_hi;           // key
-          const int rl = rt + 2 * t + (e & 1), r = r0 + rl;  // query row
-          p[e] = 0.f;
-          ds[e] = 0.f;
-          if (r < n && c < n) {
-            const bool masked = causal && c > r;
-            const float x = masked ? -1e4f : sacc[e] * scale + bh[(size_t)r * n + c];
-            p[e] = expf(x - Ms[rl]) / Ls[rl];
-            if (!masked) ds[e] = p[e] * (dacc[e] - Ds[rl]);
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i & 2) ? r_hi : r_lo, gr = q0 + r;
+        const int col = 64 * c + acc_col(i / 4, i % 4, t);
+        float x = -INFINITY;
+        if (col < n) {
+          x = 0.f;
+          if (gr < n) {
+            x = c < kend ? s[cc][i] * scale + bh[(size_t)gr * n + col] : -1e4f;
+            if (causal && col > gr) x = -1e4f;
           }
         }
-        fp[2 * h] = pack_bf16(p[0], p[1]);
-        fp[2 * h + 1] = pack_bf16(p[2], p[3]);
-        fds[2 * h] = pack_bf16(ds[0], ds[1]);
-        fds[2 * h + 1] = pack_bf16(ds[2], ds[3]);
+        s[cc][i] = x;
+      }
+    }
+
+    // ---- row reductions across the quad, then across the two warpgroups
+    auto reduce2 = [&](float lo, float hi, int which, bool is_max) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float l2 = __shfl_xor_sync(0xffffffffu, lo, o);
+        const float h2 = __shfl_xor_sync(0xffffffffu, hi, o);
+        lo = is_max ? fmaxf(lo, l2) : lo + l2;
+        hi = is_max ? fmaxf(hi, h2) : hi + h2;
+      }
+      float* rd = red + which * 128;
+      if (t == 0) {
+        rd[wg * 64 + r_lo] = lo;
+        rd[wg * 64 + r_hi] = hi;
+      }
+      __syncthreads();
+      const float2 out = is_max ? make_float2(fmaxf(rd[r_lo], rd[64 + r_lo]),
+                                              fmaxf(rd[r_hi], rd[64 + r_hi]))
+                                : make_float2(rd[r_lo] + rd[64 + r_lo], rd[r_hi] + rd[64 + r_hi]);
+      return out;
+    };
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) m_hi = fmaxf(m_hi, s[cc][i]);
+        else m_lo = fmaxf(m_lo, s[cc][i]);
+      }
+    const float2 m = reduce2(m_lo, m_hi, 0, true);
+    float l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[cc][i] = expf(s[cc][i] - ((i & 2) ? m.y : m.x));
+        if (i & 2) l_hi += s[cc][i];
+        else l_lo += s[cc][i];
+      }
+    const float2 l = reduce2(l_lo, l_hi, 1, false);
+    float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[cc][i] /= (i & 2) ? l.y : l.x;  // p in fp32
+        if (i & 2) d_hi += dp[cc][i] * s[cc][i];
+        else d_lo += dp[cc][i] * s[cc][i];
+      }
+    const float2 d = reduce2(d_lo, d_hi, 2, false);
+    if (wg == 0 && t == 0) {
+      const size_t st = (size_t)blk * na + a;
+      const size_t per = (size_t)nb * na * np;
+      if (q0 + r_lo < n) {
+        stats[st * np + q0 + r_lo] = m.x;
+        stats[per + st * np + q0 + r_lo] = l.x;
+        stats[2 * per + st * np + q0 + r_lo] = d.x;
+      }
+      if (q0 + r_hi < n) {
+        stats[st * np + q0 + r_hi] = m.y;
+        stats[per + st * np + q0 + r_hi] = l.y;
+        stats[2 * per + st * np + q0 + r_hi] = d.y;
+      }
+    }
+
+    // ---- ds = p (dp - D), 0 where masked; into the dbias plane; rounded,
+    // the A operand of dq = ds k
+    uint32_t fa[2][4][4];
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = 2 * wg + cc;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i & 2) ? r_hi : r_lo, gr = q0 + r;
+        const int col = 64 * c + acc_col(i / 4, i % 4, t);
+        float ds = 0.f;
+        if (gr < n && col < n && c < kend && !(causal && col > gr))
+          ds = s[cc][i] * (dp[cc][i] - ((i & 2) ? d.y : d.x));
+        if (gr < n && col < n) {
+          float* dst = ph + (size_t)gr * n + col;
+          *dst = blk == b0 ? ds : *dst + ds;
+        }
+        dp[cc][i] = ds;
       }
 #pragma unroll
-      for (int d = 0; d < DTILES; ++d) {
-        const __nv_bfloat16* gtr = Gt + (d * 8 + g8) * LDT + ch * 16 + 2 * t;
-        const __nv_bfloat16* qtr = Qt + (d * 8 + g8) * LDT + ch * 16 + 2 * t;
-        mma_bf16(av[d], fp, ld32(gtr), ld32(gtr + 8));
-        mma_bf16(ak[d], fds, ld32(qtr), ld32(qtr + 8));
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(fa[cc][kk], dp[cc], kk);
+    }
+    float o[HALVES][32];
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {  // one wgmma stage per chunk
+      const int c = 2 * wg + cc;
+      if (c < kend) {
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) fence_regs(o[h]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(fa[cc][kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int h = 0; h < HALVES; ++h)
+            wgmma_rs_t(o[h], fa[cc][kk],
+                       desc(Ks + c * S::TILE + h * HALF + kk * 16 * TILE_ROW_BYTES));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) fence_regs(o[h]);
       }
+    }
+
+    // ---- dq = (partial of chunks 0, 1) + (partial of chunks 2, 3)
+    __syncthreads();  // both warpgroups are done with Q and G
+    if (wg == 1) {
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xq[(h * 32 + i) * 128 + wt] = o[h][i];
+    }
+    __syncthreads();
+    if (wg == 0) {
+      __nv_bfloat16* dqh = dq + (size_t)plane * n * DA;
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int i = 4 * j + 2 * hi, gr = q0 + (hi ? r_hi : r_lo);
+            const float x0 = o[h][i] + xq[(h * 32 + i) * 128 + wt];
+            const float x1 = o[h][i + 1] + xq[(h * 32 + i + 1) * 128 + wt];
+            if (gr < n)
+              *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)gr * DA + 64 * h +
+                                                 acc_col(j, 0, t)) =
+                  __floats2bfloat162_rn(x0 * scale, x1 * scale);
+          }
+    }
+    __syncthreads();  // every buffer is free for the next block's loads
+  }
+}
+
+// Key-tile kernel: one warpgroup per (64 keys, head, attention block). dk
+// and dv (64 x DA fp32 each) stay in registers while the block walks the
+// query tiles the mask leaves, two in flight (Q, G and the row statistics
+// by TMA into a ring). Per tile it recomputes s^T = k q^T and dp^T = v g^T,
+// forms p and ds from the statistics, and feeds their bf16 roundings as
+// register A operands to dv += p^T g and dk += ds^T q (g and q read as
+// wgmma's transposed B).
+template <int DA>
+__global__ void __launch_bounds__(128)
+bwd_keys_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+               const float* __restrict__ bias, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, const float* __restrict__ stats, int nb, int na,
+               int n, int causal, float scale) {
+  using namespace lvt_hopper;
+  using S = KeysSmem<DA>;
+  constexpr int KSTEPS = DA / 16;
+  constexpr int HALVES = DA / 64;
+  constexpr int HALF = 64 * TILE_ROW_BYTES;
+
+  extern __shared__ __align__(1024) unsigned char tile_smem[];
+  unsigned char* smem = tile_smem;
+  if (smem_u32(smem) & 1023) __trap();
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + S::TILE;
+  unsigned char* Qs = smem + 2 * S::TILE;  // [2] tiles
+  unsigned char* Gs = smem + 4 * S::TILE;  // [2] tiles
+  float* St = reinterpret_cast<float*>(smem + S::STATS);  // [2][3][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::BARS);  // K+V, row slot 0, 1
+
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int kt = blockIdx.x, k0 = kt * 64, a = blockIdx.y;
+  const int plane = blockIdx.z * na + a;
+  const int nrt = (n + 63) / 64, np = nrt * 64;
+  const int rt0 = causal ? kt : 0;  // earlier query tiles precede every key: masked
+  const float* bh = bias + (size_t)a * n * n;
+  const size_t per = (size_t)nb * na * np;
+  const float* sh = stats + (size_t)plane * np;
+
+  auto load_rows = [&](int rt, int slot) {
+    uint64_t* bar = &bars[1 + slot];
+    mbar_expect_tx(bar, 2 * S::TILE + 3 * 64 * 4);
+    tma_tile<DA>(Qs + slot * S::TILE, &qmap, bar, 64 * rt, plane);
+    tma_tile<DA>(Gs + slot * S::TILE, &gmap, bar, 64 * rt, plane);
+    for (int k = 0; k < 3; ++k) bulk_load(St + (slot * 3 + k) * 64, sh + k * per + 64 * rt, 256, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+    mbar_expect_tx(&bars[0], 2 * S::TILE);
+    tma_tile<DA>(Ks, &kmap, &bars[0], k0, plane);
+    tma_tile<DA>(Vs, &vmap, &bars[0], k0, plane);
+    for (int i = 0; i < 2 && rt0 + i < nrt; ++i) load_rows(rt0 + i, i);
+  }
+  __syncthreads();
+
+  float ak[HALVES][32], av[HALVES][32];
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ak[h][i] = av[h][i] = 0.f;
+  const int c_lo = k0 + acc_row(0, w, g), c_hi = c_lo + 8;  // this thread's keys
+  mbar_wait(&bars[0], 0);
+
+  for (int rt = rt0, it = 0; rt < nrt; ++rt, ++it) {
+    const int slot = it & 1, r0 = 64 * rt;
+    mbar_wait(&bars[1 + slot], (it >> 1) & 1);
+    const unsigned char* Qt = Qs + slot * S::TILE;
+    const unsigned char* Gt = Gs + slot * S::TILE;
+    const float* Ms = St + slot * 3 * 64;
+
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int off = (kk / 4) * HALF + (kk % 4) * 32;
+      wgmma_ss(st, desc(Ks + off), desc(Qt + off));
+      wgmma_ss(dpt, desc(Vs + off), desc(Gt + off));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p and ds of (key, query row): keys are the accumulator's rows, query
+    // rows its columns
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = (i & 2) ? c_hi : c_lo;
+      const int rl = acc_col(i / 4, i % 4, t), r = r0 + rl;
+      float p = 0.f, ds = 0.f;
+      if (r < n && c < n) {
+        const bool masked = causal && c > r;
+        const float x = masked ? -1e4f : st[i] * scale + bh[(size_t)r * n + c];
+        p = expf(x - Ms[rl]) / Ms[64 + rl];
+        if (!masked) ds = p * (dpt[i] - Ms[128 + rl]);
+      }
+      st[i] = p;
+      dpt[i] = ds;
+    }
+    uint32_t fp[4][4], fds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a(fp[kk], st, kk);
+      acc_to_a(fds[kk], dpt, kk);
+    }
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) {
+      fence_regs(av[h]);
+      fence_regs(ak[h]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(fp[kk]);
+      fence_regs(fds[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) {
+        const int off = h * HALF + kk * 16 * TILE_ROW_BYTES;
+        wgmma_rs_t(av[h], fp[kk], desc(Gt + off));
+        wgmma_rs_t(ak[h], fds[kk], desc(Qt + off));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) {
+      fence_regs(av[h]);
+      fence_regs(ak[h]);
+    }
+    __syncthreads();  // every thread is done with this slot
+    if (tid == 0 && rt + 2 < nrt) {
+      fence_proxy_async();  // the statistics were read by generic loads
+      load_rows(rt + 2, slot);
     }
   }
 
+  const size_t head = (size_t)plane * n * DA;
 #pragma unroll
-  for (int d = 0; d < DTILES; ++d) {
-    const int c = d * 8 + 2 * t;
-    if (c_lo < n) {
-      *reinterpret_cast<__nv_bfloat162*>(dv + head + (size_t)c_lo * DA + c) =
-          __floats2bfloat162_rn(av[d][0], av[d][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dk + head + (size_t)c_lo * DA + c) =
-          __floats2bfloat162_rn(ak[d][0] * scale, ak[d][1] * scale);
-    }
-    if (c_hi < n) {
-      *reinterpret_cast<__nv_bfloat162*>(dv + head + (size_t)c_hi * DA + c) =
-          __floats2bfloat162_rn(av[d][2], av[d][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dk + head + (size_t)c_hi * DA + c) =
-          __floats2bfloat162_rn(ak[d][2] * scale, ak[d][3] * scale);
-    }
-  }
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int i = 4 * j + 2 * hi, c = hi ? c_hi : c_lo;
+        const size_t off = head + (size_t)c * DA + 64 * h + acc_col(j, 0, t);
+        if (c < n) {
+          *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(av[h][i], av[h][i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+              __floats2bfloat162_rn(ak[h][i] * scale, ak[h][i + 1] * scale);
+        }
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -746,34 +815,37 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 }
 
 template <int DA>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* bias,
-                       const void* g, void* dq, void* dk, void* dv, float* stats,
-                       float* part, int nb, int na, int n, int causal, float scale,
-                       cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                         const void* g, void* dq, void* dk, void* dv, float* stats, float* part,
+                         int nb, int na, int n, int causal, float scale, cudaStream_t stream) {
+  using namespace lvt_hopper;
   using bf = __nv_bfloat16;
-  const int np = (n + MKT - 1) / MKT * MKT;
-  const size_t rows_smem = rows_mma_smem_bytes<DA>(np);
-  cudaError_t err = set_smem(bwd_rows_mma<DA>, rows_smem);
+  CUtensorMap mq, mk, mv, mg;
+  const uint64_t planes = (uint64_t)nb * na;
+  if (!make_bf16_map(&mq, q, planes, n, DA) || !make_bf16_map(&mk, k, planes, n, DA) ||
+      !make_bf16_map(&mv, v, planes, n, DA) || !make_bf16_map(&mg, g, planes, n, DA))
+    return cudaErrorInvalidValue;
+  const int tiles = (n + 63) / 64;
+  cudaError_t err = set_smem_max(bwd_rows_wgmma<DA>, RowsSmem<DA>::BYTES);
   if (err != cudaSuccess) return err;
-  bwd_rows_mma<DA><<<dim3((n + MT - 1) / MT, na, nb), MTHREADS, rows_smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), bias,
-      static_cast<const bf*>(g), static_cast<bf*>(dq), stats, part, nb, na, n, causal, scale);
+  bwd_rows_wgmma<DA><<<dim3(tiles, na, nb < DBIAS_PLANES ? nb : DBIAS_PLANES), 256,
+                       RowsSmem<DA>::BYTES, stream>>>(mq, mk, mv, mg, bias, static_cast<bf*>(dq),
+                                                      stats, part, nb, na, n, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr size_t keys_smem = keys_mma_smem_bytes<DA>();
-  err = set_smem(bwd_keys_mma<DA>, keys_smem);
+  err = set_smem_max(bwd_keys_wgmma<DA>, KeysSmem<DA>::BYTES);
   if (err != cudaSuccess) return err;
-  bwd_keys_mma<DA><<<dim3((n + MT - 1) / MT, na, nb), MTHREADS, keys_smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), bias,
-      static_cast<const bf*>(g), static_cast<bf*>(dk), static_cast<bf*>(dv), stats, nb, na, n,
-      causal, scale);
+  bwd_keys_wgmma<DA><<<dim3(tiles, na, nb), 128, KeysSmem<DA>::BYTES, stream>>>(
+      mq, mk, mv, mg, bias, static_cast<bf*>(dk), static_cast<bf*>(dv), stats, nb, na, n, causal,
+      scale);
   return cudaGetLastError();
 }
 
 
 // dtype: 0 = float32, 1 = bfloat16. Launches the query-tile, key-tile and
 // dbias kernels on `stream`; returns the first failing cudaError_t, or 0.
-// stats (3 * nb * na * n floats) and part (nb * na * n * n floats) are
+// stats (3 * nb * na * np floats, np = n rounded up to 64) and part
+// (planes * na * n * n floats, planes = min(nb, 8) in bf16, nb in fp32) are
 // scratch the caller allocates.
 inline int block_attention_bwd(const void* q, const void* k, const void* v,
                                        const float* bias, const void* g, void* dq, void* dk,
@@ -784,11 +856,11 @@ inline int block_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 1 && n <= 256 && da == 128)
-    err = launch_mma<128>(q, k, v, bias, g, dq, dk, dv, stats, part, nb, na, n, causal, scale,
-                          stream);
+    err = launch_wgmma<128>(q, k, v, bias, g, dq, dk, dv, stats, part, nb, na, n, causal, scale,
+                            stream);
   else if (dtype == 1 && n <= 256 && da == 64)
-    err = launch_mma<64>(q, k, v, bias, g, dq, dk, dv, stats, part, nb, na, n, causal, scale,
-                         stream);
+    err = launch_wgmma<64>(q, k, v, bias, g, dq, dk, dv, stats, part, nb, na, n, causal, scale,
+                           stream);
   else if (dtype == 0 && (da == 128 || da == 64)) {
     const float* fq = static_cast<const float*>(q);
     const float* fk = static_cast<const float*>(k);
@@ -807,7 +879,8 @@ inline int block_attention_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   const size_t per = (size_t)na * n * n;
   const int blocks = (int)((per + 255) / 256 < 4096 ? (per + 255) / 256 : 4096);
-  dbias_reduce<<<blocks, 256, 0, stream>>>(part, dbias, nb, per);
+  const int planes = dtype == 1 && nb > DBIAS_PLANES ? DBIAS_PLANES : nb;
+  dbias_reduce<<<blocks, 256, 0, stream>>>(part, dbias, planes, per);
   return (int)cudaGetLastError();
 }
 

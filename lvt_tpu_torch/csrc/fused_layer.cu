@@ -57,6 +57,7 @@
 // <= 1024 in fp32 (kernels 1 and 10); any nb.
 
 #include "block_attention.cuh"
+#include "mma_tiles.cuh"
 #include "block_attention_bwd.cuh"
 
 namespace {
@@ -1024,8 +1025,9 @@ extern "C" int lvt_ffn_half_bwd(const void* x2, const void* g, const void* fln_s
 // flat QKV weight both ways; proj (nh da, d) and bias (nh, n, n): their rows.
 // Outputs: dy (nb, n, d) io dtype; dwqkv (d, 3 nh da), dproj (nh da, d), dbias
 // (nh, n, n) fp32. Scratch: y (R, d), qkv and dqkv (3, nb, nh, n, da), do_o
-// (2, nb, nh, n, da) in the io dtype; stats (3, nb, nh, n), part_b
-// (nb, nh, n, n), part_w (splits, d, 3 nh da) fp32.
+// (2, nb, nh, n, da) in the io dtype; stats and part_b as kernel 10 takes
+// them (block_attention_bwd.cuh, for nh heads), part_w (splits, d, 3 nh da)
+// fp32.
 extern "C" int lvt_attn_half_bwd(const void* x, const void* dx2, const void* ln_s,
                                  const void* ln_b, const void* wqkvT, const void* wqkv,
                                  const void* proj, const float* bias, void* dy, float* dwqkv,

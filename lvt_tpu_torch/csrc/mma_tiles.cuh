@@ -1,16 +1,12 @@
 #pragma once
-// bf16 tensor-core primitives shared by the attention kernels
-// (block_attention.cuh, block_attention_bwd.cuh) and the fused layer
-// (fused_layer.cu): one mma.sync m16n8k16 tile, its fragment loads from
-// shared memory, and the rounding of two fp32 values into one register.
+// bf16 tensor-core primitives of the fused layer (fused_layer.cu): one
+// mma.sync m16n8k16 tile and its fragment loads from shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace lvt_mma {
-
-constexpr int CH = 8;  // bf16 per 16-byte chunk
 
 // D += A B for one m16n8k16 tile: A 16x16 bf16 row-major in 4 registers,
 // B 16x8 bf16 in 2, D 16x8 fp32 in 4 (PTX ISA, "mma.m16n8k16" fragments:
@@ -28,12 +24,6 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32
 // two consecutive bf16 of shared memory as one fragment register
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// (lo, hi) rounded to bf16 (nearest even) in one register, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // A fragment (16 rows x 16 of k) at kk-th k-step of a row-major bf16 tile

@@ -59,23 +59,35 @@ def collate(samples: List[dict]) -> dict:
 class _MappedDataset(torch.utils.data.Dataset):
     """Dataset dicts through the mapper; a sample the mapper refuses (None)
     is replaced by another drawn at random (reference MapDataset,
-    data/common.py:37-58)."""
+    data/common.py:37-58). Each worker process draws from a generator of its
+    own, seeded in the worker from its DataLoader seed, so that workers do
+    not all replace a refused sample by the same sequence; without workers
+    one generator serves the process."""
 
     def __init__(self, dataset_dicts, mapper, max_retries=50):
         self._dicts = dataset_dicts
         self._mapper = mapper
         self._max_retries = max_retries
         self._fallback_rng = np.random.default_rng(0)
+        self._worker_rng = None  # made in the worker, on its first replacement
 
     def __len__(self):
         return len(self._dicts)
+
+    def _rng(self):
+        info = torch.utils.data.get_worker_info()
+        if info is None:
+            return self._fallback_rng
+        if self._worker_rng is None:
+            self._worker_rng = np.random.default_rng(info.seed)
+        return self._worker_rng
 
     def __getitem__(self, idx):
         for _ in range(self._max_retries):
             d = self._mapper(self._dicts[idx])
             if d is not None:
                 return d
-            idx = int(self._fallback_rng.integers(len(self._dicts)))
+            idx = int(self._rng().integers(len(self._dicts)))
         raise RuntimeError(f"Mapper failed {self._max_retries} times in a row")
 
 

@@ -178,6 +178,21 @@ def attention_core_bwd_plain(q, k, v, bias, g, causal: bool):
     return dq.to(io), dk.to(io), dv.to(io), ds.sum(dim=0).to(bias.dtype)
 
 
+DBIAS_PLANES = 8  # csrc/block_attention_bwd.cuh: bf16 dbias planes, each a run of blocks
+
+
+def bwd_scratch(nb: int, na: int, n: int, dtype, device):
+    """Kernel 10's scratch: the row statistics (3, nb, na, np), np = n
+    rounded up to 64, and the dbias planes (planes, na, n, n), one per run of
+    attention blocks in bfloat16 (at most DBIAS_PLANES) and one per block in
+    float32, all float32."""
+    np_ = (n + 63) // 64 * 64
+    planes = min(nb, DBIAS_PLANES) if dtype == torch.bfloat16 else nb
+    stats = torch.empty((3, nb, na, np_), dtype=torch.float32, device=device)
+    part = torch.empty((planes, na, n, n), dtype=torch.float32, device=device)
+    return stats, part
+
+
 def block_attention_bwd_cuda(q, k, v, bias, g, causal: bool):
     """Kernel 10 (csrc/block_attention_bwd.cuh) on CUDA tensors: the inputs
     kernel 1 takes, plus its output's cotangent g of q's shape and dtype.
@@ -188,8 +203,7 @@ def block_attention_bwd_cuda(q, k, v, bias, g, causal: bool):
     lib = LIBRARY.get()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(bias)
-    stats = torch.empty((3, nb, na, n), dtype=torch.float32, device=q.device)
-    part = torch.empty((nb, na, n, n), dtype=torch.float32, device=q.device)
+    stats, part = bwd_scratch(nb, na, n, q.dtype, q.device)
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.lvt_block_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),

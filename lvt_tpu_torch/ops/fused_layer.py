@@ -37,7 +37,7 @@ from typing import Dict
 import torch
 
 from ._lib import LIBRARY, check_launch
-from .attention import attention_core_bwd_plain, attention_core_plain
+from .attention import attention_core_bwd_plain, attention_core_plain, bwd_scratch
 
 LayerParams = Dict[str, torch.Tensor]
 
@@ -335,8 +335,7 @@ def attn_half_bwd_cuda(x, dx2, p: LayerParams, bias, causal: bool, h0: int, h1: 
     qkv = torch.empty((3, nb, nh, n, da), dtype=io, device=dev)
     do_o = torch.empty((2, nb, nh, n, da), dtype=io, device=dev)      # do, o
     dqkv = torch.empty((3, nb, nh, n, da), dtype=io, device=dev)
-    stats = torch.empty((3, nb, nh, n), dtype=torch.float32, device=dev)
-    part_b = torch.empty((nb, nh, n, n), dtype=torch.float32, device=dev)
+    stats, part_b = bwd_scratch(nb, nh, n, io, dev)
     part_w = torch.empty((splits, d, wide), dtype=torch.float32, device=dev)
     err = LIBRARY.get().lvt_attn_half_bwd(
         x.data_ptr(), dx2.data_ptr(), p["ln_scale"].data_ptr(), p["ln_bias"].data_ptr(),

@@ -12,8 +12,14 @@ pallas-live) and WEIGHT_DTYPE (native | int8 | int8-pallas) choose the
 quantized sampler, e.g. an int8 KV cache read by the int8 decode kernel:
   ... TEST.VT_SAMPLER.KV_DTYPE int8 TEST.VT_SAMPLER.ATTN_IMPL pallas
 
-The weights are random, made from --seed: loading trained .pth checkpoints
-comes with the port of the checkpoint code.
+Weights: TEST.VT_SAMPLER.VQ_VAE.{ENCODER,GENERATOR,CODEBOOK}_WEIGHTS for the
+VQ-VAE, MODEL.GENERATOR.WEIGHTS or else the latest checkpoint under
+OUTPUT_DIR for the VT, each a checkpoint of tools/train_net_torch.py or a
+training OUTPUT_DIR (lvt_tpu_torch/evaluation/vt_sampler.py). A configured
+path that does not exist raises, a reference .pth raises (its key layout is
+not ported yet); with nothing configured or found, the weights are random
+from --seed, with a warning. The VT is built on the latent grid of the
+encoded priming frames, so frames of any size the VQ-VAE takes generate.
 
 Usage:
   python scripts/generate_videos_torch.py --config-file configs/vt/DSFVT.yaml \
@@ -63,19 +69,28 @@ def load_config(config_file, opts=()):
 
 
 def build_models(cfg, seed: int, device, dtype=torch.float32, H: int = 16, W: int = 16):
-    """VQ-VAE named in TEST.VT_SAMPLER.VQ_VAE.CFG and the VT, both with random
-    weights from ``seed``. Returns (vqvae, vq_params, vq_state, vt, vt_params)."""
+    """VQ-VAE named in TEST.VT_SAMPLER.VQ_VAE.CFG and the VT on an (H, W)
+    latent grid, both with random weights from ``seed`` (no weights are read:
+    main() loads the configured ones). Returns (vqvae, vq_params, vq_state,
+    vt, vt_params)."""
     from lvt_tpu_torch.models import cast_floats
     from lvt_tpu_torch.models.vqvae import VQVAE
+
+    gen = torch.Generator().manual_seed(seed)
+    vqvae = VQVAE(load_config(cfg.TEST.VT_SAMPLER.VQ_VAE.CFG))
+    vq_params, vq_state = vqvae.init(gen, device)
+    vt, vt_params = build_vt(cfg, gen, device, H, W)
+    return vqvae, vq_params, vq_state, vt, cast_floats(vt_params, dtype)
+
+
+def build_vt(cfg, gen: torch.Generator, device, h: int, w: int):
+    """The VT on the (N_FRAMES_PER_VIDEO_TEST, h, w) latent grid, initialised
+    from ``gen``. Returns (vt, params)."""
     from lvt_tpu_torch.models.vt import VideoTransformer
 
-    vq_cfg = load_config(cfg.TEST.VT_SAMPLER.VQ_VAE.CFG)
-    gen = torch.Generator().manual_seed(seed)
-    vqvae = VQVAE(vq_cfg)
-    vq_params, vq_state = vqvae.init(gen, device)
-    vt = VideoTransformer(cfg, T=cfg.INPUT.N_FRAMES_PER_VIDEO_TEST, H=H, W=W)
-    vt_params, _ = vt.init(gen, device)
-    return vqvae, vq_params, vq_state, vt, cast_floats(vt_params, dtype)
+    vt = VideoTransformer(cfg, T=cfg.INPUT.N_FRAMES_PER_VIDEO_TEST, H=h, W=w)
+    params, _ = vt.init(gen, device)
+    return vt, params
 
 
 def _sync(device):
@@ -84,21 +99,35 @@ def _sync(device):
 
 
 @torch.no_grad()
-def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
-             greedy: bool = False):
-    """frames (b, n_prime, H, W, 3) floats in [0, 255] on the device ->
-    (videos (b, T, H, W, 3) in [0, 1], codes (b, nc, T, h, w), primed codes
-    (b, nc, n_prime, h, w), rollout seconds). The sampler's knobs come from
-    the VT's config: TEST.VT_SAMPLER.KV_DTYPE, ATTN_IMPL and WEIGHT_DTYPE
-    (SEG is accepted and ignored by the port's preallocated cache)."""
-    knobs = vt.cfg.TEST.VT_SAMPLER
-    b = frames.shape[0]
+def encode_priming(vqvae, vq_params, vq_state, frames):
+    """frames (b, n_prime, H, W, 3) floats in [0, 255] -> codes (b, nc,
+    n_prime, h, w)."""
+    b, n_prime = frames.shape[:2]
     x = frames.reshape((-1,) + frames.shape[2:])
     if vqvae.cfg.INPUT.SCALE_TO_ZEROONE:
         x = x / 255.0
     primed = vqvae.encode(vq_params, vq_state, vqvae.normalize(x))  # (b*n_prime, h, w, nc)
     h, w, nc = primed.shape[1:]
-    primed = primed.reshape(b, n_prime, h, w, nc).permute(0, 4, 1, 2, 3)
+    return primed.reshape(b, n_prime, h, w, nc).permute(0, 4, 1, 2, 3)
+
+
+@torch.no_grad()
+def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
+             greedy: bool = False, primed=None):
+    """frames (b, n_prime, H, W, 3) floats in [0, 255] on the device ->
+    (videos (b, T, H, W, 3) in [0, 255], codes (b, nc, T, h, w), primed codes
+    (b, nc, n_prime, h, w), rollout seconds). ``primed``, where given, is
+    encode_priming's result for ``frames``. The frames are decoded as
+    lvt_tpu's decode_codes_fn does: clip(denormalize(x) * 255, 0, 255) where
+    the VQ-VAE's INPUT.SCALE_TO_ZEROONE is set, else clip(denormalize(x), 0,
+    255). The sampler's knobs come from the VT's config:
+    TEST.VT_SAMPLER.KV_DTYPE, ATTN_IMPL and WEIGHT_DTYPE (SEG is accepted and
+    ignored by the port's preallocated cache)."""
+    knobs = vt.cfg.TEST.VT_SAMPLER
+    b = frames.shape[0]
+    if primed is None:
+        primed = encode_priming(vqvae, vq_params, vq_state, frames)
+    nc, _, h, w = primed.shape[1:]
     video = torch.zeros((b, nc, vt.T, h, w), dtype=torch.int64, device=frames.device)
     video[:, :, :n_prime] = primed
     _sync(frames.device)
@@ -110,30 +139,46 @@ def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
     seconds = time.perf_counter() - t0
     idx = sampled.permute(0, 2, 3, 4, 1).reshape(b * vt.T, h, w, nc)
     out = vqvae.denormalize(vqvae.decode(vq_params, vq_state, idx))
-    out = out.clamp(0.0, 1.0).reshape((b, vt.T) + out.shape[1:])
+    factor = 255.0 if vqvae.cfg.INPUT.SCALE_TO_ZEROONE else 1.0
+    out = (out * factor).clamp(0.0, 255.0).reshape((b, vt.T) + out.shape[1:])
     return out, sampled, primed, seconds
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def main(argv=None, device="cuda"):
+    """Generate as the command line says; returns generate()'s result.
+    ``device`` is the card; the tests pass "cpu" to run the same path on the
+    kernels' plain versions."""
+    from lvt_tpu_torch.evaluation.vt_sampler import load_paired_vqvae, load_vt_weights
     from lvt_tpu_torch.utils.image import save_image
 
+    args = parse_args(argv)
     cfg = load_config(args.config_file, args.opts)
-    if not torch.cuda.is_available():
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script runs the port's CUDA kernels")
-    device = torch.device("cuda")
     n_prime = cfg.TEST.VT_SAMPLER.N_PRIME
-    vqvae, vq_params, vq_state, vt, vt_params = build_models(cfg, args.seed, device)
-    print("WARNING: no trained weights are loaded; sampling with random init "
-          f"(seed {args.seed})")
-    frames = load_priming_frames(args.video_dir, n_prime)
-    print(f"Loaded {len(frames)} priming frames")
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    video, codes, primed, seconds = generate(
-        vqvae, vq_params, vq_state, vt, vt_params,
-        torch.from_numpy(frames)[None].to(device), n_prime, gen)
+    gen = torch.Generator().manual_seed(args.seed)
+
+    # the VQ-VAE and the priming codes first: the VT's grid is theirs
+    vqvae, vq_params, vq_state, _, vq_loaded = load_paired_vqvae(cfg, gen, device)
+    if not vq_loaded:
+        print(f"WARNING: no VQ-VAE weights configured; random init (seed {args.seed})")
+    frames = torch.from_numpy(load_priming_frames(args.video_dir, n_prime))[None].to(device)
+    print(f"Loaded {frames.shape[1]} priming frames")
+    primed = encode_priming(vqvae, vq_params, vq_state, frames)
+    h, w = primed.shape[-2:]
+
+    vt, vt_params = build_vt(cfg, gen, device, h, w)
+    loaded = load_vt_weights(cfg, vt_params)
+    if loaded is None:
+        print(f"WARNING: no VT weights found; sampling with random init (seed {args.seed})")
+    else:
+        vt_params = loaded
+    sample_gen = torch.Generator(device=device).manual_seed(args.seed)
+    video, codes, primed, seconds = generate(vqvae, vq_params, vq_state, vt, vt_params, frames,
+                                             n_prime, sample_gen, primed=primed)
     print(f"Sampled new video: rollout {seconds:.3f} s")
-    frames_out = (video[0] * 255.0).to(torch.uint8).cpu().numpy()
+    frames_out = video[0].to(torch.uint8).cpu().numpy()
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     for i, frame in enumerate(frames_out):
         save_image(frame, os.path.join(cfg.OUTPUT_DIR, f"{i}.png"))

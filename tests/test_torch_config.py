@@ -79,6 +79,7 @@ sys.path.insert(0, {tools!r})
 import lvt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lvt_tpu_torch.__path__, "lvt_tpu_torch.")]
 for name in names + ["generate_videos_torch", "train_net_torch", "probe_decode_kernel_torch",
+                     "ab_attention_torch", "time_attention_parts_torch",
                      "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

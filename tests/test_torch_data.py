@@ -250,6 +250,27 @@ def test_train_loader_worker_processes_equal_in_process(latent_root, monkeypatch
         assert g["video_idx"] == w["video_idx"]
 
 
+def _refuse_first(d):
+    return None if d["i"] == 0 else d["i"]
+
+
+def test_worker_processes_draw_different_replacements():
+    """A refused sample is replaced by a random draw: two worker processes
+    each replacing sample 0 draw from generators of their own (seeded from
+    their DataLoader seeds), not the same sequence; one generator serves a
+    loader without workers."""
+    import torch
+
+    dataset = tbuild._MappedDataset([{"i": i} for i in range(1000)], _refuse_first)
+    loader = torch.utils.data.DataLoader(
+        dataset, batch_size=1, sampler=[0, 0], num_workers=2, collate_fn=lambda x: x[0],
+        generator=torch.Generator().manual_seed(0))
+    first, second = list(loader)
+    assert first != second
+    in_process = tbuild._MappedDataset([{"i": i} for i in range(1000)], _refuse_first)
+    assert in_process[0] != in_process[0]  # the one generator moves on
+
+
 def test_collate_equal_and_refuses_mixed_schemas():
     samples = [{"video": np.full((2, 3), i, np.int32), "class": np.int32(i), "video_idx": i}
                for i in range(3)]

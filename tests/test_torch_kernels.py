@@ -115,6 +115,63 @@ def test_block_attention_bwd_kernel_matches_plain(cuda, dtype, causal, nb, n, da
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n,da", [(48, 64), (50, 128), (200, 64), (256, 64)])
+def test_block_attention_bf16_kernels_take_other_widths(cuda, causal, n, da):
+    """The bf16 kernels at the widths the DSFVT cases above leave out: da 64
+    at each n, and n = 50, whose bias rows TMA cannot take (their stride is
+    not a multiple of 16 bytes), so kernel 1 reads them from device memory."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, go = (torch.randn((3, 2, n, da), generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = 0.5 * torch.randn((2, n, n), generator=g, device=cuda)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(tatt.block_attention_fwd_cuda(q, k, v, bias, causal).float(),
+                               tatt.attention_core_plain(q, k, v, bias, causal).float(),
+                               atol=atol, rtol=rtol)
+    got = tatt.block_attention_bwd_cuda(q, k, v, bias, go, causal)
+    want = tatt.attention_core_bwd_plain(q, k, v, bias, go, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        torch.testing.assert_close(a.float(), b.float(), atol=2 ** -8 * float(b.float().abs().max()),
+                                   rtol=rtol, msg=name)
+    torch.testing.assert_close(got[3], want[3], atol=1e-4, rtol=1e-5, msg="dbias")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("nb", [1, 3, 130])
+def test_block_attention_bwd_dbias_runs(cuda, causal, nb):
+    """bf16 dbias goes through min(nb, 8) planes, each the sum of a fixed
+    run of attention blocks: runs of one block (nb = 1, 3) and runs of 16
+    and 17 blocks (nb = 130) agree with the plain sum over all blocks."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, go = (torch.randn((nb, 2, 256, 128), generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = 0.5 * torch.randn((2, 256, 256), generator=g, device=cuda)
+    got = tatt.block_attention_bwd_cuda(q, k, v, bias, go, causal)
+    want = tatt.attention_core_bwd_plain(q, k, v, bias, go, causal)
+    scale = float(want[3].abs().max())
+    torch.testing.assert_close(got[3], want[3], atol=1e-4 * max(1.0, scale), rtol=1e-5,
+                               msg="dbias")
+    again = tatt.block_attention_bwd_cuda(q, k, v, bias, go, causal)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_attention_fwd_is_deterministic(cuda, dtype):
+    """Two calls of kernel 1 on the same inputs give bit-identical output."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((16, 8, 256, 128), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    bias = torch.randn((8, 256, 256), generator=g, device=cuda)
+    for causal in (False, True):
+        first = tatt.block_attention_fwd_cuda(q, k, v, bias, causal)
+        assert torch.equal(first, tatt.block_attention_fwd_cuda(q, k, v, bias, causal))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_attention_bwd_is_deterministic(cuda, dtype):
     """Two calls on the same inputs give bit-identical dq, dk, dv and dbias

@@ -64,7 +64,9 @@ def test_encode_rollout_decode_matches_jax():
     want_codes = np.asarray(jm.sample_video(jvp, video, jax.random.key(0), n_prime=N_PRIME,
                                             greedy=True))
     idx = jnp.transpose(jnp.asarray(want_codes), (0, 2, 3, 4, 1)).reshape(-1, 4, 4, 4)
-    want_video = np.asarray(jnp.clip(jq.denormalize(jq.decode(jqp, jqs, idx)), 0.0, 1.0))
+    # decoded as scripts/generate_videos.py does (PR-DVQVAE2 scales to [0, 1])
+    want_video = np.asarray(jnp.clip(jq.denormalize(jq.decode(jqp, jqs, idx)) * 255.0,
+                                     0.0, 255.0))
 
     # the port, weights carried across
     to_np = lambda t: jax.tree_util.tree_map(np.array, t)
@@ -82,10 +84,11 @@ def test_encode_rollout_decode_matches_jax():
     want_video = want_video.reshape(got_video.shape)
     with torch.no_grad():  # the decode stage on lvt_tpu's codes, always
         y = tq.decode(tqp, tqs, torch.from_numpy(np.array(idx)))
-    np.testing.assert_allclose(tq.denormalize(y).clamp(0, 1).numpy().reshape(want_video.shape),
-                               want_video, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(
+        (tq.denormalize(y) * 255.0).clamp(0, 255).numpy().reshape(want_video.shape),
+        want_video, atol=255 * 1e-4, rtol=0)
     if np.array_equal(got_codes, want_codes):
-        np.testing.assert_allclose(got_video.numpy(), want_video, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(got_video.numpy(), want_video, atol=255 * 1e-4, rtol=0)
 
 
 def test_generate_reads_the_sampler_knobs_of_the_config():
