@@ -10,7 +10,10 @@ Phases, each fatal on failure (exit code 1, no result line):
                 power limit.
   2. build    — compiles lvt_tpu_torch/csrc/*.cu with nvcc for sm_90a.
   3. kernels  — each kernel against its plain PyTorch version on the card at
-                DSFVT shapes, with the tolerances below; times both.
+                DSFVT shapes, with the tolerances below; times both. Kernel 2
+                also at the rollout's batch sizes (b in 1, 8, 16 x live in
+                64, 256; bf16, and fp32 at b=1) beside the library call and
+                the bound.
   4. main     — the generation path (PR-DVQVAE2 encode of example/*.png, DSFVT
                 KV-cached rollout, decode) at full width with seeded random
                 weights: batch 1 through scripts/generate_videos_torch.py as a
@@ -34,7 +37,8 @@ Phases, each fatal on failure (exit code 1, no result line):
                 fp32 and bf16, causal and not; two calls bit-identical;
                 device times beside the plain versions' and the unfused
                 layer's (kernel 1 + the library's GEMMs; with kernel 10 in
-                the backward).
+                the backward); one bf16 call of each under torch.profiler,
+                by __global__ function.
   8. train    — tools/train_net_torch.py's main on configs/vt/DSFVT.yaml at
                 batch 64, bf16 compute, RMSprop, on latent videos written
                 from a numpy seed, then --resume from its checkpoint, twice:
@@ -105,6 +109,7 @@ loaded. The line before the last is {"kernels": [...]}; the last line is
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -482,8 +487,62 @@ def phase_kernels(card):
     print(f"  kernel 2 bf16 b={b} live={R}: bound {b2:.4f} ms ({by2}); library call "
           f"(scaled_dot_product_attention) {lib2:.4f} ms [{card}]")
     res["decode_attention"] = dict(zip(("ms", "plain_ms"), t2[("bfloat16", 256)]), err=err2,
-                                   bound_ms=b2, bound_by=by2, library_ms=lib2)
+                                   bound_ms=b2, bound_by=by2, library_ms=lib2,
+                                   sweep=decode_sweep(card))
     return res
+
+
+def decode_sweep(card):
+    """Kernel 2 at the rollout's batch sizes: b in (1, 8, 16) x live in (64,
+    256), bf16, and fp32 at b=1 (the batch-1 rollout runs fp32); na=8,
+    R=256, da=128, rows >= live poisoned with NaN. Each case against its
+    plain version (TOL), device times of the kernel, the plain version and
+    the library call (scaled_dot_product_attention over the live rows, the
+    bias as attn_mask) over input sets of >= 64 MB together, and the bound
+    from the live rows' bytes. Only the public wrappers are called, so that
+    tools/ab_attention_torch.py can run this on another tree's package."""
+    import torch
+    import torch.nn.functional as F
+
+    from lvt_tpu_torch.ops.cache_attention import decode_attention_cuda, decode_attention_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    na, R, da, scale = 8, 256, 128, 128 ** -0.5
+    rows = []
+    for b, dtype in ((1, "float32"), (1, "bfloat16"), (8, "bfloat16"), (16, "bfloat16")):
+        dt = getattr(torch, dtype)
+        el = torch.finfo(dt).bits // 8
+        n_sets = max(4, min(64, -(-64 * 2 ** 20 // (2 * b * na * R * da * el))))
+        q = torch.randn((b, na, da), generator=g, device=dev).to(dt)
+        bias = 0.5 * torch.randn((na, R), generator=g, device=dev)
+        caches = [[torch.randn((b, na, R, da), generator=g, device=dev).to(dt) for _ in range(2)]
+                  for _ in range(n_sets)]
+        for live in (256, 64):  # poisoning for 64 leaves nothing valid past it
+            for c in caches:
+                c[0][:, :, live:] = float("nan")
+                c[1][:, :, live:] = float("nan")
+            e, ok = _err(decode_attention_cuda(q, *caches[0], live, bias, scale),
+                         decode_attention_plain(q, *caches[0], live, bias, scale), dtype)
+            check(ok, f"decode_attention disagrees with its plain version ({dtype}, b={b}, "
+                      f"live={live}): max abs err {e}")
+            kd, pd = time_both(card, [lambda c=c: decode_attention_cuda(q, *c, live, bias, scale)
+                                      for c in caches],
+                               [lambda c=c: decode_attention_plain(q, *c, live, bias, scale)
+                                for c in caches], 200, f"kernel 2 {dtype} b={b} live={live} ")
+            mask = bias[None, :, None, :live].to(dt)
+            lib = device_ms([lambda c=c: F.scaled_dot_product_attention(
+                q[:, :, None], c[0][:, :, :live], c[1][:, :, :live], attn_mask=mask, scale=scale)
+                for c in caches], 200)
+            bd, by = bound_ms(dtype if dtype == "bfloat16" else "float32",
+                              (2 * b * na * live * da + 2 * b * na * da) * el + na * live * 4,
+                              4 * b * na * live * da)
+            print(f"  kernel 2 sweep {dtype} b={b} live={live} [{card}]: kernel {kd:.4f} ms, "
+                  f"plain {pd:.4f}, library {lib:.4f}, bound {bd:.4f} ({by}); max_abs_err {e:.3g}")
+            rows.append({"dtype": dtype, "b": b, "live": live, "ms": kd, "plain_ms": pd,
+                         "library_ms": lib, "bound_ms": bd, "max_abs_err": e})
+        del caches
+    return rows
 
 
 def _counts():
@@ -908,7 +967,60 @@ def phase_fused_kernels(card):
     }
     print("  bounds bf16 (NVIDIA H100 SXM peaks: 3.35 TB/s, 989 TFLOP/s dense bf16): "
           + ", ".join(f"kernel {k} {b:.4f} ms ({by})" for k, (b, by) in bounds.items()))
+    t = res[("bfloat16", False)]
+    res["by_function"] = fused_by_function(card, p, bias, sets[0], {k: t[k][0] for k in (7, 8, 9)})
     return res, bounds
+
+
+def fused_by_function(card, p, bias, inputs, whole):
+    """Device time of one call each of kernels 7, 8 and 9 (bf16, not causal,
+    after a warm-up call) by __global__ function, from torch.profiler, held
+    against `whole`, each call's device ms timed by CUDA-graph replay. Only
+    the public wrappers are called (tools/ab_attention_torch.py runs this on
+    another tree's package too)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lvt_tpu_torch.ops import fused_layer as fl
+
+    tok, go = inputs
+    na = p["wq"].shape[0]
+    x2 = fl.fused_layer_tokens_plain(tok, p, bias, False, True)[1]
+    dx2 = fl.ffn_half_bwd_plain(x2, go, p)[0]
+    calls = {7: lambda: fl.fused_layer_fwd_cuda(tok, p, bias, False, True),
+             8: lambda: fl.ffn_half_bwd_cuda(x2, go, p),
+             9: lambda: fl.attn_half_bwd_cuda(tok, dx2, p, bias, False, 0, na)}
+    out = {}
+    for k, call in calls.items():
+        call()
+        # after many earlier profiler sessions and CUDA graphs in one process,
+        # a session now and then records no device activity, or durations that
+        # do not add up to the call: try again, and say so if none agrees
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            by_name = {}
+            for e in prof.events():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                name = e.name[5:] if e.name.startswith("void ") else e.name
+                short = re.split(r"[<(]", name.replace("(anonymous namespace)::", ""))[0]
+                short = short.split("::")[-1]
+                tot, cnt = by_name.get(short, (0.0, 0))
+                by_name[short] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
+            total = sum(t for t, _ in by_name.values())
+            agrees = abs(total - whole[k]) <= 0.2 * whole[k]
+            if agrees:
+                break
+        out[k] = {name: t for name, (t, _) in by_name.items()} if agrees else None
+        print(f"  kernel {k} bf16 by __global__ function, one call under torch.profiler [{card}]: "
+              + ", ".join(f"{name} {t:.4f} ms ({c}x)" for name, (t, c) in
+                          sorted(by_name.items(), key=lambda kv: -kv[1][0]))
+              + f"; total {total:.4f} ms"
+              + ("" if agrees else f", not {whole[k]:.4f} as timed: this reading is not used"))
+    return out
 
 
 def _write_latents(root, n_videos, seed):
@@ -934,10 +1046,11 @@ def _train_kernels():
             ffn_half_bwd_cuda, attn_half_bwd_cuda)
 
 
-def phase_train(card):
+def phase_train(card, unfused=True):
     """DSFVT training through tools/train_net_torch.py's main, then --resume,
-    with the fused layer (DSFVT's defaults) and with TPU.FUSED_LAYER False;
-    per-step launch counts and times recorded around Trainer.train_step."""
+    with the fused layer (DSFVT's defaults) and, unless ``unfused`` is
+    False, with TPU.FUSED_LAYER False; per-step launch counts and times
+    recorded around Trainer.train_step."""
     import shutil
     import tempfile
 
@@ -951,6 +1064,8 @@ def phase_train(card):
         print(f"train data: 128 latent videos of {T_FRAMES} frames written in "
               f"{time.perf_counter() - t0:.2f} s")
         fused = _train_run(card, os.path.join(tmp, "fused"), True, TRAIN_STEPS, RESUME_STEPS)
+        if not unfused:
+            return fused, None
         unfused = _train_run(card, os.path.join(tmp, "unfused"), False, TRAIN_STEPS // 2,
                              RESUME_STEPS // 2)
     finally:
@@ -1073,12 +1188,12 @@ def _print_step_profile(card, batch, step_sec, wall, prof, what="DSFVT"):
         print(f"  {tot:9.3f} ms {cnt:5d}x  {name[:110]}")
     # the hand-written kernels' __global__ functions: the attention device
     # code (shared by kernels 1, 10 and, inside the fused layer, 7 and 9), the
-    # fixed-order reduction (kernels 8, 9, 10), the fused layer's own, and
-    # kernel 6's
+    # fixed-order reduction (kernels 8, 9, 10), the fused layer's own (in
+    # bf16 ln_qkv is ln_rows_bf16 + gemm_nt_wgmma), and kernel 6's
     groups = (("attention forward", "block_attention_"), ("query tiles", "::bwd_rows_"),
               ("key tiles", "::bwd_keys_"), ("fixed-order reductions", "dbias_reduce"),
-              ("ln_qkv", "ln_qkv"), ("proj_ffn", "proj_ffn"), ("ffn_bwd_rows", "ffn_bwd_rows"),
-              ("gemm_nt", "gemm_nt"), ("gemm_tn", "gemm_tn"),
+              ("ln_qkv", "ln_qkv"), ("ln_rows_bf16", "ln_rows_bf16"), ("proj_ffn", "proj_ffn"),
+              ("ffn_bwd_rows", "ffn_bwd_rows"), ("gemm_nt", "gemm_nt"), ("gemm_tn", "gemm_tn"),
               ("nearest_indices (kernel 6)", "nearest_indices_kernel"))
     sums = {label: (sum(t for name, (t, _) in by_name.items() if key in name),
                     sum(c for name, (_, c) in by_name.items() if key in name))

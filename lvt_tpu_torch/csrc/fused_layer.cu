@@ -15,9 +15,10 @@
 // kernel here is several __global__ functions behind one C entry point, over
 // row tiles of the (nb * n, d) token matrix:
 //
-// kernel 7  ln_qkv      LN prologue + QKV product per row tile (256 columns at
-//                       a time), qkv rounded to the io dtype into a head-major
-//                       scratch (3, nb, na, n, da);
+// kernel 7  ln_qkv      LN prologue + QKV product per row tile (in bf16 an LN
+//                       pass into a scratch y, then gemm_nt), qkv rounded to
+//                       the io dtype into a head-major scratch (3, nb, na, n,
+//                       da);
 //           kernel 1's device code (block_attention.cuh) on that scratch: P
 //                       rounded to io, P.V rounded to io, o (nb, na, n, da);
 //           proj_ffn    per row tile: o_all proj + x = x2, kept in fp32 in
@@ -39,22 +40,29 @@
 //           dk, dv and dbias from q, k, v and do, dy = dqkv wqkv^T (gemm_nt),
 //           dproj = o^T dx2 and dwqkv = y^T dqkv (gemm_tn + reduction).
 //
-// Every matrix product is this file's or those headers' own code: bf16 on
-// tensor cores through mma.sync m16n8k16 with fp32 accumulators, fp32 on FMAs
-// (TF32 would round the inputs to 10 bits). Weights arrive as B operands with
-// rows of consecutive k, i.e. (outputs, inputs): the wrapper passes w^T where
-// the product is with w, and w itself where it is with w^T.
+// Every matrix product is this file's or those headers' own code, fp32 on
+// FMAs (TF32 would round the inputs to 10 bits) and bf16 on tensor cores.
+// Weights arrive as B operands with rows of consecutive k, i.e. (outputs,
+// inputs): the wrapper passes w^T where the product is with w, and w itself
+// where it is with w^T.
 //
 // What bounds it on the H100: at DSFVT (nb = 64, n = 256, d = 512, na = 8,
-// da = 128) kernel 7 is ~103 GFLOP over ~50 MB of inputs and outputs, far
-// above the 295 flops per byte at which bf16 tensor cores stop waiting on
-// memory, so its bound is the tensor cores (0.10 ms); this simple design is
-// instead bound by shared-memory fragment loads and barriers (no copy overlap,
-// weights re-read from L2 by every row tile) and by the qkv scratch (100 MB
-// written and read once). wgmma and TMA pipelines are later work.
+// da = 128) kernel 7 is ~103 GFLOP over ~50 MB of inputs and outputs and
+// kernel 9 ~240 GFLOP over ~120 MB, far above the 295 flops per byte at which
+// bf16 tensor cores stop waiting on memory: their bound is the tensor cores
+// (0.10 and 0.24 ms). In bf16 the products of ln_qkv, gemm_nt and gemm_tn
+// therefore run on wgmma with every operand landed by TMA through a ring of
+// mbarrier stages that one producer warp keeps full (gemm_nt_wgmma and
+// gemm_tn_wgmma below; ln_qkv is ln_rows_bf16, then gemm_nt_wgmma): 128-row
+// tiles, so that W is read from L2 once per 128 rows, and no thread waits on
+// a copy while a product can run. proj_ffn and ffn_bwd_rows still run on
+// mma.sync over 32-row tiles with plain loads (TileBF16), as do all products
+// in fp32 (TileF32).
 //
 // Shapes: d a multiple of 64 up to 512; da in {64, 128}; n <= 256 in bf16 and
 // <= 1024 in fp32 (kernels 1 and 10); any nb.
+
+#include <type_traits>
 
 #include "block_attention.cuh"
 #include "mma_tiles.cuh"
@@ -115,15 +123,15 @@ View<T> head_major(const void* p, int nb, int nh, int n, int da) {
 // Row-tile products: C (ROWS x NC) = A (ROWS x K) B^T, B (NC x K) a weight
 // ---------------------------------------------------------------------------
 
-// bf16: a block of 8 warps owns 32 rows x 256 columns; warp w owns all 32
-// rows of columns [32 w, 32 w + 32) as 2 x 4 mma tiles. A sits row-major in
+// bf16 (proj_ffn, ffn_bwd_rows), on mma.sync: a block of 8 warps owns 32 rows
+// x 256 columns; warp w owns all 32 rows of columns [32 w, 32 w + 32) as
+// 2 x 4 mma tiles. A sits row-major in
 // shared memory (row stride a multiple of 64 plus 8 elements, so the 8 rows x
 // 4 words of a fragment read hit 32 banks), B one 64-deep chunk at a time.
 struct TileBF16 {
   using T = bf16;
   static constexpr int ROWS = 32, NC = 256, KC = 64, PAD = 8, VEC = 8;
   static constexpr int RPT = 4, CPT = 8;  // rows and columns held per thread
-  static constexpr int PAIR = 2;          // columns 2 j and 2 j + 1 are neighbours
   float c[2][4][4];
 
   __device__ __forceinline__ void zero() {
@@ -168,10 +176,6 @@ struct TileBF16 {
     return v;
   }
   static __device__ __forceinline__ bool colsum_owner() { return (threadIdx.x % 32) / 4 == 0; }
-  // two neighbouring columns rounded and stored as one 32-bit word
-  static __device__ __forceinline__ void store(T* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
 };
 
 // fp32: 16 rows x 256 columns; thread i owns column i of all 16 rows. A reads
@@ -373,7 +377,8 @@ __device__ __forceinline__ void ln_rows(float* Xf, int d, int rows, const T* gam
 }
 
 // ---------------------------------------------------------------------------
-// ln_qkv: C = LN(x) W^T per row tile, rounded to the io dtype
+// ln_qkv: C = LN(x) W^T per row tile, rounded to the io dtype (fp32; bf16
+// runs ln_rows_bf16 and gemm_nt_wgmma below)
 // ---------------------------------------------------------------------------
 
 template <class TL>
@@ -410,7 +415,8 @@ ln_qkv(const typename TL::T* __restrict__ x, const typename TL::T* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// gemm_nt: C = A W^T rounded to the io dtype, A streamed
+// gemm_nt: C = A W^T rounded to the io dtype, A streamed (fp32; bf16 runs
+// gemm_nt_wgmma below)
 // ---------------------------------------------------------------------------
 
 template <class TL>
@@ -431,6 +437,191 @@ gemm_nt(View<typename TL::T> A, const typename TL::T* __restrict__ W, View<typen
   TL acc;
   gemm_streamed<TL>(acc, A, row0, R, Ac, W, K, N, col0, Bs);
   store_tile<TL>(acc, C, row0, R, col0, N);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 products on wgmma, operands by TMA through an mbarrier ring
+// ---------------------------------------------------------------------------
+//
+// One block: two consumer warpgroups (warps 0-7; warpgroup w owns the tile's
+// rows [64 w, 64 w + 64)) and one producer warp (warp 8) whose lane 0 keeps
+// the ring of stages full: it waits for a stage to be released, then issues
+// that stage's TMA boxes onto its mbarrier. Each consumer warpgroup waits for
+// a stage, runs one wgmma stage on it (fence, products, commit, wait; under
+// warpgroup-uniform control, so that ptxas does not serialize the products),
+// and releases it. Every operand lands in 128-byte-swizzled shared memory
+// as 64-column boxes (hopper.cuh's layout): K-major where the product sums
+// along a row (gemm_nt: k16 steps 32 bytes along the row), MN-major where it
+// sums over rows (gemm_tn: transposed A and B, k16 steps of 16 rows).
+// An output tile of 128 columns is two m64n64 products per warpgroup.
+//
+// Rows are addressed as (token block, row in the block): a tile or a row
+// chunk never crosses a block, so a head-major activation (parts, nb, nh, n,
+// da) is a 3-D tensor map of planes (part, blk, head) x n rows x da columns,
+// and a row-major one a map of planes blk x n rows x width (one plane of R
+// rows where no operand of the product is head-major); TMA zero-fills the
+// rows past n. A 64-column box lies inside one head (da is 64 or 128).
+
+constexpr int WG_ROWS = 128;             // rows of a tile: two warpgroups of m64
+constexpr int WG_COLS = 128;             // output columns of a tile: two n64 products
+constexpr int WG_CONSUMERS = 256;        // threads of the two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 32;  // + the producer warp
+constexpr int BOX64 = 64 * 128;          // bytes of a 64-row x 64-column bf16 box
+constexpr int ROWS_STAGES = 3;           // ring stages of gemm_nt and gemm_tn
+
+// How a product addresses an activation's tensor map: (column, row, plane) of
+// the box at token block blk, row i0 and column col.
+struct Operand {
+  int nb, nh, n, da;  // nh == 0: row-major, one plane per token block
+  __device__ __forceinline__ void coords(int blk, int col, int& c, int& plane) const {
+    if (nh == 0) {
+      c = col;
+      plane = blk;
+      return;
+    }
+    const int part = col / (nh * da), rem = col - part * nh * da;
+    const int a = rem / da;
+    c = rem - a * da;
+    plane = (part * nb + blk) * nh + a;
+  }
+};
+
+// the two 64 x 64 accumulators of a consumer thread, rounded to bf16, to the
+// output tile (rows i0.., columns n0..) of C; rows past ng and columns past N
+// are dropped. Output row (blk, i) is C's row blk * ng + i.
+__device__ __forceinline__ void store_wg_tile(const float (&acc)[2][32], const View<bf16>& C,
+                                              int blk, int ng, int i0, int n0, int N) {
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, g = (tid % 32) / 4,
+            t = tid % 4;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int i = i0 + 64 * wg + lvt_hopper::acc_row(2 * hi, w, g);
+    if (i >= ng) continue;
+    const size_t ro = C.row_off(blk * ng + i);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + 64 * h + lvt_hopper::acc_col(j, 0, t);
+        if (col < N)
+          *reinterpret_cast<__nv_bfloat162*>(C.p + ro + C.col_off(col)) =
+              __floats2bfloat162_rn(acc[h][4 * j + 2 * hi], acc[h][4 * j + 2 * hi + 1]);
+      }
+  }
+}
+
+// LayerNorm of the rows of x (R, d) into y (R, d), bf16, one warp a row, with
+// ln_rows' arithmetic: lane l sums the columns l, l + 32, ... in that order
+// before the warp's butterfly; the mean, then the mean of squared
+// deviations; y = yhat * gamma + beta rounded once. ln_qkv in bf16 is this
+// and gemm_nt_wgmma over y (a resident 128 x 512 tile of y, 128 KB, would
+// leave one block an SM).
+__global__ void __launch_bounds__(THREADS)
+ln_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+             const bf16* __restrict__ beta, bf16* __restrict__ y, long R, int d) {
+  constexpr int MAXC = 512 / 32;  // columns a lane holds (d <= 512)
+  const long row = (long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32, nc = d / 32;
+  if (row >= R) return;
+  const bf16* xr = x + row * d + lane;
+  float xv[MAXC];
+#pragma unroll
+  for (int k = 0; k < MAXC; ++k) xv[k] = k < nc ? __bfloat162float(xr[32 * k]) : 0.f;
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < MAXC; ++k)
+    if (k < nc) s += xv[k];
+  const float mu = warp_sum(s) / (float)d;
+  float v = 0.f;
+#pragma unroll
+  for (int k = 0; k < MAXC; ++k)
+    if (k < nc) v += (xv[k] - mu) * (xv[k] - mu);
+  const float rstd = rsqrtf(warp_sum(v) / (float)d + 1e-5f);
+  bf16* yr = y + row * d + lane;
+  gamma += lane;
+  beta += lane;
+#pragma unroll
+  for (int k = 0; k < MAXC; ++k)
+    if (k < nc)
+      yr[32 * k] = __float2bfloat16_rn((xv[k] - mu) * rstd * __bfloat162float(gamma[32 * k]) +
+                                       __bfloat162float(beta[32 * k]));
+}
+
+// C (rows x N) = A W^T, rounded to bf16: A an activation addressed through
+// amap and aop, W (N, K) a weight, K-major, both streamed by TMA; one tile
+// of 128 rows (blk, i0) x 128 columns a block, k-chunks of 64.
+__global__ void __launch_bounds__(WG_THREADS)
+gemm_nt_wgmma(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+              Operand aop, View<bf16> C, int ng, int K, int N) {
+  using namespace lvt_hopper;
+  constexpr int STAGE = 2 * WG_ROWS * 128;  // a 128-row x 64-column box of A, one of W
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();  // the swizzle atoms need 1024-byte alignment
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ROWS_STAGES * STAGE);
+  uint64_t* empty = full + ROWS_STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles_per_blk = (ng + WG_ROWS - 1) / WG_ROWS;
+  const int blk = blockIdx.x / tiles_per_blk;
+  const int i0 = (blockIdx.x % tiles_per_blk) * WG_ROWS;
+  const int n0 = blockIdx.y * WG_COLS;
+  const int nk = K / 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < ROWS_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == WG_CONSUMERS / 32) {  // ---- the producer
+    if (lane == 0) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % ROWS_STAGES;
+        if (t >= ROWS_STAGES) mbar_wait(&empty[s], (t / ROWS_STAGES - 1) & 1);
+        int c, plane;
+        aop.coords(blk, 64 * t, c, plane);
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load(smem + s * STAGE, &amap, &full[s], c, i0, plane);
+        tma_load(smem + s * STAGE + STAGE / 2, &wmap, &full[s], 64 * t, n0, 0);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers
+  const int wg = warp / 4;
+  float acc[2][32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[h][e] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % ROWS_STAGES;
+    mbar_wait(&full[s], (t / ROWS_STAGES) & 1);
+    const unsigned char* a = smem + s * STAGE;
+    const unsigned char* b = a + STAGE / 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma_ss(acc[h], desc(a + wg * BOX64 + kk * 32), desc(b + h * BOX64 + kk * 32));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+    if (tid % 128 == 0) mbar_arrive(&empty[s]);
+  }
+  store_wg_tile(acc, C, blk, ng, i0, n0, N);
+}
+
+constexpr size_t gemm_nt_wgmma_smem() {
+  return ROWS_STAGES * 2 * (size_t)WG_ROWS * 128 + 2 * ROWS_STAGES * sizeof(uint64_t);
 }
 
 // ---------------------------------------------------------------------------
@@ -692,72 +883,110 @@ __device__ __forceinline__ void tn_range(long R, int chunk, long& begin, long& e
   end = begin + per < R ? begin + per : R;
 }
 
-// bf16: both operands go through shared memory transposed (At[m][r], Bt[n][r],
-// 64 rows at a time), so that the fragments are 32-bit reads along the summed
-// axis; neighbouring lanes take neighbouring rows, so their 2-byte stores into
-// one row of At fall on distinct banks. Warps 2 x 4, 64 x 32 outputs each.
-__global__ void __launch_bounds__(THREADS)
-gemm_tn_bf16(View<bf16> A, View<bf16> B, float* __restrict__ part, long R, int M, int N) {
-  constexpr int RC = 64, LD = RC + 8;
-  __shared__ __align__(16) bf16 At[TN_TILE * LD];
-  __shared__ __align__(16) bf16 Bt[TN_TILE * LD];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.x * TN_TILE, n0 = blockIdx.y * TN_TILE;
-  long begin, end;
-  tn_range(R, RC, begin, end);
-  float c[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
+// bf16: part[z] (M x N) = A^T B over the row chunks of range z, both operands
+// MN-major by TMA (64-row x 64-column boxes), read through wgmma's transposed
+// A and B. A block owns a 128 x 128 output tile; warpgroup w its rows [64 w,
+// 64 w + 64). Row chunks are 64 rows of one token block (nb * ceil(n / 64)
+// chunks, cut into gridDim.z ranges as tn_range cuts rows); the rows past n
+// of a chunk are zero-filled and add nothing.
+__global__ void __launch_bounds__(WG_THREADS)
+gemm_tn_wgmma(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+              Operand aop, Operand bop, float* __restrict__ part, int nbg, int ng, int M, int N) {
+  using namespace lvt_hopper;
+  constexpr int STAGE = 4 * BOX64;  // A boxes (M columns m0, m0 + 64), B boxes (n0, n0 + 64)
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ROWS_STAGES * STAGE);
+  uint64_t* empty = full + ROWS_STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * WG_COLS, n0 = blockIdx.y * WG_COLS;
+  const int cpb = (ng + 63) / 64;  // row chunks per token block
+  const long chunks = (long)nbg * cpb;
+  const long per = (chunks + gridDim.z - 1) / gridDim.z;
+  const long c0 = min((long)blockIdx.z * per, chunks), c1 = min(c0 + per, chunks);
+  const int steps = (int)(c1 - c0);
 
-  for (long r0 = begin; r0 < end; r0 += RC) {
-    __syncthreads();  // previous readers of At, Bt are done
-    for (int i = tid; i < RC * (TN_TILE / 8); i += THREADS) {
-      const int r = i % RC, ch = (i / RC) * 8;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u), vb = va;
-      if (r0 + r < end) {
-        if (m0 + ch < M) va = *reinterpret_cast<const uint4*>(A.at((int)(r0 + r), m0 + ch));
-        if (n0 + ch < N) vb = *reinterpret_cast<const uint4*>(B.at((int)(r0 + r), n0 + ch));
-      }
-      const bf16* ea = reinterpret_cast<const bf16*>(&va);
-      const bf16* eb = reinterpret_cast<const bf16*>(&vb);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        At[(ch + e) * LD + r] = ea[e];
-        Bt[(ch + e) * LD + r] = eb[e];
+  if (tid == 0) {
+    for (int s = 0; s < ROWS_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == WG_CONSUMERS / 32) {  // ---- the producer: boxes wholly past M or N are not loaded
+    if (lane == 0) {
+      const int na_box = M - m0 > 64 ? 2 : 1, nb_box = N - n0 > 64 ? 2 : 1;
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % ROWS_STAGES;
+        if (t >= ROWS_STAGES) mbar_wait(&empty[s], (t / ROWS_STAGES - 1) & 1);
+        const long chunk = c0 + t;
+        const int blk = (int)(chunk / cpb), i0 = (int)(chunk % cpb) * 64;
+        unsigned char* st = smem + s * STAGE;
+        mbar_expect_tx(&full[s], (na_box + nb_box) * BOX64);
+        for (int h = 0; h < na_box; ++h) {
+          int c, plane;
+          aop.coords(blk, m0 + 64 * h, c, plane);
+          tma_load(st + h * BOX64, &amap, &full[s], c, i0, plane);
+        }
+        for (int h = 0; h < nb_box; ++h) {
+          int c, plane;
+          bop.coords(blk, n0 + 64 * h, c, plane);
+          tma_load(st + (2 + h) * BOX64, &bmap, &full[s], c, i0, plane);
+        }
       }
     }
-    __syncthreads();
+    return;
+  }
+
+  // ---- the consumers
+  const int wg = warp / 4;
+  float acc[2][32];
 #pragma unroll
-    for (int kk = 0; kk < RC / 16; ++kk) {
-      uint32_t fa[4][4];
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) load_a(fa[i], At + (wm * 64 + i * 16) * LD, LD, kk, g, t);
+    for (int e = 0; e < 32; ++e) acc[h][e] = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % ROWS_STAGES;
+    mbar_wait(&full[s], (t / ROWS_STAGES) & 1);
+    const unsigned char* st = smem + s * STAGE;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* br = Bt + (wn * 32 + j * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(br), b1 = ld32(br + 8);
+    for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+    wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) mma_bf16(c[i][j], fa[i], b0, b1);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma_ss_tt(acc[h], desc(st + wg * BOX64 + kk * 2048),
+                    desc(st + (2 + h) * BOX64 + kk * 2048));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+    if (tid % 128 == 0) mbar_arrive(&empty[s]);
   }
 
   float* out = part + (size_t)blockIdx.z * M * N;
+  const int w = warp % 4, g = lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int hi = 0; hi < 2; ++hi) {
+    const int m = m0 + 64 * wg + acc_row(2 * hi, w, g);
+    if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 64 + i * 16 + g + (e >> 1) * 8;
-        const int n = n0 + wn * 32 + j * 8 + 2 * t + (e & 1);
-        if (m < M && n < N) out[(size_t)m * N + n] = c[i][j][e];
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + 64 * h + acc_col(j, 0, tq);
+        if (n < N)
+          *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+              make_float2(acc[h][4 * j + 2 * hi], acc[h][4 * j + 2 * hi + 1]);
       }
+  }
+}
+
+constexpr size_t gemm_tn_wgmma_smem() {
+  return ROWS_STAGES * 4 * (size_t)BOX64 + 2 * ROWS_STAGES * sizeof(uint64_t);
 }
 
 // fp32: 16 rows at a time as they lie (As[r][m], Bs[r][n]); thread (ty, tx)
@@ -836,37 +1065,104 @@ unsigned tiles_of(long R) {
   return (unsigned)((R + TL::ROWS - 1) / TL::ROWS);
 }
 
-template <class TL>
-cudaError_t run_ln_qkv(const void* x, const void* gamma, const void* beta, const void* W,
-                       View<typename TL::T> C, void* y_out, long R, int d, int N,
-                       cudaStream_t stream) {
-  using T = typename TL::T;
-  const size_t smem = ln_qkv_smem<TL>(d);
-  LVT_TRY(set_smem(ln_qkv<TL>, smem));
-  ln_qkv<TL><<<tiles_of<TL>(R), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      static_cast<const T*>(W), C, static_cast<T*>(y_out), R, d, N);
-  return cudaGetLastError();
+// the tensor map of a bf16 activation of `width` columns for a product whose
+// rows are grouped in nbg token blocks of ng rows, boxes of box_rows x 64:
+// a head-major View has planes (part, blk, head) and must be grouped by its
+// own blocks; a row-major one a plane per block. False where the View does
+// not fit the grouping or the encoder refuses the map (a base or a stride
+// that is not a multiple of 16 bytes).
+bool act_map(CUtensorMap* map, Operand* op, const View<bf16>& v, int width, int nbg, int ng,
+             int box_rows) {
+  using lvt_hopper::make_map;
+  if (v.nh == 0) {
+    *op = Operand{nbg, 0, ng, 0};
+    return v.ld == width && make_map(map, v.p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, nbg, ng,
+                                     width, box_rows, 64);
+  }
+  *op = Operand{v.nb, v.nh, v.n, v.da};
+  return v.nb == nbg && v.n == ng && width % (v.nh * v.da) == 0 &&
+         make_map(map, v.p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  (uint64_t)(width / (v.nh * v.da)) * v.nb * v.nh, v.n, v.da, box_rows, 64);
+}
+
+// the rows of a product: the token blocks of its first head-major operand,
+// else one block of all R rows
+void grouping(const View<bf16>& a, const View<bf16>& b, long R, int& nbg, int& ng) {
+  const View<bf16>& h = a.nh ? a : b;
+  nbg = h.nh ? h.nb : 1;
+  ng = h.nh ? h.n : (int)R;
+}
+
+// a (N, K) bf16 weight, K-major boxes of 128 rows x 64 columns
+bool weight_map(CUtensorMap* map, const void* W, int N, int K) {
+  return lvt_hopper::make_map(map, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 1, N, K, WG_ROWS, 64);
 }
 
 template <class TL>
 cudaError_t run_gemm_nt(View<typename TL::T> A, const void* W, View<typename TL::T> C, long R,
                         int K, int N, cudaStream_t stream) {
   using T = typename TL::T;
-  constexpr size_t smem = gemm_nt_smem<TL>();
-  LVT_TRY(set_smem(gemm_nt<TL>, smem));
-  gemm_nt<TL><<<dim3(tiles_of<TL>(R), (N + TL::NC - 1) / TL::NC), THREADS, smem, stream>>>(
-      A, static_cast<const T*>(W), C, R, K, N);
+  if constexpr (std::is_same<T, bf16>::value) {
+    int nbg, ng;
+    grouping(A, A, R, nbg, ng);
+    CUtensorMap amap, wmap;
+    Operand aop;
+    if (!act_map(&amap, &aop, A, K, nbg, ng, WG_ROWS) || !weight_map(&wmap, W, N, K))
+      return cudaErrorInvalidValue;
+    constexpr size_t smem = gemm_nt_wgmma_smem();
+    LVT_TRY(lvt_hopper::set_smem_max(gemm_nt_wgmma, (int)smem));
+    const dim3 grid(nbg * ((ng + WG_ROWS - 1) / WG_ROWS), (N + WG_COLS - 1) / WG_COLS);
+    gemm_nt_wgmma<<<grid, WG_THREADS, smem, stream>>>(amap, wmap, aop, C, ng, K, N);
+  } else {
+    constexpr size_t smem = gemm_nt_smem<TL>();
+    LVT_TRY(set_smem(gemm_nt<TL>, smem));
+    gemm_nt<TL><<<dim3(tiles_of<TL>(R), (N + TL::NC - 1) / TL::NC), THREADS, smem, stream>>>(
+        A, static_cast<const T*>(W), C, R, K, N);
+  }
   return cudaGetLastError();
 }
 
-inline void launch_gemm_tn(dim3 grid, cudaStream_t stream, View<bf16> A, View<bf16> B,
-                           float* part, long R, int M, int N) {
-  gemm_tn_bf16<<<grid, THREADS, 0, stream>>>(A, B, part, R, M, N);
+// C = LN(x) W^T rounded to the io dtype; y_out, where given, takes LN(x) (in
+// bf16 it must be given: y goes through it into gemm_nt)
+template <class TL>
+cudaError_t run_ln_qkv(const void* x, const void* gamma, const void* beta, const void* W,
+                       View<typename TL::T> C, void* y_out, long R, int d, int N,
+                       cudaStream_t stream) {
+  using T = typename TL::T;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (y_out == nullptr) return cudaErrorInvalidValue;
+    ln_rows_bf16<<<(unsigned)((R + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
+        static_cast<T*>(y_out), R, d);
+    LVT_TRY(cudaGetLastError());
+    return run_gemm_nt<TL>(row_major<T>(y_out, d), W, C, R, d, N, stream);
+  } else {
+    const size_t smem = ln_qkv_smem<TL>(d);
+    LVT_TRY(set_smem(ln_qkv<TL>, smem));
+    ln_qkv<TL><<<tiles_of<TL>(R), THREADS, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
+        static_cast<const T*>(W), C, static_cast<T*>(y_out), R, d, N);
+    return cudaGetLastError();
+  }
 }
-inline void launch_gemm_tn(dim3 grid, cudaStream_t stream, View<float> A, View<float> B,
+
+cudaError_t launch_gemm_tn(dim3 grid, cudaStream_t stream, View<bf16> A, View<bf16> B,
+                           float* part, long R, int M, int N) {
+  int nbg, ng;
+  grouping(A, B, R, nbg, ng);
+  CUtensorMap amap, bmap;
+  Operand aop, bop;
+  if (!act_map(&amap, &aop, A, M, nbg, ng, 64) || !act_map(&bmap, &bop, B, N, nbg, ng, 64))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = gemm_tn_wgmma_smem();
+  LVT_TRY(lvt_hopper::set_smem_max(gemm_tn_wgmma, (int)smem));
+  gemm_tn_wgmma<<<grid, WG_THREADS, smem, stream>>>(amap, bmap, aop, bop, part, nbg, ng, M, N);
+  return cudaGetLastError();
+}
+cudaError_t launch_gemm_tn(dim3 grid, cudaStream_t stream, View<float> A, View<float> B,
                            float* part, long R, int M, int N) {
   gemm_tn_f32<<<grid, THREADS, 0, stream>>>(A, B, part, R, M, N);
+  return cudaGetLastError();
 }
 
 // out (M, N) fp32 = A^T B over the R rows: `splits` partial products into
@@ -875,8 +1171,7 @@ template <class T>
 cudaError_t run_gemm_tn(View<T> A, View<T> B, float* part, float* out, long R, int M, int N,
                         int splits, cudaStream_t stream) {
   const dim3 grid((M + TN_TILE - 1) / TN_TILE, (N + TN_TILE - 1) / TN_TILE, splits);
-  launch_gemm_tn(grid, stream, A, B, part, R, M, N);
-  LVT_TRY(cudaGetLastError());
+  LVT_TRY(launch_gemm_tn(grid, stream, A, B, part, R, M, N));
   const size_t per = (size_t)M * N;
   lvt_bwd::dbias_reduce<<<(unsigned)((per + 255) / 256), 256, 0, stream>>>(part, out, splits,
                                                                             per);
@@ -893,13 +1188,14 @@ cudaError_t fused_layer_fwd(const void* x, const void* ln_s, const void* ln_b,
                             const void* wqkvT, const void* projT, const void* fln_s,
                             const void* fln_b, const void* w1T, const void* b1,
                             const void* w2T, const void* b2, const float* bias, void* qkv,
-                            void* o, void* x2_out, void* out, int nb, int n, int d, int na,
-                            int da, int causal, int dtype, float scale, cudaStream_t stream) {
+                            void* o, void* y, void* x2_out, void* out, int nb, int n, int d,
+                            int na, int da, int causal, int dtype, float scale,
+                            cudaStream_t stream) {
   using T = typename TL::T;
   const long R = (long)nb * n;
   const size_t head = (size_t)nb * na * n * da;
-  LVT_TRY(run_ln_qkv<TL>(x, ln_s, ln_b, wqkvT, head_major<T>(qkv, nb, na, n, da), nullptr, R, d,
-                         3 * na * da, stream));
+  LVT_TRY(run_ln_qkv<TL>(x, ln_s, ln_b, wqkvT, head_major<T>(qkv, nb, na, n, da),
+                         std::is_same<T, bf16>::value ? y : nullptr, R, d, 3 * na * da, stream));
   T* q = static_cast<T*>(qkv);
   LVT_TRY((cudaError_t)lvt_fwd::block_attention_fwd(q, q + head, q + 2 * head, bias, o, nb, na,
                                                     n, da, causal, dtype, scale, stream));
@@ -980,25 +1276,26 @@ cudaError_t attn_half_bwd(const void* x, const void* dx2, const void* ln_s, cons
 
 // Kernel 7. dtype: 0 = float32, 1 = bfloat16 (activations and parameters; the
 // bias is fp32). wqkvT (3 na da, d), projT (d, na da), w1T and w2T (d, d): the
-// weights transposed. qkv (3, nb, na, n, da) and o (nb, na, n, da) are scratch
-// the caller allocates; x2_out may be null. Launches on `stream`; returns the
-// first failing cudaError_t, or 0.
+// weights transposed. qkv (3, nb, na, n, da), o (nb, na, n, da) and, in
+// bf16, y (nb, n, d) are scratch the caller allocates; y in fp32 and x2_out
+// may be null.
+// Launches on `stream`; returns the first failing cudaError_t, or 0.
 extern "C" int lvt_fused_layer_fwd(const void* x, const void* ln_s, const void* ln_b,
                                    const void* wqkvT, const void* projT, const void* fln_s,
                                    const void* fln_b, const void* w1T, const void* b1,
                                    const void* w2T, const void* b2, const float* bias,
-                                   void* qkv, void* o, void* x2_out, void* out, int nb, int n,
-                                   int d, int na, int da, int causal, int dtype, float scale,
-                                   cudaStream_t stream) {
+                                   void* qkv, void* o, void* y, void* x2_out, void* out, int nb,
+                                   int n, int d, int na, int da, int causal, int dtype,
+                                   float scale, cudaStream_t stream) {
   if (!shapes_ok(nb, n, d, na, da, 1)) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return (int)fused_layer_fwd<TileBF16>(x, ln_s, ln_b, wqkvT, projT, fln_s, fln_b, w1T, b1,
-                                          w2T, b2, bias, qkv, o, x2_out, out, nb, n, d, na, da,
-                                          causal, dtype, scale, stream);
+                                          w2T, b2, bias, qkv, o, y, x2_out, out, nb, n, d, na,
+                                          da, causal, dtype, scale, stream);
   if (dtype == 0)
     return (int)fused_layer_fwd<TileF32>(x, ln_s, ln_b, wqkvT, projT, fln_s, fln_b, w1T, b1,
-                                         w2T, b2, bias, qkv, o, x2_out, out, nb, n, d, na, da,
-                                         causal, dtype, scale, stream);
+                                         w2T, b2, bias, qkv, o, y, x2_out, out, nb, n, d, na,
+                                         da, causal, dtype, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

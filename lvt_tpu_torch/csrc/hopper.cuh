@@ -1,10 +1,12 @@
 #pragma once
 // Hopper (sm_90a) building blocks shared by the bf16 attention kernels
-// (block_attention.cuh, kernel 1; block_attention_bwd.cuh, kernel 10):
-// TMA tensor maps and loads completing on mbarriers, wgmma descriptors for
-// 128-byte-swizzled shared memory, the m64n64k16 bf16 wgmma in its
-// shared/shared and register/shared forms, and the conversion of an fp32
-// accumulator into the bf16 A operand of the next product.
+// (block_attention.cuh, kernel 1; block_attention_bwd.cuh, kernel 10), the
+// fused layer's bf16 products (fused_layer.cu, kernels 7-9) and the decode
+// kernel's bulk copies (decode_attention.cu, kernel 2): TMA tensor maps and
+// loads completing on mbarriers, wgmma descriptors for 128-byte-swizzled
+// shared memory, the m64n64k16 bf16 wgmma in its shared/shared (K-major or
+// both operands transposed) and register/shared forms, and the conversion of
+// an fp32 accumulator into the bf16 A operand of the next product.
 //
 // Layout of every bf16 tile: rows of 64 elements (128 bytes) as TMA writes
 // them with CU_TENSOR_MAP_SWIZZLE_128B, 8 rows to a 1024-byte swizzle atom;
@@ -122,6 +124,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival (no transaction bytes): a consumer releasing a ring stage
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // wait until the phase of parity `parity` has completed. A load that never
 // lands (a wrong byte count, a refused tensor map) traps after ~2^28 polls
 // instead of hanging the card: the launch then fails and the wrapper raises.
@@ -220,6 +227,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LVT_WGMMA_D32
                ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : LVT_WGMMA_OUT32(d)
+               : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 fp32) += A (64 x 16, MN-major in shared memory: wgmma's
+// transposed A) B (16 x 64, MN-major: transposed B). A product over the rows
+// of two row-major tiles, A^T B, reads both as TMA lays them down.
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LVT_WGMMA_D32
+               ", %32, %33, p, 1, 1, 1, 1;\n}\n"
                : LVT_WGMMA_OUT32(d)
                : "l"(da), "l"(db), "r"(1));
 }

@@ -33,9 +33,9 @@ _L = ctypes.c_longlong
 # C signatures of csrc/*.cu (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "lvt_block_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "lvt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "lvt_decode_attention": [_P] * 5 + [_I] * 7 + [_F, _P],
     "lvt_block_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _P],
-    "lvt_fused_layer_fwd": [_P] * 16 + [_I] * 7 + [_F, _P],
+    "lvt_fused_layer_fwd": [_P] * 17 + [_I] * 7 + [_F, _P],
     "lvt_ffn_half_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "lvt_attn_half_bwd": [_P] * 19 + [_I] * 8 + [_F, _P],
     "lvt_decode_attention_i8": [_P] * 8 + [_I] * 7 + [_F, _P],

@@ -49,9 +49,33 @@ def decode_attention_plain(q, kc, vc, live: int, bias, scale: float) -> torch.Te
     return out.to(kc.dtype).reshape(b, na * da)
 
 
+# kernel 2's launch plan: C blocks (a thread-block cluster) per (batch row,
+# head), C the least power of two up to MAX_CLUSTER that puts at least
+# CARD_SMS blocks on the card, twice as many once live exceeds LONG_LIVE
+# rows (measured on the H100 by tools/time_decode_parts_torch.py: at b = 8
+# and 16, live = 256, the doubled cluster is faster, at live = 64 slower);
+# rank r of a cluster owns the live rows [r * chunk, min((r + 1) * chunk,
+# live)), chunk = ceil(live / C)
+MAX_CLUSTER = 16
+CARD_SMS = 132  # NVIDIA H100 SXM
+LONG_LIVE = 128
+
+
+def decode_plan(b: int, na: int, live: int):
+    """(C, chunk) of kernel 2 for b batch rows, na heads, live rows: the
+    cluster size and the rows each rank owns (csrc/decode_attention.cu
+    computes the same chunk from live and C)."""
+    blocks = CARD_SMS * (2 if live > LONG_LIVE else 1)
+    c = 1
+    while c < MAX_CLUSTER and b * na * c < blocks:
+        c *= 2
+    return c, -(-live // c)
+
+
 def decode_attention_cuda(q, kc, vc, live: int, bias, scale: float) -> torch.Tensor:
     """Kernel 2 (csrc/decode_attention.cu) on CUDA tensors: the shapes and
-    types of ``decode_attention_plain``, all contiguous, da in {64, 128}."""
+    types of ``decode_attention_plain``, all contiguous, da in {64, 128}.
+    One cluster launch, its size from ``decode_plan``."""
     if not (q.is_cuda and kc.device == q.device and vc.device == q.device
             and bias.device == q.device):
         raise ValueError("decode_attention_cuda: all inputs must be on one CUDA device")
@@ -83,8 +107,8 @@ def decode_attention_cuda(q, kc, vc, live: int, bias, scale: float) -> torch.Ten
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.lvt_decode_attention(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, na, R, da, int(live), 0 if kc.dtype == torch.float32 else 1,
-        float(scale), stream)
+        b, na, R, da, int(live), decode_plan(b, na, int(live))[0],
+        0 if kc.dtype == torch.float32 else 1, float(scale), stream)
     check_launch("decode_attention", err)
     decode_attention_cuda.launches += 1
     return out

@@ -246,8 +246,9 @@ def _dtype_code(dtype) -> int:
 
 def fused_layer_fwd_cuda(tok, p: LayerParams, bias, causal: bool, with_x2: bool = False):
     """Kernel 7 (csrc/fused_layer.cu) on CUDA tensors; arguments and result
-    as ``fused_layer_tokens_plain``, the bias float32. The qkv and per-head
-    output scratch come from PyTorch's allocator on the current stream."""
+    as ``fused_layer_tokens_plain``, the bias float32. The qkv, per-head
+    output and LN scratch come from PyTorch's allocator on the current
+    stream."""
     _check_fused_inputs("fused_layer_fwd_cuda", p, bias, tok)
     nb, n, d = tok.shape
     na, _, da = p["wq"].shape
@@ -258,14 +259,15 @@ def fused_layer_fwd_cuda(tok, p: LayerParams, bias, causal: bool, with_x2: bool 
     proj_t, w1_t, w2_t = (p[k].t().contiguous() for k in ("proj", "ffn_w1", "ffn_w2"))
     qkv = torch.empty((3, nb, na, n, da), dtype=tok.dtype, device=tok.device)
     o = torch.empty((nb, na, n, da), dtype=tok.dtype, device=tok.device)
+    y = torch.empty_like(tok) if tok.dtype == torch.bfloat16 else None  # LN(tok) in bf16
     out = torch.empty_like(tok)
     x2 = torch.empty_like(tok) if with_x2 else None
     err = LIBRARY.get().lvt_fused_layer_fwd(
         tok.data_ptr(), p["ln_scale"].data_ptr(), p["ln_bias"].data_ptr(), wqkv_t.data_ptr(),
         proj_t.data_ptr(), p["ffn_ln_scale"].data_ptr(), p["ffn_ln_bias"].data_ptr(),
         w1_t.data_ptr(), p["ffn_b1"].data_ptr(), w2_t.data_ptr(), p["ffn_b2"].data_ptr(),
-        bias.data_ptr(), qkv.data_ptr(), o.data_ptr(), x2.data_ptr() if with_x2 else 0,
-        out.data_ptr(),
+        bias.data_ptr(), qkv.data_ptr(), o.data_ptr(), 0 if y is None else y.data_ptr(),
+        x2.data_ptr() if with_x2 else 0, out.data_ptr(),
         nb, n, d, na, da, int(causal), _dtype_code(tok.dtype), 1.0 / math.sqrt(da),
         torch.cuda.current_stream().cuda_stream)
     check_launch("fused_layer_fwd", err)

@@ -1,19 +1,32 @@
 #!/usr/bin/env python
-"""Time kernels 1 and 10 and the DSFVT b64 training steps of this checkout
-beside another checkout of the repository (a parent commit unpacked with
+"""Time the kernels and the DSFVT b64 training steps of this checkout beside
+another checkout of the repository (a parent commit unpacked with
 ``git archive`` into a git-ignored directory), on one card, in turns: other,
 this, this, other.
 
-Each turn runs, in a fresh process from that tree's root, the tree's own
-``chip_smoke.py`` phases: device, build, kernels (phase 3: kernel 1 at
-nb=16 beside its library call and bound), train kernels (phase 6: kernels 10
-and 1 at nb=64) and train (phase 8: the fused and unfused steps, each with
-one profiled step by ``__global__`` function). Each turn's whole output goes
-to ``<out-dir>/ab_<turn>_<tree>.txt`` (default ``output/ab_attention``); the
-lines with the numbers are printed. ``--kernels-only`` leaves out phase 8. Needs a CUDA card.
+Each turn runs, in a fresh process from that tree's root (so that the
+tree's own ``lvt_tpu_torch`` is imported and built), the phases of THIS
+tree's ``chip_smoke.py`` named by ``--phases``: the same measuring code on
+both trees, calling only the kernels' public wrappers. Phases:
+
+* ``kernels``: phase 3, kernel 1 at nb=16 and kernel 2 at DSFVT shapes,
+  beside their library calls and bounds, and kernel 2's sweep over b in
+  (1, 8, 16) x live in (64, 256);
+* ``train_kernels``: phase 6, kernels 10 and 1 at nb=64;
+* ``fused_kernels``: phase 7, kernels 7, 8 and 9 at nb=64, whole and by
+  ``__global__`` function;
+* ``train``: phase 8, the fused and unfused training steps, each with one
+  profiled step by ``__global__`` function; ``train_fused``: the fused one
+  only.
+
+Device and build (phases 1 and 2) always run first. Each turn's whole
+output goes to ``<out-dir>/ab_<turn>_<tree>.txt`` (default
+``output/ab_attention``); the lines holding any of the kept substrings
+(the defaults below, plus ``--keep``) are printed. Needs a CUDA card.
 
     git archive HEAD | tar -x -C build/parent
-    python tools/ab_attention_torch.py --other build/parent
+    python tools/ab_attention_torch.py --other build/parent \\
+        --phases kernels,fused_kernels,train_fused
 """
 
 import argparse
@@ -22,40 +35,58 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("import chip_smoke as c\n"
-          "card = c.phase_device()\n"
-          "c.phase_build()\n"
-          "c.phase_kernels(card)\n"
-          "c.phase_train_kernels(card)\n")
-TRAIN = "c.phase_train(card)\n"
-KEEP = ("kernel 1 ", "kernel 10 ", "  time ", "bf16 nb=", "train DSFVT", "profile, one train",
-        "hand-written kernels per step", "H100", "build:")
+CALLS = {"kernels": "c.phase_kernels(card)\n",
+         "train_kernels": "c.phase_train_kernels(card)\n",
+         "fused_kernels": "c.phase_fused_kernels(card)\n",
+         "train": "c.phase_train(card)\n",
+         "train_fused": "c.phase_train(card, unfused=False)\n"}
+# this tree's chip_smoke.py, the turn's tree's package (its root is the
+# working directory, first on sys.path)
+HEAD = ("import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', {path!r})\n"
+        "c = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(c)\n"
+        "import lvt_tpu_torch\n"
+        "print('package:', lvt_tpu_torch.__file__)\n"
+        "card = c.phase_device()\n"
+        "c.phase_build()\n")
+KEEP = ("kernel 1 ", "kernel 10 ", "  time ", "bf16 nb=", "kernel 2 ", "fused kernels",
+        "layer times", "by __global__", "train DSFVT", "profile, one train",
+        "hand-written kernels per step", "H100", "build:", "package:")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--phases", default="kernels,train_kernels,train",
+                        help=f"comma-separated, of {', '.join(CALLS)}")
+    parser.add_argument("--keep", action="append", default=[],
+                        help="print output lines holding this substring too (repeatable)")
     parser.add_argument("--timeout", type=int, default=600, help="seconds per turn")
     parser.add_argument("--out-dir", default=os.path.join(ROOT, "output", "ab_attention"),
                         help="directory of the turns' whole logs")
-    parser.add_argument("--kernels-only", action="store_true",
-                        help="phases 1-3 and 6 only, without the training steps")
     args = parser.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = [p for p in phases if p not in CALLS]
+    if unknown:
+        parser.error(f"unknown phases {unknown}; choose from {list(CALLS)}")
+    code = HEAD.format(path=os.path.join(ROOT, "chip_smoke.py")) + "".join(CALLS[p]
+                                                                         for p in phases)
+    keep = KEEP + tuple(args.keep)
     other = os.path.abspath(args.other)
     out_dir = os.path.abspath(args.out_dir)
     os.makedirs(out_dir, exist_ok=True)
     failed = 0
     for turn, (name, root) in enumerate((("other", other), ("this", ROOT), ("this", ROOT),
                                          ("other", other))):
-        print(f"=== turn {turn}: {name} ({root})", flush=True)
-        code = PHASES if args.kernels_only else PHASES + TRAIN
+        print(f"=== turn {turn}: {name} ({root}), phases {','.join(phases)}", flush=True)
         proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                               text=True, timeout=args.timeout)
         log = os.path.join(out_dir, f"ab_{turn}_{name}.txt")
         with open(log, "w") as f:
             f.write(proc.stdout + proc.stderr)
         for line in proc.stdout.splitlines():
-            if any(k in line for k in KEEP):
+            if any(k in line for k in keep):
                 print(line[:400])
         if proc.returncode != 0:
             failed += 1
