@@ -265,6 +265,9 @@ VQ_AGREE_SHARE = 3e-3
 VQ_TRAIN_STEPS, VQ_RESUME_STEPS, VQ_FRAMES = 20, 4, 512
 
 N_PRIME, T_FRAMES = 5, 16
+# __global__ templates of csrc/fused_layer.cu that phase 7 reports by their
+# template argument (gemm_nt_wgmma's epilogue, ln_rows_bf16's input type)
+TEMPLATE_NAMES = ("gemm_nt_wgmma", "ln_rows_bf16")
 
 
 def fail(msg):
@@ -974,7 +977,8 @@ def phase_fused_kernels(card):
 
 def fused_by_function(card, p, bias, inputs, whole):
     """Device time of one call each of kernels 7, 8 and 9 (bf16, not causal,
-    after a warm-up call) by __global__ function, from torch.profiler, held
+    after a warm-up call) by __global__ function (gemm_nt_wgmma by epilogue,
+    ln_rows_bf16 by input type), from torch.profiler, held
     against `whole`, each call's device ms timed by CUDA-graph replay. Only
     the public wrappers are called (tools/ab_attention_torch.py runs this on
     another tree's package too)."""
@@ -1006,8 +1010,11 @@ def fused_by_function(card, p, bias, inputs, whole):
                 if e.device_type != torch.autograd.DeviceType.CUDA:
                     continue
                 name = e.name[5:] if e.name.startswith("void ") else e.name
-                short = re.split(r"[<(]", name.replace("(anonymous namespace)::", ""))[0]
-                short = short.split("::")[-1]
+                name = name.replace("(anonymous namespace)::", "")
+                short = re.split(r"[<(]", name)[0].split("::")[-1]
+                if short in TEMPLATE_NAMES:  # the epilogue or input type of each launch
+                    arg = re.match(r"[^<(]*<([^<>]*)>", name)
+                    short += f"<{arg.group(1).split('::')[-1]}>" if arg else ""
                 tot, cnt = by_name.get(short, (0.0, 0))
                 by_name[short] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
             total = sum(t for t, _ in by_name.values())
@@ -1189,15 +1196,23 @@ def _print_step_profile(card, batch, step_sec, wall, prof, what="DSFVT"):
     # the hand-written kernels' __global__ functions: the attention device
     # code (shared by kernels 1, 10 and, inside the fused layer, 7 and 9), the
     # fixed-order reduction (kernels 8, 9, 10), the fused layer's own (in
-    # bf16 ln_qkv is ln_rows_bf16 + gemm_nt_wgmma), and kernel 6's
-    groups = (("attention forward", "block_attention_"), ("query tiles", "::bwd_rows_"),
-              ("key tiles", "::bwd_keys_"), ("fixed-order reductions", "dbias_reduce"),
-              ("ln_qkv", "ln_qkv"), ("ln_rows_bf16", "ln_rows_bf16"), ("proj_ffn", "proj_ffn"),
-              ("ffn_bwd_rows", "ffn_bwd_rows"), ("gemm_nt", "gemm_nt"), ("gemm_tn", "gemm_tn"),
-              ("nearest_indices (kernel 6)", "nearest_indices_kernel"))
-    sums = {label: (sum(t for name, (t, _) in by_name.items() if key in name),
-                    sum(c for name, (_, c) in by_name.items() if key in name))
-            for label, key in groups}
+    # bf16: the LN passes ln_rows_bf16 and ln_bwd_rows; gemm_nt_wgmma with the
+    # FFN epilogues of kernels 7 and 8, and with the plain store for the QKV,
+    # do and dy products; proj_ffn and ffn_bwd_rows where a tree still has
+    # them), and kernel 6's. A function counts in the first group whose key
+    # its name holds.
+    groups = (("attention forward", ("block_attention_",)), ("query tiles", ("::bwd_rows_",)),
+              ("key tiles", ("::bwd_keys_",)), ("fixed-order reductions", ("dbias_reduce",)),
+              ("ln_qkv", ("ln_qkv",)), ("ln_rows_bf16", ("ln_rows_bf16",)),
+              ("ln_bwd_rows", ("ln_bwd_rows",)), ("proj_ffn", ("proj_ffn",)),
+              ("ffn_bwd_rows", ("ffn_bwd_rows",)),
+              ("gemm_nt FFN epilogues", ("::Ffn", "::StoreF32>")), ("gemm_nt", ("gemm_nt",)),
+              ("gemm_tn", ("gemm_tn",)), ("nearest_indices (kernel 6)", ("nearest_indices_kernel",)))
+    sums = {label: (0.0, 0) for label, _ in groups}
+    for name, (t, c) in by_name.items():
+        label = next((lb for lb, keys in groups if any(k in name for k in keys)), None)
+        if label is not None:
+            sums[label] = (sums[label][0] + t, sums[label][1] + c)
     print("  hand-written kernels per step: " + ", ".join(
         f"{label} {t:.3f} ms ({c}x)" for label, (t, c) in sums.items() if c)
         + f"; total {sum(t for t, _ in sums.values()):.3f} ms")
@@ -1713,13 +1728,16 @@ def phase_vq_kernel(card, models):
     t256 = time_both(card, [lambda v=v: vq.nearest_indices_cuda(v, cb256) for v in sets],
                      [lambda v=v: vq.nearest_indices_plain(v, cb256) for v in sets], 32,
                      "kernel 6 float32 N=8192 K=512 Dc=256 ")
+    lib256 = device_ms([lambda v=v: torch.cdist(v, cb256).argmin(1) for v in sets], 32)
     del sets
     bd, by = bound_ms("float32", 8192 * 64 * 2 + K * 64 * 4 + 8192 * 4, 2 * 8192 * K * 64)
     print(f"  kernel 6 N=8192 K=512 Dc=64: bound {bd:.4f} ms ({by}: 2 N K Dc operations at the "
           f"non-tensor fp32 peak, {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s; z, codebook and "
           f"indices are {(8192 * 64 * 2 + K * 64 * 4 + 8192 * 4) / 1e6:.2f} MB); library "
           f"yardstick torch.cdist(z, c).argmin(1): bf16 z (cast to fp32 first) "
-          f"{times['bfloat16'][2]:.4f} ms, fp32 z {times['float32'][2]:.4f} ms [{card}]")
+          f"{times['bfloat16'][2]:.4f} ms, fp32 z {times['float32'][2]:.4f} ms; at Dc=256 "
+          f"(fp32 z) kernel {t256[0]:.4f} ms, plain {t256[1]:.4f}, torch.cdist(z, c).argmin(1) "
+          f"{lib256:.4f} [{card}]")
 
     # the real z_e of example/*.png: a record for encode_indices' default
     vqvae, vq_params, vq_state = models[:3]
@@ -1743,7 +1761,8 @@ def phase_vq_kernel(card, models):
             "bound_ms": bd, "bound_by": by, "library_ms": times["bfloat16"][2],
             "fp32_ms": times["float32"][0], "fp32_plain_ms": times["float32"][1],
             "fp32_library_ms": times["float32"][2], "dc256_ms": t256[0],
-            "dc256_plain_ms": t256[1], "err_is": "indices that differ, all at near-ties"}
+            "dc256_plain_ms": t256[1], "dc256_library_ms": lib256,
+            "err_is": "indices that differ, all at near-ties"}
 
 
 def _write_frames(root, n_videos, n_frames, seed):
@@ -2133,6 +2152,7 @@ def main():
                    "plain_ms": t[k][1], "bound_ms": fbounds[k][0], "bound_by": fbounds[k][1],
                    "library_ms": None})
         e["unfused_layer_ms"] = t["unfused_fwd"] if k == 7 else t["fb_unfused"]
+        e["by_function_ms"] = (fres["by_function"] or {}).get(k)
         return e
 
     kres["block_attention_fwd"]["err"] = max(kres["block_attention_fwd"]["err"], err1_train,

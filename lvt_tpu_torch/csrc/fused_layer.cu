@@ -13,51 +13,57 @@
 // the H100 a (256, 512) tile does not fit a block's 227 KB of shared memory,
 // blocks run in no order, and 64 programs would leave half the SMs idle. Each
 // kernel here is several __global__ functions behind one C entry point, over
-// row tiles of the (nb * n, d) token matrix:
+// row tiles of the (nb * n, d) token matrix. In bf16:
 //
-// kernel 7  ln_qkv      LN prologue + QKV product per row tile (in bf16 an LN
-//                       pass into a scratch y, then gemm_nt), qkv rounded to
-//                       the io dtype into a head-major scratch (3, nb, na, n,
-//                       da);
+// kernel 7  ln_rows_bf16 LN(x) into a scratch y; gemm_nt_wgmma: qkv = y wqkv,
+//                        rounded, into a head-major scratch (3, nb, na, n, da);
 //           kernel 1's device code (block_attention.cuh) on that scratch: P
-//                       rounded to io, P.V rounded to io, o (nb, na, n, da);
-//           proj_ffn    per row tile: o_all proj + x = x2, kept in fp32 in
-//                       shared memory (also stored, rounded, when asked), LN,
-//                       w1, bias, ReLU, rounding, w2, bias, + x2, one rounding
-//                       on store.
-// kernel 8  ffn_bwd_rows per row tile: LN and f_pre recomputed from the saved
-//                       x2, df = g w2^T, the ReLU gate, dy2 = dfp w1^T, the LN
-//                       backward and dx2 = dx2_ln + g; y2, f and dfp (io dtype)
-//                       go to scratch, and the tile's column sums of dfp, g,
-//                       dy2 * yhat and dy2 to a per-tile scratch;
-//           gemm_tn     dw2 = f^T g and dw1 = y2^T dfp over all rows, the rows
-//                       cut into ranges whose partial products a last kernel
-//                       adds in a fixed order (no float atomicAdd: every
-//                       output is bit-identical from call to call); the same
-//                       reduction adds the per-tile column sums.
-// kernel 9  ln_qkv (also storing y), do = dx2 proj^T (gemm_nt), kernel 1's
-//           device code for o, kernel 10's (block_attention_bwd.cuh) for dq,
-//           dk, dv and dbias from q, k, v and do, dy = dqkv wqkv^T (gemm_nt),
-//           dproj = o^T dx2 and dwqkv = y^T dqkv (gemm_tn + reduction).
+//                        rounded, P.V rounded, o (nb, na, n, da);
+//           gemm_nt_wgmma<FfnResidual>: x2 = o_all proj + x, an fp32 scratch
+//                        (and x2 rounded, when asked);
+//           ln_rows_bf16<float>: y2 = LN(x2), rounded once;
+//           gemm_nt_wgmma<FfnBiasRelu>: f = relu(y2 w1 + b1), rounded;
+//           gemm_nt_wgmma<FfnOut>: out = f w2 + b2 + x2, rounded once.
+// kernel 8  ln_rows_bf16: y2 = LN(x2) and the rows' mean and rstd;
+//           gemm_nt_wgmma<FfnBiasRelu>: f = relu(y2 w1 + b1) and the ReLU
+//                        gate as bytes;
+//           gemm_nt_wgmma<FfnGatedDf>: dfp = gate ? g w2^T : 0, rounded, and
+//                        each row tile's column sums of the unrounded dfp;
+//           gemm_nt_wgmma<StoreF32>: dy2 = dfp w1^T, an fp32 scratch;
+//           ln_bwd_rows: the LN backward, dx2 = dx2_ln + g, and each row
+//                        tile's column sums of g, dy2 yhat and dy2;
+//           gemm_tn_wgmma: dw2 = f^T g and dw1 = y2^T dfp over all rows, the
+//                        rows cut into ranges whose partial products a last
+//                        kernel adds in a fixed order (no float atomicAdd:
+//                        every output is bit-identical from call to call);
+//                        the same reduction adds the row tiles' column sums.
+// kernel 9  ln_qkv as in kernel 7 (also keeping y), do = dx2 proj^T
+//           (gemm_nt_wgmma), kernel 1's device code for o, kernel 10's
+//           (block_attention_bwd.cuh) for dq, dk, dv and dbias from q, k, v
+//           and do, dy = dqkv wqkv^T (gemm_nt_wgmma), dproj = o^T dx2 and
+//           dwqkv = y^T dqkv (gemm_tn_wgmma + reduction).
 //
-// Every matrix product is this file's or those headers' own code, fp32 on
-// FMAs (TF32 would round the inputs to 10 bits) and bf16 on tensor cores.
-// Weights arrive as B operands with rows of consecutive k, i.e. (outputs,
-// inputs): the wrapper passes w^T where the product is with w, and w itself
-// where it is with w^T.
+// fp32 runs the same functions on the older row-tile programs (TileF32 on
+// FMAs: TF32 would round the inputs to 10 bits): ln_qkv and gemm_nt for the
+// products of kernels 7 and 9, proj_ffn (x2 kept in shared memory, LN, w1,
+// ReLU, w2, + x2 per 16-row tile) and ffn_bwd_rows (kernel 8's row work per
+// 16-row tile), gemm_tn_f32. Weights arrive as B operands with rows of
+// consecutive k, i.e. (outputs, inputs): the wrapper passes w^T where the
+// product is with w, and w itself where it is with w^T.
 //
 // What bounds it on the H100: at DSFVT (nb = 64, n = 256, d = 512, na = 8,
 // da = 128) kernel 7 is ~103 GFLOP over ~50 MB of inputs and outputs and
 // kernel 9 ~240 GFLOP over ~120 MB, far above the 295 flops per byte at which
 // bf16 tensor cores stop waiting on memory: their bound is the tensor cores
-// (0.10 and 0.24 ms). In bf16 the products of ln_qkv, gemm_nt and gemm_tn
-// therefore run on wgmma with every operand landed by TMA through a ring of
-// mbarrier stages that one producer warp keeps full (gemm_nt_wgmma and
-// gemm_tn_wgmma below; ln_qkv is ln_rows_bf16, then gemm_nt_wgmma): 128-row
-// tiles, so that W is read from L2 once per 128 rows, and no thread waits on
-// a copy while a product can run. proj_ffn and ffn_bwd_rows still run on
-// mma.sync over 32-row tiles with plain loads (TileBF16), as do all products
-// in fp32 (TileF32).
+// (0.10 and 0.24 ms). In bf16 every product therefore runs on wgmma with its
+// operands landed by TMA through a ring of mbarrier stages that one producer
+// warp keeps full (gemm_nt_wgmma, gemm_tn_wgmma): 128-row tiles, so that W is
+// read from L2 once per 128 rows, and no thread waits on a copy while a
+// product can run. The work between the products (LayerNorm, bias, ReLU and
+// its gate, residuals, column sums) rides in the products' epilogues or in
+// row passes that stream at the memory rate; what joins them is device
+// memory scratch (x2 and dy2 in fp32 keep their rounding points), ~64 MB a
+// call at DSFVT, read back at 3.35 TB/s in ~0.02 ms.
 //
 // Shapes: d a multiple of 64 up to 512; da in {64, 128}; n <= 256 in bf16 and
 // <= 1024 in fp32 (kernels 1 and 10); any nb.
@@ -65,22 +71,17 @@
 #include <type_traits>
 
 #include "block_attention.cuh"
-#include "mma_tiles.cuh"
 #include "block_attention_bwd.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using lvt_mma::ld32;
-using lvt_mma::load_a;
-using lvt_mma::mma_bf16;
 
-constexpr int THREADS = 256;  // every kernel of this file: 8 warps
+constexpr int THREADS = 256;  // 8 warps: every kernel of this file but the wgmma ones
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // A (rows, columns) matrix of activations in device memory: row-major with
 // row stride ld (nh == 0), or head-major (parts, nb, nh, n, da), where row =
@@ -120,63 +121,9 @@ View<T> head_major(const void* p, int nb, int nh, int n, int da) {
 }
 
 // ---------------------------------------------------------------------------
-// Row-tile products: C (ROWS x NC) = A (ROWS x K) B^T, B (NC x K) a weight
+// fp32 row-tile products: C (ROWS x NC) = A (ROWS x K) B^T, B (NC x K) a
+// weight
 // ---------------------------------------------------------------------------
-
-// bf16 (proj_ffn, ffn_bwd_rows), on mma.sync: a block of 8 warps owns 32 rows
-// x 256 columns; warp w owns all 32 rows of columns [32 w, 32 w + 32) as
-// 2 x 4 mma tiles. A sits row-major in
-// shared memory (row stride a multiple of 64 plus 8 elements, so the 8 rows x
-// 4 words of a fragment read hit 32 banks), B one 64-deep chunk at a time.
-struct TileBF16 {
-  using T = bf16;
-  static constexpr int ROWS = 32, NC = 256, KC = 64, PAD = 8, VEC = 8;
-  static constexpr int RPT = 4, CPT = 8;  // rows and columns held per thread
-  float c[2][4][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
-  }
-  // one chunk: A columns [0, KC) at As (row stride lda), B chunk Bs[NC][KC + PAD]
-  __device__ __forceinline__ void mac(const T* As, int lda, const T* Bs) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t fa[2][4];
-      load_a(fa[0], As, lda, kk, g, t);
-      load_a(fa[1], As + 16 * lda, lda, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const T* br = Bs + (warp * 32 + j * 8 + g) * (KC + PAD) + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(br), b1 = ld32(br + 8);
-        mma_bf16(c[0][j], fa[0], b0, b1);
-        mma_bf16(c[1][j], fa[1], b0, b1);
-      }
-    }
-  }
-  __device__ __forceinline__ int row(int i) const {
-    return (i >> 1) * 16 + (i & 1) * 8 + (threadIdx.x % 32) / 4;
-  }
-  __device__ __forceinline__ int col(int j) const {
-    return (threadIdx.x / 32) * 32 + (j >> 1) * 8 + 2 * (threadIdx.x % 4) + (j & 1);
-  }
-  __device__ __forceinline__ float val(int i, int j) const {
-    return c[i >> 1][j >> 1][(i & 1) * 2 + (j & 1)];
-  }
-  // sum of v over the tile's 32 rows, given each thread's sum over its own 4:
-  // the other rows of a column sit in the lanes of the same t (same warp)
-  static __device__ __forceinline__ float colsum(float v) {
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-  }
-  static __device__ __forceinline__ bool colsum_owner() { return (threadIdx.x % 32) / 4 == 0; }
-};
 
 // fp32: 16 rows x 256 columns; thread i owns column i of all 16 rows. A reads
 // are warp-wide broadcasts, B rows of KC + 4 floats put a quarter warp's
@@ -488,7 +435,10 @@ struct Operand {
 
 // the two 64 x 64 accumulators of a consumer thread, rounded to bf16, to the
 // output tile (rows i0.., columns n0..) of C; rows past ng and columns past N
-// are dropped. Output row (blk, i) is C's row blk * ng + i.
+// are dropped. Output row (blk, i) is C's row blk * ng + i. (for_each_pair
+// below walks the same elements; this form keeps a row's offset out of the
+// column loop, which a head-major C needs: through for_each_pair the QKV
+// product read 0.236-0.242 ms instead of 0.193 on the H100.)
 __device__ __forceinline__ void store_wg_tile(const float (&acc)[2][32], const View<bf16>& C,
                                               int blk, int ng, int i0, int n0, int N) {
   const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, g = (tid % 32) / 4,
@@ -510,23 +460,197 @@ __device__ __forceinline__ void store_wg_tile(const float (&acc)[2][32], const V
   }
 }
 
-// LayerNorm of the rows of x (R, d) into y (R, d), bf16, one warp a row, with
-// ln_rows' arithmetic: lane l sums the columns l, l + 32, ... in that order
-// before the warp's butterfly; the mean, then the mean of squared
-// deviations; y = yhat * gamma + beta rounded once. ln_qkv in bf16 is this
-// and gemm_nt_wgmma over y (a resident 128 x 512 tile of y, 128 KB, would
-// leave one block an SM).
+// the bf16 dispatch; ROWS: the row tile of kernel 8's column-sum partials
+// (gemm_nt_wgmma's rows over one plane of R rows)
+struct BF16 {
+  using T = bf16;
+  static constexpr int ROWS = WG_ROWS;
+};
+
+// calls f(row, col, v0, v1) for each pair of adjacent outputs (row, col),
+// (row, col + 1) of a consumer thread's two 64 x 64 accumulators in the
+// output tile (blk, i0.., n0..), row = blk * ng + i; rows past ng and
+// columns past N are skipped
+template <class F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[2][32], int blk, int ng, int i0,
+                                              int n0, int N, F&& f) {
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, g = (tid % 32) / 4,
+            t = tid % 4;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int i = i0 + 64 * wg + lvt_hopper::acc_row(2 * hi, w, g);
+    if (i >= ng) continue;
+    const long row = (long)blk * ng + i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + 64 * h + lvt_hopper::acc_col(j, 0, t);
+        if (col < N) f(row, col, acc[h][4 * j + 2 * hi], acc[h][4 * j + 2 * hi + 1]);
+      }
+  }
+}
+
+// the two consumer warpgroups meet (the producer warp has returned)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+}
+
+// Epilogues of gemm_nt_wgmma: every consumer thread calls one with its two
+// accumulators once its products are done; `smem` is the ring, free once
+// both consumer warpgroups have met. StoreBF16 rounds into C, row-major or
+// head-major (ln_qkv's and kernel 9's products); the Ffn ones are kernels 7 and 8's FFN work
+// on row-major (rows, N) outputs, with their rounding points: x2 and dy2
+// stay fp32, y2, f and dfp are rounded, out once.
+struct StoreBF16 {
+  View<bf16> C;
+  __device__ __forceinline__ void operator()(const float (&acc)[2][32], int blk, int ng, int i0,
+                                             int n0, int N, unsigned char*) const {
+    store_wg_tile(acc, C, blk, ng, i0, n0, N);
+  }
+};
+
+// kernel 8's dy2 = dfp w1^T, fp32
+struct StoreF32 {
+  float* C;
+  __device__ __forceinline__ void operator()(const float (&acc)[2][32], int blk, int ng, int i0,
+                                             int n0, int N, unsigned char*) const {
+    for_each_pair(acc, blk, ng, i0, n0, N, [&](long row, int col, float v0, float v1) {
+      *reinterpret_cast<float2*>(C + row * N + col) = make_float2(v0, v1);
+    });
+  }
+};
+
+// kernel 7's x2 = o_all proj + x into the fp32 x2f, and rounded into x2_out
+// where given
+struct FfnResidual {
+  const bf16* x;
+  float* x2f;
+  bf16* x2_out;
+  __device__ __forceinline__ void operator()(const float (&acc)[2][32], int blk, int ng, int i0,
+                                             int n0, int N, unsigned char*) const {
+    for_each_pair(acc, blk, ng, i0, n0, N, [&](long row, int col, float v0, float v1) {
+      const size_t o = (size_t)row * N + col;
+      const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + o));
+      const float a = v0 + xv.x, b = v1 + xv.y;
+      *reinterpret_cast<float2*>(x2f + o) = make_float2(a, b);
+      if (x2_out != nullptr)
+        *reinterpret_cast<__nv_bfloat162*>(x2_out + o) = __floats2bfloat162_rn(a, b);
+    });
+  }
+};
+
+// f_pre = y2 w1 + b1; f = relu(f_pre) rounded; where gate is given (kernel 8)
+// also the gate f_pre > 0, one byte an element
+struct FfnBiasRelu {
+  const bf16* b1;
+  bf16* f;
+  unsigned char* gate;
+  __device__ __forceinline__ void operator()(const float (&acc)[2][32], int blk, int ng, int i0,
+                                             int n0, int N, unsigned char*) const {
+    for_each_pair(acc, blk, ng, i0, n0, N, [&](long row, int col, float v0, float v1) {
+      const size_t o = (size_t)row * N + col;
+      const float a = v0 + __bfloat162float(b1[col]), b = v1 + __bfloat162float(b1[col + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(f + o) =
+          __floats2bfloat162_rn(fmaxf(a, 0.f), fmaxf(b, 0.f));
+      if (gate != nullptr) *reinterpret_cast<uchar2*>(gate + o) = make_uchar2(a > 0.f, b > 0.f);
+    });
+  }
+};
+
+// kernel 7's out = f w2 + b2 + x2, rounded once
+struct FfnOut {
+  const bf16* b2;
+  const float* x2f;
+  bf16* out;
+  __device__ __forceinline__ void operator()(const float (&acc)[2][32], int blk, int ng, int i0,
+                                             int n0, int N, unsigned char*) const {
+    for_each_pair(acc, blk, ng, i0, n0, N, [&](long row, int col, float v0, float v1) {
+      const size_t o = (size_t)row * N + col;
+      const float2 x2 = *reinterpret_cast<const float2*>(x2f + o);
+      *reinterpret_cast<__nv_bfloat162*>(out + o) =
+          __floats2bfloat162_rn(v0 + __bfloat162float(b2[col]) + x2.x,
+                                v1 + __bfloat162float(b2[col + 1]) + x2.y);
+    });
+  }
+};
+
+// kernel 8's dfp = gate ? g w2^T : 0, rounded into dfp, and the fp32 column
+// sums of the unrounded dfp over the tile's rows into part[tile][0] (part:
+// (row tiles, 4, N); the rows are one plane, so the tile is blockIdx.x),
+// added in a fixed order: a thread's two rows, the warp's eight row groups
+// by a butterfly, then the eight consumer warps in order through the ring's
+// shared memory
+struct FfnGatedDf {
+  const unsigned char* gate;
+  bf16* dfp;
+  float* part;
+  __device__ __forceinline__ void operator()(const float (&acc)[2][32], int blk, int ng, int i0,
+                                             int n0, int N, unsigned char* smem) const {
+    const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, w = warp % 4,
+              g = (tid % 32) / 4, t = tid % 4;
+    float* red = reinterpret_cast<float*>(smem);  // [8 warps][128 columns]
+    consumers_sync();                              // both warpgroups are done with the ring
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * h + lvt_hopper::acc_col(j, 0, t), col = n0 + c;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int i = i0 + 64 * wg + lvt_hopper::acc_row(2 * hi, w, g);
+          if (i < ng && col < N) {
+            const size_t o = ((size_t)blk * ng + i) * N + col;
+            const uchar2 on = *reinterpret_cast<const uchar2*>(gate + o);
+            const float a = on.x ? acc[h][4 * j + 2 * hi] : 0.f;
+            const float b = on.y ? acc[h][4 * j + 2 * hi + 1] : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(dfp + o) = __floats2bfloat162_rn(a, b);
+            s0 += a;
+            s1 += b;
+          }
+        }
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+        }
+        if (g == 0) {
+          red[warp * WG_COLS + c] = s0;
+          red[warp * WG_COLS + c + 1] = s1;
+        }
+      }
+    consumers_sync();
+    if (tid < WG_COLS && n0 + tid < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < WG_CONSUMERS / 32; ++k) s += red[k * WG_COLS + tid];
+      part[(size_t)blockIdx.x * 4 * N + n0 + tid] = s;
+    }
+  }
+};
+
+// LayerNorm of the rows of x (R, d), bf16 or fp32, into y (R, d) bf16, one
+// warp a row, with ln_rows' arithmetic: lane l sums the columns l, l + 32,
+// ... in that order before the warp's butterfly; the mean, then the mean of
+// squared deviations; y = yhat * gamma + beta rounded once. Where mu_out is
+// given, each row's mean and rstd go to mu_out and rs_out (kernel 8's LN
+// backward recomputes yhat = (x - mean) * rstd from them, bit for bit).
+// ln_qkv in bf16 is this and gemm_nt_wgmma over y (a resident 128 x 512 tile
+// of y, 128 KB, would leave one block an SM).
+template <class Tin>
 __global__ void __launch_bounds__(THREADS)
-ln_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-             const bf16* __restrict__ beta, bf16* __restrict__ y, long R, int d) {
+ln_rows_bf16(const Tin* __restrict__ x, const bf16* __restrict__ gamma,
+             const bf16* __restrict__ beta, bf16* __restrict__ y, float* __restrict__ mu_out,
+             float* __restrict__ rs_out, long R, int d) {
   constexpr int MAXC = 512 / 32;  // columns a lane holds (d <= 512)
   const long row = (long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32, nc = d / 32;
   if (row >= R) return;
-  const bf16* xr = x + row * d + lane;
+  const Tin* xr = x + row * d + lane;
   float xv[MAXC];
 #pragma unroll
-  for (int k = 0; k < MAXC; ++k) xv[k] = k < nc ? __bfloat162float(xr[32 * k]) : 0.f;
+  for (int k = 0; k < MAXC; ++k) xv[k] = k < nc ? to_f(xr[32 * k]) : 0.f;
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < MAXC; ++k)
@@ -537,6 +661,10 @@ ln_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   for (int k = 0; k < MAXC; ++k)
     if (k < nc) v += (xv[k] - mu) * (xv[k] - mu);
   const float rstd = rsqrtf(warp_sum(v) / (float)d + 1e-5f);
+  if (mu_out != nullptr && lane == 0) {
+    mu_out[row] = mu;
+    rs_out[row] = rstd;
+  }
   bf16* yr = y + row * d + lane;
   gamma += lane;
   beta += lane;
@@ -547,12 +675,79 @@ ln_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                                        __bfloat162float(beta[32 * k]));
 }
 
-// C (rows x N) = A W^T, rounded to bf16: A an activation addressed through
-// amap and aop, W (N, K) a weight, K-major, both streamed by TMA; one tile
-// of 128 rows (blk, i0) x 128 columns a block, k-chunks of 64.
+// Kernel 8's last row pass in bf16, one block a 128-row tile, one warp a row
+// (16 rows a warp): yhat recomputed from x2 and ln_rows_bf16's mean and
+// rstd; dx2 = rstd (dy2 gamma - m1 - yhat m2) + g rounded once, m1 and m2
+// the row means of dy2 gamma and dy2 gamma yhat (lane order, then the warp's
+// butterfly); the tile's column sums of g (db2), dy2 yhat (dls) and dy2
+// (dlb) into part[tile][1..3], the warps added in order.
+__global__ void __launch_bounds__(THREADS)
+ln_bwd_rows(const float* __restrict__ dy2, const bf16* __restrict__ x2,
+            const bf16* __restrict__ g, const bf16* __restrict__ gamma,
+            const float* __restrict__ mean, const float* __restrict__ rstd,
+            bf16* __restrict__ dx2, float* __restrict__ part, long R, int d) {
+  constexpr int MAXC = 512 / 32, WARPS = THREADS / 32, RPW = WG_ROWS / WARPS;
+  __shared__ float red[WARPS][512];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nc = d / 32;
+  float gam[MAXC], sg[MAXC], sdh[MAXC], sd[MAXC];
+#pragma unroll
+  for (int k = 0; k < MAXC; ++k) {
+    gam[k] = k < nc ? __bfloat162float(gamma[lane + 32 * k]) : 0.f;
+    sg[k] = sdh[k] = sd[k] = 0.f;
+  }
+  for (int r = 0; r < RPW; ++r) {
+    const long row = (long)blockIdx.x * WG_ROWS + warp * RPW + r;
+    if (row >= R) break;
+    const float mu = mean[row], rs = rstd[row];
+    const size_t o = (size_t)row * d + lane;
+    float dy[MAXC], yh[MAXC];
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAXC; ++k)
+      if (k < nc) {
+        dy[k] = dy2[o + 32 * k];
+        yh[k] = (__bfloat162float(x2[o + 32 * k]) - mu) * rs;
+        const float dyh = dy[k] * gam[k];
+        m1 += dyh;
+        m2 += dyh * yh[k];
+      }
+    m1 = warp_sum(m1) / (float)d;
+    m2 = warp_sum(m2) / (float)d;
+#pragma unroll
+    for (int k = 0; k < MAXC; ++k)
+      if (k < nc) {
+        const float go = __bfloat162float(g[o + 32 * k]), dyh = dy[k] * gam[k];
+        dx2[o + 32 * k] = __float2bfloat16_rn(rs * (dyh - m1 - yh[k] * m2) + go);
+        sg[k] += go;
+        sdh[k] += dy[k] * yh[k];
+        sd[k] += dy[k];
+      }
+  }
+  float* sums = part + (size_t)blockIdx.x * 4 * d;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+#pragma unroll
+    for (int k = 0; k < MAXC; ++k)
+      if (k < nc) red[warp][lane + 32 * k] = s == 0 ? sg[k] : s == 1 ? sdh[k] : sd[k];
+    __syncthreads();
+    for (int c = threadIdx.x; c < d; c += THREADS) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) v += red[w][c];
+      sums[(1 + s) * d + c] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// C (rows x N) = A W^T: A an activation addressed through amap and aop, W
+// (N, K) a weight, K-major, both streamed by TMA; one tile of 128 rows (blk,
+// i0) x 128 columns a block, k-chunks of 64; the epilogue epi (above) takes
+// the accumulators.
+template <class Epi>
 __global__ void __launch_bounds__(WG_THREADS)
 gemm_nt_wgmma(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
-              Operand aop, View<bf16> C, int ng, int K, int N) {
+              Operand aop, Epi epi, int ng, int K, int N) {
   using namespace lvt_hopper;
   constexpr int STAGE = 2 * WG_ROWS * 128;  // a 128-row x 64-column box of A, one of W
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -617,7 +812,7 @@ gemm_nt_wgmma(const __grid_constant__ CUtensorMap amap, const __grid_constant__ 
     for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
     if (tid % 128 == 0) mbar_arrive(&empty[s]);
   }
-  store_wg_tile(acc, C, blk, ng, i0, n0, N);
+  epi(acc, blk, ng, i0, n0, N, smem);
 }
 
 constexpr size_t gemm_nt_wgmma_smem() {
@@ -1098,28 +1293,48 @@ bool weight_map(CUtensorMap* map, const void* W, int N, int K) {
   return lvt_hopper::make_map(map, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 1, N, K, WG_ROWS, 64);
 }
 
+// C = A W^T on gemm_nt_wgmma, the accumulators to the epilogue epi: A (R
+// rows x K) a bf16 activation, W (N, K) a bf16 weight
+template <class Epi>
+cudaError_t launch_gemm_nt(const View<bf16>& A, const void* W, const Epi& epi, long R, int K,
+                           int N, cudaStream_t stream) {
+  int nbg, ng;
+  grouping(A, A, R, nbg, ng);
+  CUtensorMap amap, wmap;
+  Operand aop;
+  if (!act_map(&amap, &aop, A, K, nbg, ng, WG_ROWS) || !weight_map(&wmap, W, N, K))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = gemm_nt_wgmma_smem();
+  LVT_TRY(lvt_hopper::set_smem_max(gemm_nt_wgmma<Epi>, (int)smem));
+  const dim3 grid(nbg * ((ng + WG_ROWS - 1) / WG_ROWS), (N + WG_COLS - 1) / WG_COLS);
+  gemm_nt_wgmma<Epi><<<grid, WG_THREADS, smem, stream>>>(amap, wmap, aop, epi, ng, K, N);
+  return cudaGetLastError();
+}
+
+// the LayerNorm pass ln_rows_bf16 over R rows of x
+template <class Tin>
+cudaError_t run_ln_rows(const Tin* x, const void* gamma, const void* beta, bf16* y,
+                        float* mu_out, float* rs_out, long R, int d, cudaStream_t stream) {
+  ln_rows_bf16<Tin><<<(unsigned)((R + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, stream>>>(
+      x, static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta), y, mu_out, rs_out, R,
+      d);
+  return cudaGetLastError();
+}
+
+// C = A W^T rounded to the io dtype (bf16: gemm_nt_wgmma with the plain store)
 template <class TL>
 cudaError_t run_gemm_nt(View<typename TL::T> A, const void* W, View<typename TL::T> C, long R,
                         int K, int N, cudaStream_t stream) {
   using T = typename TL::T;
   if constexpr (std::is_same<T, bf16>::value) {
-    int nbg, ng;
-    grouping(A, A, R, nbg, ng);
-    CUtensorMap amap, wmap;
-    Operand aop;
-    if (!act_map(&amap, &aop, A, K, nbg, ng, WG_ROWS) || !weight_map(&wmap, W, N, K))
-      return cudaErrorInvalidValue;
-    constexpr size_t smem = gemm_nt_wgmma_smem();
-    LVT_TRY(lvt_hopper::set_smem_max(gemm_nt_wgmma, (int)smem));
-    const dim3 grid(nbg * ((ng + WG_ROWS - 1) / WG_ROWS), (N + WG_COLS - 1) / WG_COLS);
-    gemm_nt_wgmma<<<grid, WG_THREADS, smem, stream>>>(amap, wmap, aop, C, ng, K, N);
+    return launch_gemm_nt(A, W, StoreBF16{C}, R, K, N, stream);
   } else {
     constexpr size_t smem = gemm_nt_smem<TL>();
     LVT_TRY(set_smem(gemm_nt<TL>, smem));
     gemm_nt<TL><<<dim3(tiles_of<TL>(R), (N + TL::NC - 1) / TL::NC), THREADS, smem, stream>>>(
         A, static_cast<const T*>(W), C, R, K, N);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // C = LN(x) W^T rounded to the io dtype; y_out, where given, takes LN(x) (in
@@ -1131,10 +1346,8 @@ cudaError_t run_ln_qkv(const void* x, const void* gamma, const void* beta, const
   using T = typename TL::T;
   if constexpr (std::is_same<T, bf16>::value) {
     if (y_out == nullptr) return cudaErrorInvalidValue;
-    ln_rows_bf16<<<(unsigned)((R + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-        static_cast<T*>(y_out), R, d);
-    LVT_TRY(cudaGetLastError());
+    LVT_TRY(run_ln_rows(static_cast<const T*>(x), gamma, beta, static_cast<T*>(y_out), nullptr,
+                        nullptr, R, d, stream));
     return run_gemm_nt<TL>(row_major<T>(y_out, d), W, C, R, d, N, stream);
   } else {
     const size_t smem = ln_qkv_smem<TL>(d);
@@ -1183,6 +1396,24 @@ bool shapes_ok(int nb, int n, int d, int nh, int da, int splits) {
          (da == 64 || da == 128) && splits >= 1 && splits <= 65535;
 }
 
+// Kernel 7's work after the attention in bf16: four launches, joined by the
+// scratch work = (y2 | f | x2 in fp32), each (R, d)
+cudaError_t proj_ffn_bf16(const View<bf16>& o, const bf16* x, const void* projT,
+                          const void* fln_s, const void* fln_b, const void* w1T, const bf16* b1,
+                          const void* w2T, const bf16* b2, bf16* work, bf16* x2_out, bf16* out,
+                          long R, int d, int KO, cudaStream_t stream) {
+  const size_t per = (size_t)R * d;
+  bf16* y2 = work;
+  bf16* f = work + per;
+  float* x2f = reinterpret_cast<float*>(work + 2 * per);
+  LVT_TRY(launch_gemm_nt(o, projT, FfnResidual{x, x2f, x2_out}, R, KO, d, stream));
+  LVT_TRY(run_ln_rows(static_cast<const float*>(x2f), fln_s, fln_b, y2, nullptr, nullptr, R, d,
+                      stream));
+  LVT_TRY(launch_gemm_nt(row_major<bf16>(y2, d), w1T, FfnBiasRelu{b1, f, nullptr}, R, d, d,
+                         stream));
+  return launch_gemm_nt(row_major<bf16>(f, d), w2T, FfnOut{b2, x2f, out}, R, d, d, stream);
+}
+
 template <class TL>
 cudaError_t fused_layer_fwd(const void* x, const void* ln_s, const void* ln_b,
                             const void* wqkvT, const void* projT, const void* fln_s,
@@ -1199,13 +1430,47 @@ cudaError_t fused_layer_fwd(const void* x, const void* ln_s, const void* ln_b,
   T* q = static_cast<T*>(qkv);
   LVT_TRY((cudaError_t)lvt_fwd::block_attention_fwd(q, q + head, q + 2 * head, bias, o, nb, na,
                                                     n, da, causal, dtype, scale, stream));
-  const size_t smem = proj_ffn_smem<TL>(d);
-  LVT_TRY(set_smem(proj_ffn<TL>, smem));
-  proj_ffn<TL><<<tiles_of<TL>(R), THREADS, smem, stream>>>(
-      head_major<T>(o, nb, na, n, da), static_cast<const T*>(x), static_cast<const T*>(projT),
-      static_cast<const T*>(fln_s), static_cast<const T*>(fln_b), static_cast<const T*>(w1T),
-      static_cast<const T*>(b1), static_cast<const T*>(w2T), static_cast<const T*>(b2),
-      static_cast<T*>(x2_out), static_cast<T*>(out), R, d, na * da);
+  if constexpr (std::is_same<T, bf16>::value) {
+    return proj_ffn_bf16(head_major<T>(o, nb, na, n, da), static_cast<const T*>(x), projT, fln_s,
+                         fln_b, w1T, static_cast<const T*>(b1), w2T, static_cast<const T*>(b2),
+                         static_cast<T*>(y), static_cast<T*>(x2_out), static_cast<T*>(out), R, d,
+                         na * da, stream);
+  } else {
+    const size_t smem = proj_ffn_smem<TL>(d);
+    LVT_TRY(set_smem(proj_ffn<TL>, smem));
+    proj_ffn<TL><<<tiles_of<TL>(R), THREADS, smem, stream>>>(
+        head_major<T>(o, nb, na, n, da), static_cast<const T*>(x), static_cast<const T*>(projT),
+        static_cast<const T*>(fln_s), static_cast<const T*>(fln_b), static_cast<const T*>(w1T),
+        static_cast<const T*>(b1), static_cast<const T*>(w2T), static_cast<const T*>(b2),
+        static_cast<T*>(x2_out), static_cast<T*>(out), R, d, na * da);
+    return cudaGetLastError();
+  }
+}
+
+// Kernel 8's row work in bf16: the LN pass, three products with their
+// epilogues and the LN backward's row pass. acts = (y2, f, dfp); part_r =
+// (tiles, 4, d) partials, then dy2 (R, d), mean (R), rstd (R), all fp32, and
+// the ReLU gate (R, d) bytes.
+cudaError_t ffn_bwd_rows_bf16(const bf16* x2, const bf16* g, const void* fln_s, const void* fln_b,
+                              const void* w1T, const void* w1, const bf16* b1, const void* w2,
+                              bf16* dx2, bf16* acts, float* part_r, long R, int d,
+                              cudaStream_t stream) {
+  const size_t per = (size_t)R * d;
+  const unsigned tiles = tiles_of<BF16>(R);
+  bf16* y2 = acts;
+  bf16* f = acts + per;
+  bf16* dfp = acts + 2 * per;
+  float* dy2 = part_r + (size_t)tiles * 4 * d;
+  float* mean = dy2 + per;
+  float* rstd = mean + R;
+  unsigned char* gate = reinterpret_cast<unsigned char*>(rstd + R);
+  LVT_TRY(run_ln_rows(x2, fln_s, fln_b, y2, mean, rstd, R, d, stream));
+  LVT_TRY(launch_gemm_nt(row_major<bf16>(y2, d), w1T, FfnBiasRelu{b1, f, gate}, R, d, d, stream));
+  LVT_TRY(launch_gemm_nt(row_major<bf16>(g, d), w2, FfnGatedDf{gate, dfp, part_r}, R, d, d,
+                         stream));
+  LVT_TRY(launch_gemm_nt(row_major<bf16>(dfp, d), w1, StoreF32{dy2}, R, d, d, stream));
+  ln_bwd_rows<<<tiles, THREADS, 0, stream>>>(dy2, x2, g, static_cast<const bf16*>(fln_s), mean,
+                                              rstd, dx2, part_r, R, d);
   return cudaGetLastError();
 }
 
@@ -1215,15 +1480,21 @@ cudaError_t ffn_half_bwd(const void* x2, const void* g, const void* fln_s, const
                          void* dx2, float* dw, float* sums, void* acts, float* part_w,
                          float* part_r, long R, int d, int splits, cudaStream_t stream) {
   using T = typename TL::T;
-  const size_t smem = ffn_bwd_smem<TL>(d);
   const unsigned tiles = tiles_of<TL>(R);
-  LVT_TRY(set_smem(ffn_bwd_rows<TL>, smem));
-  ffn_bwd_rows<TL><<<tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(x2), static_cast<const T*>(g), static_cast<const T*>(fln_s),
-      static_cast<const T*>(fln_b), static_cast<const T*>(w1T), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<T*>(dx2),
-      static_cast<T*>(acts), part_r, R, d);
-  LVT_TRY(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    LVT_TRY(ffn_bwd_rows_bf16(static_cast<const T*>(x2), static_cast<const T*>(g), fln_s, fln_b,
+                              w1T, w1, static_cast<const T*>(b1), w2, static_cast<T*>(dx2),
+                              static_cast<T*>(acts), part_r, R, d, stream));
+  } else {
+    const size_t smem = ffn_bwd_smem<TL>(d);
+    LVT_TRY(set_smem(ffn_bwd_rows<TL>, smem));
+    ffn_bwd_rows<TL><<<tiles, THREADS, smem, stream>>>(
+        static_cast<const T*>(x2), static_cast<const T*>(g), static_cast<const T*>(fln_s),
+        static_cast<const T*>(fln_b), static_cast<const T*>(w1T), static_cast<const T*>(w1),
+        static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<T*>(dx2),
+        static_cast<T*>(acts), part_r, R, d);
+    LVT_TRY(cudaGetLastError());
+  }
   T* a = static_cast<T*>(acts);
   const size_t per = (size_t)R * d;
   // dw1 = y2^T dfp, dw2 = f^T g (part_w is reused: the stream orders them)
@@ -1277,8 +1548,9 @@ cudaError_t attn_half_bwd(const void* x, const void* dx2, const void* ln_s, cons
 // Kernel 7. dtype: 0 = float32, 1 = bfloat16 (activations and parameters; the
 // bias is fp32). wqkvT (3 na da, d), projT (d, na da), w1T and w2T (d, d): the
 // weights transposed. qkv (3, nb, na, n, da), o (nb, na, n, da) and, in
-// bf16, y (nb, n, d) are scratch the caller allocates; y in fp32 and x2_out
-// may be null.
+// bf16, y (4, nb, n, d) are scratch the caller allocates: y holds LN(x), then
+// y2 (plane 0), f (plane 1) and x2 in fp32 (planes 2 and 3). y in fp32 and
+// x2_out may be null.
 // Launches on `stream`; returns the first failing cudaError_t, or 0.
 extern "C" int lvt_fused_layer_fwd(const void* x, const void* ln_s, const void* ln_b,
                                    const void* wqkvT, const void* projT, const void* fln_s,
@@ -1289,9 +1561,9 @@ extern "C" int lvt_fused_layer_fwd(const void* x, const void* ln_s, const void* 
                                    float scale, cudaStream_t stream) {
   if (!shapes_ok(nb, n, d, na, da, 1)) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)fused_layer_fwd<TileBF16>(x, ln_s, ln_b, wqkvT, projT, fln_s, fln_b, w1T, b1,
-                                          w2T, b2, bias, qkv, o, y, x2_out, out, nb, n, d, na,
-                                          da, causal, dtype, scale, stream);
+    return (int)fused_layer_fwd<BF16>(x, ln_s, ln_b, wqkvT, projT, fln_s, fln_b, w1T, b1, w2T,
+                                      b2, bias, qkv, o, y, x2_out, out, nb, n, d, na, da, causal,
+                                      dtype, scale, stream);
   if (dtype == 0)
     return (int)fused_layer_fwd<TileF32>(x, ln_s, ln_b, wqkvT, projT, fln_s, fln_b, w1T, b1,
                                          w2T, b2, bias, qkv, o, y, x2_out, out, nb, n, d, na,
@@ -1302,7 +1574,9 @@ extern "C" int lvt_fused_layer_fwd(const void* x, const void* ln_s, const void* 
 // Kernel 8. x2, g, dx2 (R, d) in the io dtype; w1T = w1^T; dw (2, d, d) fp32 =
 // (dw1, dw2); sums (4, d) fp32 = (db1, db2, dls, dlb). Scratch: acts (3, R, d)
 // io dtype, part_w (splits, d, d) fp32, part_r (row tiles, 4, d) fp32, a row
-// tile being 32 rows in bf16 and 16 in fp32.
+// tile being 128 rows in bf16 and 16 in fp32; in bf16 part_r goes on with
+// dy2 (R, d), the rows' LN mean and rstd (R each), all fp32, and the ReLU
+// gate, (R, d) bytes.
 extern "C" int lvt_ffn_half_bwd(const void* x2, const void* g, const void* fln_s,
                                 const void* fln_b, const void* w1T, const void* w1,
                                 const void* b1, const void* w2, void* dx2, float* dw,
@@ -1310,8 +1584,8 @@ extern "C" int lvt_ffn_half_bwd(const void* x2, const void* g, const void* fln_s
                                 int d, int splits, int dtype, cudaStream_t stream) {
   if (!shapes_ok(1, 1, d, 1, 64, splits) || R < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)ffn_half_bwd<TileBF16>(x2, g, fln_s, fln_b, w1T, w1, b1, w2, dx2, dw, sums,
-                                       acts, part_w, part_r, R, d, splits, stream);
+    return (int)ffn_half_bwd<BF16>(x2, g, fln_s, fln_b, w1T, w1, b1, w2, dx2, dw, sums, acts,
+                                   part_w, part_r, R, d, splits, stream);
   if (dtype == 0)
     return (int)ffn_half_bwd<TileF32>(x2, g, fln_s, fln_b, w1T, w1, b1, w2, dx2, dw, sums, acts,
                                       part_w, part_r, R, d, splits, stream);
@@ -1334,9 +1608,9 @@ extern "C" int lvt_attn_half_bwd(const void* x, const void* dx2, const void* ln_
                                  int dtype, float scale, cudaStream_t stream) {
   if (!shapes_ok(nb, n, d, nh, da, splits)) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)attn_half_bwd<TileBF16>(x, dx2, ln_s, ln_b, wqkvT, wqkv, proj, bias, dy, dwqkv,
-                                        dproj, dbias, y, qkv, do_o, dqkv, stats, part_b, part_w,
-                                        nb, n, d, nh, da, causal, splits, dtype, scale, stream);
+    return (int)attn_half_bwd<BF16>(x, dx2, ln_s, ln_b, wqkvT, wqkv, proj, bias, dy, dwqkv,
+                                    dproj, dbias, y, qkv, do_o, dqkv, stats, part_b, part_w, nb,
+                                    n, d, nh, da, causal, splits, dtype, scale, stream);
   if (dtype == 0)
     return (int)attn_half_bwd<TileF32>(x, dx2, ln_s, ln_b, wqkvT, wqkv, proj, bias, dy, dwqkv,
                                        dproj, dbias, y, qkv, do_o, dqkv, stats, part_b, part_w,

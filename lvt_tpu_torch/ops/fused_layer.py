@@ -46,10 +46,10 @@ LayerParams = Dict[str, torch.Tensor]
 PARAM_KEYS = ("ln_scale", "ln_bias", "wq", "wk", "wv", "proj", "ffn_ln_scale", "ffn_ln_bias",
               "ffn_w1", "ffn_b1", "ffn_w2", "ffn_b2")
 
-# rows of one row-tile program and its largest width, by io dtype
-# (csrc/fused_layer.cu: TileBF16 / TileF32); ffn_half_bwd's scratch of row
-# sums has one entry per row tile
-_TILE_ROWS = {torch.float32: 16, torch.bfloat16: 32}
+# rows of a row tile of kernel 8's column-sum partials, by io dtype
+# (csrc/fused_layer.cu: TileF32's 16-row programs in fp32, the wgmma
+# products' 128-row tiles in bf16); and the largest width
+_TILE_ROWS = {torch.float32: 16, torch.bfloat16: 128}
 MAX_D = 512
 
 
@@ -244,11 +244,29 @@ def _dtype_code(dtype) -> int:
     return 0 if dtype == torch.float32 else 1
 
 
+def fwd_y_shape(nb: int, n: int, d: int, io):
+    """Kernel 7's scratch ``y``: none in fp32; in bf16 (4, nb, n, d) bf16:
+    LN(x) for the QKV product, then the FFN's y2 (plane 0), f (plane 1) and
+    x2 in fp32 (planes 2 and 3)."""
+    return None if io == torch.float32 else (4, nb, n, d)
+
+
+def ffn_bwd_scratch(rows: int, d: int, io):
+    """Kernel 8's fp32 scratch ``part_r``: (row tiles, its length in floats).
+    It holds the row tiles' column sums of dfp, g, dy2 * yhat and dy2, (tiles,
+    4, d), a tile being ``_TILE_ROWS[io]`` rows; in bf16 then dy2 (rows, d),
+    the rows' LN mean and rstd (rows each) and the ReLU gate, (rows, d)
+    bytes."""
+    tiles = -(-rows // _TILE_ROWS[io])
+    rest = 0 if io == torch.float32 else rows * d + 2 * rows + rows * d // 4
+    return tiles, tiles * 4 * d + rest
+
+
 def fused_layer_fwd_cuda(tok, p: LayerParams, bias, causal: bool, with_x2: bool = False):
     """Kernel 7 (csrc/fused_layer.cu) on CUDA tensors; arguments and result
     as ``fused_layer_tokens_plain``, the bias float32. The qkv, per-head
-    output and LN scratch come from PyTorch's allocator on the current
-    stream."""
+    output and LN / FFN scratch (``fwd_y_shape``) come from PyTorch's
+    allocator on the current stream."""
     _check_fused_inputs("fused_layer_fwd_cuda", p, bias, tok)
     nb, n, d = tok.shape
     na, _, da = p["wq"].shape
@@ -259,7 +277,8 @@ def fused_layer_fwd_cuda(tok, p: LayerParams, bias, causal: bool, with_x2: bool 
     proj_t, w1_t, w2_t = (p[k].t().contiguous() for k in ("proj", "ffn_w1", "ffn_w2"))
     qkv = torch.empty((3, nb, na, n, da), dtype=tok.dtype, device=tok.device)
     o = torch.empty((nb, na, n, da), dtype=tok.dtype, device=tok.device)
-    y = torch.empty_like(tok) if tok.dtype == torch.bfloat16 else None  # LN(tok) in bf16
+    y_shape = fwd_y_shape(nb, n, d, tok.dtype)
+    y = None if y_shape is None else torch.empty(y_shape, dtype=tok.dtype, device=tok.device)
     out = torch.empty_like(tok)
     x2 = torch.empty_like(tok) if with_x2 else None
     err = LIBRARY.get().lvt_fused_layer_fwd(
@@ -287,14 +306,14 @@ def ffn_half_bwd_cuda(x2, g, p: LayerParams):
     rows = nb * n
     dev, io = x2.device, x2.dtype
     splits = _splits(rows)
-    tiles = (rows + _TILE_ROWS[io] - 1) // _TILE_ROWS[io]
+    _, part_len = ffn_bwd_scratch(rows, d, io)
     w1_t = p["ffn_w1"].t().contiguous()
     dx2 = torch.empty_like(x2)
     dw = torch.empty((2, d, d), dtype=torch.float32, device=dev)     # dw1, dw2
     sums = torch.empty((4, d), dtype=torch.float32, device=dev)      # db1, db2, dls, dlb
     acts = torch.empty((3, rows, d), dtype=io, device=dev)           # y2, f, dfp
     part_w = torch.empty((splits, d, d), dtype=torch.float32, device=dev)
-    part_r = torch.empty((tiles, 4, d), dtype=torch.float32, device=dev)
+    part_r = torch.empty(part_len, dtype=torch.float32, device=dev)
     err = LIBRARY.get().lvt_ffn_half_bwd(
         x2.data_ptr(), g.data_ptr(), p["ffn_ln_scale"].data_ptr(), p["ffn_ln_bias"].data_ptr(),
         w1_t.data_ptr(), p["ffn_w1"].data_ptr(), p["ffn_b1"].data_ptr(), p["ffn_w2"].data_ptr(),
@@ -433,11 +452,12 @@ def fused_layer_supported(layers, blocks) -> bool:
     """The geometry gate of TPU.FUSED_LAYER, a rule of the model (the same
     on every device): every layer shares one block size and one head shape,
     as in lvt_tpu, and the geometry is one kernels 7, 8 and 9 take on the
-    H100. Their row-tile programs keep rows of width d in shared memory
-    (kernel 8: an fp32 and three io-dtype copies of a 32 x d tile in bf16,
-    16 x d in fp32, plus a 36 KB weight tile; 216 KB of the 227 KB a block
-    may use at d = 512), and the weight products walk d in steps of 64, so
-    d is a multiple of 64 up to 512; the attention inside is kernels 1 and
+    H100. Their fp32 row-tile programs keep rows of width d in shared memory
+    (kernel 8: four fp32 copies of a 16 x d tile plus a 36 KB weight tile;
+    173 KB of the 227 KB a block may use at d = 512), their bf16 row passes
+    a row in one warp's registers (16 values a lane at d = 512), and the
+    weight products walk d in steps of 64, so d is a multiple of 64 up to
+    512; the attention inside is kernels 1 and
     10's device code, so da is 64 or 128 and a block holds n <= 256 tokens
     (their bf16 bound, kept for fp32 too so that one geometry takes one path
     in both dtypes). lvt_tpu's limits on its chip's on-chip memory (the

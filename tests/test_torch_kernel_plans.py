@@ -1,8 +1,9 @@
 """The launch plans that the port's kernel wrappers compute on the host, on
 the CPU: kernel 2's cluster size and the live rows of each rank of a cluster
-(ops/cache_attention.py ``decode_plan``), and the row
+(ops/cache_attention.py ``decode_plan``), the row
 ranges whose partial weight gradients kernels 8 and 9 add in a fixed order
-(ops/fused_layer.py ``_splits``). The wrappers' refusals of CPU tensors are
+(ops/fused_layer.py ``_splits``), and the scratch that kernels 7 and 8 take
+(``fwd_y_shape``, ``ffn_bwd_scratch``). The wrappers' refusals of CPU tensors are
 held here too; everything that needs the card is in test_torch_kernels.py."""
 
 import pytest
@@ -64,6 +65,50 @@ def test_fused_splits(rows, want):
     """Row ranges of the weight gradients' fixed-order sums: one per 256 rows,
     at most 16."""
     assert tfl._splits(rows) == want
+
+
+@pytest.mark.parametrize("rows,d,dtype,tiles", [
+    (16384, 512, torch.bfloat16, 128), (60, 64, torch.bfloat16, 1),
+    (125, 512, torch.bfloat16, 1), (129, 256, torch.bfloat16, 2), (288, 512, torch.bfloat16, 3),
+    (16384, 512, torch.float32, 1024), (60, 64, torch.float32, 4)])
+def test_ffn_bwd_scratch(rows, d, dtype, tiles):
+    """Kernel 8's fp32 scratch part_r: the row tiles' column sums (tiles, 4,
+    d), a tile being 128 rows in bf16 (the rows of gemm_nt_wgmma's tiles over
+    one plane, which ln_bwd_rows follows) and 16 in fp32 (TileF32); in bf16
+    then dy2 (rows, d), the rows' mean and rstd and the gate bytes, where
+    csrc/fused_layer.cu ffn_bwd_rows_bf16 puts them: dy2 16-byte aligned (its
+    epilogue stores float pairs), the gate after whole floats."""
+    got_tiles, length = tfl.ffn_bwd_scratch(rows, d, dtype)
+    assert got_tiles == tiles == -(-rows // tfl._TILE_ROWS[dtype])
+    if dtype == torch.float32:
+        assert length == tiles * 4 * d
+        return
+    dy2 = tiles * 4 * d
+    mean, rstd, gate = dy2 + rows * d, dy2 + rows * d + rows, dy2 + rows * d + 2 * rows
+    assert dy2 % 4 == 0
+    assert length == gate + rows * d // 4  # one byte per gate
+    assert (rows * d) % 4 == 0 and rstd - mean == rows
+
+
+def test_ffn_bwd_scratch_at_dsfvt():
+    """At DSFVT b64 (16,384 rows, d = 512) in bf16: 128 row tiles; the new
+    scratch beside the partials is 40 MB (fp32 dy2 32 MB, the gate 8 MB, the
+    row statistics 128 KB)."""
+    tiles, length = tfl.ffn_bwd_scratch(16384, 512, torch.bfloat16)
+    assert tiles == 128
+    extra = 4 * (length - tiles * 4 * 512)
+    assert extra == 16384 * 512 * 4 + 16384 * 512 + 2 * 16384 * 4
+
+
+@pytest.mark.parametrize("nb,n,d", [(64, 256, 512), (3, 20, 64), (2, 144, 512)])
+def test_fused_fwd_scratch(nb, n, d):
+    """Kernel 7's scratch y: none in fp32; in bf16 four (nb, n, d) planes:
+    LN(x), then y2 in its place, f, and x2 in fp32 over planes 2 and 3 (64 MB
+    at DSFVT b64)."""
+    assert tfl.fwd_y_shape(nb, n, d, torch.float32) is None
+    shape = tfl.fwd_y_shape(nb, n, d, torch.bfloat16)
+    assert shape == (4, nb, n, d)
+    assert 2 * (shape[0] - 2) * nb * n * d == 4 * nb * n * d  # two bf16 planes hold fp32 x2
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -280,9 +280,14 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 # boundary where the two versions' fp32 values differ by an ulp).
 
 FUSED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
+# The rows of most shapes leave the bf16 products' 128-row tiles part-empty
+# (R = 60, 80, 125, 288, 384); n < 128 leaves one part-empty tile a token
+# block in the product over the head-major o, and n = 144 a second tile of
+# 16 rows; d in {64, 128, 256, 512}, da in {64, 128}.
 FUSED_SHAPES = [  # nb, block, na, d, da
     (3, (1, 5, 4), 2, 64, 64), (2, (2, 4, 4), 2, 128, 128), (2, (1, 8, 5), 3, 512, 64),
-    (4, (1, 16, 16), 8, 512, 128)]
+    (4, (1, 16, 16), 8, 512, 128), (3, (1, 4, 5), 2, 256, 128), (5, (1, 5, 5), 4, 512, 64),
+    (3, (2, 8, 8), 1, 256, 64), (2, (1, 12, 12), 3, 512, 128)]
 DSFVT_SHAPE = (64, (1, 16, 16), 8, 512, 128)  # the training path's full shape
 
 
