@@ -59,10 +59,11 @@ Phases, each fatal on failure (exit code 1, no result line):
  10. i8 kernels — kernels 3, 4 and 5 (decode attention over an int8 KV cache)
                 at b=16 and b=1, na=8, R=256, da=128, live in (1, 64, 200,
                 256), bf16 and fp32 scales, and kernel 11 (the int8-weight
-                product) at b in (1, 8) for DSFVT's three shapes, each against
-                its plain version under the bounds below, with a control that
-                must read above them; device times over inputs larger than
-                the L2, beside kernel 2's at the same shape and, for kernel 11,
+                product) at b in (1, 8, 16) for DSFVT's three shapes and at K
+                = 1,040, each against its plain version under the bounds
+                below (kernel 11 bit-equal), with a control that must read
+                above them; device times over inputs larger than the L2,
+                beside kernel 2's at the same shape and, for kernel 11,
                 torch._int_mm plus the scaling (yardsticks, never on a path).
  11. main i8  — the quantized sampler at full width, batch 8, bf16, all 11
                 sampled frames, greedy, through generate() with
@@ -76,19 +77,21 @@ Phases, each fatal on failure (exit code 1, no result line):
  12. agree i8 — fp32, batch 2, full width: the three modes' teacher-forced
                 logits on the card against the plain path on the CPU.
 
- 13. vq kernel — kernel 6 (nearest codebook entry) against its plain version:
-                N in (1, 8,192, 8,229), K=512, Dc in (64, 256), fp32 and bf16 z,
+ 13. vq kernel — kernel 6 (nearest codebook entry, all sub-codebooks in one
+                launch) against its plain version: N in (1, 8,192, 8,229),
+                K=512, G=4 at Dc=64 and G=1 at Dc=256, fp32 and bf16 z,
                 contiguous and strided; exact ties; indices equal except at
                 float64-verified near-ties; a control (the plain version on
                 bf16-rounded z) that must fail the same check; two calls
-                bit-identical; device times beside the plain version,
-                torch.cdist + argmin and the bound; the kernel's indices of
-                the real z_e of example/*.png beside encode_indices' plain ones.
+                bit-identical; device times of the grouped call beside the
+                plain version, G calls of torch.cdist + argmin and the bound;
+                the kernel's indices of the real z_e of example/*.png beside
+                encode_indices' plain ones.
  14. vqvae train — tools/train_net_torch.py's main on
                 configs/vqvae/PR-DVQVAE2.yaml with no model override: batch 32,
                 bf16 compute, the config's solver, 512 PNG frames of 64x64
                 written from a numpy seed, 8 workers, 20 steps + 4 after
-                --resume. Exactly 4 kernel-6 launches per step; finite loss
+                --resume. Exactly 1 kernel-6 launch per step; finite loss
                 terms; the EMA codebook moved, its running_size holds the
                 expected mass, and the resumed run starts from the saved one.
  15. vqvae agree — fp32, batch 4, full width: loss terms, every gradient leaf,
@@ -665,6 +668,19 @@ def phase_profile(card, models, codes, label="native", **knobs):
           f"{len(kern) / 256:.1f} per pixel, copies and casts {copies / 256:.1f} per pixel")
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
+    # the hand-written kernels of the rollout, each summed over its templates
+    # (a function counts under the first key its name holds)
+    keys = (("kernel 1", "block_attention_"), ("kernel 2", "decode_attention_kernel"),
+            ("kernel 3", "decode_attention_i8_kernel"),
+            ("kernel 4", "decode_attention_i8_live_kernel"), ("kernel 11", "matmul_i8w_kernel"))
+    sums = {}
+    for name, (tot, cnt) in by_name.items():
+        label = next((lb for lb, k in keys if k in name), None)
+        if label is not None:
+            t0, c0 = sums.get(label, (0.0, 0))
+            sums[label] = (t0 + tot, c0 + cnt)
+    print("  hand-written kernels in the slice: " + ", ".join(
+        f"{label} {t:.2f} ms ({cnt}x, {t / cnt:.4f} ms each)" for label, (t, cnt) in sums.items()))
 
 
 def phase_agree(card):
@@ -1325,7 +1341,7 @@ def _i8_check(got, want, step, bf16_out):
     return float(diff.max()), float((diff > rounding).any(dim=-1).float().mean()), ok
 
 
-def phase_i8_kernels(card, kernel2_ms):
+def phase_i8_kernels(card, kernel2_ms=None):
     """Kernels 3, 4, 5 and 11 at the quantized sampler's shapes, each against
     its plain version with its control; device times over inputs larger than
     the L2."""
@@ -1402,7 +1418,7 @@ def phase_i8_kernels(card, kernel2_ms):
     b34, by34 = bound_ms("int8", nbytes, 4 * 16 * na * R * da)
     print(f"  kernels 3 and 4 b=16 live={R}: bound {b34:.4f} ms ({by34}: int8 K and V rows, "
           f"scales, bias, q8, output); kernel 2 (bf16 cache) at the same shape "
-          f"{kernel2_ms:.4f} ms; no single library call computes them [{card}]")
+          f"{kernel2_ms} ms; no single library call computes them [{card}]")
     for k, name in ((3, "decode_attention_i8"), (4, "decode_attention_i8_live")):
         res[name] = dict(zip(("ms", "plain_ms"), times[(k, "bfloat16")]), err=errs[k],
                          bound_ms=b34, bound_by=by34, library_ms=None, kernel2_ms=kernel2_ms,
@@ -1449,21 +1465,23 @@ def phase_i8_kernels(card, kernel2_ms):
     nbytes = 2 * 16 * na * R * da + 2 * 16 * na * R * 4 + na * R * 4 + 2 * 16 * na * da * 2
     b5, by5 = bound_ms("float32", nbytes, 4 * 16 * na * R * da)
     print(f"  kernel 5 b=16 live={R}: bound {b5:.4f} ms ({by5}); kernel 2 at the same shape "
-          f"{kernel2_ms:.4f} ms [{card}]")
+          f"{kernel2_ms} ms [{card}]")
     res["cache_attention_i8"] = dict(zip(("ms", "plain_ms"), t5["bfloat16"]), err=err5,
                                      bound_ms=b5, bound_by=by5, library_ms=None,
                                      kernel2_ms=kernel2_ms, fp32_ms=t5["float32"][0])
 
-    # ---- kernel 11 at DSFVT's three shapes
+    # ---- kernel 11 at DSFVT's three shapes (timed) and at a K that is no
+    # power of two and rows past one block's 8 (checked only), bit-equal
     err11, shapes = 0.0, {}
-    for K, N in ((512, 3072), (1024, 512), (512, 512)):
-        n_sets = min(256, -(-64 * 2 ** 20 // (K * N)))  # weights of 64 MB in all
+    for K, N, timed in ((512, 3072, True), (1024, 512, True), (512, 512, True),
+                        (1040, 512, False)):
+        n_sets = min(256, -(-64 * 2 ** 20 // (K * N))) if timed else 1  # weights of 64 MB in all
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             sets = [quant.quantize_cols(torch.randn((K, N), generator=g, device=dev).to(dt), dt)
                     for _ in range(n_sets if dtype == "bfloat16" else 1)]
             sets = [(wi, wi.t().contiguous(), sw) for wi, sw in sets]
-            for b in (1, 8):
+            for b in (1, 8, 16):
                 y = torch.randn((b, K), generator=g, device=dev).to(dt)
                 wi, wt, sw = sets[0]
                 got = quant.matmul_i8w_cuda(y, wt, sw, dt)
@@ -1473,14 +1491,15 @@ def phase_i8_kernels(card, kernel2_ms):
                 tol = (K11_TOL * top, 2 ** -7 if dtype == "bfloat16" else K11_TOL)
                 e, ok = _err(got, want, dtype, tol)
                 ce, cok = _err(got, (y @ wi.to(dt)) * sw, dtype, tol)
+                equal = torch.equal(got, want)
                 print(f"kernel 11 matmul_i8w {dtype} ({b}, {K}) x ({K}, {N}): max_abs_err {e:.3g}"
-                      f"{' (bit-equal)' if torch.equal(got, want) else ''} (|out| <= {top:.3g}); "
+                      f"{' (bit-equal)' if equal else ''} (|out| <= {top:.3g}); "
                       f"control, int8 weights without activation rounding: {ce:.3g}")
-                check(ok, f"matmul_i8w disagrees with its plain version ({dtype}, b={b}, K={K}, "
-                          f"N={N}): max abs err {e}")
+                check(ok and equal, f"matmul_i8w differs from its plain version ({dtype}, b={b}, "
+                                    f"K={K}, N={N}): max abs err {e}")
                 check(not cok, f"kernel 11: the control reads {ce}, within the bound")
                 err11 = max(err11, e)
-                if dtype == "bfloat16":
+                if dtype == "bfloat16" and timed:
                     kd, pd = time_both(
                         card, [lambda s=s: quant.matmul_i8w_cuda(y, s[1], s[2], dt) for s in sets],
                         [lambda s=s: quant.matmul_i8w_plain(y, s[1], s[2], dt) for s in sets],
@@ -1653,42 +1672,65 @@ def _indices_ok(got, want, z, codebook):
     return n_diff, n_far, n_far == 0 and n_diff <= max(1, int(NEAR_TIE_SHARE * want.numel()))
 
 
-def phase_vq_kernel(card, models):
-    """Kernel 6 against its plain version at PR-DVQVAE2's training shape and
-    Base-VQVAE's, with ties, a control, determinism, times, and the real z_e
-    of example/*.png."""
+def _grouped_kernel(vq):
+    """Kernel 6 over all sub-codebooks and its plain version. A tree from
+    before the grouped launch (an A/B turn on a parent commit) has only the
+    one-codebook wrapper: there the pair calls it once per sub-codebook."""
     import torch
 
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    import generate_videos_torch as gvt
+    if hasattr(vq, "nearest_indices_grouped_cuda"):
+        return vq.nearest_indices_grouped_cuda, vq.nearest_indices_grouped_plain
+
+    def per_codebook(fn):
+        return lambda z, cbs: torch.stack([fn(z[:, i, :], cbs[i]) for i in range(cbs.shape[0])],
+                                          dim=1)
+    return per_codebook(vq.nearest_indices_cuda), per_codebook(vq.nearest_indices_plain)
+
+
+def phase_vq_kernel(card, models=None):
+    """Kernel 6 against its plain version at PR-DVQVAE2's training shape (all
+    four sub-codebooks in one launch) and Base-VQVAE's (one codebook, Dc =
+    256), with ties, a control, determinism, times, and (given the generation
+    models) the real z_e of example/*.png."""
+    import torch
+
     from lvt_tpu_torch.ops import vq
 
+    grouped, grouped_plain = _grouped_kernel(vq)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     K, worst = 512, 0
-    for Dc in (64, 256):
-        codebook = torch.randn((K, Dc), generator=g, device=dev)
+    for G, Dc in ((4, 64), (1, 256)):
+        codebooks = torch.randn((G, K, Dc), generator=g, device=dev)
         for N in (1, 8192, 8192 + 37):
             for dtype in ("float32", "bfloat16"):
                 for strided in (False, True):
-                    zz = torch.randn((N, 4, Dc) if strided else (N, Dc), generator=g,
+                    # strided: every other sub-codebook of a wider z, read in place
+                    zz = torch.randn((N, 2 * G if strided else G, Dc), generator=g,
                                      device=dev).to(getattr(torch, dtype))
-                    z = zz[:, 2, :] if strided else zz
-                    got, again = vq.nearest_indices_cuda(z, codebook), \
-                        vq.nearest_indices_cuda(z, codebook)
-                    want = vq.nearest_indices_plain(z, codebook)
+                    z = zz[:, 1::2, :] if strided else zz
+                    got, again = grouped(z, codebooks), grouped(z, codebooks)
+                    want = grouped_plain(z, codebooks)
                     torch.cuda.synchronize()
-                    n_diff, n_far, ok = _indices_ok(got, want, z, codebook)
+                    check(got.dtype == torch.int32 and tuple(got.shape) == (N, G),
+                          f"nearest_indices: output {got.dtype} {tuple(got.shape)}")
+                    res = [_indices_ok(got[:, i], want[:, i], z[:, i, :], codebooks[i])
+                           for i in range(G)]
+                    n_diff, n_far = sum(r[0] for r in res), sum(r[1] for r in res)
                     worst = max(worst, n_diff)
-                    print(f"kernel 6 nearest_indices {dtype} N={N} K={K} Dc={Dc} "
-                          f"{'strided' if strided else 'contiguous'}: {n_diff} of {N} indices "
+                    print(f"kernel 6 nearest_indices {dtype} N={N} G={G} K={K} Dc={Dc} "
+                          f"{'strided' if strided else 'contiguous'}: {n_diff} of {N * G} indices "
                           f"differ from the plain version's, {n_far} of them no near-tie; two "
                           "calls bit-identical")
-                    check(got.dtype == torch.int32 and tuple(got.shape) == (N,),
-                          f"nearest_indices: output {got.dtype} {tuple(got.shape)}")
-                    check(ok, f"nearest_indices disagrees with its plain version ({dtype}, N={N}, "
-                              f"Dc={Dc}, strided={strided}): {n_diff} differ, {n_far} no near-tie")
+                    check(all(r[2] for r in res),
+                          f"nearest_indices disagrees with its plain version ({dtype}, N={N}, "
+                          f"G={G}, Dc={Dc}, strided={strided}): {n_diff} differ, {n_far} no "
+                          "near-tie")
                     check(torch.equal(got, again), "nearest_indices: two calls differ")
+                    if G == 1:  # the one-codebook wrapper is the same kernel
+                        check(torch.equal(vq.nearest_indices_cuda(z[:, 0, :], codebooks[0]),
+                                          got[:, 0]),
+                              "nearest_indices: the one-codebook call differs from the grouped one")
     # exact ties: four copies of every code, and rows of z that equal a code
     base = torch.randn((128, 64), generator=g, device=dev)
     codebook = base.repeat(4, 1)
@@ -1709,37 +1751,56 @@ def phase_vq_kernel(card, models):
           "near-tie")
     check(not ok, "nearest_indices: the control passes the near-tie check")
 
-    # times at the training shape: z_e of one step, (8192, 4, 64), one
-    # sub-codebook per call, read in place; 8 sets (64 MB in fp32) cycle
+    # times at the training shapes: z_e of one PR-DVQVAE2 step, (8192, 4,
+    # 64), all sub-codebooks in one call, read in place, and Base-VQVAE's
+    # (8192, 1, 256); 8 sets (64 MB in fp32) cycle
     times = {}
-    for dtype in ("bfloat16", "float32"):
-        sets = [torch.randn((8192, 4, 64), generator=g, device=dev).to(getattr(torch, dtype))
-                for _ in range(8)]
-        views = [zs[:, i, :] for zs in sets for i in range(4)]
-        kd, pd = time_both(card, [lambda v=v: vq.nearest_indices_cuda(v, codebook) for v in views],
-                           [lambda v=v: vq.nearest_indices_plain(v, codebook) for v in views],
-                           128, f"kernel 6 {dtype} N=8192 K=512 Dc=64 strided ")
-        lib = device_ms([lambda v=v: torch.cdist(v.float(), codebook).argmin(1) for v in views],
-                        128)
-        times[dtype] = (kd, pd, lib)
-        del sets, views
-    cb256 = torch.randn((K, 256), generator=g, device=dev)
-    sets = [torch.randn((8192, 256), generator=g, device=dev) for _ in range(8)]
-    t256 = time_both(card, [lambda v=v: vq.nearest_indices_cuda(v, cb256) for v in sets],
-                     [lambda v=v: vq.nearest_indices_plain(v, cb256) for v in sets], 32,
-                     "kernel 6 float32 N=8192 K=512 Dc=256 ")
-    lib256 = device_ms([lambda v=v: torch.cdist(v, cb256).argmin(1) for v in sets], 32)
-    del sets
-    bd, by = bound_ms("float32", 8192 * 64 * 2 + K * 64 * 4 + 8192 * 4, 2 * 8192 * K * 64)
-    print(f"  kernel 6 N=8192 K=512 Dc=64: bound {bd:.4f} ms ({by}: 2 N K Dc operations at the "
-          f"non-tensor fp32 peak, {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s; z, codebook and "
-          f"indices are {(8192 * 64 * 2 + K * 64 * 4 + 8192 * 4) / 1e6:.2f} MB); library "
-          f"yardstick torch.cdist(z, c).argmin(1): bf16 z (cast to fp32 first) "
-          f"{times['bfloat16'][2]:.4f} ms, fp32 z {times['float32'][2]:.4f} ms; at Dc=256 "
-          f"(fp32 z) kernel {t256[0]:.4f} ms, plain {t256[1]:.4f}, torch.cdist(z, c).argmin(1) "
-          f"{lib256:.4f} [{card}]")
+    for G, Dc, dtypes in ((4, 64, ("bfloat16", "float32")), (1, 256, ("float32", "bfloat16"))):
+        codebooks = torch.randn((G, K, Dc), generator=g, device=dev)
+        for dtype in dtypes:
+            sets = [torch.randn((8192, G, Dc), generator=g, device=dev).to(getattr(torch, dtype))
+                    for _ in range(8)]
+            kd, pd = time_both(card, [lambda s=s: grouped(s, codebooks) for s in sets],
+                               [lambda s=s: grouped_plain(s, codebooks) for s in sets],
+                               64, f"kernel 6 {dtype} N=8192 G={G} K={K} Dc={Dc} ")
+            lib = device_ms([lambda s=s: [torch.cdist(s[:, i, :].float(), codebooks[i]).argmin(1)
+                                          for i in range(G)] for s in sets], 64)
+            times[(G, dtype)] = (kd, pd, lib)
+            del sets
+    bounds = {G: bound_ms("float32", 8192 * G * Dc * 2 + G * K * Dc * 4 + 8192 * G * 4,
+                          2 * 8192 * G * K * Dc) for G, Dc in ((4, 64), (1, 256))}
+    for G, Dc in ((4, 64), (1, 256)):
+        t = {d: times[(G, d)] for d in ("bfloat16", "float32")}
+        print(f"  kernel 6 N=8192 G={G} K={K} Dc={Dc}: bound {bounds[G][0]:.4f} ms "
+              f"({bounds[G][1]}: "
+              f"2 N G K Dc operations at the non-tensor fp32 peak, "
+              f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s); kernel bf16 z {t['bfloat16'][0]:.4f} "
+              f"ms, fp32 z {t['float32'][0]:.4f}; plain {t['bfloat16'][1]:.4f} / "
+              f"{t['float32'][1]:.4f}; library yardstick {G} x torch.cdist(z, c).argmin(1) "
+              f"{t['bfloat16'][2]:.4f} / {t['float32'][2]:.4f} [{card}]")
 
-    # the real z_e of example/*.png: a record for encode_indices' default
+    if models is not None:
+        _vq_real_z(card, models)
+    m, m256 = times[(4, "bfloat16")], times[(1, "float32")]
+    return {"err": float(worst), "ms": m[0], "plain_ms": m[1], "bound_ms": bounds[4][0],
+            "bound_by": bounds[4][1], "library_ms": m[2],
+            "fp32_ms": times[(4, "float32")][0], "fp32_plain_ms": times[(4, "float32")][1],
+            "fp32_library_ms": times[(4, "float32")][2], "dc256_ms": m256[0],
+            "dc256_plain_ms": m256[1], "dc256_library_ms": m256[2],
+            "dc256_bound_ms": bounds[1][0], "dc256_bf16_ms": times[(1, "bfloat16")][0],
+            "err_is": "indices that differ, all at near-ties"}
+
+
+def _vq_real_z(card, models):
+    """Kernel 6 on the real z_e of example/*.png, beside encode_indices'
+    plain indices: a record for encode_indices' default."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.ops import vq
+
+    dev = torch.device("cuda")
     vqvae, vq_params, vq_state = models[:3]
     frames = torch.from_numpy(gvt.load_priming_frames(os.path.join(ROOT, "example"), N_PRIME))
     with torch.no_grad():
@@ -1757,12 +1818,6 @@ def phase_vq_kernel(card, models):
           f"{plain.numel()} indices): {n_diff} differ from encode_indices' plain ones, {n_far} "
           "of them no near-tie")
     check(n_far == 0, f"nearest_indices on real z_e: {n_far} indices differ at no near-tie")
-    return {"err": float(worst), "ms": times["bfloat16"][0], "plain_ms": times["bfloat16"][1],
-            "bound_ms": bd, "bound_by": by, "library_ms": times["bfloat16"][2],
-            "fp32_ms": times["float32"][0], "fp32_plain_ms": times["float32"][1],
-            "fp32_library_ms": times["float32"][2], "dc256_ms": t256[0],
-            "dc256_plain_ms": t256[1], "dc256_library_ms": lib256,
-            "err_is": "indices that differ, all at near-ties"}
 
 
 def _write_frames(root, n_videos, n_frames, seed):
@@ -1802,7 +1857,7 @@ def phase_vqvae_train(card):
     from lvt_tpu_torch.data.datasets.bair import register_bair
     from lvt_tpu_torch.engine.defaults import default_argument_parser
     from lvt_tpu_torch.engine.trainer import Trainer
-    from lvt_tpu_torch.ops.vq import nearest_indices_cuda
+    from lvt_tpu_torch.ops.vq import nearest_indices_grouped_cuda
 
     n_steps, n_resume = VQ_TRAIN_STEPS, VQ_RESUME_STEPS
     tmp = tempfile.mkdtemp(prefix="chip_smoke_vqvae_")
@@ -1813,7 +1868,7 @@ def phase_vqvae_train(card):
         if len(steps) == n_steps:  # the resumed run's first step: what it starts from
             resumed_from.append({k: v.clone() for k, v in flatten(self.state.model_state).items()})
         torch.cuda.synchronize()
-        c0 = nearest_indices_cuda.launches
+        c0 = nearest_indices_grouped_cuda.launches
         last = len(steps) == n_steps + n_resume - 1  # outside the medians
         with profile(activities=[ProfilerActivity.CUDA]) if last else nullcontext() as prof:
             t0 = time.perf_counter()
@@ -1822,7 +1877,7 @@ def phase_vqvae_train(card):
             took = time.perf_counter() - t0
         if last:
             profiled.append((took, prof))
-        steps.append((took, terms, nearest_indices_cuda.launches - c0, t0))
+        steps.append((took, terms, nearest_indices_grouped_cuda.launches - c0, t0))
         return metrics
 
     try:
@@ -1840,12 +1895,12 @@ def phase_vqvae_train(card):
         parse = default_argument_parser().parse_args
         Trainer.train_step = recorded
         torch.cuda.reset_peak_memory_stats()
-        nearest_indices_cuda.launches = 0
+        nearest_indices_grouped_cuda.launches = 0
         t0 = time.perf_counter()
         tr = train_net_torch.main(parse(opts + ["SOLVER.MAX_ITER", str(n_steps)]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = nearest_indices_cuda.launches
+        launches = nearest_indices_grouped_cuda.launches
         peak = torch.cuda.max_memory_allocated()
         cfg = tr.cfg
         check(cfg.MODEL.ENCODER.NF == 256 and cfg.MODEL.CODEBOOK.NUM == 4 and cfg.MODEL.CODEBOOK.EMA
@@ -1871,8 +1926,8 @@ def phase_vqvae_train(card):
         vals = [s[1].get(name, float("nan")) for s in steps]
         check(all(np.isfinite(vals)), f"vqvae train: non-finite {name} {vals}")
     per_step = {s[2] for s in steps}
-    check(per_step == {4}, f"vqvae train: kernel-6 launches per step {sorted(per_step)}, want "
-                           "exactly 4 (one per sub-codebook)")
+    check(per_step == {1}, f"vqvae train: kernel-6 launches per step {sorted(per_step)}, want "
+                           "exactly 1 (all sub-codebooks in one launch)")
     # the EMA codebook: moved, holding the mass 8192 (1 - 0.99^n) per sub-codebook
     check(not torch.equal(end_state["netC.embedding"].cpu(), fresh["netC.embedding"]),
           "vqvae train: the EMA embedding did not move")
@@ -1896,7 +1951,7 @@ def phase_vqvae_train(card):
           f"set-up; median {sec:.4f} s/step over steps 4-{n_steps} (train_step, synchronized), "
           f"{it_sec:.4f} s/iteration (with data and hooks) = {batch / it_sec:.2f} frames/s; "
           f"data_time median {data_time:.4f} s; first step {steps[0][0]:.3f} s; "
-          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; kernel-6 launches per step 4 (run: "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; kernel-6 launches per step 1 (run: "
           f"{launches}); loss_reconstruction {first['loss_reconstruction']:.4f} -> "
           f"{last['loss_reconstruction']:.4f}, loss_commitment {first['loss_commitment']:.5f} -> "
           f"{last['loss_commitment']:.5f}; codes hit per sub-codebook (of 512) {used}; "
@@ -1922,7 +1977,7 @@ def phase_vqvae_agree(card):
     from lvt_tpu_torch.models import to_device
     from lvt_tpu_torch.models.vqvae import VQVAE
     from lvt_tpu_torch.ops import vq
-    from lvt_tpu_torch.ops.vq import nearest_indices_cuda
+    from lvt_tpu_torch.ops.vq import nearest_indices_grouped_cuda
 
     model = VQVAE(gvt.load_config(os.path.join(ROOT, "configs", "vqvae", "PR-DVQVAE2.yaml")))
     params, state = model.init(torch.Generator().manual_seed(5))
@@ -1942,7 +1997,7 @@ def phase_vqvae_agree(card):
             p = copy.deepcopy(to_device(params, device))
             for leaf in flatten(p).values():
                 leaf.requires_grad_(True)
-            before = nearest_indices_cuda.launches
+            before = nearest_indices_grouped_cuda.launches
             torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
             try:
                 loss, (terms, new_state) = model.train_loss(
@@ -1954,8 +2009,8 @@ def phase_vqvae_agree(card):
             res[name] = ({k: float(v.detach()) for k, v in terms.items()},
                          {k: v.grad.cpu() for k, v in flatten(p).items()},
                          {k: v.cpu() for k, v in flatten(new_state["netC"]).items()}, idx)
-            took = nearest_indices_cuda.launches - before
-            check(took == (4 if device == "cuda" else 0),
+            took = nearest_indices_grouped_cuda.launches - before
+            check(took == (1 if device == "cuda" else 0),
                   f"vqvae agree ({name}): {took} kernel-6 launches")
             if name == "cpu":
                 z_cpu = z_e
@@ -2182,7 +2237,7 @@ def main():
         dict(entry("cache_attention_i8", "lvt_tpu_torch/csrc/decode_attention_i8.cu",
                    "lvt_tpu/ops/cache_attention.py:35", 0, i8res["cache_attention_i8"]),
              on_main_path=False),
-        # kernel 6: the launches of the VQ-VAE training run (4 per step);
+        # kernel 6: the launches of the VQ-VAE training run (1 per step);
         # max_abs_err counts indices that differ from the plain version's, all
         # of them verified near-ties
         entry("nearest_indices", "lvt_tpu_torch/csrc/nearest_indices.cu",

@@ -23,6 +23,7 @@ import types
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "lvt_tpu_torch")
+CARD_SMS = 132  # streaming multiprocessors of the NVIDIA H100 SXM: the launch plans' unit
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,8 +42,8 @@ _SIGNATURES = {
     "lvt_decode_attention_i8": [_P] * 8 + [_I] * 7 + [_F, _P],
     "lvt_decode_attention_i8_live": [_P] * 8 + [_I] * 8 + [_F, _P],
     "lvt_cache_attention_i8": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "lvt_matmul_i8w": [_P] * 4 + [_I] * 6 + [_P],
-    "lvt_nearest_indices": [_P, _P, _P, _I, _I, _I, _L, _I, _P],
+    "lvt_matmul_i8w": [_P] * 4 + [_I] * 7 + [_P],
+    "lvt_nearest_indices_grouped": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     "lvt_decode_attention_i8kv": [_P] * 7 + [_I] * 7 + [_F, _P],
 }
 

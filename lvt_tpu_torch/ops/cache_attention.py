@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from ._lib import LIBRARY, check_launch
+from ._lib import CARD_SMS, LIBRARY, check_launch
 from .quant import absmax_scale
 
 
@@ -57,7 +57,6 @@ def decode_attention_plain(q, kc, vc, live: int, bias, scale: float) -> torch.Te
 # rank r of a cluster owns the live rows [r * chunk, min((r + 1) * chunk,
 # live)), chunk = ceil(live / C)
 MAX_CLUSTER = 16
-CARD_SMS = 132  # NVIDIA H100 SXM
 LONG_LIVE = 128
 
 

@@ -5,7 +5,8 @@ lvt_tpu/models/vt_incremental.py).
 ``matmul_i8w`` launches the hand-written kernel (csrc/matmul_i8w.cu) on a
 CUDA tensor and runs the plain PyTorch version of the same function on a CPU
 tensor. The int8 weight is held transposed, (N, K), so that the kernel finds
-four consecutive K of one output column in one word.
+four consecutive K of one output column in one word. ``matmul_i8w_plan``
+picks the kernel's columns per block on the host.
 """
 
 from functools import lru_cache
@@ -13,9 +14,28 @@ from typing import Optional
 
 import torch
 
-from ._lib import LIBRARY, check_launch
+from ._lib import CARD_SMS, LIBRARY, check_launch
 
 _FLOATS = (torch.float32, torch.bfloat16)
+
+# Kernel 11's grid: blocks of 256 threads over I8W_ROWS activation rows and
+# `cpb` output columns, the 256 / cpb threads of a column splitting its K.
+# Every block quantizes its rows of y itself, so fewer, wider blocks repeat
+# less of that work: cpb is the smallest of I8W_CPB whose blocks all fit one
+# wave of one block an SM of the card, the largest where none does. On the
+# H100 (tools/time_i8w_vq_parts_torch.py), b = 8, N = 512: 128 blocks read
+# 0.0041 / 0.0046 ms at K = 512 / 1,024, 256 blocks 0.0045 / 0.0050; b = 16,
+# N = 3,072: 384 blocks 0.0057, 768 blocks 0.0083.
+I8W_ROWS = 8
+I8W_CPB = (2, 4, 8, 16)
+
+
+def matmul_i8w_plan(b: int, K: int, N: int):
+    """(cpb, blocks along N, blocks along b) of kernel 11 for y (b, K) and
+    an (N, K) weight (csrc/matmul_i8w.cu takes cpb as it is given)."""
+    groups = -(-b // I8W_ROWS)
+    cpb = next((c for c in I8W_CPB if -(-N // c) * groups <= CARD_SMS), I8W_CPB[-1])
+    return cpb, -(-N // cpb), groups
 
 
 @lru_cache(maxsize=None)
@@ -59,7 +79,8 @@ def matmul_i8w_plain(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torc
 
 def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Kernel 11 (csrc/matmul_i8w.cu) on CUDA tensors: the shapes and types of
-    ``matmul_i8w_plain``, all contiguous, K a multiple of 16."""
+    ``matmul_i8w_plain``, all contiguous, y and wt 16-byte aligned, K a
+    multiple of 16. One launch, its grid from ``matmul_i8w_plan``."""
     out_dtype = out_dtype or y.dtype
     if not (y.is_cuda and wt.device == y.device and sw.device == y.device):
         raise ValueError("matmul_i8w_cuda: all inputs must be on one CUDA device")
@@ -79,8 +100,8 @@ def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch
                          f"[16, 16384], got b={b}, K={K}")
     if not all(t.is_contiguous() for t in (y, wt, sw)):
         raise ValueError("matmul_i8w_cuda: inputs must be contiguous")
-    if wt.data_ptr() % 16:  # the kernel reads the weight 16 bytes at a time
-        raise ValueError("matmul_i8w_cuda: wt must be 16-byte aligned")
+    if wt.data_ptr() % 16 or y.data_ptr() % 16:  # both are read 16 bytes at a time
+        raise ValueError("matmul_i8w_cuda: y and wt must be 16-byte aligned")
     if y.device.index != torch.cuda.current_device():
         raise ValueError("matmul_i8w_cuda: inputs must lie on the current CUDA device")
     lib = LIBRARY.get()
@@ -88,7 +109,8 @@ def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch
     err = lib.lvt_matmul_i8w(
         y.data_ptr(), wt.data_ptr(), sw.data_ptr(), out.data_ptr(), b, K, N,
         int(y.dtype == torch.bfloat16), int(sw.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        int(out_dtype == torch.bfloat16), matmul_i8w_plan(b, K, N)[0],
+        torch.cuda.current_stream().cuda_stream)
     check_launch("matmul_i8w", err)
     matmul_i8w_cuda.launches += 1
     return out
@@ -100,7 +122,8 @@ matmul_i8w_cuda.launches = 0
 def matmul_i8w(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Kernel 11 on a CUDA tensor, its plain version on a CPU tensor."""
     if y.device.type == "cuda":
-        return matmul_i8w_cuda(y.contiguous(), wt, sw, out_dtype)
+        y = y.contiguous()
+        return matmul_i8w_cuda(y if y.data_ptr() % 16 == 0 else y.clone(), wt, sw, out_dtype)
     if y.device.type == "cpu":
         return matmul_i8w_plain(y, wt, sw, out_dtype)
     raise ValueError(f"matmul_i8w: no kernel for device {y.device}")

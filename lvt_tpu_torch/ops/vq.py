@@ -3,14 +3,16 @@ the EMA codebook update (counterpart of lvt_tpu/ops/vq.py).
 
 Nearest code by the expansion ``(||c||^2 + ||z||^2) - 2 z.c`` in fp32, summed
 in the JAX package's order; ties go to the lowest index, as ``jnp.argmin``
-and ``torch.argmin`` do. ``nearest_indices`` launches kernel 6
+and ``torch.argmin`` do. ``nearest_indices_grouped`` launches kernel 6
 (``csrc/nearest_indices.cu``: the product on fp32 FMAs fused with the
-arg-reduction, no (N, K) matrix in device memory) on a CUDA tensor and runs
-the plain PyTorch version (``nearest_indices_plain``, TF32 off, see
-``lvt_tpu_torch/__init__.py``) on a CPU tensor. VQ-VAE training reaches the
-kernel through ``quantize_st``; ``encode_indices`` (the generation and
-code-extraction path) defaults to the plain version, as the JAX package's
-defaults to its HIGHEST-precision XLA path.
+arg-reduction, no (N, K) matrix in device memory) once for all sub-codebooks
+on a CUDA tensor and runs the plain PyTorch version
+(``nearest_indices_plain`` per sub-codebook, TF32 off, see
+``lvt_tpu_torch/__init__.py``) on a CPU tensor; ``nearest_indices`` is the
+one-codebook call of the same kernel. VQ-VAE training reaches the kernel
+through ``quantize_st``, one launch a step; ``encode_indices`` (the
+generation and code-extraction path) defaults to the plain version, as the
+JAX package's defaults to its HIGHEST-precision XLA path.
 
 Update order of ``quantize_st``, as the reference: the straight-through
 output uses the embedding *before* the EMA update, the returned
@@ -25,7 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._lib import LIBRARY, check_launch
+from ._lib import CARD_SMS, LIBRARY, check_launch
 from .embedding import take_rows
 
 Codebook = Dict[str, torch.Tensor]
@@ -58,45 +60,107 @@ def nearest_indices_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
     return torch.argmin(_distances(z, codebook), dim=1).to(torch.int32)
 
 
-def nearest_indices_cuda(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Kernel 6 (csrc/nearest_indices.cu) on CUDA tensors. z (N, Dc) fp32 or
-    bf16, any row stride with unit column stride (a ``z[:, i, :]`` view of
-    (N, num, Dc) is read in place); codebook (K, Dc) contiguous fp32; N >= 1,
-    K >= 1, Dc a multiple of 4 up to 256. Returns (N,) int32.
+# Kernel 6's grid: (split, row tile, sub-codebook), NI_ROWS rows a tile, one
+# block of 256 threads an SM (up to 255 registers a thread). The K codes of a
+# row tile may be split over the blocks of a cluster (powers of two up to
+# NI_MAX_SPLIT, never more splits than NI_CODES-code chunks). The split taken
+# is the one with the least waves x (chunks a block walks + 1), the 1 being
+# a block's fixed cost (staging, norms of the first chunk, the reductions):
+# on the H100 at Base-VQVAE's N = 8,192, Dc = 256, splits 1 / 2 / 4 read
+# 0.124 / 0.063 / 0.097 ms (64 blocks; 128 in one wave; 256 in two;
+# tools/time_i8w_vq_parts_torch.py).
+NI_ROWS = 128
+NI_CODES = 128
+NI_MAX_SPLIT = 4
+
+
+def nearest_plan(N: int, G: int, K: int):
+    """(ksplit, blocks) of kernel 6 for z (N, G, Dc) and codebooks (G, K,
+    Dc): the blocks of a cluster that share one row tile's codes, and the
+    grid's size (csrc/nearest_indices.cu cuts the codes from ksplit)."""
+    tiles, chunks = -(-N // NI_ROWS), -(-K // NI_CODES)
+
+    def cost(s):  # waves x (chunks a block walks + its fixed cost)
+        return -(-(G * tiles * s) // CARD_SMS) * (-(-chunks // s) + 1)
+    ksplit = min((s for s in (1, 2, 4) if s <= min(NI_MAX_SPLIT, chunks)),
+                 key=lambda s: (cost(s), s))
+    return ksplit, G * tiles * ksplit
+
+
+def nearest_indices_grouped_cuda(z: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Kernel 6 (csrc/nearest_indices.cu) on CUDA tensors, all sub-codebooks
+    in one launch. z (N, G, Dc) fp32 or bf16 with unit column stride, read in
+    place (the ``z_e.reshape(-1, G, Dc)`` view of a training step); rows must
+    start on 16-byte boundaries (8 for bf16); codebooks (G, K, Dc)
+    contiguous fp32; N >= 1, K >= 1, Dc a multiple of 4 up to 256. Returns
+    (N, G) int32.
 
     On finite inputs it returns what the plain version returns, up to the
     order of the fp32 sums (a choice between two codes whose distances lie
     within rounding of each other). A NaN in a z row makes every distance of
     the row NaN and both return 0; a NaN in a codebook row is skipped by the
     kernel, where ``argmin`` would return that row."""
-    if not (z.is_cuda and codebook.device == z.device):
+    if not (z.is_cuda and codebooks.device == z.device):
         raise ValueError("nearest_indices_cuda: z and codebook must be on one CUDA device")
     if z.device.index != torch.cuda.current_device():
         raise ValueError("nearest_indices_cuda: inputs must lie on the current CUDA device")
-    if z.dtype not in (torch.float32, torch.bfloat16) or codebook.dtype != torch.float32:
+    if z.dtype not in (torch.float32, torch.bfloat16) or codebooks.dtype != torch.float32:
         raise ValueError(f"nearest_indices_cuda: z must be float32 or bfloat16 and the codebook "
-                         f"float32, got {z.dtype}, {codebook.dtype}")
-    if z.dim() != 2 or codebook.dim() != 2 or z.shape[1] != codebook.shape[1]:
-        raise ValueError(f"nearest_indices_cuda: want z (N, Dc) and codebook (K, Dc), got "
-                         f"{tuple(z.shape)}, {tuple(codebook.shape)}")
-    (N, Dc), K = z.shape, codebook.shape[0]
+                         f"float32, got {z.dtype}, {codebooks.dtype}")
+    if z.dim() != 3 or codebooks.dim() != 3 or z.shape[1] != codebooks.shape[0] \
+            or z.shape[2] != codebooks.shape[2]:
+        raise ValueError(f"nearest_indices_cuda: want z (N, G, Dc) and codebooks (G, K, Dc), got "
+                         f"{tuple(z.shape)}, {tuple(codebooks.shape)}")
+    (N, G, Dc), K = z.shape, codebooks.shape[1]
     if N < 1 or K < 1 or Dc % 4 or not 4 <= Dc <= 256:
         raise ValueError(f"nearest_indices_cuda: needs N >= 1, K >= 1 and Dc a multiple of 4 up "
                          f"to 256, got N={N}, K={K}, Dc={Dc}")
-    if z.stride(1) != 1 or (N > 1 and z.stride(0) < Dc) or not codebook.is_contiguous():
-        raise ValueError(f"nearest_indices_cuda: z needs unit column stride and rows that do not "
-                         f"overlap, the codebook must be contiguous; got z strides {z.stride()}")
+    # strides of a size-1 dimension are never used: take them as 0
+    sn = z.stride(0) if N > 1 else 0
+    sg = z.stride(1) if G > 1 else 0
+    align = 8 if z.dtype == torch.bfloat16 else 16
+    if z.stride(2) != 1 or not codebooks.is_contiguous() or sn % 4 or sg % 4 \
+            or z.data_ptr() % align or codebooks.data_ptr() % 16:
+        raise ValueError(f"nearest_indices_cuda: z needs unit column stride and rows on "
+                         f"{align}-byte boundaries, the codebook must be contiguous and 16-byte "
+                         f"aligned; got z strides {z.stride()}")
     lib = LIBRARY.get()
-    out = torch.empty((N,), dtype=torch.int32, device=z.device)
-    err = lib.lvt_nearest_indices(
-        z.data_ptr(), codebook.data_ptr(), out.data_ptr(), N, K, Dc, max(z.stride(0), Dc),
-        int(z.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    out = torch.empty((N, G), dtype=torch.int32, device=z.device)
+    err = lib.lvt_nearest_indices_grouped(
+        z.data_ptr(), codebooks.data_ptr(), out.data_ptr(), N, G, K, Dc, sn, sg,
+        int(z.dtype == torch.bfloat16), nearest_plan(N, G, K)[0],
+        torch.cuda.current_stream().cuda_stream)
     check_launch("nearest_indices", err)
-    nearest_indices_cuda.launches += 1
+    nearest_indices_grouped_cuda.launches += 1
     return out
 
 
-nearest_indices_cuda.launches = 0
+nearest_indices_grouped_cuda.launches = 0
+
+
+def nearest_indices_cuda(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Kernel 6 for one codebook: z (N, Dc), codebook (K, Dc) -> (N,) int32,
+    as ``nearest_indices_grouped_cuda`` with G = 1 (a ``z[:, i, :]`` view of
+    (N, num, Dc) is read in place)."""
+    if z.dim() != 2 or codebook.dim() != 2:
+        raise ValueError(f"nearest_indices_cuda: want z (N, Dc) and codebook (K, Dc), got "
+                         f"{tuple(z.shape)}, {tuple(codebook.shape)}")
+    return nearest_indices_grouped_cuda(z[:, None, :], codebook[None])[:, 0]
+
+
+def nearest_indices_grouped_plain(z: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Plain version of the grouped kernel: ``nearest_indices_plain`` per
+    sub-codebook. z (N, G, Dc), codebooks (G, K, Dc) -> (N, G) int32."""
+    return torch.stack([nearest_indices_plain(z[:, i, :], codebooks[i])
+                        for i in range(codebooks.shape[0])], dim=1)
+
+
+def _use_kernel(z: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    if use_kernel is None:
+        if z.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"nearest_indices: no kernel for device {z.device}")
+        return z.device.type == "cuda"
+    return use_kernel
 
 
 def nearest_indices(z: torch.Tensor, codebook: torch.Tensor,
@@ -105,13 +169,21 @@ def nearest_indices(z: torch.Tensor, codebook: torch.Tensor,
     tensor, its plain version on a CPU tensor; ``use_kernel=False`` takes the
     plain version on either, ``True`` the kernel (CUDA tensors only)."""
     z, codebook = z.detach(), codebook.detach()
-    if use_kernel is None:
-        if z.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"nearest_indices: no kernel for device {z.device}")
-        use_kernel = z.device.type == "cuda"
-    if use_kernel:
+    if _use_kernel(z, use_kernel):
         return nearest_indices_cuda(z, codebook.float().contiguous())
     return nearest_indices_plain(z, codebook)
+
+
+def nearest_indices_grouped(z: torch.Tensor, codebooks: torch.Tensor,
+                            use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """z (N, G, Dc) -> (N, G) int32 nearest codes of each sub-codebook of
+    codebooks (G, K, Dc); no gradient. One launch of kernel 6 on a CUDA
+    tensor, the plain version per sub-codebook on a CPU tensor;
+    ``use_kernel`` as in ``nearest_indices``."""
+    z, codebooks = z.detach(), codebooks.detach()
+    if _use_kernel(z, use_kernel):
+        return nearest_indices_grouped_cuda(z, codebooks.float().contiguous())
+    return nearest_indices_grouped_plain(z, codebooks)
 
 
 # --------------------------------------------------------------------------
@@ -154,13 +226,15 @@ def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool
     num, K, Dc = emb.shape
     lead = z_e.shape[:-1]
     z = z_e.reshape(-1, num, Dc)
+    # every sub-codebook's indices from the embedding before the update, at once
+    idx_all = nearest_indices_grouped(z, emb, use_kernel)
 
-    idx_parts, st_parts, q_parts = [], [], []
+    st_parts, q_parts = [], []
     new_emb, new_rs, new_rsum = [], [], []
     for i in range(num):
         zi = z[:, i, :]
         emb_i = emb[i]
-        idx = nearest_indices(zi, emb_i, use_kernel)
+        idx = idx_all[:, i]
         # straight-through uses the embedding before the update
         z_q_pre = emb_i.detach()[idx.long()]
         st = zi + (z_q_pre - zi.detach().to(z_q_pre.dtype)).to(zi.dtype)
@@ -175,7 +249,6 @@ def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool
         # the differentiable lookup uses the embedding after the update
         q = take_rows(e, idx)
 
-        idx_parts.append(idx)
         st_parts.append(st)
         q_parts.append(q)
         new_emb.append(e)
@@ -184,7 +257,7 @@ def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool
 
     z_q_st = torch.stack(st_parts, dim=1).reshape(z_e.shape)
     z_q = torch.stack(q_parts, dim=1).reshape(lead + (num * Dc,)).to(z_e.dtype)
-    indices = torch.stack(idx_parts, dim=1).reshape(lead + (num,))
+    indices = idx_all.reshape(lead + (num,))
     new_codebook = {"embedding": torch.stack(new_emb), "running_size": torch.stack(new_rs),
                     "running_sum": torch.stack(new_rsum)}
     return z_q_st, z_q, indices, new_codebook
@@ -197,10 +270,8 @@ def encode_indices(z_e: torch.Tensor, codebook: Codebook,
     indices are held bit-equal to the reference's."""
     emb = codebook["embedding"]
     num, K, Dc = emb.shape
-    lead = z_e.shape[:-1]
     z = z_e.reshape(-1, num, Dc)
-    idx = [nearest_indices(z[:, i, :], emb[i], use_kernel) for i in range(num)]
-    return torch.stack(idx, dim=1).reshape(lead + (num,))
+    return nearest_indices_grouped(z, emb, use_kernel).reshape(z_e.shape[:-1] + (num,))
 
 
 def embed_indices(indices: torch.Tensor, codebook: Codebook) -> torch.Tensor:

@@ -2,8 +2,10 @@
 the CPU: kernel 2's cluster size and the live rows of each rank of a cluster
 (ops/cache_attention.py ``decode_plan``), the row
 ranges whose partial weight gradients kernels 8 and 9 add in a fixed order
-(ops/fused_layer.py ``_splits``), and the scratch that kernels 7 and 8 take
-(``fwd_y_shape``, ``ffn_bwd_scratch``). The wrappers' refusals of CPU tensors are
+(ops/fused_layer.py ``_splits``), the scratch that kernels 7 and 8 take
+(``fwd_y_shape``, ``ffn_bwd_scratch``), kernel 6's split of the codes over a
+cluster (ops/vq.py ``nearest_plan``) and kernel 11's columns per block
+(ops/quant.py ``matmul_i8w_plan``). The wrappers' refusals of CPU tensors are
 held here too; everything that needs the card is in test_torch_kernels.py."""
 
 import pytest
@@ -11,6 +13,32 @@ import torch
 
 import lvt_tpu_torch.ops.cache_attention as tca
 import lvt_tpu_torch.ops.fused_layer as tfl
+import lvt_tpu_torch.ops.quant as tq
+import lvt_tpu_torch.ops.vq as tvq
+
+# Shared memory of the H100: per block at most 232,448 bytes; per SM
+# 233,472, each resident block also holding 1 KB for the system
+SMEM_BLOCK, SMEM_SM = 232448, 233472
+I8W_THREADS = 256  # kernel 11's block (csrc/matmul_i8w.cu NTHREADS)
+
+
+def _code_ranges(K, ksplit):
+    """[begin, end) of the codes each rank of a kernel-6 cluster walks, as
+    csrc/nearest_indices.cu cuts them: whole chunks of 128 codes, split
+    evenly; ranks past the last chunk walk none."""
+    chunks = -(-K // tvq.NI_CODES)
+    per = -(-chunks // ksplit)
+    return [(min(K, r * per * tvq.NI_CODES), min(K, (r + 1) * per * tvq.NI_CODES))
+            for r in range(ksplit)]
+
+
+def _nearest_smem_bytes(z_bf16):
+    """Dynamic shared memory of one kernel-6 block (csrc/nearest_indices.cu
+    smem_bytes): three stages of 32 columns of the row tile (rows of 144
+    bytes, 80 for bf16 z) and of a chunk's codes (144 bytes), the codes' and
+    rows' squared norms, each row's two half-row minima (distance, index)."""
+    stage = tvq.NI_ROWS * (80 if z_bf16 else 144) + tvq.NI_CODES * 144
+    return 3 * stage + 4 * (tvq.NI_ROWS + tvq.NI_CODES) + 16 * tvq.NI_ROWS
 
 
 def _row_ranges(live, c):
@@ -127,3 +155,100 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfl.fused_layer_fwd_cuda(tok, p, bias, False)
     with pytest.raises(ValueError):
         tfl.ffn_half_bwd_cuda(tok, tok, p)
+
+
+# --------------------------------------------------------------------------
+# Kernel 6: nearest_plan
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,N,G,K,ksplit", [
+    ("PR-DVQVAE2 step", 8192, 4, 512, 1), ("Base-VQVAE step", 8192, 1, 512, 2),
+    ("PR-DVQVAE2, one sub-codebook", 8192, 1, 512, 2), ("PR-DVQVAE2 eval b4", 1024, 4, 512, 4),
+    ("N past a tile", 8192 + 37, 4, 512, 1), ("one row", 1, 1, 512, 4), ("few codes", 1, 1, 7, 1),
+    ("three chunks", 300, 2, 300, 2), ("two waves of tiles", 16384, 1, 512, 1)])
+def test_nearest_plan_fills_the_card(name, N, G, K, ksplit):
+    """One block of 256 threads an SM: the split is the one with the least
+    waves x (chunks a block walks + its fixed cost of one chunk). At the
+    training shapes every SM of the H100 but at most 8 holds a block in each
+    wave: PR-DVQVAE2's four sub-codebooks give 256 row tiles unsplit (two
+    waves of 132 and 124), Base-VQVAE's one codebook 64, split 2 ways (128
+    blocks; split 4 ways, 256 blocks read 1.5x slower on the card)."""
+    got, blocks = tvq.nearest_plan(N, G, K)
+    assert got == ksplit, name
+    tiles, chunks = -(-N // tvq.NI_ROWS), -(-K // tvq.NI_CODES)
+    assert blocks == G * tiles * ksplit
+    assert ksplit <= min(tvq.NI_MAX_SPLIT, chunks) and ksplit & (ksplit - 1) == 0
+
+    def cost(s):
+        return -(-(G * tiles * s) // tvq.CARD_SMS) * (-(-chunks // s) + 1)
+    assert all(cost(ksplit) <= cost(s) for s in (1, 2, 4) if s <= min(tvq.NI_MAX_SPLIT, chunks))
+    if (N, K) == (8192, 512):  # the training shapes: each wave fills all but 8 SMs
+        assert blocks % tvq.CARD_SMS == 0 or blocks % tvq.CARD_SMS >= tvq.CARD_SMS - 8
+
+
+@pytest.mark.parametrize("K", [1, 7, 128, 129, 300, 512, 513, 4096])
+@pytest.mark.parametrize("ksplit", [1, 2, 4])
+def test_nearest_code_ranges_hold_each_code_once(K, ksplit):
+    """The ranks' code ranges, in rank order, hold each code once; each is
+    whole 128-code chunks but for the last code."""
+    ranges = _code_ranges(K, ksplit)
+    assert len(ranges) == ksplit
+    assert [k for a, b in ranges for k in range(a, b)] == list(range(K))
+    assert all(a % tvq.NI_CODES == 0 or a == K for a, _ in ranges)
+
+
+@pytest.mark.parametrize("z_bf16", [False, True])
+def test_nearest_smem_fits_a_block(z_bf16):
+    """Dynamic shared memory within the H100's 227 KB a block at every Dc up
+    to 256: the stages stream Dc, so the size does not depend on it."""
+    smem = _nearest_smem_bytes(z_bf16)
+    assert smem == (89088 if z_bf16 else 113664)
+    assert smem + 1024 <= min(SMEM_BLOCK, SMEM_SM)
+
+
+# --------------------------------------------------------------------------
+# Kernel 11: matmul_i8w_plan
+# --------------------------------------------------------------------------
+
+DSFVT_I8 = [(512, 3072), (1024, 512), (512, 512)]  # (K, N) of QKV, projection, FFN
+
+
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("K,N", DSFVT_I8)
+def test_matmul_i8w_plan_fills_the_card(b, K, N):
+    """DSFVT's three int8 products at the rollout's batch sizes: every block
+    quantizes its rows itself, so the plan takes the most blocks that one
+    wave of one block an SM of the H100 (132) holds, the fewest where none
+    fits: 128 blocks for N = 512 (4 columns a block; 8 at b = 16), 192 for
+    N = 3,072 (16 columns; 384 at b = 16). The SMs are all but 4 filled or
+    more than filled."""
+    cpb, nx, ny = tq.matmul_i8w_plan(b, K, N)
+    assert cpb in tq.I8W_CPB
+    assert nx == -(-N // cpb) and ny == -(-b // tq.I8W_ROWS)
+    narrower = [c for c in tq.I8W_CPB if c < cpb]
+    assert nx * ny <= tq.CARD_SMS or cpb == max(tq.I8W_CPB)
+    assert all(-(-N // c) * ny > tq.CARD_SMS for c in narrower)
+    assert nx * ny >= tq.CARD_SMS - 4
+    assert (cpb, nx * ny) == ((16, 192 * ny) if N == 3072 else (8, 128) if b == 16 else (4, 128))
+
+
+@pytest.mark.parametrize("b,K,N", [(1, 512, 3072), (8, 1024, 512), (16, 512, 512), (5, 64, 40),
+                                   (19, 2048, 33), (3, 16384, 7), (1, 16, 1)])
+def test_matmul_i8w_plan_covers_each_output_and_word_once(b, K, N):
+    """The grid covers every (row, column) once, and the threads of a column
+    every 16-byte word of its K once (K a multiple of 16, each a multiple of
+    16 bytes of the weight row), in the order csrc/matmul_i8w.cu walks them:
+    thread j of a column takes words j, j + 256 / cpb, ..."""
+    cpb, nx, ny = tq.matmul_i8w_plan(b, K, N)
+    cols = [bx * cpb + c for bx in range(nx) for c in range(cpb) if bx * cpb + c < N]
+    assert cols == list(range(N))
+    rows = [by * tq.I8W_ROWS + r for by in range(ny) for r in range(tq.I8W_ROWS)
+            if by * tq.I8W_ROWS + r < b]
+    assert rows == list(range(b))
+    tpc, words = I8W_THREADS // cpb, K // 16
+    taken = sorted(w for j in range(tpc) for w in range(j, words, tpc))
+    assert taken == list(range(words)) and K % 16 == 0
+    # shared memory: the block's int8 rows, their scales and the column sums
+    warps_a_column = max(1, tpc // 32)
+    smem = tq.I8W_ROWS * K + 4 * tq.I8W_ROWS + 4 * cpb * tq.I8W_ROWS * warps_a_column
+    assert smem <= SMEM_BLOCK

@@ -554,7 +554,8 @@ def test_cache_attention_i8_kernel_matches_plain(cuda, dtype, live, da, eb):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,K,N", [(1, 512, 3072), (8, 512, 512), (8, 1024, 512), (5, 64, 40),
-                                   (19, 2048, 33)])
+                                   (19, 2048, 33), (16, 512, 3072), (16, 1024, 512),
+                                   (16, 512, 512), (8, 1040, 512), (3, 16384, 7)])
 def test_matmul_i8w_kernel_matches_plain(cuda, dtype, b, K, N):
     import lvt_tpu_torch.ops.quant as tq
 
@@ -569,9 +570,33 @@ def test_matmul_i8w_kernel_matches_plain(cuda, dtype, b, K, N):
     want = tq.matmul_i8w_plain(y, wt, sw, dtype)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-6 * float(want.float().abs().max()),
                                rtol=2 ** -7 if dtype == torch.bfloat16 else 1e-6)
+    assert torch.equal(got, want)  # the integer sum is exact: bit-equal at every grid
     # the other weight mode of the sampler is another function: no activation rounding
     other = ((y @ wi.to(dtype)) * sw).float()
     assert float((other - want.float()).abs().max()) > 1e-4 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_i8w_kernel_rounds_at_half_integers_as_plain(cuda, dtype):
+    """Rows whose scale is 1 (absmax 127): every x / (s + 1e-8) is x itself,
+    so values at and next to half-integers test the kernel's rounding (half
+    to even, the true quotient where x r lies near a half) against the plain
+    version's division, bit for bit."""
+    import lvt_tpu_torch.ops.quant as tq
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    K, N = 512, 64
+    halves = torch.arange(-126, 127, device=cuda, dtype=torch.float32) + 0.5
+    y = torch.empty((8, K), device=cuda)
+    y[:, 0] = 127.0
+    y[:, 1:] = halves[torch.randint(0, len(halves), (8, K - 1), generator=g, device=cuda)]
+    y[1:4, 1:] += torch.tensor([-2 ** -17, 2 ** -17, 2 ** -16], device=cuda)[:, None]
+    y = y.to(dtype)
+    wi, sw = tq.quantize_cols(torch.randn((K, N), generator=g, device=cuda).to(dtype), dtype)
+    wt = wi.t().contiguous()
+    got = tq.matmul_i8w(y, wt, sw, dtype)
+    assert torch.equal(got, tq.matmul_i8w_plain(y, wt, sw, dtype))
 
 
 @pytest.mark.cuda
@@ -657,6 +682,14 @@ def test_i8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # a weight that is not int8
         tq.matmul_i8w_cuda(torch.randn((2, 32), device=cuda),
                            torch.zeros((8, 32), device=cuda), torch.ones(8, device=cuda))
+    # rows of y that do not start on 16 bytes: the kernel refuses them, the
+    # dispatcher copies y first
+    y = torch.randn(2 * 32 + 1, device=cuda)[1:].view(2, 32)
+    wt = torch.randint(-127, 128, (8, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        tq.matmul_i8w_cuda(y, wt, torch.ones(8, device=cuda))
+    assert torch.equal(tq.matmul_i8w(y, wt, torch.ones(8, device=cuda)),
+                       tq.matmul_i8w_plain(y, wt, torch.ones(8, device=cuda)))
 
 
 # --------------------------------------------------------------------------
@@ -692,14 +725,43 @@ def test_nearest_indices_kernel_matches_plain(cuda, dtype, N, K, Dc, strided):
         assert not z.is_contiguous() or N == 1
     else:
         z = torch.randn((N, Dc), generator=g, device=cuda).to(dtype)
-    before = tvq.nearest_indices_cuda.launches
+    before = tvq.nearest_indices_grouped_cuda.launches
     got = tvq.nearest_indices(z, codebook)
-    assert tvq.nearest_indices_cuda.launches == before + 1
+    assert tvq.nearest_indices_grouped_cuda.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == (N,)
     assert torch.equal(got, tvq.nearest_indices(z, codebook))  # two calls, the same bits
     want = tvq.nearest_indices(z, codebook, use_kernel=False)
-    assert tvq.nearest_indices_cuda.launches == before + 2
+    assert tvq.nearest_indices_grouped_cuda.launches == before + 2
     assert_indices_close(got, want, z, codebook)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,G,K,Dc", [(8192, 4, 512, 64), (8192, 1, 512, 256),
+                                      (8192 + 37, 4, 512, 64), (1, 4, 512, 64),
+                                      (300, 3, 300, 20), (129, 2, 7, 4),
+                                      (1000, 1, 129, 252), (77, 5, 513, 36)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_nearest_indices_grouped_kernel_matches_plain(cuda, dtype, N, G, K, Dc, strided):
+    """One launch for all G sub-codebooks, at PR-DVQVAE2's and Base-VQVAE's
+    training shapes and at odd N, G, K and Dc (K split over a cluster where
+    the row tiles leave SMs idle): each column against the plain version of
+    its sub-codebook, two calls bit-identical."""
+    import lvt_tpu_torch.ops.vq as tvq
+
+    g = torch.Generator(device=cuda).manual_seed(N + G + K + Dc)
+    codebooks = torch.randn((G, K, Dc), generator=g, device=cuda)
+    zz = torch.randn((N, 2 * G if strided else G, Dc), generator=g, device=cuda).to(dtype)
+    z = zz[:, 1::2, :] if strided else zz  # every other sub-codebook of a wider z, in place
+    before = tvq.nearest_indices_grouped_cuda.launches
+    got = tvq.nearest_indices_grouped(z, codebooks)
+    assert tvq.nearest_indices_grouped_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (N, G)
+    assert torch.equal(got, tvq.nearest_indices_grouped(z, codebooks))
+    want = tvq.nearest_indices_grouped(z, codebooks, use_kernel=False)
+    assert tvq.nearest_indices_grouped_cuda.launches == before + 2
+    for i in range(G):
+        assert_indices_close(got[:, i], want[:, i], z[:, i, :], codebooks[i])
 
 
 @pytest.mark.cuda
@@ -718,8 +780,8 @@ def test_nearest_indices_kernel_breaks_ties_to_the_lowest_index(cuda):
 
 @pytest.mark.cuda
 def test_quantize_st_reaches_kernel_6_on_the_card(cuda):
-    """quantize_st on CUDA tensors launches kernel 6 once per sub-codebook by
-    default, returns the plain path's values, sends the identity gradient to
+    """quantize_st on CUDA tensors launches kernel 6 once for all
+    sub-codebooks by default, returns the plain path's values, sends the identity gradient to
     z_e, and its EMA statistics are the same bits on every call."""
     import lvt_tpu_torch.ops.vq as tvq
     from lvt_tpu_torch.models import to_device
@@ -727,14 +789,14 @@ def test_quantize_st_reaches_kernel_6_on_the_card(cuda):
     cb = to_device(tvq.init_codebook(torch.Generator().manual_seed(0), 4, 64, 64), cuda)
     g = torch.Generator(device=cuda).manual_seed(1)
     z_e = (0.02 * torch.randn((2, 8, 8, 64), generator=g, device=cuda)).requires_grad_(True)
-    before = tvq.nearest_indices_cuda.launches
+    before = tvq.nearest_indices_grouped_cuda.launches
     st, zq, idx, new = tvq.quantize_st(z_e, cb, ema=True, train=True)
-    assert tvq.nearest_indices_cuda.launches == before + 4
+    assert tvq.nearest_indices_grouped_cuda.launches == before + 1
     st.sum().backward()
     assert torch.equal(z_e.grad, torch.ones_like(z_e))
     st2, zq2, idx2, new2 = tvq.quantize_st(z_e.detach(), cb, ema=True, train=True,
                                            use_kernel=False)
-    assert tvq.nearest_indices_cuda.launches == before + 4
+    assert tvq.nearest_indices_grouped_cuda.launches == before + 1
     assert torch.equal(idx, idx2)
     for k in new:
         assert torch.equal(new[k], new2[k]) and not new[k].requires_grad, k
@@ -751,9 +813,18 @@ def test_nearest_indices_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                  (torch.randn((4, 64), device=cuda).half(), cb),
                  (torch.randn((64, 4), device=cuda).T, cb),  # column stride != 1
                  (torch.randn((4, 64), device=cuda), cb.bfloat16()),
-                 (torch.randn((4, 64)), cb)):
+                 (torch.randn((4, 64)), cb),
+                 (torch.randn(4 * 64 + 1, device=cuda)[1:].view(4, 64), cb),  # rows off 16 B
+                 (torch.randn(4 * 64 + 2, device=cuda).bfloat16()[2:].view(4, 64), cb)):
         with pytest.raises(ValueError):
             tvq.nearest_indices_cuda(z, c)
+    with pytest.raises(ValueError):  # a sub-codebook count that differs from z's
+        tvq.nearest_indices_grouped_cuda(torch.randn((4, 3, 64), device=cuda),
+                                         torch.randn((2, 8, 64), device=cuda))
+    with pytest.raises(ValueError):  # a group stride not a multiple of 4
+        tvq.nearest_indices_grouped_cuda(
+            torch.randn(4 * 198, device=cuda).as_strided((4, 3, 64), (198, 66, 1)),
+            torch.randn((3, 8, 64), device=cuda))
 
 
 def _i8kv_inputs(dev, b, na, R, da, dtype, eb, seed):

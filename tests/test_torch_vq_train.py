@@ -92,7 +92,70 @@ def test_nearest_indices_dispatch_and_no_gradient():
     assert torch.equal(idx, tvq.nearest_indices(z, cb, use_kernel=False))
     with pytest.raises(ValueError):  # the kernel takes CUDA tensors only: no quiet fallback
         tvq.nearest_indices(z, cb, use_kernel=True)
-    assert tvq.nearest_indices_cuda.launches == 0
+    with pytest.raises(ValueError):
+        tvq.nearest_indices_grouped(z[:, None, :], cb[None], use_kernel=True)
+    assert tvq.nearest_indices_grouped_cuda.launches == 0
+
+
+@pytest.mark.parametrize("N,G,K,Dc", [(512, 4, 512, 64), (37, 3, 16, 8), (1, 1, 64, 256),
+                                      (300, 2, 129, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+def test_nearest_indices_grouped_plain_equals_jax_per_sub_codebook(rng, N, G, K, Dc, dtype,
+                                                                   strided):
+    """The grouped plain version (kernel 6's, all sub-codebooks at once) is
+    lvt_tpu's nearest_indices on each sub-codebook, bit for bit, on the
+    (N, G, Dc) view quantize_st builds or on a strided view (every other
+    sub-codebook of a wider z)."""
+    zw = rng.standard_normal((N, 2 * G if strided else G, Dc)).astype(np.float32)
+    cbs = rng.standard_normal((G, K, Dc)).astype(np.float32)
+    z = zw[:, ::2, :] if strided else zw
+    tz = torch.from_numpy(zw)[:, ::2, :] if strided else torch.from_numpy(zw)
+    jz = jnp.asarray(z)
+    if dtype == "bfloat16":
+        jz, tz = jz.astype(jnp.bfloat16), tz.to(torch.bfloat16)
+    got = tvq.nearest_indices_grouped(tz, torch.from_numpy(cbs))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (N, G)
+    for i in range(G):
+        want = jvq.nearest_indices(jz[:, i, :], jnp.asarray(cbs[i]), use_pallas=False)
+        np.testing.assert_array_equal(got[:, i].numpy(), np.asarray(want))
+    assert torch.equal(got, tvq.nearest_indices_grouped(tz, torch.from_numpy(cbs),
+                                                        use_kernel=False))
+
+
+def test_nearest_indices_grouped_plain_equals_pallas_interpret_with_ties(rng):
+    """One small case through lvt_tpu's Pallas kernel in interpret mode, per
+    sub-codebook: codebooks with duplicated rows and rows of z that equal a
+    code, so every sub-codebook has planted ties (the lowest index wins)."""
+    G, Dc = 3, 16
+    base = rng.standard_normal((G, 20, Dc)).astype(np.float32)
+    cbs = np.concatenate([base, base, base], axis=1)  # rows k, k + 20, k + 40 equal
+    z = rng.standard_normal((40, G, Dc)).astype(np.float32)
+    z[:20] = base.transpose(1, 0, 2)  # row n of sub-codebook g equals code n
+    got = tvq.nearest_indices_grouped(torch.from_numpy(z), torch.from_numpy(cbs)).numpy()
+    np.testing.assert_array_equal(got[:20], np.repeat(np.arange(20)[:, None], G, axis=1))
+    assert int(got.max()) < 20
+    for i in range(G):
+        want = jvq.nearest_indices_pallas(jnp.asarray(z[:, i, :]), jnp.asarray(cbs[i]),
+                                          interpret=True)
+        np.testing.assert_array_equal(got[:, i], np.asarray(want))
+
+
+def test_quantize_st_takes_all_indices_from_one_grouped_call(rng, monkeypatch):
+    """quantize_st asks for every sub-codebook's indices once, from the
+    embedding before the update: on the card that is one kernel-6 launch."""
+    _, tstate = _codebooks(rng)
+    z = torch.from_numpy(rng.standard_normal((2, 5, 6, 32)).astype(np.float32))
+    calls = []
+    inner = tvq.nearest_indices_grouped
+
+    def counted(zz, emb, use_kernel=None):
+        calls.append((tuple(zz.shape), emb.data_ptr()))
+        return inner(zz, emb, use_kernel)
+
+    monkeypatch.setattr(tvq, "nearest_indices_grouped", counted)
+    tvq.quantize_st(z, tstate, ema=True, train=True)
+    assert calls == [((60, 4, 8), tstate["embedding"].data_ptr())]
 
 
 # --------------------------------------------------------------------------

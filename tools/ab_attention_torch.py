@@ -17,7 +17,12 @@ both trees, calling only the kernels' public wrappers. Phases:
   ``__global__`` function;
 * ``train``: phase 8, the fused and unfused training steps, each with one
   profiled step by ``__global__`` function; ``train_fused``: the fused one
-  only.
+  only;
+* ``i8_kernels``: phase 10, kernels 3, 4, 5 and 11 (kernel 11 at DSFVT's
+  three shapes x b in 1, 8, 16);
+* ``vq_kernel``: phase 13, kernel 6 at PR-DVQVAE2's step (all four
+  sub-codebooks) and Base-VQVAE's; where the turn's tree has no grouped
+  launch, its one-codebook wrapper is called once per sub-codebook.
 
 Device and build (phases 1 and 2) always run first. Each turn's whole
 output goes to ``<out-dir>/ab_<turn>_<tree>.txt`` (default
@@ -26,7 +31,7 @@ output goes to ``<out-dir>/ab_<turn>_<tree>.txt`` (default
 
     git archive HEAD | tar -x -C build/parent
     python tools/ab_attention_torch.py --other build/parent \\
-        --phases kernels,fused_kernels,train_fused
+        --phases vq_kernel,i8_kernels
 """
 
 import argparse
@@ -39,7 +44,9 @@ CALLS = {"kernels": "c.phase_kernels(card)\n",
          "train_kernels": "c.phase_train_kernels(card)\n",
          "fused_kernels": "c.phase_fused_kernels(card)\n",
          "train": "c.phase_train(card)\n",
-         "train_fused": "c.phase_train(card, unfused=False)\n"}
+         "train_fused": "c.phase_train(card, unfused=False)\n",
+         "i8_kernels": "c.phase_i8_kernels(card)\n",
+         "vq_kernel": "c.phase_vq_kernel(card)\n"}
 # this tree's chip_smoke.py, the turn's tree's package (its root is the
 # working directory, first on sys.path)
 HEAD = ("import importlib.util\n"
@@ -52,7 +59,8 @@ HEAD = ("import importlib.util\n"
         "c.phase_build()\n")
 KEEP = ("kernel 1 ", "kernel 10 ", "  time ", "bf16 nb=", "kernel 2 ", "fused kernels",
         "layer times", "by __global__", "train DSFVT", "profile, one train",
-        "hand-written kernels per step", "H100", "build:", "package:")
+        "hand-written kernels per step", "H100", "build:", "package:", "kernel 6 ",
+        "kernel 11 ", "kernels 3 and 4", "kernel 3 ", "kernel 4 ", "kernel 5 ")
 
 
 def main(argv=None):
