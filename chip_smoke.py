@@ -57,14 +57,24 @@ Phases, each fatal on failure (exit code 1, no result line):
                 must fall outside the bound.
 
  10. i8 kernels — kernels 3, 4 and 5 (decode attention over an int8 KV cache)
-                at b=16 and b=1, na=8, R=256, da=128, live in (1, 64, 200,
+                at b in (16, 8, 1), na=8, R=256, da=128, live in (1, 64, 200,
                 256), bf16 and fp32 scales, and kernel 11 (the int8-weight
                 product) at b in (1, 8, 16) for DSFVT's three shapes and at K
                 = 1,040, each against its plain version under the bounds
-                below (kernel 11 bit-equal), with a control that must read
-                above them; device times over inputs larger than the L2,
-                beside kernel 2's at the same shape and, for kernel 11,
-                torch._int_mm plus the scaling (yardsticks, never on a path).
+                below (kernel 11 bit-equal; kernels 3 and 4 also two calls
+                bit-identical), with a control that must read above them;
+                device times over inputs larger than the L2: kernels 3 and 4
+                (and their fused entries) swept over b in (1, 8, 16) x live
+                in (16, 64, 128, 256), each beside the bound and kernel 2's
+                time at that shape; kernel 5 beside kernel 2's, kernel 11
+                beside torch._int_mm plus the scaling (yardsticks, never on a
+                path).
+ 10b. i8 fold — kernels 3 and 4 with the quantization of q and of the new
+                cache row folded in (the sampler's call) against the PyTorch
+                sequence they replace: q8, sq, the written cache rows and
+                scales bit-equal, the outputs within the kernels' bound, at b
+                in (1, 8, 16) x live in (1, 64, 65, 256), fp32 and bf16, rows
+                at and next to x.5 and tiny rows among them.
  11. main i8  — the quantized sampler at full width, batch 8, bf16, all 11
                 sampled frames, greedy, through generate() with
                 TEST.VT_SAMPLER.KV_DTYPE / ATTN_IMPL / WEIGHT_DTYPE set: a
@@ -72,8 +82,11 @@ Phases, each fatal on failure (exit code 1, no result line):
                 int8 KV + pallas-live (kernel 4), int8 KV + pallas +
                 int8-pallas weights (kernels 3 and 11). Launch counts set to 0
                 before each and read after: exactly 22,528 of kernel 3 or 4
-                and 90,112 of kernel 11 per rollout. Peak device memory and
-                greedy agreement with the native rollout; one profiled slice.
+                (all through the fused entry: one launch per layer and pixel
+                that also quantizes q and writes the new cache row) and
+                90,112 of kernel 11 per rollout. Peak device memory and
+                greedy agreement with the native rollout; one profiled slice
+                of each int8 mode.
  12. agree i8 — fp32, batch 2, full width: the three modes' teacher-forced
                 logits on the card against the plain path on the CPU.
 
@@ -106,7 +119,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 kernels 2 and 3.
 
 Phases 10 to 13 run right after phase 5, while the generation models are
-loaded. The line before the last is {"kernels": [...]}; the last line is
+loaded (10b right after 10). The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -670,17 +683,28 @@ def phase_profile(card, models, codes, label="native", **knobs):
         print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
     # the hand-written kernels of the rollout, each summed over its templates
     # (a function counts under the first key its name holds)
-    keys = (("kernel 1", "block_attention_"), ("kernel 2", "decode_attention_kernel"),
-            ("kernel 3", "decode_attention_i8_kernel"),
-            ("kernel 4", "decode_attention_i8_live_kernel"), ("kernel 11", "matmul_i8w_kernel"))
+    # (kernels 3 and 4 also under the names of the one-block kernels they
+    # replaced, for an older tree)
+    keys = (("kernel 1", ("block_attention_",)), ("kernel 2", ("decode_attention_kernel",)),
+            ("kernel 3", ("decode_i8_kernel<128, 4, false", "decode_i8_kernel<128, 8, false",
+                          "decode_attention_i8_kernel")),
+            ("kernel 4", ("decode_i8_kernel<128, 4, true", "decode_i8_kernel<128, 8, true",
+                          "decode_attention_i8_live_kernel")),
+            ("kernel 11", ("matmul_i8w_kernel",)))
     sums = {}
     for name, (tot, cnt) in by_name.items():
-        label = next((lb for lb, k in keys if k in name), None)
+        label = next((lb for lb, ks in keys if any(k in name for k in ks)), None)
         if label is not None:
             t0, c0 = sums.get(label, (0.0, 0))
             sums[label] = (t0 + tot, c0 + cnt)
     print("  hand-written kernels in the slice: " + ", ".join(
         f"{label} {t:.2f} ms ({cnt}x, {t / cnt:.4f} ms each)" for label, (t, cnt) in sums.items()))
+    if knobs.get("kv_dtype") == "int8":  # kernel 3 or 4 once per layer and pixel, live = p + 1
+        na, _, da = params["netG"]["decoder"]["layers"][0]["wq"].shape
+        layers = len(params["netG"]["decoder"]["layers"])
+        bound = layers * sum(i8_bound_ms(b, na, live, da)[0] for live in range(1, len(primed) + 1))
+        print(f"  bound of kernel 3 or 4 over the slice's {layers * len(primed)} calls "
+              f"(live 1 to {len(primed)}): {bound:.2f} ms")
 
 
 def phase_agree(card):
@@ -1341,6 +1365,91 @@ def _i8_check(got, want, step, bf16_out):
     return float(diff.max()), float((diff > rounding).any(dim=-1).float().mean()), ok
 
 
+def i8_sweep(card):
+    """Kernels 3 and 4 at the rollout's batch sizes and live lengths: b in
+    (1, 8, 16) x live in (16, 64, 128, 256), na=8, R=256, da=128, bf16
+    scales and output: device times of each (through its (q8, sq) wrapper),
+    of its fused entry (q and the new rows quantized in the launch, the
+    sampler's call) and of kernel 2 over a bf16 cache of the same shape,
+    over input sets of >= 64 MB together, beside the bound of the int8
+    call; at b=8, live=256 (the rollout's shape) also the plain versions and
+    fp32 scales. Only public wrappers are called, so that
+    tools/ab_attention_torch.py can run this on another tree's package (a
+    tree without the fused entries times none)."""
+    import torch
+
+    from lvt_tpu_torch.ops import cache_attention as ca
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(35)
+    na, R, da, scale = 8, 256, 128, 128 ** -0.5
+    fused = hasattr(ca, "decode_attention_i8_step_cuda")
+    rows = []
+    for b in (1, 8, 16):
+        n_sets = max(4, min(64, -(-64 * 2 ** 20 // (2 * b * na * R * da))))
+        q8 = torch.randint(-127, 128, (b, na, da), generator=g, device=dev, dtype=torch.int8)
+        sq = 0.01 * torch.rand((b, na), generator=g, device=dev) + 1e-3
+        qkv = torch.randn((b, 3, na, da), generator=g, device=dev).bfloat16()
+        q = qkv[:, 0].contiguous()
+        bias = 0.5 * torch.randn((na, R), generator=g, device=dev)
+
+        def scales(dt):
+            return (0.02 * torch.rand((b, na, R), generator=g, device=dev) + 1e-3).to(dt)
+
+        sets = [(torch.randint(-127, 128, (b, na, R, da), generator=g, device=dev,
+                               dtype=torch.int8), scales(torch.bfloat16),
+                 torch.randint(-127, 128, (b, na, R, da), generator=g, device=dev,
+                               dtype=torch.int8), scales(torch.bfloat16)) for _ in range(n_sets)]
+        bf16 = [(torch.randn((b, na, R, da), generator=g, device=dev).bfloat16(),
+                 torch.randn((b, na, R, da), generator=g, device=dev).bfloat16())
+                for _ in range(max(4, n_sets // 2))]
+        for live in (16, 64, 128, 256):
+            r = {"b": b, "live": live}
+            for k, fn in ((3, ca.decode_attention_i8_cuda), (4, ca.decode_attention_i8_live_cuda)):
+                r[f"k{k}_ms"] = device_ms([lambda s=s: fn(q8, sq, *s, live, bias, scale)
+                                           for s in sets], 200)
+            for k, name in ((3, "decode_attention_i8_step_cuda"),
+                            (4, "decode_attention_i8_live_step_cuda")):
+                fn = getattr(ca, name, None)
+                r[f"k{k}_step_ms"] = None if fn is None else device_ms(
+                    [lambda s=s: fn(qkv[:, 0], qkv[:, 1:], *s, live, bias, scale) for s in sets],
+                    200)
+            r["k2_ms"] = device_ms([lambda c=c: ca.decode_attention_cuda(q, *c, live, bias, scale)
+                                    for c in bf16], 200)
+            r["bound_ms"], r["bound_by"] = i8_bound_ms(b, na, live, da)
+            if (b, live) == (8, 256):
+                for k, plain in ((3, ca.decode_attention_i8_plain),
+                                 (4, ca.decode_attention_i8_live_plain)):
+                    r[f"k{k}_plain_ms"] = device_ms(
+                        [lambda s=s: plain(q8, sq, *s, live, bias, scale) for s in sets[:8]], 20)
+                f32 = [(s[0], s[1].float(), s[2], s[3].float()) for s in sets]
+                for k, fn in ((3, ca.decode_attention_i8_cuda),
+                              (4, ca.decode_attention_i8_live_cuda)):
+                    r[f"k{k}_fp32_ms"] = device_ms(
+                        [lambda s=s: fn(q8, sq, *s, live, bias, scale, torch.bfloat16)
+                         for s in f32], 200)
+                del f32
+            print(f"  kernels 3 and 4 sweep b={b} live={live} [{card}]: kernel 3 "
+                  f"{r['k3_ms']:.4f} ms, kernel 4 {r['k4_ms']:.4f}; fused entries "
+                  + (f"{r['k3_step_ms']:.4f} / {r['k4_step_ms']:.4f}" if fused else "none")
+                  + f"; kernel 2 (bf16 cache) {r['k2_ms']:.4f}; bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']})" + (f"; plain {r['k3_plain_ms']:.4f} / "
+                                          f"{r['k4_plain_ms']:.4f}; fp32 scales "
+                                          f"{r['k3_fp32_ms']:.4f} / {r['k4_fp32_ms']:.4f}"
+                                          if (b, live) == (8, 256) else ""), flush=True)
+            rows.append(r)
+        del sets, bf16
+    return rows
+
+
+def i8_bound_ms(b, na, live, da):
+    """bound_ms of one call of kernel 3 or 4 with bf16 scales and output: the
+    live rows' int8 K and V and their scales, the bias row, q8 and sq (or
+    the float q), the output; 4 integer operations per cache byte."""
+    return bound_ms("int8", 2 * b * na * live * da + 2 * b * na * live * 2 + na * live * 4
+                    + b * na * (da + 4) + b * na * da * 2, 4 * b * na * live * da)
+
+
 def phase_i8_kernels(card, kernel2_ms=None):
     """Kernels 3, 4, 5 and 11 at the quantized sampler's shapes, each against
     its plain version with its control; device times over inputs larger than
@@ -1372,17 +1481,16 @@ def phase_i8_kernels(card, kernel2_ms=None):
     # ---- kernels 3 and 4
     pairs = {3: (ca.decode_attention_i8_cuda, ca.decode_attention_i8_plain),
              4: (ca.decode_attention_i8_live_cuda, ca.decode_attention_i8_live_plain)}
-    errs, times = {3: 0.0, 4: 0.0}, {}
-    for b in (16, 1):
+    errs = {3: 0.0, 4: 0.0}
+    for b in (16, 8, 1):
         q8 = torch.randint(-127, 128, (b, na, da), generator=g, device=dev, dtype=torch.int8)
         sq = 0.01 * torch.rand((b, na), generator=g, device=dev) + 1e-3
         bias = 0.5 * torch.randn((na, R), generator=g, device=dev)
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            # 8 sets of 8.5 MB at b=16: 68 MB, over the 50 MB L2
-            sets = [cache_set(b, dt) for _ in range(8 if b == 16 else 1)]
+            c0 = cache_set(b, dt)
             for live in (1, 64, 200, 256):
-                c = poison(sets[0], live)
+                c = poison(c0, live)
                 step = ca.i8_weight_step(q8, sq, c[0], c[1], c[3], live, bias, scale)
                 for k, (kernel, plain) in pairs.items():
                     got = kernel(q8, sq, *c, live, bias, scale, dt)
@@ -1396,6 +1504,8 @@ def phase_i8_kernels(card, kernel2_ms=None):
                     check(ok and off <= I8_ROWS_OFF,
                           f"{kernel.__name__} disagrees with its plain version ({dtype}, b={b}, "
                           f"live={live}): max abs err {e}, pairs off {off}")
+                    check(torch.equal(kernel(q8, sq, *c, live, bias, scale, dt), got),
+                          f"{kernel.__name__}: two calls differ ({dtype}, b={b}, live={live})")
                     errs[k] = max(errs[k], e)
                     if live == 256 and b == 16 and dtype == "float32":
                         # control: the other kernel's plain version on the same inputs
@@ -1406,23 +1516,15 @@ def phase_i8_kernels(card, kernel2_ms=None):
                               f"max_abs_err {ce:.3g}, pairs off {coff:.3g}")
                         check(coff > I8_ROWS_OFF, f"kernel {k}: the control reads {coff} pairs "
                               f"off, within the bound {I8_ROWS_OFF}")
-                    if b == 16 and live == 256:
-                        times[(k, dtype)] = time_both(
-                            card, [lambda s=s: kernel(q8, sq, *s, live, bias, scale, dt)
-                                   for s in sets],
-                            [lambda s=s: plain(q8, sq, *s, live, bias, scale, dt) for s in sets],
-                            200, f"kernel {k} {dtype} b={b} live={live} ")
-    el = 2  # bf16 scales and output
-    nbytes = (2 * 16 * na * R * da + 2 * 16 * na * R * el + na * R * 4 + 16 * na * (da + 4)
-              + 16 * na * da * el)
-    b34, by34 = bound_ms("int8", nbytes, 4 * 16 * na * R * da)
-    print(f"  kernels 3 and 4 b=16 live={R}: bound {b34:.4f} ms ({by34}: int8 K and V rows, "
-          f"scales, bias, q8, output); kernel 2 (bf16 cache) at the same shape "
-          f"{kernel2_ms} ms; no single library call computes them [{card}]")
+    sweep = i8_sweep(card)
     for k, name in ((3, "decode_attention_i8"), (4, "decode_attention_i8_live")):
-        res[name] = dict(zip(("ms", "plain_ms"), times[(k, "bfloat16")]), err=errs[k],
-                         bound_ms=b34, bound_by=by34, library_ms=None, kernel2_ms=kernel2_ms,
-                         fp32_scales_ms=times[(k, "float32")][0])
+        main = next(r for r in sweep if (r["b"], r["live"]) == (8, 256))  # the rollout's shape
+        res[name] = dict(ms=main[f"k{k}_ms"], plain_ms=main[f"k{k}_plain_ms"], err=errs[k],
+                         bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+                         kernel2_ms=main["k2_ms"], at="b=8, live=256, bf16 scales",
+                         fp32_scales_ms=main[f"k{k}_fp32_ms"], fused_ms=main[f"k{k}_step_ms"],
+                         sweep=[{key: r[key] for key in ("b", "live", f"k{k}_ms", f"k{k}_step_ms",
+                                                         "k2_ms", "bound_ms")} for r in sweep])
 
     # ---- kernel 5: q in float, fp32 scales
     err5, t5 = 0.0, {}
@@ -1532,6 +1634,75 @@ def phase_i8_kernels(card, kernel2_ms=None):
     return res
 
 
+def phase_i8_fold(card):
+    """Kernels 3 and 4 with the quantization of q and of the new cache row
+    folded in (the sampler's call) against the PyTorch sequence they replace
+    (quantize_cache_row, the row writes, quantize_rows_i8, the plain kernel)
+    on the card: b in (1, 8, 16), live in (1, 64, 65, 256), na=8, R=256,
+    da=128, the io dtype fp32 and bf16, rows from randn, rows of scale 1 at
+    and next to x.5, and tiny rows. q8, sq, the cache rows and scales equal
+    bit for bit (the rest of the cache untouched), the output within the
+    kernel's bound of the sequence's, one launch a call. Returns the largest
+    output error of each kernel."""
+    import torch
+
+    from lvt_tpu_torch.ops import cache_attention as ca
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(36)
+    na, R, da, scale = 8, 256, 128, 128 ** -0.5
+    errs = {3: 0.0, 4: 0.0}
+    entries = {3: (ca.decode_attention_i8_step_cuda, ca.decode_attention_i8_step_plain),
+               4: (ca.decode_attention_i8_live_step_cuda, ca.decode_attention_i8_live_step_plain)}
+    checked = 0
+    for b in (1, 8, 16):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            for rows in ("randn", "halves", "tiny"):
+                qkv = torch.randn((b, 3, na, da), generator=g, device=dev)
+                if rows == "halves":  # absmax 127: scale 1, the quotients the values
+                    qkv = torch.randint(-126, 126, qkv.shape, generator=g, device=dev) + 0.5
+                    qkv = qkv + torch.tensor([0.0, 2 ** -10, -2 ** -10], device=dev)[
+                        torch.randint(0, 3, qkv.shape, generator=g, device=dev)]
+                    qkv[..., 0] = 127.0
+                elif rows == "tiny":
+                    qkv = qkv * 1e-7
+                qkv = qkv.to(dt)
+                cache = [torch.randint(-127, 128, (b, na, R, da), generator=g, device=dev,
+                                       dtype=torch.int8),
+                         (0.02 * torch.rand((b, na, R), generator=g, device=dev) + 1e-3).to(dt)]
+                cache = [cache[0], cache[1], cache[0].flip(-1).contiguous(), cache[1].flip(-1)
+                         .contiguous()]
+                bias = 0.5 * torch.randn((na, R), generator=g, device=dev)
+                for live in (1, 64, 65, 256):
+                    for k, (fused, plain) in entries.items():
+                        mine = [t.clone() for t in cache]
+                        theirs = [t.clone() for t in cache]
+                        before = fused.launches
+                        got, q8, sq = fused(qkv[:, 0], qkv[:, 1:], *mine, live, bias, scale, dt,
+                                            q_out=True)
+                        want, q8w, sqw = plain(qkv[:, 0], qkv[:, 1:], *theirs, live, bias, scale,
+                                               dt, q_out=True)
+                        torch.cuda.synchronize()
+                        what = f"kernel {k} fused, {dtype} {rows} b={b} live={live}"
+                        check(fused.launches == before + 1, f"{what}: launches")
+                        check(torch.equal(q8, q8w) and torch.equal(sq, sqw),
+                              f"{what}: q8 or sq differ from quantize_rows_i8's")
+                        check(all(torch.equal(x, y) for x, y in zip(mine, theirs)),
+                              f"{what}: the cache (k8, ks, v8, vs) differs from the row writes'")
+                        step = ca.i8_weight_step(q8w, sqw, theirs[0], theirs[1], theirs[3], live,
+                                                 bias, scale)
+                        e, off, ok = _i8_check(got, want, step, dtype == "bfloat16")
+                        check(ok and off <= I8_ROWS_OFF, f"{what}: output max abs err {e}, pairs "
+                                                         f"off {off}")
+                        errs[k] = max(errs[k], e)
+                        checked += 1
+    print(f"i8 fold [{card}]: {checked} fused calls of kernels 3 and 4: q8, sq, the new cache "
+          f"rows and scales bit-equal to the PyTorch sequence's; outputs within the kernels' "
+          f"bound, max_abs_err {errs[3]:.3g} / {errs[4]:.3g}")
+    return errs
+
+
 def _quantized_vt(vt, **knobs):
     """The same VideoTransformer with TEST.VT_SAMPLER keys set, as a config
     file or the command line would set them."""
@@ -1563,8 +1734,16 @@ def phase_main_i8(card, models):
     from lvt_tpu_torch.ops.attention import block_attention_fwd_cuda
     from lvt_tpu_torch.ops.cache_attention import decode_attention_cuda
 
+    from lvt_tpu_torch.ops import cache_attention as ca
+
     k3, k4, _, k11 = _i8_kernels()
-    counted = (decode_attention_cuda, k3, k4, k11)
+    # kernels 2, 3, 4 and 11: each kernel's wrappers (3 and 4 with and
+    # without the fold; the sampler calls the fused ones, where the tree has
+    # them: tools/ab_attention_torch.py runs this on a parent tree too)
+    steps = tuple(getattr(ca, n, None) for n in ("decode_attention_i8_step_cuda",
+                                                 "decode_attention_i8_live_step_cuda"))
+    counted = ((decode_attention_cuda,), tuple(w for w in (k3, steps[0]) if w),
+               tuple(w for w in (k4, steps[1]) if w), (k11,))
     vqvae, vq_params, vq_state, vt, vt_params = models
     dev = torch.device("cuda")
     frames = torch.from_numpy(gvt.load_priming_frames(os.path.join(ROOT, "example"), N_PRIME))
@@ -1574,16 +1753,19 @@ def phase_main_i8(card, models):
     out, launches = {}, {}
     for label, knobs, want in I8_RUNS:
         model = _quantized_vt(vt, **knobs) if knobs else vt
-        for k in counted + (block_attention_fwd_cuda,):
+        for k in sum(counted, (block_attention_fwd_cuda,)):
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
         video, codes, primed, seconds = gvt.generate(vqvae, vq_params, vq_state, model, vt_params,
                                                      frames, N_PRIME, None, greedy=True)
         peak = torch.cuda.max_memory_allocated()
-        took = tuple(k.launches for k in counted)
+        took = tuple(sum(k.launches for k in group) for group in counted)
         _check_run(label, video, codes, primed, 512, b)
-        check(took == want and block_attention_fwd_cuda.launches == n_slices * 8,
-              f"{label}: launches of kernels 2, 3, 4, 11 {took}, want exactly {want}; kernel 1 "
+        fused = tuple(w.launches if w else want[1 + i] for i, w in enumerate(steps))
+        check(took == want and block_attention_fwd_cuda.launches == n_slices * 8
+              and fused == want[1:3],
+              f"{label}: launches of kernels 2, 3, 4, 11 {took}, want exactly {want}, all of "
+              f"kernels 3 and 4 fused (fused: {fused}); kernel 1 "
               f"{block_attention_fwd_cuda.launches}, want {n_slices * 8}")
         out[label], launches[label] = codes, took
         agree = float((codes[:, :, N_PRIME:] == out["native"][:, :, N_PRIME:]).float().mean())
@@ -1600,6 +1782,30 @@ def phase_main_i8(card, models):
           "the int8 rollout's codes equal the native ones: were the config keys read?")
     return (launches["int8 KV + pallas"][1], launches["int8 KV + pallas-live"][2],
             launches["int8 KV + pallas + int8-pallas weights"][3])
+
+
+def phase_i8_rollouts(card):
+    """Phase 11 and one profiled slice of the native and each int8 mode, on
+    models built as phase 4 builds them, priming codes from a numpy seed:
+    the int8 rollouts alone, for tools/ab_attention_torch.py."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+
+    cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"))
+    dev = torch.device("cuda")
+    models = gvt.build_models(cfg, 0, dev, torch.bfloat16)
+    c = models[3].c
+    codes = torch.from_numpy(np.random.default_rng(0).integers(
+        0, c.nv, size=(8, c.nc, T_FRAMES, 16, 16))).to(dev)
+    phase_main_i8(card, models)
+    phase_profile(card, models, codes)
+    for label, knobs, _ in I8_RUNS[1:]:
+        phase_profile(card, models, codes, label, kv_dtype=knobs["KV_DTYPE"],
+                      attn_impl=knobs["ATTN_IMPL"], weight_dtype=knobs.get("WEIGHT_DTYPE",
+                                                                            "native"))
 
 
 def phase_agree_i8(card):
@@ -2173,8 +2379,13 @@ def main():
     phase_profile(card, models, codes)
     phase_agree(card)
     i8res = phase_i8_kernels(card, kres["decode_attention"]["ms"])
+    fold_err = phase_i8_fold(card)
+    for k, name in ((3, "decode_attention_i8"), (4, "decode_attention_i8_live")):
+        i8res[name]["err"] = max(i8res[name]["err"], fold_err[k])
     i8_launches = phase_main_i8(card, models)
     phase_profile(card, models, codes, "int8 KV + pallas", kv_dtype="int8", attn_impl="pallas")
+    phase_profile(card, models, codes, "int8 KV + pallas-live", kv_dtype="int8",
+                  attn_impl="pallas-live")
     phase_profile(card, models, codes, "int8 KV + pallas + int8-pallas weights",
                   kv_dtype="int8", attn_impl="pallas", weight_dtype="int8-pallas")
     phase_agree_i8(card)

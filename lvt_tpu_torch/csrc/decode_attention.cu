@@ -113,40 +113,6 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
   return r;
 }
 
-// the cluster barrier in two halves: arrive once this block's mbarriers are
-// initialised (release), wait before the first store into another block
-// (acquire), so that no store reaches a block before its mbarriers exist
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// the shared::cluster address of `p`'s counterpart in block `rank`
-__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(lvt_hopper::smem_u32(p)), "r"(rank));
-  return out;
-}
-
-// stores into another block's shared memory that complete, with their byte
-// counts, on that block's mbarrier (st.async): the receiver waits on its own
-// mbarrier, and no cluster-wide barrier is needed
-__device__ __forceinline__ void push(uint32_t dst, float a, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::
-                   "r"(dst), "f"(a), "r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void push2(uint32_t dst, float a, float b, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::
-          "r"(dst), "f"(a), "f"(b), "r"(bar)
-      : "memory");
-}
-
 // Shared memory: K ring [stages][TILE_BYTES] | V ring [stages][TILE_BYTES] |
 // stats[MAX_CLUSTER][2] (every rank's maximum and sum, pushed by that rank)
 // | comb[C][per] (every rank's P.V of this rank's `per` output columns,

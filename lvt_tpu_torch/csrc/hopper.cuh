@@ -2,7 +2,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 attention kernels
 // (block_attention.cuh, kernel 1; block_attention_bwd.cuh, kernel 10), the
 // fused layer's bf16 products (fused_layer.cu, kernels 7-9) and the decode
-// kernel's bulk copies (decode_attention.cu, kernel 2): TMA tensor maps and
+// kernels' bulk copies and cluster exchanges (decode_attention.cu, kernel 2;
+// decode_attention_i8.cu, kernels 3 and 4): TMA tensor maps and
 // loads completing on mbarriers, wgmma descriptors for 128-byte-swizzled
 // shared memory, the m64n64k16 bf16 wgmma in its shared/shared (K-major or
 // both operands transposed) and register/shared forms, and the conversion of
@@ -174,6 +175,47 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: thread-block clusters
+// ---------------------------------------------------------------------------
+
+// the cluster barrier in two halves: arrive once this block's mbarriers are
+// initialised (release), wait before the first store into another block
+// (acquire), so that no store reaches a block before its mbarriers exist
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p`'s counterpart in block `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// stores into another block's shared memory that complete, with their byte
+// counts, on that block's mbarrier (st.async): the receiver waits on its own
+// mbarrier, and no cluster-wide barrier is needed
+__device__ __forceinline__ void push(uint32_t dst, float a, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::
+                   "r"(dst), "f"(a), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void push(uint32_t dst, int a, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.s32 [%0], %1, [%2];\n" ::
+                   "r"(dst), "r"(a), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void push2(uint32_t dst, float a, float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::
+          "r"(dst), "f"(a), "f"(b), "r"(bar)
       : "memory");
 }
 

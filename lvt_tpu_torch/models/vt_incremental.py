@@ -36,10 +36,11 @@ import numpy as np
 import torch
 
 from ..ops.attention import _layer_norm, relative_bias
-from ..ops.cache_attention import (decode_attention, decode_attention_i8,
-                                   decode_attention_i8_live, decode_attention_i8_plain)
+from ..ops.cache_attention import (decode_attention, decode_attention_i8_live_step,
+                                   decode_attention_i8_plain, decode_attention_i8_step)
 from ..ops.posenc import _signal_np
-from ..ops.quant import absmax_scale, matmul_i8w, quantize_cols, quantize_rows_i8
+from ..ops.quant import matmul_i8w, quantize_cols, quantize_rows_i8
+from ..ops.quant import quantize_cache_row as _quantize_cache_row
 from .vt import (VTConfig, _embed_sum_codes, _predictor_head, _predictor_u,
                  vt_sample_pixel_channels)
 
@@ -137,16 +138,6 @@ def _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl):
                                   "use 'native' or 'int8'")
 
 
-def _quantize_cache_row(x, cdtype):
-    """New K or V rows per head, (..., da) -> (int8 rows, (...) scales).
-    The scale and the division stay in the parameter dtype on purpose (not
-    fp32 as in ``quantize_rows_i8``): these are the numerics the JAX
-    package's int8 cache was measured and tested at."""
-    s = absmax_scale(x.abs().amax(dim=-1).to(cdtype))
-    x8 = torch.clamp(torch.round(x / (s[..., None] + 1e-8)), -127.0, 127.0).to(torch.int8)
-    return x8, s
-
-
 def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, primed, temp,
                              greedy: bool = False, kv_dtype: str = "native",
                              seg_size: int = 0, weight_dtype: str = "native",
@@ -175,10 +166,12 @@ def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, prim
     JAX package runs no kernel there): the cache cast to the parameter dtype,
     fp32 logits and softmax, the weights rounded to the parameter dtype and
     then multiplied by the V scales in it; "pallas" runs kernel 3
-    (``decode_attention_i8``: int8 q, exact integer products, the weight row
-    quantized to int8 after the V scales are folded in) and "pallas-live"
-    kernel 4 (``decode_attention_i8_live``: the same in 64-row tiles with an
-    online softmax). "pallas-live" needs kv_dtype="int8".
+    (``decode_attention_i8_step``: int8 q, exact integer products, the weight
+    row quantized to int8 after the V scales are folded in) and "pallas-live"
+    kernel 4 (``decode_attention_i8_live_step``: the same in 64-row tiles
+    with an online softmax); on the card each is one launch per layer that
+    also quantizes q and writes the new cache row. "pallas-live" needs
+    kv_dtype="int8".
 
     mm_dtype: "int8" (needs kv_dtype="int8") with attn_impl="xla" computes
     kernel 3's function through its plain version on any device.
@@ -242,18 +235,27 @@ def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, prim
             return matmul_i8w(y, w[0], w[1], cdtype)
         return (y @ w[0].to(cdtype)) * w[1]
 
-    def attend_i8(l, q, live, bias):
+    def attend_i8(l, qkv, live, bias):
+        """Write the new rows (row live - 1) into layer l's int8 cache and
+        attend over rows [0, live)."""
         kc, vc, ks, vs = kcache[l], vcache[l], kscale[l], vscale[l]
-        if attn_impl == "xla" and mm_dtype == "native":
+        if attn_impl != "xla":  # kernel 3 or 4, the cache write and q's quantization folded in
+            fn = decode_attention_i8_step if attn_impl == "pallas" else \
+                decode_attention_i8_live_step
+            return fn(qkv[:, 0], qkv[:, 1:], kc, ks, vc, vs, live, bias, scale, cdtype)
+        kv8, kvs = _quantize_cache_row(qkv[:, 1:], cdtype)  # K and V rows at once
+        kc[:, :, live - 1], vc[:, :, live - 1] = kv8[:, 0], kv8[:, 1]
+        ks[:, :, live - 1], vs[:, :, live - 1] = kvs[:, 0], kvs[:, 1]
+        q = qkv[:, 0]
+        if mm_dtype == "native":
             logits = torch.einsum("bak,bajk->baj", q.float(), kc[:, :, :live].to(cdtype).float())
             logits = logits / math.sqrt(da) * ks[:, :, :live].float() + bias[None, :, :live]
             wgt = torch.softmax(logits, dim=-1).to(cdtype) * vs[:, :, :live]
             out = torch.einsum("baj,bajk->bak", wgt.float(), vc[:, :, :live].to(cdtype).float())
             return out.to(cdtype).reshape(b, na * da)
         q8, sq = quantize_rows_i8(q)
-        fn = {"xla": decode_attention_i8_plain, "pallas": decode_attention_i8,
-              "pallas-live": decode_attention_i8_live}[attn_impl]
-        return fn(q8, sq[..., 0], kc, ks, vc, vs, live, bias, scale, cdtype)
+        return decode_attention_i8_plain(q8, sq[..., 0], kc, ks, vc, vs, live, bias, scale,
+                                         cdtype)
 
     sl_flat = sl.reshape(b, nc, thw).clone()
     emb = torch.zeros((b, thw + 1, c.de), dtype=cdtype, device=dev)
@@ -275,10 +277,7 @@ def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, prim
             qkv = mm(y, weights[l]["qkv"]).reshape(b, 3, na, da)
             bias = bias_rows[l][p_loc if block_local else p]
             if use_int8:
-                kv8, kvs = _quantize_cache_row(qkv[:, 1:], cdtype)  # K and V rows at once
-                kcache[l, :, :, p_loc], vcache[l, :, :, p_loc] = kv8[:, 0], kv8[:, 1]
-                kscale[l, :, :, p_loc], vscale[l, :, :, p_loc] = kvs[:, 0], kvs[:, 1]
-                out = attend_i8(l, qkv[:, 0], p_loc + 1, bias)
+                out = attend_i8(l, qkv, p_loc + 1, bias)
             else:
                 kcache[l, :, :, p_loc] = qkv[:, 1]  # in place: the one new row
                 vcache[l, :, :, p_loc] = qkv[:, 2]

@@ -59,6 +59,17 @@ def quantize_rows_i8(y):
     return yi, sy
 
 
+def quantize_cache_row(x, cdtype):
+    """New K or V rows per head, (..., da) -> (int8 rows, (...) scales).
+    The scale and the division stay in the parameter dtype on purpose (not
+    fp32 as in ``quantize_rows_i8``): these are the numerics the JAX
+    package's int8 cache was measured and tested at
+    (lvt_tpu/models/vt_incremental.py, the int8 cache write)."""
+    s = absmax_scale(x.abs().amax(dim=-1).to(cdtype))
+    x8 = torch.clamp(torch.round(x / (s[..., None] + 1e-8)), -127.0, 127.0).to(torch.int8)
+    return x8, s
+
+
 def quantize_cols(w, cdtype):
     """(in, out) weight -> ((in, out) int8, (out,) scale in ``cdtype``), the
     arithmetic in w's dtype. Exact fold: y @ (W8 * s) == (y @ W8) * s."""

@@ -1,6 +1,8 @@
 """The launch plans that the port's kernel wrappers compute on the host, on
 the CPU: kernel 2's cluster size and the live rows of each rank of a cluster
-(ops/cache_attention.py ``decode_plan``), the row
+(ops/cache_attention.py ``decode_plan``), kernels 3 and 4's clusters over
+the live rows and row tiles (``decode_i8_plan``, ``decode_i8_live_plan``)
+with a torch model of kernel 4's decomposition, the row
 ranges whose partial weight gradients kernels 8 and 9 add in a fixed order
 (ops/fused_layer.py ``_splits``), the scratch that kernels 7 and 8 take
 (``fwd_y_shape``, ``ffn_bwd_scratch``), kernel 6's split of the codes over a
@@ -85,6 +87,132 @@ def test_decode_plan_leaves_ranks_empty_at_small_live(b, live, empty):
     must take."""
     c, _ = tca.decode_plan(b, 8, live)
     assert sum(begin == end for begin, end in _row_ranges(live, c)) == empty
+
+
+# --------------------------------------------------------------------------
+# Kernels 3 and 4: decode_i8_plan, decode_i8_live_plan
+# --------------------------------------------------------------------------
+
+LIVES = [1, 2, 7, 15, 16, 17, 63, 64, 65, 100, 128, 129, 200, 255, 256, 1000, 4096, 32768]
+
+
+@pytest.mark.parametrize("da", [64, 128])
+def test_decode_i8_plan_holds_each_live_row_once(da):
+    """Kernel 3: rank r owns rows [r * chunk, (r + 1) * chunk) cut at live
+    (csrc/decode_attention_i8.cu); every live row once, ranks in order, a
+    power-of-two cluster of at most 16, chunks of whole 8-row groups (16
+    bytes of bf16 scales) and a rank's shared memory within a block's."""
+    for live in LIVES:
+        c, chunk, direct = tca.decode_i8_plan(live, da)
+        assert direct == (chunk * da <= 8 * tca.I8_WARP_BYTES)
+        assert 1 <= c <= tca.MAX_CLUSTER and c & (c - 1) == 0
+        assert chunk % tca.I8_ROW_ALIGN == 0 and 2 * chunk % 16 == 0 and 4 * chunk % 16 == 0
+        ranges = [(min(r * chunk, live), min((r + 1) * chunk, live)) for r in range(c)]
+        assert [j for lo, hi in ranges for j in range(lo, hi)] == list(range(live))
+        smem = tca.i8_smem_bytes(da, c, chunk, tca.I8_TILE_BYTES // da, c, False, direct)
+        assert smem + 1024 <= SMEM_BLOCK
+
+
+@pytest.mark.parametrize("rtile", [1, 16, 24, 64, 96, 256])
+@pytest.mark.parametrize("da", [64, 128])
+def test_decode_i8_live_plan_holds_each_tile_once(rtile, da):
+    """Kernel 4: rank r owns whole tiles [r * chunk / rtile, (r + 1) * chunk
+    / rtile) of the live ones; every live tile once, ranks in order; a bulk
+    copy holds whole tiles or a tile whole copies, at most 8 KB; a rank's
+    shared memory (every tile's maximum, sum p, scale and column sums of its
+    columns among it) within a block's up to 2,048 live tiles."""
+    for live in LIVES:
+        c, chunk, ring, direct = tca.decode_i8_live_plan(live, rtile, da)
+        tiles = -(-live // rtile)
+        assert 1 <= c <= tca.MAX_CLUSTER and c & (c - 1) == 0
+        assert chunk % rtile == 0 and chunk * c >= live
+        per = chunk // rtile
+        owned = [t for r in range(c) for t in range(min(r * per, tiles), min((r + 1) * per, tiles))]
+        assert owned == list(range(tiles))
+        assert ring * da <= tca.I8_TILE_BYTES and (ring % rtile == 0 or rtile % ring == 0)
+        if tiles <= 2048:
+            assert tca.i8_smem_bytes(da, c, chunk, ring, tiles, True, direct) + 1024 <= SMEM_BLOCK
+
+
+@pytest.mark.parametrize("live,k3,k4", [(1, 1, 1), (16, 1, 1), (64, 1, 1), (65, 1, 1),
+                                        (128, 1, 1), (129, 4, 4), (200, 4, 4), (256, 4, 4)])
+def test_decode_i8_plans_at_the_rollouts_shapes(live, k3, k4):
+    """The clusters that the sweep on the H100 chose (tools/
+    time_decode_i8_torch.py; ops/cache_attention.py), the same at every
+    batch size of the rollout (1, 8, 16): one rank while 8 warps hold its
+    rows in registers (128 rows at da = 128), else ranks of 4 warps that
+    hold theirs (64 rows): one block per (batch row, head) up to 128 live
+    rows, four past it (32, 256 and 512 blocks at b = 1, 8, 16)."""
+    c3, chunk3, direct3 = tca.decode_i8_plan(live)
+    c4, chunk4, _, direct4 = tca.decode_i8_live_plan(live, 64)
+    assert (c3, c4) == (k3, k4) and direct3 and direct4
+    assert chunk3 <= (128 if k3 == 1 else 64) and chunk4 <= (128 if k4 == 1 else 64)
+
+
+def test_decode_i8_live_plan_refuses_what_does_not_fit():
+    """32,768 live tiles of one row hold no cluster's shared memory: the
+    wrapper refuses them (before it looks for a card)."""
+    c, chunk, ring, _ = tca.decode_i8_live_plan(32768, 1)
+    assert tca.i8_smem_bytes(128, c, chunk, ring, 32768, True) > tca.I8_MAX_SMEM
+    with pytest.raises(ValueError, match="do not fit"):
+        tca._live_plan("test", 32768, 128, 32768, 1)
+
+
+def _live_decomposition(q8, sq, k8, ks, v8, vs, live, bias, scale, rtile, c):
+    """Kernel 4's decomposition in torch, as csrc/decode_attention_i8.cu
+    cuts the work: each rank's tiles' maxima; the prefix maxima; each tile on
+    its own (p, sum p, p * vs, sw_t, w8, the integer column sums), rank by
+    rank; then the replay of l and acc in tile order, one division."""
+    logits = tca._i8_logits(q8, sq, k8, ks, live, bias, scale)
+    tiles = -(-live // rtile)
+    cut = [(t * rtile, min((t + 1) * rtile, live)) for t in range(tiles)]
+    tmax = [logits[:, :, lo:hi].amax(dim=-1, keepdim=True) for lo, hi in cut]
+    m = [torch.full_like(tmax[0], -1e30)]
+    for t in range(tiles):
+        m.append(torch.maximum(m[-1], tmax[t]))
+    per = -(-tiles // c)
+    work = {}
+    for r in range(c):  # independent tiles, in any order
+        for t in range(min(r * per, tiles), min((r + 1) * per, tiles)):
+            lo, hi = cut[t]
+            p = torch.exp(logits[:, :, lo:hi] - m[t + 1])
+            pw = p * vs[:, :, lo:hi].float()
+            sw = tq.absmax_scale(pw.abs().amax(dim=-1, keepdim=True))
+            w8 = torch.clamp(torch.round(pw / (sw + 1e-8)), -127.0, 127.0)
+            work[t] = (p.sum(dim=-1, keepdim=True), sw,
+                       tca._i8_weighted_rows(w8, v8[:, :, lo:hi]))
+    l = torch.zeros_like(tmax[0])
+    acc = torch.zeros(q8.shape, dtype=torch.float32)
+    for t in range(tiles):  # the owners' replay, in tile order
+        alpha = torch.exp(m[t] - m[t + 1])
+        psum, sw, ints = work[t]
+        l = l * alpha + psum
+        acc = acc * alpha + ints * sw
+    return (acc / (l + 1e-30)).to(ks.dtype).reshape(q8.shape[0], -1)
+
+
+@pytest.mark.parametrize("live", [1, 63, 64, 65, 200, 256])
+@pytest.mark.parametrize("rtile", [16, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel4_decomposition_equals_the_plain_version(live, rtile, dtype):
+    """Tile maxima, prefix maxima, independent tiles and a replay in tile
+    order compute decode_attention_i8_live_plain bit for bit, at the
+    cluster the plan gives and at every other, since the running maximum is
+    all that the recurrence carries from tile to tile."""
+    g = torch.Generator().manual_seed(live * 7 + rtile)
+    b, na, R, da = 3, 2, 256, 64
+    q8 = torch.randint(-127, 128, (b, na, da), generator=g, dtype=torch.int8)
+    sq = 0.01 * torch.rand((b, na), generator=g) + 1e-3
+    k8, v8 = (torch.randint(-127, 128, (b, na, R, da), generator=g, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = ((0.02 * torch.rand((b, na, R), generator=g) + 1e-3).to(dtype) for _ in range(2))
+    bias = 2.0 * torch.randn((na, R), generator=g)  # maxima that move from tile to tile
+    want = tca.decode_attention_i8_live_plain(q8, sq, k8, ks, v8, vs, live, bias, 0.125,
+                                              rtile=rtile)
+    plan = tca.decode_i8_live_plan(live, rtile, da)[0]
+    for c in sorted({1, 2, 4, plan}):
+        got = _live_decomposition(q8, sq, k8, ks, v8, vs, live, bias, 0.125, rtile, c)
+        assert torch.equal(got, want), (c, float((got.float() - want.float()).abs().max()))
 
 
 @pytest.mark.parametrize("rows,want", [(1, 1), (256, 1), (257, 2), (1280, 5), (3840, 15),

@@ -529,6 +529,119 @@ def test_decode_attention_i8_live_kernel_takes_other_tiles(cuda, rtile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("live_kernel", [False, True], ids=["kernel3", "kernel4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", [1, 63, 64, 65, 128, 200, 256])
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("da", [64, 128])
+def test_decode_attention_i8_clusters_match_plain(cuda, live_kernel, dtype, live, b, da):
+    """Kernels 3 and 4 at the rollout's batch sizes, whose plans
+    (decode_i8_plan, decode_i8_live_plan) range from one block of 4 or 8
+    warps to a cluster of 4 per (batch row, head), each rank's rows read
+    into registers: one launch per call, rows >= live poisoned and never
+    read, two calls bit-identical."""
+    na, R = 8, 256
+    q8, sq, k8, ks, v8, vs, bias = _i8_cache_inputs(cuda, b, na, R, da, dtype,
+                                                    seed=100 * b + live)
+    _poison(k8, ks, v8, vs, live)
+    wrapper = tca.decode_attention_i8_live_cuda if live_kernel else tca.decode_attention_i8_cuda
+    plain = tca.decode_attention_i8_live_plain if live_kernel else tca.decode_attention_i8_plain
+    before = wrapper.launches
+    got = wrapper(q8, sq, k8, ks, v8, vs, live, bias, da ** -0.5, dtype)
+    assert wrapper.launches == before + 1
+    assert torch.equal(wrapper(q8, sq, k8, ks, v8, vs, live, bias, da ** -0.5, dtype), got)
+    want = plain(q8, sq, k8, ks, v8, vs, live, bias, da ** -0.5, dtype)
+    step = tca.i8_weight_step(q8, sq, k8, ks, vs, live, bias, da ** -0.5)
+    assert_i8_close(got, want, step, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live_kernel,R,live,rtile", [
+    (False, 4096, 3000, 64), (False, 4096, 4096, 64), (True, 512, 300, 256),
+    (True, 512, 512, 256), (True, 4096, 2500, 16)])
+def test_decode_attention_i8_long_caches_take_the_ring(cuda, live_kernel, R, live, rtile):
+    """Ranges longer than a rank's registers hold arrive through the ring of
+    bulk copies, with a cluster exchange: kernel 3 at 16 ranks of 192 or 256
+    rows, kernel 4 at 2 ranks of one 256-row tile and at 16 ranks of ten
+    16-row tiles."""
+    b, na, da = 2, 2, 128
+    q8, sq, k8, ks, v8, vs, bias = _i8_cache_inputs(cuda, b, na, R, da, torch.bfloat16, seed=R)
+    _poison(k8, ks, v8, vs, live)
+    if live_kernel:
+        plan = tca.decode_i8_live_plan(live, rtile, da)
+        got = tca.decode_attention_i8_live_cuda(q8, sq, k8, ks, v8, vs, live, bias, 0.1,
+                                                rtile=rtile)
+        want = tca.decode_attention_i8_live_plain(q8, sq, k8, ks, v8, vs, live, bias, 0.1,
+                                                  rtile=rtile)
+    else:
+        plan = tca.decode_i8_plan(live, da)
+        got = tca.decode_attention_i8_cuda(q8, sq, k8, ks, v8, vs, live, bias, 0.1)
+        want = tca.decode_attention_i8_plain(q8, sq, k8, ks, v8, vs, live, bias, 0.1)
+    assert plan[0] > 1 and not plan[-1]  # a cluster, and no direct read
+    step = tca.i8_weight_step(q8, sq, k8, ks, vs, live, bias, 0.1)
+    assert_i8_close(got, want, step, torch.bfloat16)
+
+
+def _step_inputs(cuda, b, na, R, da, dtype, live, seed, rows="randn"):
+    """q and the new rows as views of one (b, 3, na, da) product, as the
+    sampler passes them, over a poisoned cache. With rows="halves", each
+    row's absmax is 127 (scale 1: the quotients are the values themselves)
+    and the rest sit at x.5 and next to it, which the roundings must meet as
+    PyTorch does; "tiny" rows have scales of the order of the 1e-8 that the
+    divisions add."""
+    _, _, k8, ks, v8, vs, bias = _i8_cache_inputs(cuda, b, na, R, da, dtype, seed=seed)
+    _poison(k8, ks, v8, vs, live)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    qkv = torch.randn((b, 3, na, da), generator=g, device=cuda)
+    if rows == "halves":
+        pick = torch.randint(-126, 126, (b, 3, na, da), generator=g, device=cuda).float() + 0.5
+        qkv = pick + torch.tensor([0.0, 2 ** -10, -2 ** -10], device=cuda)[
+            torch.randint(0, 3, (b, 3, na, da), generator=g, device=cuda)]
+        qkv[..., 0] = 127.0
+    elif rows == "tiny":  # scales near 1e-8, which the division's + 1e-8 then moves
+        qkv = qkv * 1e-7
+    return qkv.to(dtype), k8, ks, v8, vs, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live_kernel", [False, True], ids=["kernel3", "kernel4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", [1, 64, 65, 200, 256])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("rows", ["randn", "halves", "tiny"])
+def test_decode_attention_i8_step_equals_the_pytorch_sequence(cuda, live_kernel, dtype, live, b,
+                                                              rows):
+    """The fused entries: q8, sq, the new cache rows and their scales equal
+    the plain composite's (quantize_rows_i8, quantize_cache_row, the row
+    writes) bit for bit, the rest of the cache is untouched, and the output
+    is the unfused kernel's function within its bound. One launch a call."""
+    na, R, da = 8, 256, 128
+    qkv, k8, ks, v8, vs, bias = _step_inputs(cuda, b, na, R, da, dtype, live, 7 * live + b,
+                                             rows)
+    step = tca.decode_attention_i8_live_step_cuda if live_kernel \
+        else tca.decode_attention_i8_step_cuda
+    plain = tca.decode_attention_i8_live_step_plain if live_kernel \
+        else tca.decode_attention_i8_step_plain
+    dispatch = tca.decode_attention_i8_live_step if live_kernel else tca.decode_attention_i8_step
+    mine = [t.clone() for t in (k8, ks, v8, vs)]
+    theirs = [t.clone() for t in (k8, ks, v8, vs)]
+    before = step.launches
+    got, q8, sq = step(qkv[:, 0], qkv[:, 1:], *mine, live, bias, da ** -0.5, dtype, q_out=True)
+    assert step.launches == before + 1
+    want, q8_want, sq_want = plain(qkv[:, 0], qkv[:, 1:], *theirs, live, bias, da ** -0.5, dtype,
+                                   q_out=True)
+    assert torch.equal(q8, q8_want) and torch.equal(sq, sq_want)
+    for a, w in zip(mine, theirs):  # the new row, and nothing else, written
+        assert torch.equal(a, w)
+    step_size = tca.i8_weight_step(q8_want, sq_want, *theirs[:2], theirs[3], live, bias,
+                                   da ** -0.5)
+    assert_i8_close(got, want, step_size, dtype)
+    again = [t.clone() for t in (k8, ks, v8, vs)]
+    assert torch.equal(dispatch(qkv[:, 0], qkv[:, 1:], *again, live, bias, da ** -0.5, dtype),
+                       got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("live", [1, 100, 256])
 @pytest.mark.parametrize("da,eb", [(64, 1), (128, 5)])
@@ -602,7 +715,8 @@ def test_matmul_i8w_kernel_rounds_at_half_integers_as_plain(cuda, dtype):
 @pytest.mark.cuda
 def test_quantized_sampler_on_the_card_matches_the_cpu(cuda):
     """One slice, teacher-forced, fp32, in the three kernel modes: the card
-    (kernels 3, 4, 11) against the plain path on the CPU. The two sides'
+    (kernels 3, 4 with the fold, one launch per layer and pixel, and 11)
+    against the plain path on the CPU. The two sides'
     fp32 activations differ by rounding, so a few of the ~65,000 values
     that are rounded to int8 on the way sit at a near-tie and round one
     step apart; the bound is half the mode's own gap to the native sampler,
@@ -639,11 +753,12 @@ def test_quantized_sampler_on_the_card_matches_the_cpu(cuda):
                 teacher_logits=True, **k)[1].cpu()
             out[dev, "native"] = run()
             for name, knobs in modes.items():
-                before = (tca.decode_attention_i8_cuda.launches,
-                          tca.decode_attention_i8_live_cuda.launches, tq.matmul_i8w_cuda.launches)
+                before = (tca.decode_attention_i8_step_cuda.launches,
+                          tca.decode_attention_i8_live_step_cuda.launches,
+                          tq.matmul_i8w_cuda.launches)
                 out[dev, name] = run(**knobs)
-                took = (tca.decode_attention_i8_cuda.launches - before[0],
-                        tca.decode_attention_i8_live_cuda.launches - before[1],
+                took = (tca.decode_attention_i8_step_cuda.launches - before[0],
+                        tca.decode_attention_i8_live_step_cuda.launches - before[1],
                         tq.matmul_i8w_cuda.launches - before[2])
                 if dev == "cuda":
                     assert took == {"pallas": (128, 0, 0), "pallas-live": (0, 128, 0),
@@ -672,6 +787,16 @@ def test_i8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tca.decode_attention_i8_live_cuda(*args, 4, bias, 0.1, rtile=24)
     with pytest.raises(ValueError):  # a CPU cache
         tca.decode_attention_i8_cuda(q8, sq, k8.cpu(), ks, v8, vs, 4, bias, 0.1)
+    qkv = torch.randn((2, 3, 2, 64), device=cuda)
+    with pytest.raises(ValueError):  # q in another dtype than the scales
+        tca.decode_attention_i8_step_cuda(qkv[:, 0].bfloat16(), qkv[:, 1:], k8, ks, v8, vs, 4,
+                                          bias, 0.1)
+    with pytest.raises(ValueError):  # rows of q not contiguous
+        tca.decode_attention_i8_step_cuda(qkv[:, 0, :, ::2], qkv[:, 1:], k8, ks, v8, vs, 4,
+                                          bias, 0.1)
+    with pytest.raises(ValueError):  # a tile that does not divide the buffer
+        tca.decode_attention_i8_live_step_cuda(qkv[:, 0], qkv[:, 1:], k8, ks, v8, vs, 4, bias,
+                                               0.1, rtile=24)
     with pytest.raises(ValueError):  # kernel 5 takes fp32 scales only
         tca.cache_attention_i8_cuda(q8.float(), k8, ks.to(torch.bfloat16),
                                     v8, vs.to(torch.bfloat16), bias[None], 0.1)

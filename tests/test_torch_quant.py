@@ -311,3 +311,112 @@ def test_dispatchers_refuse_other_devices():
                                None, 1.0)
     with pytest.raises(ValueError, match="no kernel for device"):
         tq.matmul_i8w(torch.empty((1, 16), device="meta"), None, None)
+
+
+# --------------------------------------------------------------------------
+# Kernels 3 and 4 with the fold: the plain composite, and the arithmetic the
+# CUDA kernels run in its place
+# --------------------------------------------------------------------------
+
+def _step_case(seed, b, na, R, da, live, dtype):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, 3, na, da), generator=g).to(dtype)
+    k8, v8 = (torch.randint(-127, 128, (b, na, R, da), generator=g, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = ((0.02 * torch.rand((b, na, R), generator=g) + 1e-3).to(dtype) for _ in range(2))
+    k8[:, :, live:], v8[:, :, live:] = 127, -128  # rows an earlier block run left
+    ks[:, :, live:], vs[:, :, live:] = 1e6, 1e6
+    bias = 0.5 * torch.randn((na, R), generator=g)
+    return qkv, k8, ks, v8, vs, bias
+
+
+@pytest.mark.parametrize("live_kernel", [False, True], ids=["kernel3", "kernel4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", [1, 63, 64, 65, 256])
+def test_step_plain_is_the_samplers_eager_sequence(live_kernel, dtype, live):
+    """decode_attention_i8(_live)_step_plain, which the sampler calls on the
+    CPU, equals the sequence the sampler ran before the fold, bit for bit:
+    the new rows quantized in the parameter dtype and written at row
+    live - 1, q quantized in fp32, then the plain kernel. q8, sq, the cache
+    (rows and scales) and the output."""
+    b, na, R, da, scale = 3, 2, 256, 64, 0.125
+    qkv, k8, ks, v8, vs, bias = _step_case(live, b, na, R, da, live, dtype)
+    theirs = [t.clone() for t in (k8, ks, v8, vs)]
+    kv8, kvs = tq.quantize_cache_row(qkv[:, 1:], dtype)  # the eager sequence
+    theirs[0][:, :, live - 1], theirs[2][:, :, live - 1] = kv8[:, 0], kv8[:, 1]
+    theirs[1][:, :, live - 1], theirs[3][:, :, live - 1] = kvs[:, 0], kvs[:, 1]
+    q8, sq = tq.quantize_rows_i8(qkv[:, 0])
+    plain = tca.decode_attention_i8_live_plain if live_kernel else tca.decode_attention_i8_plain
+    want = plain(q8, sq[..., 0], *theirs, live, bias, scale, dtype)
+    mine = [t.clone() for t in (k8, ks, v8, vs)]
+    step = tca.decode_attention_i8_live_step if live_kernel else tca.decode_attention_i8_step
+    got = step(qkv[:, 0], qkv[:, 1:], *mine, live, bias, scale, dtype)
+    assert torch.equal(got, want)
+    for a, w in zip(mine, theirs):
+        assert torch.equal(a, w)
+    composite = tca.decode_attention_i8_live_step_plain if live_kernel \
+        else tca.decode_attention_i8_step_plain
+    again = [t.clone() for t in (k8, ks, v8, vs)]
+    out, q8_got, sq_got = composite(qkv[:, 0], qkv[:, 1:], *again, live, bias, scale, dtype,
+                                    q_out=True)
+    assert torch.equal(out, want) and torch.equal(q8_got, q8) and torch.equal(sq_got, sq[..., 0])
+
+
+def _round_io(x, dtype):
+    return x.to(dtype).float()
+
+
+def _kernel_row_quantization(x, dtype, eps_in_io=False):
+    """csrc/decode_attention_i8.cu quantize_new_row, written out in fp32
+    with the io dtype's rounding after each operation: the absmax, a true
+    division by 127, + 1e-8, the quotient, then rint and the clip. The
+    kernel adds 1e-8 in fp32, as PyTorch's CUDA add does; PyTorch's CPU add
+    first rounds the Python number to the tensor's dtype (eps_in_io)."""
+    xf = x.float()
+    sc = _round_io(xf.abs().amax(dim=-1) / torch.tensor(127.0), dtype)
+    eps = torch.tensor(1e-8)
+    den = _round_io(sc + (_round_io(eps, dtype) if eps_in_io else eps), dtype)
+    q = _round_io(xf / den[..., None], dtype)
+    return torch.clamp(torch.round(q), -127.0, 127.0).to(torch.int8), sc.to(dtype)
+
+
+def _kernel_q_quantization(x):
+    """quantize_q of the same file: fp32 absmax, / 127, + 1e-8, the
+    quotient, rint, the clip."""
+    xf = x.float()
+    sq = xf.abs().amax(dim=-1) / torch.tensor(127.0)
+    den = sq + torch.tensor(1e-8, dtype=torch.float32)
+    return torch.clamp(torch.round(xf / den[..., None]), -127.0, 127.0).to(torch.int8), sq
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["randn", "halves", "tiny", "zero"])
+def test_the_kernels_quantization_arithmetic_is_pytorchs(dtype, case):
+    """The fold's arithmetic, each operation rounded once in fp32 and then to
+    the io dtype where the kernel rounds it, equals quantize_cache_row and
+    quantize_rows_i8 bit for bit: on random rows, on rows of scale 1 whose
+    values sit at x.5 and next to it, on rows of tiny values (where + 1e-8
+    is not lost) and on zero rows. On tiny bf16 rows the CPU's add rounds
+    1e-8 to bf16 first and the card's does not: the CPU sequence is held to
+    that variant here, the kernel to the card's sequence in
+    tests/test_torch_kernels.py."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 2, 8, 128), generator=g)
+    if case == "halves":
+        x = torch.randint(-126, 126, x.shape, generator=g).float() + 0.5
+        x = x + torch.tensor([0.0, 2 ** -9, -2 ** -9])[torch.randint(0, 3, x.shape, generator=g)]
+        x[..., 0] = 127.0
+    elif case == "tiny":
+        x = x * 1e-7
+    elif case == "zero":
+        x = torch.zeros_like(x)
+    x = x.to(dtype)
+    k8, ks = tq.quantize_cache_row(x, dtype)
+    e8, es = _kernel_row_quantization(x, dtype)
+    if case == "tiny" and dtype == torch.bfloat16:
+        assert not torch.equal(k8, e8)  # the two adds part here
+        e8, es = _kernel_row_quantization(x, dtype, eps_in_io=True)
+    assert torch.equal(k8, e8) and torch.equal(ks, es)
+    q8, sq = tq.quantize_rows_i8(x)
+    f8, fs = _kernel_q_quantization(x)
+    assert torch.equal(q8, f8) and torch.equal(sq[..., 0], fs)

@@ -18,8 +18,13 @@ both trees, calling only the kernels' public wrappers. Phases:
 * ``train``: phase 8, the fused and unfused training steps, each with one
   profiled step by ``__global__`` function; ``train_fused``: the fused one
   only;
-* ``i8_kernels``: phase 10, kernels 3, 4, 5 and 11 (kernel 11 at DSFVT's
-  three shapes x b in 1, 8, 16);
+* ``i8_kernels``: phase 10, kernels 3, 4, 5 and 11 (kernels 3 and 4 swept
+  over b in 1, 8, 16 x live in 16, 64, 128, 256 through their (q8, sq)
+  wrappers, and their fused entries where the tree has them; kernel 11 at
+  DSFVT's three shapes x b in 1, 8, 16);
+* ``i8_rollouts``: phase 11, the four greedy b8 rollouts (native and the
+  three int8 modes), and one profiled slice of each (activities per pixel,
+  device busy share);
 * ``vq_kernel``: phase 13, kernel 6 at PR-DVQVAE2's step (all four
   sub-codebooks) and Base-VQVAE's; where the turn's tree has no grouped
   launch, its one-codebook wrapper is called once per sub-codebook.
@@ -31,7 +36,7 @@ output goes to ``<out-dir>/ab_<turn>_<tree>.txt`` (default
 
     git archive HEAD | tar -x -C build/parent
     python tools/ab_attention_torch.py --other build/parent \\
-        --phases vq_kernel,i8_kernels
+        --phases i8_kernels,i8_rollouts
 """
 
 import argparse
@@ -46,6 +51,7 @@ CALLS = {"kernels": "c.phase_kernels(card)\n",
          "train": "c.phase_train(card)\n",
          "train_fused": "c.phase_train(card, unfused=False)\n",
          "i8_kernels": "c.phase_i8_kernels(card)\n",
+         "i8_rollouts": "c.phase_i8_rollouts(card)\n",
          "vq_kernel": "c.phase_vq_kernel(card)\n"}
 # this tree's chip_smoke.py, the turn's tree's package (its root is the
 # working directory, first on sys.path)
@@ -60,7 +66,8 @@ HEAD = ("import importlib.util\n"
 KEEP = ("kernel 1 ", "kernel 10 ", "  time ", "bf16 nb=", "kernel 2 ", "fused kernels",
         "layer times", "by __global__", "train DSFVT", "profile, one train",
         "hand-written kernels per step", "H100", "build:", "package:", "kernel 6 ",
-        "kernel 11 ", "kernels 3 and 4", "kernel 3 ", "kernel 4 ", "kernel 5 ")
+        "kernel 11 ", "kernels 3 and 4", "kernel 3 ", "kernel 4 ", "kernel 5 ",
+        "main path batch", "profile, one slice", "hand-written kernels in the slice")
 
 
 def main(argv=None):
