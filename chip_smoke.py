@@ -17,8 +17,15 @@ Phases, each fatal on failure (exit code 1, no result line):
   4. main     — the generation path (PR-DVQVAE2 encode of example/*.png, DSFVT
                 KV-cached rollout, decode) at full width with seeded random
                 weights: batch 1 through scripts/generate_videos_torch.py as a
-                user runs it (no VQ-VAE weights configured), and batch 8 with the VT in bf16. Kernel launch
-                counts are read around this phase only.
+                user runs it (no VQ-VAE weights configured), and batch 8 with
+                the VT in bf16, both sampled at temperature 1. Each slice is
+                one replay of its CUDA graph (models/rollout_graph.py),
+                captured at the first slice. Exactly 88 launches of kernel 1
+                and 22,528 of kernel 2 in each rollout (a replay adds what its
+                capture launched; the warm-up and the capture count none);
+                rollout seconds, the capture's share of them, frames/s with
+                and without it, peak memory. Kernel launch counts are read
+                around this phase only.
   5. agree    — fp32, batch 2, full width: teacher-forced vt_logits (kernel 1
                 causal and not) and the incremental decoder's teacher logits
                 (kernel 2) on the card against the plain path on the CPU,
@@ -76,19 +83,32 @@ Phases, each fatal on failure (exit code 1, no result line):
                 in (1, 8, 16) x live in (1, 64, 65, 256), fp32 and bf16, rows
                 at and next to x.5 and tiny rows among them.
  11. main i8  — the quantized sampler at full width, batch 8, bf16, all 11
-                sampled frames, greedy, through generate() with
+                sampled frames, greedy, through generate() (the graph) with
                 TEST.VT_SAMPLER.KV_DTYPE / ATTN_IMPL / WEIGHT_DTYPE set: a
-                native rollout for reference, then int8 KV + pallas (kernel 3),
-                int8 KV + pallas-live (kernel 4), int8 KV + pallas +
-                int8-pallas weights (kernels 3 and 11). Launch counts set to 0
-                before each and read after: exactly 22,528 of kernel 3 or 4
-                (all through the fused entry: one launch per layer and pixel
-                that also quantizes q and writes the new cache row) and
-                90,112 of kernel 11 per rollout. Peak device memory and
-                greedy agreement with the native rollout; one profiled slice
-                of each int8 mode.
- 12. agree i8 — fp32, batch 2, full width: the three modes' teacher-forced
-                logits on the card against the plain path on the CPU.
+                native rollout for reference, and the same rollout by the
+                eager loop, its codes equal; then int8 KV + xla (PyTorch's
+                ops, launches of kernels 2, 3, 4, 11 (0, 0, 0, 0)), int8 KV +
+                pallas (kernel 3), int8 KV + pallas-live (kernel 4), int8 KV +
+                pallas + int8-pallas weights (kernels 3 and 11). Launch counts
+                set to 0 before each and read after: exactly 88 of kernel 1,
+                22,528 of kernel 3 or 4 (all through the fused entry: one
+                launch per layer and pixel that also quantizes q and writes
+                the new cache row) and 90,112 of kernel 11 per rollout.
+                Seconds with the capture's share, peak device memory and
+                greedy agreement with the native rollout.
+ 11b. slices  — one slice of the batch-8 bf16 rollout, greedy, in every
+                sampler mode (native; int8 KV with xla, xla + int8 mm,
+                pallas, pallas-live; int8 and int8-pallas weights; int8 KV +
+                pallas with int8-pallas weights), by the eager loop and by
+                the slice's graph: codes bit-equal; each under
+                torch.profiler (wall time, device busy share, activities per
+                pixel, the graph's within a share ACTIVITY_GAP of the eager
+                loop's).
+ 12. agree i8 — fp32, batch 2, full width: every quantized mode's teacher-
+                forced logits on the card against the plain path on the CPU.
+ 12b. bench slice — bench.py's program (b = 1024, bf16, int8 KV, xla),
+                one slice through its graph: capture and replay seconds,
+                device busy share, peak memory, codes in range.
 
  13. vq kernel — kernel 6 (nearest codebook entry, all sub-codebooks in one
                 launch) against its plain version: N in (1, 8,192, 8,229),
@@ -119,7 +139,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 kernels 2 and 3.
 
 Phases 10 to 13 run right after phase 5, while the generation models are
-loaded (10b right after 10). The line before the last is {"kernels": [...]}; the last line is
+loaded (10b right after 10, 11b and 12b after 11 and 12). The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -250,7 +270,10 @@ K11_TOL = 1e-6
 # in root mean square; the control, the native logits on the card against the
 # mode's on the CPU, reads the whole gap. The kernels themselves are held to
 # their plain versions in phase 10, far tighter.
-AGREE_I8 = {"native": 0.6, "int8-pallas": 0.85}  # by WEIGHT_DTYPE
+# The modes with int8 weights and no activation rounding (weight_dtype
+# "int8", native KV) quantize the same weights on both sides (a true division,
+# correctly rounded on both) and amplify nothing: the native share holds them.
+AGREE_I8 = {"native": 0.6, "int8": 0.6, "int8-pallas": 0.85}  # by WEIGHT_DTYPE
 # greedy codes of an int8 rollout against the native one, bf16, random
 # weights: the logits are nearly flat, one flipped argmax changes everything
 # after it, and chance agreement is 1/512. Measured 0.87 to 0.88 of all
@@ -281,6 +304,7 @@ VQ_AGREE_SHARE = 3e-3
 VQ_TRAIN_STEPS, VQ_RESUME_STEPS, VQ_FRAMES = 20, 4, 512
 
 N_PRIME, T_FRAMES = 5, 16
+BENCH_BATCH = 1024  # bench.py's default batch (its program: int8 KV, attn_impl "xla")
 # __global__ templates of csrc/fused_layer.cu that phase 7 reports by their
 # template argument (gemm_nt_wgmma's epilogue, ln_rows_bf16's input type)
 TEMPLATE_NAMES = ("gemm_nt_wgmma", "ln_rows_bf16")
@@ -579,6 +603,27 @@ def _reset_counts():
     decode_attention_cuda.launches = 0
 
 
+def _captures():
+    """(slice graphs captured, their seconds: warm-up, capture and
+    instantiation) so far in this process; (0, 0.0) on a tree without the
+    graph (tools/ab_attention_torch.py runs phases on a parent tree)."""
+    try:
+        from lvt_tpu_torch.models.rollout_graph import SliceGraph
+    except ImportError:
+        return 0, 0.0
+    return SliceGraph.captures, SliceGraph.captures_seconds
+
+
+def _rollout_line(seconds, before, b, n_slices, peak):
+    """The rollout's seconds, the captures' share of them, frames/s with and
+    without that share, and the peak memory."""
+    n, cap = (x - y for x, y in zip(_captures(), before))
+    return (f"rollout {seconds:.3f} s, of it {cap:.3f} s capturing {n} graph(s) (warm-up "
+            f"included); {b * n_slices / seconds:.3f} generated frames/s, "
+            f"{b * n_slices / (seconds - cap):.3f} without the capture; max_memory_allocated "
+            f"{peak / 2 ** 20:.1f} MiB")
+
+
 def _check_run(label, video, codes, primed, nv, b):
     import torch
 
@@ -603,15 +648,16 @@ def phase_main(card):
     per_run = (n_slices * 8, n_slices * 256 * 8)  # encoder layers, pixels x decoder layers
 
     _reset_counts()  # the counts cover phase 4 only
+    before = _captures()
+    torch.cuda.reset_peak_memory_stats()
     video, codes, primed, seconds = gvt.main(
         ["--config-file", cfg_file, "--video-dir", example, "--seed", "0",
          "OUTPUT_DIR", out_dir] + NO_VQ_WEIGHTS)
     launches = _counts()
+    line = _rollout_line(seconds, before, 1, n_slices, torch.cuda.max_memory_allocated())
     _check_run("batch 1", video, codes, primed, 512, 1)
-    check(launches[0] >= per_run[0] and launches[1] >= per_run[1],
-          f"batch 1: kernel launches {launches}, want at least {per_run}")
-    print(f"main path batch 1 fp32 [{card}]: rollout {seconds:.3f} s, "
-          f"{n_slices / seconds:.3f} generated frames/s; launches {launches}")
+    check(launches == per_run, f"batch 1: kernel launches {launches}, want exactly {per_run}")
+    print(f"main path batch 1 fp32 [{card}]: {line}; launches {launches}")
 
     cfg = gvt.load_config(cfg_file)
     dev = torch.device("cuda")
@@ -619,72 +665,81 @@ def phase_main(card):
     frames = torch.from_numpy(gvt.load_priming_frames(example, N_PRIME)).to(dev)
     b = 8
     gen = torch.Generator(device=dev).manual_seed(0)
-    before = _counts()
+    before, caps = _counts(), _captures()
+    torch.cuda.reset_peak_memory_stats()
     video, codes, primed, seconds = gvt.generate(
         *models, frames[None].expand(b, *frames.shape).contiguous(), N_PRIME, gen)
     total = _counts()
     launches = (total[0] - before[0], total[1] - before[1])
+    line = _rollout_line(seconds, caps, b, n_slices, torch.cuda.max_memory_allocated())
     _check_run("batch 8", video, codes, primed, 512, b)
-    check(launches[0] >= per_run[0] and launches[1] >= per_run[1],
-          f"batch 8: kernel launches {launches}, want at least {per_run}")
-    print(f"main path batch 8 bf16 [{card}]: rollout {seconds:.3f} s, "
-          f"{b * n_slices / seconds:.3f} generated frames/s; launches {launches}")
+    check(launches == per_run, f"batch 8: kernel launches {launches}, want exactly {per_run}")
+    print(f"main path batch 8 bf16 [{card}]: {line}; launches {launches}")
     return total, models, codes
 
 
-def phase_profile(card, models, codes, label="native", **knobs):
-    """Where the time of one slice of the batch-8 bf16 rollout goes: wall
-    time with and without torch.profiler, the device's busy share, device
-    activities per pixel (copies and casts among them), and device time by
-    kernel. ``knobs`` go to sample_slice_incremental (the quantized modes)."""
-    import numpy as np
+SLICE_MODES = (  # label, knobs of sample_slice_incremental: every sampler mode
+    ("native", {}),
+    ("int8 KV + xla", {"kv_dtype": "int8"}),
+    ("int8 KV + xla + int8 mm", {"kv_dtype": "int8", "mm_dtype": "int8"}),
+    ("int8 KV + pallas", {"kv_dtype": "int8", "attn_impl": "pallas"}),
+    ("int8 KV + pallas-live", {"kv_dtype": "int8", "attn_impl": "pallas-live"}),
+    ("int8 weights", {"weight_dtype": "int8"}),
+    ("int8-pallas weights", {"weight_dtype": "int8-pallas"}),
+    ("int8 KV + pallas + int8-pallas weights",
+     {"kv_dtype": "int8", "attn_impl": "pallas", "weight_dtype": "int8-pallas"}))
+# device activities of a slice under the graph against the eager loop's: the
+# same launches, plus the copies of the slice's inputs into the graph's
+# buffers and of its codes out (4 a slice), within a share of the eager
+# count. torch.profiler now and then drops records of a profile this long:
+# one eager slice read 185,769 activities in one call and 185,828 in
+# another, its graph 185,825; in a third call an eager `pallas` slice lacked
+# 5 of the 1,536 records of kernel 3's 4-warp launches that the launch
+# counts show ran. So each is profiled PROFILES times and the fullest
+# profile kept.
+ACTIVITY_GAP = 1e-3
+PROFILES = 2
+
+
+def _profiled(fn, profiles=1):
+    """(result, wall s, wall s under torch.profiler, device events as (name,
+    µs)) of fn(), run once unprofiled and ``profiles`` times profiled, each
+    synchronized; the profile with the most device events is kept. The
+    events are the profiler's raw records: turning ~100k of them into
+    FunctionEvents took ~15 s a profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from lvt_tpu_torch.models.vt import vt_encode
-    from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
-
-    *_, vt, params = models
-    c, plan, s = vt.c, vt.plan, N_PRIME
-    b = codes.shape[0]
-    gen = torch.Generator(device=codes.device).manual_seed(0)
-    primed = np.zeros(plan.slice_src[s].size, bool)
-
-    def one_slice():
-        sidx = torch.full((b,), s, dtype=torch.int64, device=codes.device)
-        ctx, sl, _ = vt.prepare_slices(codes, sidx)
-        zl = vt_encode(params["netG"], c, ctx, sidx)
-        sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl, gen, primed, 1.0,
-                                 **knobs)
-        torch.cuda.synchronize()
-
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        one_slice()
-        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    best = None
+    for _ in range(profiles):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            one_slice()
+            fn()
+            torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t0
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+        kern = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if best is None or len(kern) > len(best[1]):
+            best = (wall_prof, kern)
+    return (out, wall) + best
+
+
+def _by_name(kern):
     by_name = {}
-    for e in kern:
-        tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
-    copies = sum(cnt for name, (_, cnt) in by_name.items()
-                 if "copy" in name.lower() or "memcpy" in name.lower())
-    print(f"profile, one slice (256 pixels) of the batch-{b} bf16 rollout, {label} [{card}]: "
-          f"wall {wall:.3f} s ({wall_prof:.3f} s under the profiler), device busy "
-          f"{busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled wall time, "
-          f"{100 * busy / wall:.1f}% of the unprofiled; {len(kern)} device activities = "
-          f"{len(kern) / 256:.1f} per pixel, copies and casts {copies / 256:.1f} per pixel")
-    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
-    # the hand-written kernels of the rollout, each summed over its templates
-    # (a function counts under the first key its name holds)
-    # (kernels 3 and 4 also under the names of the one-block kernels they
-    # replaced, for an older tree)
+    for name, us in kern:
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + us / 1e3, cnt + 1)
+    return by_name
+
+
+def _hand_written(by_name):
+    """The hand-written kernels of the rollout, each summed over its
+    templates (a function counts under the first key its name holds)."""
     keys = (("kernel 1", ("block_attention_",)), ("kernel 2", ("decode_attention_kernel",)),
             ("kernel 3", ("decode_i8_kernel<128, 4, false", "decode_i8_kernel<128, 8, false",
                           "decode_attention_i8_kernel")),
@@ -697,14 +752,106 @@ def phase_profile(card, models, codes, label="native", **knobs):
         if label is not None:
             t0, c0 = sums.get(label, (0.0, 0))
             sums[label] = (t0 + tot, c0 + cnt)
-    print("  hand-written kernels in the slice: " + ", ".join(
-        f"{label} {t:.2f} ms ({cnt}x, {t / cnt:.4f} ms each)" for label, (t, cnt) in sums.items()))
-    if knobs.get("kv_dtype") == "int8":  # kernel 3 or 4 once per layer and pixel, live = p + 1
-        na, _, da = params["netG"]["decoder"]["layers"][0]["wq"].shape
-        layers = len(params["netG"]["decoder"]["layers"])
-        bound = layers * sum(i8_bound_ms(b, na, live, da)[0] for live in range(1, len(primed) + 1))
-        print(f"  bound of kernel 3 or 4 over the slice's {layers * len(primed)} calls "
-              f"(live 1 to {len(primed)}): {bound:.2f} ms")
+    return ", ".join(f"{label} {t:.2f} ms ({cnt}x, {t / cnt:.4f} ms each)"
+                     for label, (t, cnt) in sums.items())
+
+
+def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
+    """One slice (256 pixels) of the batch-8 bf16 rollout, greedy, in every
+    sampler mode, through the eager loop and through the slice's CUDA graph
+    (captured first, outside the timings, unless ``vts``, phase 11's model of
+    the mode by label, holds it already): the codes bit-equal; wall time,
+    device busy share, device activities per pixel (copies and casts among
+    them) of each, under torch.profiler; the graph's activities per pixel
+    within a share ACTIVITY_GAP of the eager loop's; device time by kernel
+    and of the hand-written kernels in the graph's slice. Each run includes
+    the slice's encoder pass (kernel 1), as the rollout runs it."""
+    import numpy as np
+    import torch
+
+    from lvt_tpu_torch.models.vt import vt_encode
+    from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
+
+    *_, vt, params = models
+    c, plan, s = vt.c, vt.plan, N_PRIME
+    b = codes.shape[0]
+    thw = plan.slice_src[s].size
+    primed = np.zeros(thw, bool)
+    primed_t = torch.zeros(thw, dtype=torch.bool, device=codes.device)
+    on_graph = hasattr(vt, "_slice_graph")  # False on a tree before the graph (A/B tool)
+
+    def encoded():
+        sidx = torch.full((b,), s, dtype=torch.int64, device=codes.device)
+        ctx, sl, _ = vt.prepare_slices(codes, sidx)
+        return vt_encode(params["netG"], c, ctx, sidx), sl
+
+    for label, knobs in modes:
+        knobs = {"kv_dtype": "native", "weight_dtype": "native", "mm_dtype": "native",
+                 "attn_impl": "xla", **knobs}
+        runs = {}
+        with torch.no_grad():
+            if on_graph:  # the set-up made once, as sample_video makes it
+                from lvt_tpu_torch.models.vt_incremental import SliceDecoder
+
+                dec = SliceDecoder(params["netG"], c, plan.slice_shape, b, codes.device, **knobs)
+
+            def eager():
+                zl, sl = encoded()
+                if on_graph:
+                    return dec.run(zl, sl, primed_t, None, 1.0, True)
+                return sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl,
+                                                None, primed, 1.0, greedy=True, **knobs)
+            runs["eager"] = _profiled(eager, PROFILES)
+            if on_graph:
+                zl, sl = encoded()
+                graph = (vts or {}).get(label, vt)._slice_graph(params, zl, sl, primed_t, knobs,
+                                                                 1.0, True)
+
+                def replay():
+                    zl, sl = encoded()
+                    return graph(zl, sl, primed_t)
+                runs["graph"] = _profiled(replay, PROFILES)
+        acts, names = {}, {}
+        for way, (out, wall, wall_prof, kern) in runs.items():
+            busy = sum(us for _, us in kern) / 1e6
+            by_name = names[way] = _by_name(kern)
+            copies = sum(cnt for name, (_, cnt) in by_name.items()
+                         if "copy" in name.lower() or "memcpy" in name.lower())
+            acts[way] = len(kern) / thw
+            print(f"profile, one slice (256 pixels) of the batch-{b} bf16 rollout, {label}, "
+                  f"{way} [{card}]: wall {wall:.3f} s ({wall_prof:.3f} s under the profiler), "
+                  f"device busy {busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled "
+                  f"wall time, {100 * busy / wall:.1f}% of the unprofiled; {len(kern)} device "
+                  f"activities = {len(kern) / thw:.2f} per pixel, copies and casts "
+                  f"{copies / thw:.2f} per pixel"
+                  + (f"; captured in {graph.capture_seconds:.3f} s (warm-up "
+                     f"{graph.warmup_seconds:.3f} s)" if way == "graph" else ""))
+            if way == "graph" or not on_graph:
+                for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+                    print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
+                print(f"  hand-written kernels in the slice: {_hand_written(by_name)}")
+        if knobs["kv_dtype"] == "int8" and knobs["attn_impl"] != "xla":
+            # kernel 3 or 4 once per layer and pixel, live = p + 1
+            na, _, da = params["netG"]["decoder"]["layers"][0]["wq"].shape
+            layers = len(params["netG"]["decoder"]["layers"])
+            bound = layers * sum(i8_bound_ms(b, na, live, da)[0] for live in range(1, thw + 1))
+            print(f"  bound of kernel 3 or 4 over the slice's {layers * thw} calls "
+                  f"(live 1 to {thw}): {bound:.2f} ms")
+        if on_graph:
+            check(torch.equal(runs["graph"][0], runs["eager"][0]),
+                  f"{label}: the graph's greedy codes differ from the eager loop's")
+            counts = {way: {name: cnt for name, (_, cnt) in by_name.items()}
+                      for way, by_name in names.items()}
+            differ = {name: (counts["eager"].get(name, 0), counts["graph"].get(name, 0))
+                      for name in set(counts["eager"]) | set(counts["graph"])
+                      if counts["eager"].get(name, 0) != counts["graph"].get(name, 0)}
+            check(abs(acts["graph"] - acts["eager"]) <= ACTIVITY_GAP * acts["eager"],
+                  f"{label}: device activities per pixel {acts['graph']:.3f} under the graph, "
+                  f"{acts['eager']:.3f} eager; want within {ACTIVITY_GAP:g} of the eager count; "
+                  f"counts (eager, graph) that differ: {differ}")
+    if on_graph:
+        print(f"slices [{card}]: greedy codes of the graph equal the eager loop's in all "
+              f"{len(modes)} modes (b = {b}, bf16, full width)")
 
 
 def phase_agree(card):
@@ -1713,6 +1860,7 @@ def _quantized_vt(vt, **knobs):
 
 I8_RUNS = (  # label, config keys, expected launches of kernels (2, 3, 4, 11) per rollout
     ("native", {}, (22528, 0, 0, 0)),
+    ("int8 KV + xla", {"KV_DTYPE": "int8", "ATTN_IMPL": "xla"}, (0, 0, 0, 0)),
     ("int8 KV + pallas", {"KV_DTYPE": "int8", "ATTN_IMPL": "pallas"}, (0, 22528, 0, 0)),
     ("int8 KV + pallas-live", {"KV_DTYPE": "int8", "ATTN_IMPL": "pallas-live"},
      (0, 0, 22528, 0)),
@@ -1726,7 +1874,8 @@ def phase_main_i8(card, models):
     """The quantized sampler at full width through generate(): b=8, bf16, all
     11 sampled frames, greedy, each row from differently shifted priming
     frames. Returns the launches of kernels 3, 4 and 11, each from the run
-    that was driven with the counts at 0."""
+    that was driven with the counts at 0, and the model of each run by label
+    (its slice graph captured)."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -1750,15 +1899,16 @@ def phase_main_i8(card, models):
     b = 8
     frames = torch.stack([torch.roll(frames, (3 * i, 5 * i), (1, 2)) for i in range(b)]).to(dev)
     n_slices = T_FRAMES - N_PRIME
-    out, launches = {}, {}
+    out, launches, used = {}, {}, {}
     for label, knobs, want in I8_RUNS:
         model = _quantized_vt(vt, **knobs) if knobs else vt
         for k in sum(counted, (block_attention_fwd_cuda,)):
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
+        caps = _captures()
         video, codes, primed, seconds = gvt.generate(vqvae, vq_params, vq_state, model, vt_params,
                                                      frames, N_PRIME, None, greedy=True)
-        peak = torch.cuda.max_memory_allocated()
+        line = _rollout_line(seconds, caps, b, n_slices, torch.cuda.max_memory_allocated())
         took = tuple(sum(k.launches for k in group) for group in counted)
         _check_run(label, video, codes, primed, 512, b)
         fused = tuple(w.launches if w else want[1 + i] for i, w in enumerate(steps))
@@ -1767,27 +1917,51 @@ def phase_main_i8(card, models):
               f"{label}: launches of kernels 2, 3, 4, 11 {took}, want exactly {want}, all of "
               f"kernels 3 and 4 fused (fused: {fused}); kernel 1 "
               f"{block_attention_fwd_cuda.launches}, want {n_slices * 8}")
-        out[label], launches[label] = codes, took
+        out[label], launches[label], used[label] = codes, took, model
         agree = float((codes[:, :, N_PRIME:] == out["native"][:, :, N_PRIME:]).float().mean())
         first = float((codes[:, :, N_PRIME] == out["native"][:, :, N_PRIME]).float().mean())
-        print(f"main path batch {b} bf16 greedy, {label} [{card}]: rollout {seconds:.3f} s, "
-              f"{b * n_slices / seconds:.3f} generated frames/s; launches of kernels 2, 3, 4, 11 "
-              f"{took}; max_memory_allocated {peak / 2 ** 20:.1f} MiB; greedy codes equal to the "
-              f"native rollout's: {agree:.4f} of all sampled, {first:.4f} of the first sampled "
-              "frame")
+        print(f"main path batch {b} bf16 greedy, {label} [{card}]: {line}; launches of "
+              f"kernels 2, 3, 4, 11 {took}; greedy codes equal to the native rollout's: "
+              f"{agree:.4f} of all sampled, {first:.4f} of the first sampled frame")
+        if not knobs and hasattr(vt, "_slice_graph"):
+            # the same rollout by the eager loop and by a graph captured anew
+            # (a model with an empty graph cache), the sampler alone, its
+            # memory measured alike: the peak of allocated bytes, and the
+            # growth of reserved bytes (the graph's private pool among them)
+            start = torch.zeros_like(codes)
+            start[:, :, :N_PRIME] = primed
+            for way, m in (("eager loop", vt), ("graph, captured anew", _quantized_vt(vt))):
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = m.sample_video(vt_params, start, n_prime=N_PRIME, greedy=True,
+                                     _eager=way == "eager loop")
+                torch.cuda.synchronize()
+                took_s = time.perf_counter() - t0
+                check(torch.equal(got, codes), f"{label}, {way}: greedy codes differ from the "
+                                               "graph rollout's through generate()")
+                print(f"main path batch {b} bf16 greedy, {label}, sampler alone, {way} "
+                      f"[{card}]: rollout {took_s:.3f} s, {b * n_slices / took_s:.3f} generated "
+                      f"frames/s; max_memory_allocated "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, reserved grew "
+                      f"{(torch.cuda.max_memory_reserved() - reserved) / 2 ** 20:.1f} MiB; greedy "
+                      "codes equal to the rollout's through generate()")
         if knobs:
             check(agree >= GREEDY_FLOOR, f"{label}: greedy agreement with the native rollout "
                                          f"{agree}, under the floor {GREEDY_FLOOR}")
     check(not torch.equal(out["int8 KV + pallas"], out["native"]),
           "the int8 rollout's codes equal the native ones: were the config keys read?")
     return (launches["int8 KV + pallas"][1], launches["int8 KV + pallas-live"][2],
-            launches["int8 KV + pallas + int8-pallas weights"][3])
+            launches["int8 KV + pallas + int8-pallas weights"][3]), used
 
 
 def phase_i8_rollouts(card):
-    """Phase 11 and one profiled slice of the native and each int8 mode, on
-    models built as phase 4 builds them, priming codes from a numpy seed:
-    the int8 rollouts alone, for tools/ab_attention_torch.py."""
+    """Phase 11 and one profiled slice of every sampler mode (eager and, on
+    a tree with the graph, as a graph), on models built as phase 4 builds
+    them, priming codes from a numpy seed: the int8 rollouts alone, for
+    tools/ab_attention_torch.py."""
     import numpy as np
     import torch
 
@@ -1800,17 +1974,58 @@ def phase_i8_rollouts(card):
     c = models[3].c
     codes = torch.from_numpy(np.random.default_rng(0).integers(
         0, c.nv, size=(8, c.nc, T_FRAMES, 16, 16))).to(dev)
-    phase_main_i8(card, models)
-    phase_profile(card, models, codes)
-    for label, knobs, _ in I8_RUNS[1:]:
-        phase_profile(card, models, codes, label, kv_dtype=knobs["KV_DTYPE"],
-                      attn_impl=knobs["ATTN_IMPL"], weight_dtype=knobs.get("WEIGHT_DTYPE",
-                                                                            "native"))
+    _, vts = phase_main_i8(card, models)
+    phase_slices(card, models, codes, vts=vts)
+
+
+def phase_bench_slice(card, models):
+    """bench.py's own program, one slice: DSFVT at b = 1024, bf16, int8 KV,
+    attn_impl "xla", greedy, through the slice's CUDA graph (all 256
+    pixels): the capture's and one replay's seconds, the replay's device
+    busy share, max_memory_allocated, codes in range."""
+    import numpy as np
+    import torch
+
+    from lvt_tpu_torch.models.vt import vt_encode
+
+    *_, vt, params = models
+    c, plan, s = vt.c, vt.plan, N_PRIME
+    b, dev = BENCH_BATCH, torch.device("cuda")
+    knobs = {"kv_dtype": "int8", "weight_dtype": "native", "mm_dtype": "native",
+             "attn_impl": "xla"}
+    codes = torch.from_numpy(np.random.default_rng(2).integers(
+        0, c.nv, size=(b, c.nc, T_FRAMES, 16, 16))).to(dev)
+    thw = plan.slice_src[s].size
+    primed = torch.zeros(thw, dtype=torch.bool, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        sidx = torch.full((b,), s, dtype=torch.int64, device=dev)
+        ctx, sl, _ = vt.prepare_slices(codes, sidx)
+        zl = vt_encode(params["netG"], c, ctx, sidx)
+        t0 = time.perf_counter()
+        graph = vt._slice_graph(params, zl, sl, primed, knobs, 1.0, True)
+        capture = time.perf_counter() - t0
+        out, wall, wall_prof, kern = _profiled(lambda: graph(zl, sl, primed))
+    peak = torch.cuda.max_memory_allocated()
+    busy = sum(us for _, us in kern) / 1e6
+    check(tuple(out.shape) == tuple(sl.shape), f"bench slice: codes of shape {tuple(out.shape)}")
+    check(int(out.min()) >= 0 and int(out.max()) < c.nv, f"bench slice: codes outside [0, {c.nv})")
+    print(f"bench.py's program, one slice: DSFVT b={b} bf16 int8 KV xla greedy, {thw} pixels, "
+          f"graph [{card}]: captured in {capture:.3f} s (warm-up, one eager slice, "
+          f"{graph.warmup_seconds:.3f} s); one replay {wall:.3f} s ({wall_prof:.3f} s under the "
+          f"profiler), device busy {busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled "
+          f"wall time; {len(kern) / thw:.2f} device activities per pixel; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; codes in [0, {c.nv})")
+    for name, (tot, cnt) in sorted(_by_name(kern).items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
 
 
 def phase_agree_i8(card):
-    """fp32, b=2, full width, one slice teacher-forced: the three kernel modes
-    of the quantized sampler on the card against the plain path on the CPU."""
+    """fp32, b=2, full width, one slice teacher-forced: every mode of the
+    quantized sampler (SLICE_MODES: the kernel modes, and int8 KV with
+    `xla`, `xla` + int8 mm and int8 weights, which run PyTorch's CUDA ops)
+    on the card against the plain path on the CPU."""
     import numpy as np
     import torch
 
@@ -1824,9 +2039,8 @@ def phase_agree_i8(card):
     dev = torch.device("cuda")
     *_, vt, params = gvt.build_models(cfg, 1, dev, torch.float32)
     video = np.random.default_rng(0).integers(0, vt.c.nv, size=(2, vt.c.nc, T_FRAMES, 16, 16))
-    modes = {"native": {}, **{label: {"kv_dtype": k["KV_DTYPE"], "attn_impl": k["ATTN_IMPL"],
-                                      "weight_dtype": k.get("WEIGHT_DTYPE", "native")}
-                              for label, k, _ in I8_RUNS[1:]}}
+    modes = {label: {"kv_dtype": "native", "weight_dtype": "native", "mm_dtype": "native",
+                     "attn_impl": "xla", **knobs} for label, knobs in SLICE_MODES}
     out = {}
     for name, device, p in (("card", dev, params["netG"]),
                             ("cpu", torch.device("cpu"), to_device(params["netG"], "cpu"))):
@@ -2373,33 +2587,55 @@ def main():
     card = phase_device()
     import lvt_tpu_torch  # noqa: F401  (TF32 off)
 
+    laps, last = [], [time.perf_counter()]
+
+    def lap(name):  # host seconds of each phase, printed at the end
+        now = time.perf_counter()
+        laps.append(f"{name} {now - last[0]:.1f}")
+        last[0] = now
+
     phase_build()
+    lap("build")
     kres = phase_kernels(card)
+    lap("kernels")
     launches, models, codes = phase_main(card)
-    phase_profile(card, models, codes)
+    lap("main")
     phase_agree(card)
+    lap("agree")
     i8res = phase_i8_kernels(card, kres["decode_attention"]["ms"])
+    lap("i8 kernels")
     fold_err = phase_i8_fold(card)
+    lap("i8 fold")
     for k, name in ((3, "decode_attention_i8"), (4, "decode_attention_i8_live")):
         i8res[name]["err"] = max(i8res[name]["err"], fold_err[k])
-    i8_launches = phase_main_i8(card, models)
-    phase_profile(card, models, codes, "int8 KV + pallas", kv_dtype="int8", attn_impl="pallas")
-    phase_profile(card, models, codes, "int8 KV + pallas-live", kv_dtype="int8",
-                  attn_impl="pallas-live")
-    phase_profile(card, models, codes, "int8 KV + pallas + int8-pallas weights",
-                  kv_dtype="int8", attn_impl="pallas", weight_dtype="int8-pallas")
+    i8_launches, vts = phase_main_i8(card, models)
+    lap("main i8")
+    phase_slices(card, models, codes, vts=vts)
+    lap("slices")
     phase_agree_i8(card)
+    lap("agree i8")
+    phase_bench_slice(card, models)
+    lap("bench slice")
     k6 = phase_vq_kernel(card, models)
+    lap("vq kernel")
     del models, codes
     k10, err1_train, _ = phase_train_kernels(card)
     shapes = phase_attention_shapes(card)
     k10["err"] = max(k10["err"], shapes["bwd"], shapes["dbias"])
+    lap("train kernels")
     fres, fbounds = phase_fused_kernels(card)
+    lap("fused kernels")
     fused_run, unfused_run = phase_train(card)
+    lap("train")
     phase_train_agree(card)
+    lap("train agree")
     vq_run = phase_vqvae_train(card)
+    lap("vqvae train")
     phase_vqvae_agree(card)
+    lap("vqvae agree")
     k12, k12_launches = phase_probe_kernel(card)
+    lap("probe kernel")
+    print("phase seconds: " + ", ".join(laps))
 
     def entry(name, source, replaces, n_launches, r):
         keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -243,7 +243,10 @@ def vt_sample_pixel_channels(params, c: VTConfig, y_pix, gen: Optional[torch.Gen
     """Sample the nc channel codes of one pixel autoregressively. y_pix:
     (b, d), already layer-normed. Returns (b, nc) int32. Greedy takes the
     first maximum, as jnp.argmax; otherwise a categorical draw at
-    ``temp`` from ``gen``."""
+    ``temp`` from ``gen``: argmax(probs / E) with E ~ Exp(1), the draw of
+    ``torch.multinomial(probs, 1, generator=gen)`` (the same numbers from
+    the same generator state) without its host-side checks of probs, which
+    read the device and could not be captured in a CUDA graph."""
     pred = params["predictor"]
     codes = torch.zeros((y_pix.shape[0], c.nc), dtype=torch.int32, device=y_pix.device)
     for k in range(c.nc):
@@ -253,7 +256,8 @@ def vt_sample_pixel_channels(params, c: VTConfig, y_pix, gen: Optional[torch.Gen
             sk = torch.argmax(logits, dim=-1)
         else:
             probs = torch.softmax(logits / temp, dim=-1)
-            sk = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            sk = torch.argmax(probs / torch.empty_like(probs).exponential_(1, generator=gen),
+                              dim=-1)
         codes[:, k] = sk.to(torch.int32)
     return codes
 
@@ -279,6 +283,7 @@ class VideoTransformer:
                              f"got {policy!r}")
         self.remat = (policy or True) if cfg.TPU.REMAT else False
         self.fused = bool(getattr(cfg.TPU, "FUSED_LAYER", False))
+        self._slice_graphs = None  # the rollout's CUDA graphs (models/rollout_graph.py)
 
     def _plan_for(self, T: int, H: int, W: int):
         return ss.build_plan(*self.c.stride, T, H, W, *self.c.kernel)
@@ -428,7 +433,7 @@ class VideoTransformer:
                      incremental: bool = True, greedy: bool = False,
                      kv_cache_dtype: str = "native", kv_seg_size: int = 0,
                      weight_dtype: str = "native", mm_dtype: str = "native",
-                     attn_impl: str = "xla"):
+                     attn_impl: str = "xla", _eager: bool = False):
         """AR-sample all non-primed positions, slice by slice.
 
         video: (b, nc, T, H, W) with primed frames filled, others arbitrary.
@@ -437,6 +442,11 @@ class VideoTransformer:
         Slices whose every position is primed are skipped. kv_seg_size is
         accepted and ignored: the port's cache is preallocated, and greedy
         output does not depend on the JAX package's segment size.
+
+        On the card each sampled slice is one replay of a CUDA graph of the
+        whole slice (``models/rollout_graph.py``), captured at the first
+        slice of a configuration; on the CPU, and with ``_eager`` (the check
+        the graph is held against), the same pixel loop runs eagerly.
 
         kv_cache_dtype ("native", "int8"), weight_dtype ("native", "int8",
         "int8-pallas"), mm_dtype ("native", "int8") and attn_impl ("xla",
@@ -462,6 +472,10 @@ class VideoTransformer:
         c = self.c
         b, nc, T, H, W = video.shape
         plan = self._plan_for(T, H, W)
+        knobs = dict(kv_dtype=kv_cache_dtype, weight_dtype=weight_dtype, mm_dtype=mm_dtype,
+                     attn_impl=attn_impl)
+        on_graph = incremental and video.is_cuda and not _eager
+        decoder = None
         vflat = video.reshape(b, nc, -1)
         for s in range(plan.num_slices):
             primed = plan.slice_src[s].reshape(-1) // (H * W) < n_prime  # host (thw,)
@@ -470,18 +484,33 @@ class VideoTransformer:
             sidx = torch.full((b,), s, dtype=torch.int64, device=video.device)
             ctx, sl, _ = self.prepare_slices(vflat.reshape(b, nc, T, H, W), sidx)
             zl = vt_encode(params["netG"], c, ctx, sidx, class_idx)
-            if incremental:
-                from .vt_incremental import sample_slice_incremental
+            if on_graph:
+                primed_t = torch.as_tensor(primed, device=video.device)
+                graph = self._slice_graph(params, zl, sl, primed_t, knobs, temp, greedy)
+                sl = graph(zl, sl, primed_t, gen)
+            elif incremental:
+                from .vt_incremental import SliceDecoder
 
-                sl = sample_slice_incremental(
-                    params["netG"], c, plan.slice_shape, zl, sl, gen, primed, temp,
-                    greedy=greedy, kv_dtype=kv_cache_dtype, weight_dtype=weight_dtype,
-                    mm_dtype=mm_dtype, attn_impl=attn_impl)
+                if decoder is None:  # the set-up every slice shares
+                    decoder = SliceDecoder(params["netG"], c, plan.slice_shape, b,
+                                           video.device, **knobs)
+                sl = decoder.run(zl, sl, torch.as_tensor(primed, device=video.device), gen,
+                                 temp, greedy)
             else:
                 sl = self._sample_slice_pixels(params, zl, sl, gen, primed, temp,
                                                greedy=greedy)
             vflat = ss.scatter_slice(vflat, plan.slice_src[s], sl)
         return vflat.reshape(b, nc, T, H, W)
+
+    def _slice_graph(self, params, zl, sl, primed, knobs, temp, greedy):
+        """The CUDA graph that samples one slice of this configuration
+        (``rollout_graph.SliceGraphs.get``); primed: (thw,) bool on the card."""
+        from .rollout_graph import SliceGraphs
+
+        if self._slice_graphs is None:
+            self._slice_graphs = SliceGraphs()
+        return self._slice_graphs.get(params["netG"], self.c, tuple(sl.shape[2:]), zl, sl,
+                                      primed, knobs, temp, greedy)
 
     def _sample_slice_pixels(self, params, zl, sl, gen, primed, temp, greedy=False):
         """Raster positions of one slice, each pixel's nc channels sampled

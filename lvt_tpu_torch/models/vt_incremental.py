@@ -10,11 +10,18 @@ computed and are cached:
 * ``emb``    — summed channel embeddings of the final codes, read by the
                causal conv of later pixels;
 * per layer  — K/V caches, one row written per pixel before it attends;
-* per slice  — the zl projection and the bias tables.
+* per slice  — the zl projection (the bias tables are the same for every
+               slice and made once).
+
+A slice's pixel loop reads nothing back to the host: the primed pixels are
+kept by a select on the device, as the JAX sampler's ``lax.scan`` keeps
+them, so on the card ``models/rollout_graph.py`` captures the whole loop as
+one CUDA graph and replays it for every slice.
 
 The port owns its cache layout and updates it in place: one buffer of
-(L, b, na, R, da) per K and V, allocated once per slice, with R = the block
-run (the slice when blocks do not tile it as contiguous runs). Pixel p writes
+(L, b, na, R, da) per K and V, allocated once per ``SliceDecoder`` (one
+sampler configuration) and reused by every slice, with R = the block run
+(the slice when blocks do not tile it as contiguous runs). Pixel p writes
 row p_loc = p mod R and attends to rows [0, p_loc] through the functions of
 ``ops.cache_attention`` (kernels 2, 3 and 4 on the card). Rows left from the
 previous block run lie at or above p_loc + 1 and are never read; within a
@@ -138,12 +145,196 @@ def _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl):
                                   "use 'native' or 'int8'")
 
 
+class SliceDecoder:
+    """The incremental decoder of one sampler configuration: the set-up that
+    every slice shares, made once (conv tap table, positional rows, bias
+    rows, fused and quantized weights, the caches), and the pixel loop.
+
+    params: the netG tree; b: the batch; the knobs as
+    ``sample_slice_incremental`` takes them. ``inputs`` makes a slice's own
+    inputs, ``sample`` runs its pixel loop and ``teacher`` the teacher-forced
+    one. The caches are reused from slice to slice without clearing: pixel p
+    writes its row before any pixel reads it, and reads only rows written
+    since its block run began."""
+
+    def __init__(self, params, c: VTConfig, slice_shape, b: int, device,
+                 kv_dtype: str = "native", weight_dtype: str = "native",
+                 mm_dtype: str = "native", attn_impl: str = "xla"):
+        _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl)
+        self.params, self.c = params, c
+        self.weight_dtype, self.mm_dtype, self.attn_impl = weight_dtype, mm_dtype, attn_impl
+        self.use_int8 = kv_dtype == "int8"
+        dec = self.dec = params["decoder"]
+        layers = self.layers = dec["layers"]
+        t, h, w = slice_shape
+        thw = self.thw = t * h * w
+        self.b = b
+        self.na, _, self.da = na, _, da = layers[0]["wq"].shape
+        if len({tuple(lp["wq"].shape) for lp in layers}) != 1:
+            raise ValueError("incremental sampler needs one head count across decoder layers; "
+                             "use sample_video(incremental=False) for heterogeneous stacks")
+        L = len(layers)
+        dev = torch.device(device)
+        cdtype = self.cdtype = dec["conv_w"].dtype
+        self.scale = 1.0 / math.sqrt(da)
+
+        # causal conv: cache emb gets one zero row at index thw that every
+        # out-of-bounds tap (-1) reads instead
+        nbr_np, tap_ids_np = conv_tap_table((t, h, w))
+        self.nbr = torch.as_tensor(np.where(nbr_np < 0, thw, nbr_np), device=dev)  # (thw, K')
+        conv_w = dec["conv_w"].reshape(-1, c.de, c.d)[torch.as_tensor(tap_ids_np, device=dev)]
+        self.conv_w = conv_w.reshape(-1, c.d)  # (K' * de, d)
+        self.pos_rows = torch.as_tensor(posenc_rows((t, h, w), c.d), device=dev).to(cdtype)
+
+        blocks = [tuple(bk) for bk in c.blocks_d]
+        bt0, bh0, bw0 = blocks[0]
+        self.block_local = len(set(blocks)) == 1 and bh0 == h and bw0 == w and t % bt0 == 0
+        R = self.R = bt0 * h * w if self.block_local else thw
+        self.bias_rows = [_bias_rows(lp, blk, slice_shape, self.block_local, R)
+                          for lp, blk in zip(layers, blocks)]
+        # fused QKV: columns [q heads | k heads | v heads], as the JAX sampler
+        weights = [{"qkv": torch.cat([lp[n].permute(1, 0, 2).reshape(c.d, na * da)
+                                      for n in ("wq", "wk", "wv")], dim=1),
+                    "proj": lp["proj"], "ffn1": lp["ffn_w1"], "ffn2": lp["ffn_w2"]}
+                   for lp in layers]
+        if weight_dtype != "native":
+            # quantized once here; each product reads the int8 bytes. Kernel
+            # 11 takes the weight transposed, (N, K).
+            weights = [{k: quantize_cols(w, cdtype) for k, w in lw.items()} for lw in weights]
+            if weight_dtype == "int8-pallas":
+                weights = [{k: (wi.t().contiguous(), s) for k, (wi, s) in lw.items()}
+                           for lw in weights]
+        self.weights = weights
+        self.kcache = torch.zeros((L, b, na, R, da), dtype=torch.int8 if self.use_int8 else cdtype,
+                                  device=dev)
+        self.vcache = torch.zeros_like(self.kcache)
+        if self.use_int8:
+            self.kscale = torch.zeros((L, b, na, R), dtype=cdtype, device=dev)
+            self.vscale = torch.zeros_like(self.kscale)
+        if self.use_int8 and attn_impl == "xla" and mm_dtype == "native":
+            # the live rows of one layer's K and V as fp32, in buffers of the
+            # cache's length made once: a temporary that grew with the live
+            # rows would take a new block at every pixel of a CUDA graph's
+            # capture, whose private pool keeps them all (at b = 1024 one
+            # cast of 256 rows is 1.07 GB; the capture ran out of the card)
+            self.kv32 = torch.empty((2, b, na, R, da), dtype=torch.float32, device=dev)
+
+    def _mm(self, y, w):
+        if self.weight_dtype == "native":
+            return y @ w
+        if self.weight_dtype == "int8-pallas":
+            return matmul_i8w(y, w[0], w[1], self.cdtype)
+        return (y @ w[0].to(self.cdtype)) * w[1]
+
+    def _attend_i8(self, l, qkv, live, bias):
+        """Write the new rows (row live - 1) into layer l's int8 cache and
+        attend over rows [0, live)."""
+        kc, vc, ks, vs = self.kcache[l], self.vcache[l], self.kscale[l], self.vscale[l]
+        cdtype, b, na, da = self.cdtype, self.b, self.na, self.da
+        if self.attn_impl != "xla":  # kernel 3 or 4, the cache write and q's quantization folded in
+            fn = decode_attention_i8_step if self.attn_impl == "pallas" else \
+                decode_attention_i8_live_step
+            return fn(qkv[:, 0], qkv[:, 1:], kc, ks, vc, vs, live, bias, self.scale, cdtype)
+        kv8, kvs = _quantize_cache_row(qkv[:, 1:], cdtype)  # K and V rows at once
+        kc[:, :, live - 1], vc[:, :, live - 1] = kv8[:, 0], kv8[:, 1]
+        ks[:, :, live - 1], vs[:, :, live - 1] = kvs[:, 0], kvs[:, 1]
+        q = qkv[:, 0]
+        if self.mm_dtype == "native":
+            # the cache cast to the parameter dtype and on to fp32: exact, so
+            # one cast of the int8 rows straight to fp32
+            k32, v32 = self.kv32[0, :, :, :live], self.kv32[1, :, :, :live]
+            k32.copy_(kc[:, :, :live])
+            v32.copy_(vc[:, :, :live])
+            logits = torch.einsum("bak,bajk->baj", q.float(), k32)
+            logits = logits / math.sqrt(da) * ks[:, :, :live].float() + bias[None, :, :live]
+            wgt = torch.softmax(logits, dim=-1).to(cdtype) * vs[:, :, :live]
+            out = torch.einsum("baj,bajk->bak", wgt.float(), v32)
+            return out.to(cdtype).reshape(b, na * da)
+        q8, sq = quantize_rows_i8(q)
+        return decode_attention_i8_plain(q8, sq[..., 0], kc, ks, vc, vs, live, bias, self.scale,
+                                         cdtype)
+
+    def inputs(self, zl, sl):
+        """One slice's own inputs: zl's projection (b, thw, d), a copy of the
+        codes (b, nc, thw) and their embedding rows (b, thw + 1, de), the last
+        row the zero row of the conv's padding taps. zl: (b, t, h, w, d); sl:
+        (b, nc, t, h, w)."""
+        c, b, thw = self.c, self.b, self.thw
+        zlproj = (zl @ self.dec["projector"]).reshape(b, thw, c.d)
+        sl_flat = sl.reshape(b, sl.shape[1], thw).clone()
+        emb = torch.zeros((b, thw + 1, c.de), dtype=self.cdtype, device=zl.device)
+        emb[:, :thw] = _embed_sum_codes(self.dec, c, sl_flat.movedim(1, -1)).to(self.cdtype)
+        return zlproj, sl_flat, emb
+
+    def _pixel(self, p: int, emb, zlproj):
+        """The decoder at pixel p, its K/V rows written into the caches:
+        (b, d), after the predictor's LayerNorm."""
+        c, b = self.c, self.b
+        p_loc = p % self.R
+        rows = emb[:, self.nbr[p]]  # (b, K', de), pad taps read the zero row
+        x = rows.reshape(b, -1) @ self.conv_w + self.dec["conv_b"]
+        x = x + self.pos_rows[p] + zlproj[:, p]
+        for l, lp in enumerate(self.layers):
+            y = _layer_norm(x, lp["ln_scale"], lp["ln_bias"])
+            qkv = self._mm(y, self.weights[l]["qkv"]).reshape(b, 3, self.na, self.da)
+            bias = self.bias_rows[l][p_loc if self.block_local else p]
+            if self.use_int8:
+                out = self._attend_i8(l, qkv, p_loc + 1, bias)
+            else:
+                self.kcache[l, :, :, p_loc] = qkv[:, 1]  # in place: the one new row
+                self.vcache[l, :, :, p_loc] = qkv[:, 2]
+                out = decode_attention(qkv[:, 0], self.kcache[l], self.vcache[l], p_loc + 1, bias,
+                                       self.scale)
+            x = self._mm(out, self.weights[l]["proj"]) + x
+            yf = _layer_norm(x, lp["ffn_ln_scale"], lp["ffn_ln_bias"])
+            yf = torch.relu(self._mm(yf, self.weights[l]["ffn1"]) + lp["ffn_b1"])
+            x = self._mm(yf, self.weights[l]["ffn2"]) + lp["ffn_b2"] + x
+        pred = self.params["predictor"]
+        return _layer_norm(x, pred["ln_scale"], pred["ln_bias"])
+
+    def sample(self, zlproj, sl_flat, emb, primed, gen, temp, greedy: bool = False):
+        """The slice's pixel loop. Every pixel is sampled, and where the
+        (thw,) bool tensor ``primed`` is set the old code is kept, as the JAX
+        sampler's ``jnp.where(primed[p], old, sampled)``; sl_flat and emb are
+        written in place. Nothing here reads a value back to the host, so
+        one CUDA graph captures the whole loop (``models/rollout_graph.py``)."""
+        for p in range(self.thw):
+            y_pix = self._pixel(p, emb, zlproj)
+            sampled = vt_sample_pixel_channels(self.params, self.c, y_pix, gen, temp,
+                                               greedy=greedy)
+            final = torch.where(primed[p], sl_flat[:, :, p], sampled.to(sl_flat.dtype))
+            sl_flat[:, :, p] = final
+            emb[:, p] = _embed_sum_codes(self.dec, self.c, final).to(self.cdtype)
+
+    def teacher(self, zlproj, sl_flat, emb):
+        """The teacher-forced loop: every pixel keeps its code, the channel
+        conditioning reads the given previous channels (vt_logits semantics).
+        Returns the fp32 channel logits (b, thw, nc, nv)."""
+        c, pred = self.c, self.params["predictor"]
+        step_logits = []
+        for p in range(self.thw):
+            y_pix = self._pixel(p, emb, zlproj)
+            final = sl_flat[:, :, p]
+            step_logits.append(torch.stack(
+                [_predictor_head(pred, c, k, _predictor_u(pred, c, k, y_pix, final),
+                                 self.dec).float() for k in range(c.nc)], dim=1))  # (b, nc, nv)
+            emb[:, p] = _embed_sum_codes(self.dec, c, final).to(self.cdtype)
+        return torch.stack(step_logits, dim=1)
+
+    def run(self, zl, sl, primed, gen, temp, greedy: bool = False):
+        """One slice sampled eagerly: its inputs, then ``sample``. Returns the
+        codes (b, nc, t, h, w)."""
+        zlproj, sl_flat, emb = self.inputs(zl, sl)
+        self.sample(zlproj, sl_flat, emb, primed, gen, temp, greedy)
+        return sl_flat.reshape(sl.shape)
+
+
 def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, primed, temp,
                              greedy: bool = False, kv_dtype: str = "native",
                              seg_size: int = 0, weight_dtype: str = "native",
                              mm_dtype: str = "native", attn_impl: str = "xla",
                              teacher_logits: bool = False):
-    """Exact AR sampling of one slice with cached decoder state.
+    """Exact AR sampling of one slice with cached decoder state, eagerly.
 
     params: the netG tree; zl: (b, t, h, w, d) encoder output; sl: (b, nc,
     t, h, w) initial codes (primed positions already correct); primed:
@@ -178,129 +369,17 @@ def sample_slice_incremental(params, c: VTConfig, slice_shape, zl, sl, gen, prim
 
     weight_dtype: "int8" holds the four products of each layer (fused QKV,
     proj, FFN 1, FFN 2) as int8 weights with per-column scales, quantized
-    once per slice: (y @ W8 cast to the parameter dtype) * s. "int8-pallas"
+    once per ``SliceDecoder``: (y @ W8 cast to the parameter dtype) * s. "int8-pallas"
     runs them through kernel 11 (``ops.quant.matmul_i8w``), which also
     quantizes the activation rows. The conv, the projector and the predictor
     stay native.
 
     seg_size is accepted and ignored (see the module docstring).
     """
-    _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl)
-    use_int8 = kv_dtype == "int8"
-    dec, pred = params["decoder"], params["predictor"]
-    layers = dec["layers"]
-    t, h, w = slice_shape
-    thw = t * h * w
-    b, nc = sl.shape[:2]
-    na, _, da = layers[0]["wq"].shape
-    if len({tuple(lp["wq"].shape) for lp in layers}) != 1:
-        raise ValueError("incremental sampler needs one head count across decoder layers; "
-                         "use sample_video(incremental=False) for heterogeneous stacks")
-    L = len(layers)
-    dev = zl.device
-    cdtype = dec["conv_w"].dtype
-    scale = 1.0 / math.sqrt(da)
-
-    # causal conv: cache emb gets one zero row at index thw that every
-    # out-of-bounds tap (-1) reads instead
-    nbr_np, tap_ids_np = conv_tap_table((t, h, w))
-    nbr = torch.as_tensor(np.where(nbr_np < 0, thw, nbr_np), device=dev)  # (thw, K')
-    conv_w = dec["conv_w"].reshape(-1, c.de, c.d)[torch.as_tensor(tap_ids_np, device=dev)]
-    conv_w = conv_w.reshape(-1, c.d)  # (K' * de, d)
-    pos_rows = torch.as_tensor(posenc_rows((t, h, w), c.d), device=dev).to(cdtype)
-    zlproj = (zl @ dec["projector"]).reshape(b, thw, c.d)
-
-    blocks = [tuple(bk) for bk in c.blocks_d]
-    bt0, bh0, bw0 = blocks[0]
-    block_local = len(set(blocks)) == 1 and bh0 == h and bw0 == w and t % bt0 == 0
-    R = bt0 * h * w if block_local else thw
-    bias_rows = [_bias_rows(lp, blk, slice_shape, block_local, R)
-                 for lp, blk in zip(layers, blocks)]
-    # fused QKV: columns [q heads | k heads | v heads], as the JAX sampler
-    weights = [{"qkv": torch.cat([lp[n].permute(1, 0, 2).reshape(c.d, na * da)
-                                  for n in ("wq", "wk", "wv")], dim=1),
-                "proj": lp["proj"], "ffn1": lp["ffn_w1"], "ffn2": lp["ffn_w2"]} for lp in layers]
-    if weight_dtype != "native":
-        # quantized once here; each product below reads the int8 bytes. Kernel
-        # 11 takes the weight transposed, (N, K).
-        weights = [{k: quantize_cols(w, cdtype) for k, w in lw.items()} for lw in weights]
-        if weight_dtype == "int8-pallas":
-            weights = [{k: (wi.t().contiguous(), s) for k, (wi, s) in lw.items()}
-                       for lw in weights]
-
-    def mm(y, w):
-        if weight_dtype == "native":
-            return y @ w
-        if weight_dtype == "int8-pallas":
-            return matmul_i8w(y, w[0], w[1], cdtype)
-        return (y @ w[0].to(cdtype)) * w[1]
-
-    def attend_i8(l, qkv, live, bias):
-        """Write the new rows (row live - 1) into layer l's int8 cache and
-        attend over rows [0, live)."""
-        kc, vc, ks, vs = kcache[l], vcache[l], kscale[l], vscale[l]
-        if attn_impl != "xla":  # kernel 3 or 4, the cache write and q's quantization folded in
-            fn = decode_attention_i8_step if attn_impl == "pallas" else \
-                decode_attention_i8_live_step
-            return fn(qkv[:, 0], qkv[:, 1:], kc, ks, vc, vs, live, bias, scale, cdtype)
-        kv8, kvs = _quantize_cache_row(qkv[:, 1:], cdtype)  # K and V rows at once
-        kc[:, :, live - 1], vc[:, :, live - 1] = kv8[:, 0], kv8[:, 1]
-        ks[:, :, live - 1], vs[:, :, live - 1] = kvs[:, 0], kvs[:, 1]
-        q = qkv[:, 0]
-        if mm_dtype == "native":
-            logits = torch.einsum("bak,bajk->baj", q.float(), kc[:, :, :live].to(cdtype).float())
-            logits = logits / math.sqrt(da) * ks[:, :, :live].float() + bias[None, :, :live]
-            wgt = torch.softmax(logits, dim=-1).to(cdtype) * vs[:, :, :live]
-            out = torch.einsum("baj,bajk->bak", wgt.float(), vc[:, :, :live].to(cdtype).float())
-            return out.to(cdtype).reshape(b, na * da)
-        q8, sq = quantize_rows_i8(q)
-        return decode_attention_i8_plain(q8, sq[..., 0], kc, ks, vc, vs, live, bias, scale,
-                                         cdtype)
-
-    sl_flat = sl.reshape(b, nc, thw).clone()
-    emb = torch.zeros((b, thw + 1, c.de), dtype=cdtype, device=dev)
-    emb[:, :thw] = _embed_sum_codes(dec, c, sl_flat.movedim(1, -1)).to(cdtype)
-    kcache = torch.zeros((L, b, na, R, da), dtype=torch.int8 if use_int8 else cdtype, device=dev)
-    vcache = torch.zeros_like(kcache)
-    if use_int8:
-        kscale = torch.zeros((L, b, na, R), dtype=cdtype, device=dev)
-        vscale = torch.zeros_like(kscale)
-    step_logits = []
-
-    for p in range(thw):
-        p_loc = p % R
-        rows = emb[:, nbr[p]]  # (b, K', de), pad taps read the zero row
-        x = rows.reshape(b, -1) @ conv_w + dec["conv_b"]
-        x = x + pos_rows[p] + zlproj[:, p]
-        for l, lp in enumerate(layers):
-            y = _layer_norm(x, lp["ln_scale"], lp["ln_bias"])
-            qkv = mm(y, weights[l]["qkv"]).reshape(b, 3, na, da)
-            bias = bias_rows[l][p_loc if block_local else p]
-            if use_int8:
-                out = attend_i8(l, qkv, p_loc + 1, bias)
-            else:
-                kcache[l, :, :, p_loc] = qkv[:, 1]  # in place: the one new row
-                vcache[l, :, :, p_loc] = qkv[:, 2]
-                out = decode_attention(qkv[:, 0], kcache[l], vcache[l], p_loc + 1, bias, scale)
-            x = mm(out, weights[l]["proj"]) + x
-            yf = _layer_norm(x, lp["ffn_ln_scale"], lp["ffn_ln_bias"])
-            yf = torch.relu(mm(yf, weights[l]["ffn1"]) + lp["ffn_b1"])
-            x = mm(yf, weights[l]["ffn2"]) + lp["ffn_b2"] + x
-
-        y_pix = _layer_norm(x, pred["ln_scale"], pred["ln_bias"])
-        if teacher_logits:
-            final = sl_flat[:, :, p]
-            step_logits.append(torch.stack(
-                [_predictor_head(pred, c, k, _predictor_u(pred, c, k, y_pix, final), dec).float()
-                 for k in range(c.nc)], dim=1))  # (b, nc, nv)
-        elif primed[p]:
-            final = sl_flat[:, :, p]
-        else:
-            final = vt_sample_pixel_channels(params, c, y_pix, gen, temp, greedy=greedy)
-            sl_flat[:, :, p] = final.to(sl_flat.dtype)
-        emb[:, p] = _embed_sum_codes(dec, c, final).to(cdtype)
-
-    out = sl_flat.reshape(b, nc, t, h, w)
+    dec = SliceDecoder(params, c, slice_shape, sl.shape[0], zl.device, kv_dtype, weight_dtype,
+                       mm_dtype, attn_impl)
     if teacher_logits:
-        return out, torch.stack(step_logits, dim=1)  # (b, thw, nc, nv)
-    return out
+        zlproj, sl_flat, emb = dec.inputs(zl, sl)
+        return sl_flat.reshape(sl.shape), dec.teacher(zlproj, sl_flat, emb)
+    primed = torch.as_tensor(np.asarray(primed, bool), device=zl.device)
+    return dec.run(zl, sl, primed, gen, temp, greedy)

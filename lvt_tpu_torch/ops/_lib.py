@@ -137,6 +137,21 @@ class KernelLibrary:
 LIBRARY = KernelLibrary()
 
 
+# every kernel wrapper, each with its count of launches ``fn.launches``
+COUNTED = []
+
+
+def counted(fn):
+    """Give a kernel's wrapper its launch count, ``fn.launches``, which the
+    wrapper raises by one where it launches its kernel, and list it in
+    ``COUNTED``: a CUDA graph that replays launches adds them to the counts
+    (``models/rollout_graph.py``), so a count stays one of launches on the
+    device."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a kernel's launch returned a CUDA error code."""
     if err != 0:

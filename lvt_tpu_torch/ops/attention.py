@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ._lib import LIBRARY, check_launch
+from ._lib import LIBRARY, check_launch, counted
 
 LayerParams = Dict[str, torch.Tensor]
 
@@ -127,6 +127,7 @@ def _check_kernel_inputs(name, q, k, v, bias, *more):
         raise ValueError(f"{name}: inputs must lie on the current CUDA device")
 
 
+@counted
 def block_attention_fwd_cuda(q, k, v, bias, causal: bool) -> torch.Tensor:
     """Kernel 1 (csrc/block_attention.cuh) on CUDA tensors. q, k, v:
     (nb, na, n, da) contiguous, float32 or bfloat16, da in {64, 128},
@@ -144,9 +145,6 @@ def block_attention_fwd_cuda(q, k, v, bias, causal: bool) -> torch.Tensor:
     check_launch("block_attention_fwd", err)
     block_attention_fwd_cuda.launches += 1
     return out
-
-
-block_attention_fwd_cuda.launches = 0
 
 
 def attention_core_bwd_plain(q, k, v, bias, g, causal: bool):
@@ -193,6 +191,7 @@ def bwd_scratch(nb: int, na: int, n: int, dtype, device):
     return stats, part
 
 
+@counted
 def block_attention_bwd_cuda(q, k, v, bias, g, causal: bool):
     """Kernel 10 (csrc/block_attention_bwd.cuh) on CUDA tensors: the inputs
     kernel 1 takes, plus its output's cotangent g of q's shape and dtype.
@@ -213,9 +212,6 @@ def block_attention_bwd_cuda(q, k, v, bias, g, causal: bool):
     check_launch("block_attention_bwd", err)
     block_attention_bwd_cuda.launches += 1
     return dq, dk, dv, dbias
-
-
-block_attention_bwd_cuda.launches = 0
 
 
 class _AttentionCore(torch.autograd.Function):

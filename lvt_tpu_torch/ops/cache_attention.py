@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from ._lib import CARD_SMS, LIBRARY, check_launch
+from ._lib import CARD_SMS, LIBRARY, check_launch, counted
 from .quant import absmax_scale, quantize_cache_row, quantize_rows_i8
 
 
@@ -182,6 +182,7 @@ def decode_i8_live_plan(live: int, rtile: int, da: int = 128):
     return c, chunk(c), ring, chunk(c) * da <= 8 * I8_WARP_BYTES
 
 
+@counted
 def decode_attention_cuda(q, kc, vc, live: int, bias, scale: float) -> torch.Tensor:
     """Kernel 2 (csrc/decode_attention.cu) on CUDA tensors: the shapes and
     types of ``decode_attention_plain``, all contiguous, da in {64, 128}.
@@ -222,9 +223,6 @@ def decode_attention_cuda(q, kc, vc, live: int, bias, scale: float) -> torch.Ten
     check_launch("decode_attention", err)
     decode_attention_cuda.launches += 1
     return out
-
-
-decode_attention_cuda.launches = 0
 
 
 def decode_attention(q, kc, vc, live: int, bias, scale: float) -> torch.Tensor:
@@ -375,6 +373,7 @@ def _check_i8_query(name, q8, sq, bias, b, na, R, out_dtype):
         raise ValueError(f"{name}: the output must be float32 or bfloat16, got {out_dtype}")
 
 
+@counted
 def decode_attention_i8_cuda(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
                              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Kernel 3 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
@@ -396,9 +395,6 @@ def decode_attention_i8_cuda(q8, sq, k8, ks, v8, vs, live: int, bias, scale: flo
     return out
 
 
-decode_attention_i8_cuda.launches = 0
-
-
 def _live_plan(name, R, da, live, rtile):
     """Kernel 4's tile and launch plan; refuses a tile that does not divide
     the buffer or more live tiles than a cluster's shared memory holds."""
@@ -413,6 +409,7 @@ def _live_plan(name, R, da, live, rtile):
     return rtile, c, chunk, ring, int(direct)
 
 
+@counted
 def decode_attention_i8_live_cuda(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
                                   out_dtype: Optional[torch.dtype] = None,
                                   rtile: int = 64) -> torch.Tensor:
@@ -433,9 +430,6 @@ def decode_attention_i8_live_cuda(q8, sq, k8, ks, v8, vs, live: int, bias, scale
     check_launch("decode_attention_i8_live", err)
     decode_attention_i8_live_cuda.launches += 1
     return out
-
-
-decode_attention_i8_live_cuda.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -517,6 +511,7 @@ def _step_cuda(name, entry, q, kv, k8, ks, v8, vs, live, bias, scale, out_dtype,
     return (out, q8, sq) if q_out else out
 
 
+@counted
 def decode_attention_i8_step_cuda(q, kv, k8, ks, v8, vs, live: int, bias, scale: float,
                                   out_dtype: Optional[torch.dtype] = None,
                                   q_out: bool = False):
@@ -532,9 +527,7 @@ def decode_attention_i8_step_cuda(q, kv, k8, ks, v8, vs, live: int, bias, scale:
     return out
 
 
-decode_attention_i8_step_cuda.launches = 0
-
-
+@counted
 def decode_attention_i8_live_step_cuda(q, kv, k8, ks, v8, vs, live: int, bias, scale: float,
                                        out_dtype: Optional[torch.dtype] = None,
                                        rtile: int = 64, q_out: bool = False):
@@ -547,9 +540,6 @@ def decode_attention_i8_live_step_cuda(q, kv, k8, ks, v8, vs, live: int, bias, s
                      lambda R, da: _live_plan(name, R, da, live, rtile))
     decode_attention_i8_live_step_cuda.launches += 1
     return out
-
-
-decode_attention_i8_live_step_cuda.launches = 0
 
 
 def _float_query_cuda(name, entry, das, q, k8, ks, v8, vs, extra, scale, live):
@@ -573,6 +563,7 @@ def _float_query_cuda(name, entry, das, q, k8, ks, v8, vs, extra, scale, live):
     return out
 
 
+@counted
 def cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale: float,
                             live: Optional[int] = None) -> torch.Tensor:
     """Kernel 5 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
@@ -581,9 +572,6 @@ def cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale: float,
                             q, k8, ks, v8, vs, extra, scale, live)
     cache_attention_i8_cuda.launches += 1
     return out
-
-
-cache_attention_i8_cuda.launches = 0
 
 
 def decode_attention_i8kv_plain(q, k8, ks, v8, vs, extra, scale: float,
@@ -603,6 +591,7 @@ def decode_attention_i8kv_plain(q, k8, ks, v8, vs, extra, scale: float,
     return torch.einsum("baj,bajd->bad", w.float(), v8[:, :, :live].float()).to(q.dtype)
 
 
+@counted
 def decode_attention_i8kv_cuda(q, k8, ks, v8, vs, extra, scale: float,
                                live: Optional[int] = None) -> torch.Tensor:
     """Kernel 12 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes
@@ -612,9 +601,6 @@ def decode_attention_i8kv_cuda(q, k8, ks, v8, vs, extra, scale: float,
                             (16, 64, 128), q, k8, ks, v8, vs, extra, scale, live)
     decode_attention_i8kv_cuda.launches += 1
     return out
-
-
-decode_attention_i8kv_cuda.launches = 0
 
 
 def _dispatch(name, device, cuda_fn, plain_fn):

@@ -36,7 +36,7 @@ from typing import Dict
 
 import torch
 
-from ._lib import LIBRARY, check_launch
+from ._lib import LIBRARY, check_launch, counted
 from .attention import attention_core_bwd_plain, attention_core_plain, bwd_scratch
 
 LayerParams = Dict[str, torch.Tensor]
@@ -129,11 +129,14 @@ def fused_layer_tokens_plain(tok, p: LayerParams, bias, causal: bool, with_x2: b
     return (out, x2.to(io)) if with_x2 else out
 
 
-def ffn_half_bwd_plain(x2, g, p: LayerParams):
+def ffn_half_bwd_plain(x2, g, p: LayerParams, gate=None):
     """Plain PyTorch version of kernel 8, the backward of
     out = x2 + FFN(LN(x2)) from the saved (rounded) x2 and the cotangent g.
     Returns (dx2, dw1, db1, dw2, db2, dls, dlb): dx2 in x2's dtype, the rest
-    summed in fp32 over all rows and cast to the weights' dtype."""
+    summed in fp32 over all rows and cast to the weights' dtype. ``gate``
+    (rows, d) bool, where given, replaces the ReLU gate f_pre > 0 in the
+    backward (the kernel's gate, ``ffn_half_bwd_cuda(..., with_gate=True)``,
+    replayed)."""
     io = x2.dtype
     d = x2.shape[-1]
     gam = p["ffn_ln_scale"].float()
@@ -145,7 +148,8 @@ def ffn_half_bwd_plain(x2, g, p: LayerParams):
     dw2 = _mm(f.reshape(-1, d).T, g.reshape(-1, d))
     db2 = go32.reshape(-1, d).sum(dim=0)
     df = _mm(g, p["ffn_w2"].T)
-    dfp = torch.where(f_pre > 0.0, df, torch.zeros_like(df))
+    on = f_pre > 0.0 if gate is None else gate.reshape(f_pre.shape)
+    dfp = torch.where(on, df, torch.zeros_like(df))
     dfp_io = dfp.to(io)
     dw1 = _mm(y2.reshape(-1, d).T, dfp_io.reshape(-1, d))
     db1 = dfp.reshape(-1, d).sum(dim=0)
@@ -262,6 +266,7 @@ def ffn_bwd_scratch(rows: int, d: int, io):
     return tiles, tiles * 4 * d + rest
 
 
+@counted
 def fused_layer_fwd_cuda(tok, p: LayerParams, bias, causal: bool, with_x2: bool = False):
     """Kernel 7 (csrc/fused_layer.cu) on CUDA tensors; arguments and result
     as ``fused_layer_tokens_plain``, the bias float32. The qkv, per-head
@@ -294,13 +299,16 @@ def fused_layer_fwd_cuda(tok, p: LayerParams, bias, causal: bool, with_x2: bool 
     return (out, x2) if with_x2 else out
 
 
-fused_layer_fwd_cuda.launches = 0
-
-
-def ffn_half_bwd_cuda(x2, g, p: LayerParams):
+@counted
+def ffn_half_bwd_cuda(x2, g, p: LayerParams, with_gate: bool = False):
     """Kernel 8 (csrc/fused_layer.cu) on CUDA tensors; arguments and result
     as ``ffn_half_bwd_plain``. Bit-identical from call to call: the sums over
-    the rows are taken per row range and added in a fixed order."""
+    the rows are taken per row range and added in a fixed order. With
+    ``with_gate`` two more come last, read from the kernel's scratch: its
+    ReLU gate (rows, d) bool and the LN output y2 (rows, d) that f_pre was
+    computed from. In bf16 the gate is bytes in ``part_r``; in fp32 the
+    kernel keeps it in shared memory, and its f = max(f_pre, 0) in ``acts``
+    is positive exactly where the gate is set."""
     _check_fused_inputs("ffn_half_bwd_cuda", p, None, x2, g)
     nb, n, d = x2.shape
     rows = nb * n
@@ -323,13 +331,19 @@ def ffn_half_bwd_cuda(x2, g, p: LayerParams):
     check_launch("ffn_half_bwd", err)
     ffn_half_bwd_cuda.launches += 1
     dt = p["ffn_w1"].dtype
-    return (dx2, dw[0].to(dt), sums[0].to(dt), dw[1].to(dt), sums[1].to(dt), sums[2].to(dt),
-            sums[3].to(dt))
+    out = (dx2, dw[0].to(dt), sums[0].to(dt), dw[1].to(dt), sums[1].to(dt), sums[2].to(dt),
+           sums[3].to(dt))
+    if not with_gate:
+        return out
+    if io == torch.float32:
+        gate = acts[1] > 0.0
+    else:  # after the partials, dy2, mean and rstd (ffn_bwd_scratch)
+        at = part_len - rows * d // 4
+        gate = part_r[at:].view(torch.uint8).reshape(rows, d) != 0
+    return out + (gate, acts[0])
 
 
-ffn_half_bwd_cuda.launches = 0
-
-
+@counted
 def attn_half_bwd_cuda(x, dx2, p: LayerParams, bias, causal: bool, h0: int, h1: int):
     """Kernel 9 (csrc/fused_layer.cu) on CUDA tensors; arguments and result
     as ``attn_half_bwd_plain``, the bias float32 (na, n, n). Bit-identical
@@ -368,9 +382,6 @@ def attn_half_bwd_cuda(x, dx2, p: LayerParams, bias, causal: bool, h0: int, h1: 
     check_launch("attn_half_bwd", err)
     attn_half_bwd_cuda.launches += 1
     return dy, dwqkv, dproj, dbias
-
-
-attn_half_bwd_cuda.launches = 0
 
 
 def _route(name, x, cuda_fn, plain_fn):

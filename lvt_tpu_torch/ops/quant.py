@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from ._lib import CARD_SMS, LIBRARY, check_launch
+from ._lib import CARD_SMS, LIBRARY, check_launch, counted
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -40,6 +40,11 @@ def matmul_i8w_plan(b: int, K: int, N: int):
 
 @lru_cache(maxsize=None)
 def _qmax(device, dtype):
+    # made by a kernel at first use: inside a CUDA graph's capture that kernel
+    # would only be recorded, and the cached tensor left unwritten
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("absmax_scale: first use inside a CUDA graph capture; run the "
+                           "captured work once before capturing it")
     return torch.full((), 127.0, device=device, dtype=dtype)
 
 
@@ -88,6 +93,7 @@ def matmul_i8w_plain(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torc
     return (acc * sy * sw.reshape(1, -1).float()).to(out_dtype or y.dtype)
 
 
+@counted
 def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Kernel 11 (csrc/matmul_i8w.cu) on CUDA tensors: the shapes and types of
     ``matmul_i8w_plain``, all contiguous, y and wt 16-byte aligned, K a
@@ -125,9 +131,6 @@ def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch
     check_launch("matmul_i8w", err)
     matmul_i8w_cuda.launches += 1
     return out
-
-
-matmul_i8w_cuda.launches = 0
 
 
 def matmul_i8w(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:

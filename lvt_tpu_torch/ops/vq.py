@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._lib import CARD_SMS, LIBRARY, check_launch
+from ._lib import CARD_SMS, LIBRARY, check_launch, counted
 from .embedding import take_rows
 
 Codebook = Dict[str, torch.Tensor]
@@ -87,6 +87,7 @@ def nearest_plan(N: int, G: int, K: int):
     return ksplit, G * tiles * ksplit
 
 
+@counted
 def nearest_indices_grouped_cuda(z: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Kernel 6 (csrc/nearest_indices.cu) on CUDA tensors, all sub-codebooks
     in one launch. z (N, G, Dc) fp32 or bf16 with unit column stride, read in
@@ -133,9 +134,6 @@ def nearest_indices_grouped_cuda(z: torch.Tensor, codebooks: torch.Tensor) -> to
     check_launch("nearest_indices", err)
     nearest_indices_grouped_cuda.launches += 1
     return out
-
-
-nearest_indices_grouped_cuda.launches = 0
 
 
 def nearest_indices_cuda(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ PyTorch port (lvt_tpu_torch); the counterpart of scripts/generate_videos.py.
 Pipeline: load priming pngs -> PR-DVQVAE2 encode to latent codes -> zero-pad
 to 16 frames -> DSFVT subscale AR sampling through the KV-cached decoder ->
 VQ-VAE decode -> save pngs. The attention of the encoder stack and of every
-decoded pixel runs in the port's hand-written CUDA kernels.
+decoded pixel runs in the port's hand-written CUDA kernels, and each slice's
+256 pixel steps run as one replay of a CUDA graph.
 
 TEST.VT_SAMPLER.KV_DTYPE (native | int8), ATTN_IMPL (xla | pallas |
 pallas-live) and WEIGHT_DTYPE (native | int8 | int8-pallas) choose the
@@ -122,7 +123,10 @@ def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
     the VQ-VAE's INPUT.SCALE_TO_ZEROONE is set, else clip(denormalize(x), 0,
     255). The sampler's knobs come from the VT's config:
     TEST.VT_SAMPLER.KV_DTYPE, ATTN_IMPL and WEIGHT_DTYPE (SEG is accepted and
-    ignored by the port's preallocated cache)."""
+    ignored by the port's preallocated cache). On the card each slice is one
+    replay of a CUDA graph that ``vt`` captures at the first slice of a
+    configuration (models/rollout_graph.py): the rollout seconds of a
+    configuration's first call include that capture."""
     knobs = vt.cfg.TEST.VT_SAMPLER
     b = frames.shape[0]
     if primed is None:

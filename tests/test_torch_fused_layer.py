@@ -94,6 +94,29 @@ def test_ffn_half_bwd_plain_matches_pallas_interpret(rng, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_half_bwd_plain_replays_a_given_gate(rng, dtype):
+    """The plain version with its own ReLU gate passed in is the plain
+    version; with one gate flipped, only that row of dx2 and that column of
+    db1 and dw1 move (the card test replays kernel 8's gate so)."""
+    p, x2, g, _ = _inputs(rng, dtype)
+    x2, g, p = _t(x2), _t(g), _port(p)
+    d = x2.shape[-1]
+    y2 = tfl._ln_fwd_f32(x2.float(), p["ffn_ln_scale"].float(),
+                         p["ffn_ln_bias"].float())[0].to(x2.dtype)
+    gate = (tfl._mm(y2, p["ffn_w1"]) + p["ffn_b1"].float() > 0).reshape(-1, d)
+    want = tfl.ffn_half_bwd_plain(x2, g, p)
+    same = tfl.ffn_half_bwd_plain(x2, g, p, gate=gate)
+    assert all(torch.equal(a, b) for a, b in zip(same, want))
+    flipped = gate.clone()
+    flipped[3, 5] = ~flipped[3, 5]
+    got = tfl.ffn_half_bwd_plain(x2, g, p, gate=flipped)
+    moved = (got[0] != want[0]).reshape(-1, d).any(dim=1)
+    assert moved[3] and int(moved.sum()) == 1
+    assert torch.nonzero(got[2] != want[2]).flatten().tolist() == [5]
+    assert torch.nonzero((got[1] != want[1]).any(dim=0)).flatten().tolist() == [5]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("heads", [(0, 2), (2, 4), (0, 4)])
 def test_attn_half_bwd_plain_matches_pallas_interpret(rng, heads, causal, dtype):
