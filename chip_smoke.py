@@ -103,12 +103,15 @@ Phases, each fatal on failure (exit code 1, no result line):
                 the slice's graph: codes bit-equal; each under
                 torch.profiler (wall time, device busy share, activities per
                 pixel, the graph's within a share ACTIVITY_GAP of the eager
-                loop's).
+                loop's); each hand-written kernel's launches in the graph's
+                profile exactly those its capture recorded (kernel 1: the
+                encoder's, eager).
  12. agree i8 — fp32, batch 2, full width: every quantized mode's teacher-
                 forced logits on the card against the plain path on the CPU.
  12b. bench slice — bench.py's program (b = 1024, bf16, int8 KV, xla),
-                one slice through its graph: capture and replay seconds,
-                device busy share, peak memory, codes in range.
+                one slice through its graph, and the same with mm_dtype
+                int8: capture and replay seconds, device busy share, peak
+                memory, codes in range.
 
  13. vq kernel — kernel 6 (nearest codebook entry, all sub-codebooks in one
                 launch) against its plain version: N in (1, 8,192, 8,229),
@@ -703,8 +706,10 @@ PROFILES = 2
 
 def _profiled(fn, profiles=1):
     """(result, wall s, wall s under torch.profiler, device events as (name,
-    µs)) of fn(), run once unprofiled and ``profiles`` times profiled, each
-    synchronized; the profile with the most device events is kept. The
+    µs), launches of each hand-written kernel) of fn(), run once unprofiled
+    and ``profiles`` times profiled, each synchronized; the profile with the
+    most device events is kept, and each kernel's launches are the most any
+    profile recorded (a profile may drop records, never add one). The
     events are the profiler's raw records: turning ~100k of them into
     FunctionEvents took ~15 s a profile."""
     import torch
@@ -715,7 +720,7 @@ def _profiled(fn, profiles=1):
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    best = None
+    best, hand = None, {}
     for _ in range(profiles):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -726,7 +731,9 @@ def _profiled(fn, profiles=1):
                 if e.device_type() == torch.autograd.DeviceType.CUDA]
         if best is None or len(kern) > len(best[1]):
             best = (wall_prof, kern)
-    return (out, wall) + best
+        for label, (_, cnt) in _hand_sums(_by_name(kern)).items():
+            hand[label] = max(hand.get(label, 0), cnt)
+    return (out, wall) + best + (hand,)
 
 
 def _by_name(kern):
@@ -737,23 +744,47 @@ def _by_name(kern):
     return by_name
 
 
-def _hand_written(by_name):
-    """The hand-written kernels of the rollout, each summed over its
-    templates (a function counts under the first key its name holds)."""
-    keys = (("kernel 1", ("block_attention_",)), ("kernel 2", ("decode_attention_kernel",)),
-            ("kernel 3", ("decode_i8_kernel<128, 4, false", "decode_i8_kernel<128, 8, false",
-                          "decode_attention_i8_kernel")),
-            ("kernel 4", ("decode_i8_kernel<128, 4, true", "decode_i8_kernel<128, 8, true",
-                          "decode_attention_i8_live_kernel")),
-            ("kernel 11", ("matmul_i8w_kernel",)))
+# the hand-written kernels of the rollout: (label, the device functions' names
+# by a part of them, the wrappers that launch them)
+HAND_WRITTEN = (
+    ("kernel 1", ("block_attention_",), ("block_attention_fwd_cuda",)),
+    ("kernel 2", ("decode_attention_kernel",), ("decode_attention_cuda",)),
+    ("kernel 3", ("decode_i8_kernel<128, 4, false", "decode_i8_kernel<128, 8, false",
+                  "decode_attention_i8_kernel"),
+     ("decode_attention_i8_cuda", "decode_attention_i8_step_cuda")),
+    ("kernel 4", ("decode_i8_kernel<128, 4, true", "decode_i8_kernel<128, 8, true",
+                  "decode_attention_i8_live_kernel"),
+     ("decode_attention_i8_live_cuda", "decode_attention_i8_live_step_cuda")),
+    ("kernel 11", ("matmul_i8w_kernel",), ("matmul_i8w_cuda",)))
+
+
+def _hand_sums(by_name):
+    """{label: (device ms, launches)} of the hand-written kernels, each summed
+    over its templates (a function counts under the first key its name
+    holds)."""
     sums = {}
     for name, (tot, cnt) in by_name.items():
-        label = next((lb for lb, ks in keys if any(k in name for k in ks)), None)
+        label = next((lb for lb, ks, _ in HAND_WRITTEN if any(k in name for k in ks)), None)
         if label is not None:
             t0, c0 = sums.get(label, (0.0, 0))
             sums[label] = (t0 + tot, c0 + cnt)
+    return sums
+
+
+def _hand_written(by_name):
     return ", ".join(f"{label} {t:.2f} ms ({cnt}x, {t / cnt:.4f} ms each)"
-                     for label, (t, cnt) in sums.items())
+                     for label, (t, cnt) in _hand_sums(by_name).items())
+
+
+def _hand_launches(took):
+    """{label: launches} of the hand-written kernels from {wrapper: launches}
+    (``SliceGraph.launches``, ``rollout_graph.launches_apart``)."""
+    out = {}
+    for label, _, wrappers in HAND_WRITTEN:
+        n = sum(cnt for fn, cnt in took.items() if fn.__name__ in wrappers)
+        if n:
+            out[label] = n
+    return out
 
 
 def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
@@ -763,9 +794,11 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
     the mode by label, holds it already): the codes bit-equal; wall time,
     device busy share, device activities per pixel (copies and casts among
     them) of each, under torch.profiler; the graph's activities per pixel
-    within a share ACTIVITY_GAP of the eager loop's; device time by kernel
-    and of the hand-written kernels in the graph's slice. Each run includes
-    the slice's encoder pass (kernel 1), as the rollout runs it."""
+    within a share ACTIVITY_GAP of the eager loop's, and each hand-written
+    kernel's launches in the graph's profile exactly those the capture
+    recorded (kernel 1: the encoder's); device time by kernel and of the
+    hand-written kernels in the graph's slice. Each run includes the slice's
+    encoder pass (kernel 1), as the rollout runs it."""
     import numpy as np
     import torch
 
@@ -775,10 +808,12 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
     *_, vt, params = models
     c, plan, s = vt.c, vt.plan, N_PRIME
     b = codes.shape[0]
+    on_graph = hasattr(vt, "_slice_graph")  # False on a tree before the graph (A/B tool)
+    if on_graph:
+        from lvt_tpu_torch.models.rollout_graph import launches_apart
     thw = plan.slice_src[s].size
     primed = np.zeros(thw, bool)
     primed_t = torch.zeros(thw, dtype=torch.bool, device=codes.device)
-    on_graph = hasattr(vt, "_slice_graph")  # False on a tree before the graph (A/B tool)
 
     def encoded():
         sidx = torch.full((b,), s, dtype=torch.int64, device=codes.device)
@@ -811,8 +846,15 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                     zl, sl = encoded()
                     return graph(zl, sl, primed_t)
                 runs["graph"] = _profiled(replay, PROFILES)
+                # the launches a replay must show: the capture's, and the
+                # encoder's (kernel 1, eager, outside the graph)
+                with launches_apart() as took:
+                    encoded()
+                want_hand = _hand_launches(took)
+                for kernel, n in _hand_launches(graph.launches).items():
+                    want_hand[kernel] = want_hand.get(kernel, 0) + n
         acts, names = {}, {}
-        for way, (out, wall, wall_prof, kern) in runs.items():
+        for way, (out, wall, wall_prof, kern, _) in runs.items():
             busy = sum(us for _, us in kern) / 1e6
             by_name = names[way] = _by_name(kern)
             copies = sum(cnt for name, (_, cnt) in by_name.items()
@@ -849,6 +891,12 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                   f"{label}: device activities per pixel {acts['graph']:.3f} under the graph, "
                   f"{acts['eager']:.3f} eager; want within {ACTIVITY_GAP:g} of the eager count; "
                   f"counts (eager, graph) that differ: {differ}")
+            seen = runs["graph"][4]
+            check(seen == want_hand,
+                  f"{label}: hand-written kernels' launches in the graph's profile {seen}, want "
+                  f"exactly the capture's and the encoder's {want_hand}")
+            print(f"  hand-written kernels' launches in the graph's profile: {seen}, the "
+                  "capture's and the encoder's exactly")
     if on_graph:
         print(f"slices [{card}]: greedy codes of the graph equal the eager loop's in all "
               f"{len(modes)} modes (b = {b}, bf16, full width)")
@@ -1981,8 +2029,9 @@ def phase_i8_rollouts(card):
 def phase_bench_slice(card, models):
     """bench.py's own program, one slice: DSFVT at b = 1024, bf16, int8 KV,
     attn_impl "xla", greedy, through the slice's CUDA graph (all 256
-    pixels): the capture's and one replay's seconds, the replay's device
-    busy share, max_memory_allocated, codes in range."""
+    pixels), and the same with mm_dtype "int8" (kernel 3's plain version):
+    the capture's and one replay's seconds, the replay's device busy share,
+    max_memory_allocated, codes in range."""
     import numpy as np
     import torch
 
@@ -1991,34 +2040,40 @@ def phase_bench_slice(card, models):
     *_, vt, params = models
     c, plan, s = vt.c, vt.plan, N_PRIME
     b, dev = BENCH_BATCH, torch.device("cuda")
-    knobs = {"kv_dtype": "int8", "weight_dtype": "native", "mm_dtype": "native",
-             "attn_impl": "xla"}
     codes = torch.from_numpy(np.random.default_rng(2).integers(
         0, c.nv, size=(b, c.nc, T_FRAMES, 16, 16))).to(dev)
     thw = plan.slice_src[s].size
     primed = torch.zeros(thw, dtype=torch.bool, device=dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         sidx = torch.full((b,), s, dtype=torch.int64, device=dev)
         ctx, sl, _ = vt.prepare_slices(codes, sidx)
         zl = vt_encode(params["netG"], c, ctx, sidx)
-        t0 = time.perf_counter()
-        graph = vt._slice_graph(params, zl, sl, primed, knobs, 1.0, True)
-        capture = time.perf_counter() - t0
-        out, wall, wall_prof, kern = _profiled(lambda: graph(zl, sl, primed))
-    peak = torch.cuda.max_memory_allocated()
-    busy = sum(us for _, us in kern) / 1e6
-    check(tuple(out.shape) == tuple(sl.shape), f"bench slice: codes of shape {tuple(out.shape)}")
-    check(int(out.min()) >= 0 and int(out.max()) < c.nv, f"bench slice: codes outside [0, {c.nv})")
-    print(f"bench.py's program, one slice: DSFVT b={b} bf16 int8 KV xla greedy, {thw} pixels, "
-          f"graph [{card}]: captured in {capture:.3f} s (warm-up, one eager slice, "
-          f"{graph.warmup_seconds:.3f} s); one replay {wall:.3f} s ({wall_prof:.3f} s under the "
-          f"profiler), device busy {busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled "
-          f"wall time; {len(kern) / thw:.2f} device activities per pixel; max_memory_allocated "
-          f"{peak / 2 ** 30:.2f} GiB; codes in [0, {c.nv})")
-    for name, (tot, cnt) in sorted(_by_name(kern).items(), key=lambda kv: -kv[1][0])[:6]:
-        print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
+    for label, mm in (("xla", "native"), ("xla + int8 mm", "int8")):
+        knobs = {"kv_dtype": "int8", "weight_dtype": "native", "mm_dtype": mm,
+                 "attn_impl": "xla"}
+        vt._slice_graph_slot = None  # the graph kept before, freed before the peak is read
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            graph = vt._slice_graph(params, zl, sl, primed, knobs, 1.0, True)
+            capture = time.perf_counter() - t0
+            out, wall, wall_prof, kern, _ = _profiled(lambda: graph(zl, sl, primed))
+        peak = torch.cuda.max_memory_allocated()
+        busy = sum(us for _, us in kern) / 1e6
+        check(tuple(out.shape) == tuple(sl.shape),
+              f"bench slice, {label}: codes of shape {tuple(out.shape)}")
+        check(int(out.min()) >= 0 and int(out.max()) < c.nv,
+              f"bench slice, {label}: codes outside [0, {c.nv})")
+        print(f"bench.py's program, one slice: DSFVT b={b} bf16 int8 KV {label} greedy, {thw} "
+              f"pixels, graph [{card}]: captured in {capture:.3f} s (warm-up, one eager slice, "
+              f"{graph.warmup_seconds:.3f} s); one replay {wall:.3f} s ({wall_prof:.3f} s under "
+              f"the profiler), device busy {busy:.3f} s = {100 * busy / wall_prof:.1f}% of the "
+              f"profiled wall time; {len(kern) / thw:.2f} device activities per pixel; "
+              f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; codes in [0, {c.nv})")
+        for name, (tot, cnt) in sorted(_by_name(kern).items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"  {tot:9.2f} ms {cnt:7d}x  {name[:110]}")
+        graph = out = kern = None
 
 
 def phase_agree_i8(card):

@@ -35,14 +35,14 @@ gives the eager loop's draws.
 Weights. The graph reads the weights, its set-up's copies of them and the
 caches by address. ``graph_key`` names every decoder and predictor weight by
 ``data_ptr()`` and ``_version``, so weights changed in place or replaced
-give another key and a new capture; the graph keeps the weights it read
-alive, so an address in a key never names another tensor. A graph is never
-replayed over weights that changed after its capture.
+give another key and a new capture. ``SliceGraphSlot`` keeps a model's one
+graph and holds the weights its key names, so an address in the key never
+names another tensor. A graph is never replayed over weights that changed
+after its capture.
 """
 
 import contextlib
 import time
-from collections import OrderedDict
 
 import torch
 
@@ -143,30 +143,26 @@ class SliceGraph:
         return self.out.clone()
 
 
-GRAPHS_KEPT = 4  # per model: each holds its caches and its private memory pool
-
-
-class SliceGraphs:
-    """The slice graphs of one model, by ``graph_key``, at most GRAPHS_KEPT
-    of them (the least recently used goes first). A graph whose weights
-    changed is dropped when its configuration is asked for again."""
+class SliceGraphSlot:
+    """The slice graph of one model: kept until a slice of another
+    configuration, or of weights changed since its capture, asks for its
+    own, which replaces it. The slot holds the weights the graph's key names
+    by address, so none of those addresses is freed and given to another
+    tensor while the key stands."""
 
     def __init__(self):
-        self._graphs = OrderedDict()
+        self.key, self.graph, self.weights = None, None, ()
 
     def get(self, params, c, slice_shape, zl, sl, primed, knobs: dict, temp: float,
             greedy: bool) -> SliceGraph:
         """The graph of this configuration, captured on these inputs if it is
-        new. params: the netG tree; knobs: ``SliceDecoder``'s kv_dtype,
-        weight_dtype, mm_dtype and attn_impl."""
+        not the kept one. params: the netG tree; knobs: ``SliceDecoder``'s
+        kv_dtype, weight_dtype, mm_dtype and attn_impl."""
         key = graph_key(params, slice_shape, sl.shape[0], zl.device, knobs, temp, greedy)
-        graph = self._graphs.pop(key, None)
-        if graph is None:
-            for stale in [k for k in self._graphs if k[1:] == key[1:]]:
-                del self._graphs[stale]
-            while len(self._graphs) >= GRAPHS_KEPT:
-                self._graphs.popitem(last=False)
+        if key != self.key:
+            self.key, self.graph, self.weights = None, None, ()  # its memory before the new one
             decoder = SliceDecoder(params, c, slice_shape, sl.shape[0], zl.device, **knobs)
-            graph = SliceGraph(decoder, zl, sl, primed, temp, greedy)
-        self._graphs[key] = graph
-        return graph
+            self.graph = SliceGraph(decoder, zl, sl, primed, temp, greedy)
+            self.key = key
+            self.weights = tuple(_leaves((params["decoder"], params["predictor"])))
+        return self.graph

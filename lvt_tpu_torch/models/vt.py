@@ -283,7 +283,7 @@ class VideoTransformer:
                              f"got {policy!r}")
         self.remat = (policy or True) if cfg.TPU.REMAT else False
         self.fused = bool(getattr(cfg.TPU, "FUSED_LAYER", False))
-        self._slice_graphs = None  # the rollout's CUDA graphs (models/rollout_graph.py)
+        self._slice_graph_slot = None  # the rollout's CUDA graph (models/rollout_graph.py)
 
     def _plan_for(self, T: int, H: int, W: int):
         return ss.build_plan(*self.c.stride, T, H, W, *self.c.kernel)
@@ -504,13 +504,13 @@ class VideoTransformer:
 
     def _slice_graph(self, params, zl, sl, primed, knobs, temp, greedy):
         """The CUDA graph that samples one slice of this configuration
-        (``rollout_graph.SliceGraphs.get``); primed: (thw,) bool on the card."""
-        from .rollout_graph import SliceGraphs
+        (``rollout_graph.SliceGraphSlot.get``); primed: (thw,) bool on the card."""
+        from .rollout_graph import SliceGraphSlot
 
-        if self._slice_graphs is None:
-            self._slice_graphs = SliceGraphs()
-        return self._slice_graphs.get(params["netG"], self.c, tuple(sl.shape[2:]), zl, sl,
-                                      primed, knobs, temp, greedy)
+        if self._slice_graph_slot is None:
+            self._slice_graph_slot = SliceGraphSlot()
+        return self._slice_graph_slot.get(params["netG"], self.c, tuple(sl.shape[2:]), zl, sl,
+                                          primed, knobs, temp, greedy)
 
     def _sample_slice_pixels(self, params, zl, sl, gen, primed, temp, greedy=False):
         """Raster positions of one slice, each pixel's nc channels sampled

@@ -211,13 +211,16 @@ class SliceDecoder:
         if self.use_int8:
             self.kscale = torch.zeros((L, b, na, R), dtype=cdtype, device=dev)
             self.vscale = torch.zeros_like(self.kscale)
-        if self.use_int8 and attn_impl == "xla" and mm_dtype == "native":
-            # the live rows of one layer's K and V as fp32, in buffers of the
-            # cache's length made once: a temporary that grew with the live
-            # rows would take a new block at every pixel of a CUDA graph's
-            # capture, whose private pool keeps them all (at b = 1024 one
-            # cast of 256 rows is 1.07 GB; the capture ran out of the card)
-            self.kv32 = torch.empty((2, b, na, R, da), dtype=torch.float32, device=dev)
+        if self.use_int8 and attn_impl == "xla":
+            # the live rows of one layer's K and V as floats (fp32; float64,
+            # the exact integer products of kernel 3's plain version, with
+            # mm_dtype "int8"), in buffers of the cache's length made once: a
+            # temporary that grew with the live rows would take a new block
+            # at every pixel of a CUDA graph's capture, whose private pool
+            # keeps them all (at b = 1024 one fp32 cast of 256 rows is
+            # 1.07 GB; the capture ran out of the card)
+            self.kvf = torch.empty((2, b, na, R, da), device=dev,
+                                   dtype=torch.float32 if mm_dtype == "native" else torch.float64)
 
     def _mm(self, y, w):
         if self.weight_dtype == "native":
@@ -239,19 +242,21 @@ class SliceDecoder:
         kc[:, :, live - 1], vc[:, :, live - 1] = kv8[:, 0], kv8[:, 1]
         ks[:, :, live - 1], vs[:, :, live - 1] = kvs[:, 0], kvs[:, 1]
         q = qkv[:, 0]
+        kf, vf = self.kvf[0], self.kvf[1]
+        kf[:, :, :live].copy_(kc[:, :, :live])
+        vf[:, :, :live].copy_(vc[:, :, :live])
         if self.mm_dtype == "native":
             # the cache cast to the parameter dtype and on to fp32: exact, so
             # one cast of the int8 rows straight to fp32
-            k32, v32 = self.kv32[0, :, :, :live], self.kv32[1, :, :, :live]
-            k32.copy_(kc[:, :, :live])
-            v32.copy_(vc[:, :, :live])
-            logits = torch.einsum("bak,bajk->baj", q.float(), k32)
+            logits = torch.einsum("bak,bajk->baj", q.float(), kf[:, :, :live])
             logits = logits / math.sqrt(da) * ks[:, :, :live].float() + bias[None, :, :live]
             wgt = torch.softmax(logits, dim=-1).to(cdtype) * vs[:, :, :live]
-            out = torch.einsum("baj,bajk->bak", wgt.float(), v32)
+            out = torch.einsum("baj,bajk->bak", wgt.float(), vf[:, :, :live])
             return out.to(cdtype).reshape(b, na * da)
+        # the plain version casts its int8 K and V to float64; given them so,
+        # it casts nothing
         q8, sq = quantize_rows_i8(q)
-        return decode_attention_i8_plain(q8, sq[..., 0], kc, ks, vc, vs, live, bias, self.scale,
+        return decode_attention_i8_plain(q8, sq[..., 0], kf, ks, vf, vs, live, bias, self.scale,
                                          cdtype)
 
     def inputs(self, zl, sl):

@@ -267,8 +267,9 @@ def i8_weight_step(q8, sq, k8, ks, vs, live: int, bias, scale: float) -> torch.T
 def decode_attention_i8_plain(q8, sq, k8, ks, v8, vs, live: int, bias, scale: float,
                               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel 3. q8 (b, na, da) int8 with scales sq
-    (b, na) fp32; k8, v8 (b, na, R, da) int8 with row scales ks, vs
-    (b, na, R); bias (na, R) fp32. int32 q8 . k8 -> fp32 softmax -> times vs
+    (b, na) fp32; k8, v8 (b, na, R, da) int8 (or their values as float64,
+    which are not cast again) with row scales ks, vs (b, na, R); bias
+    (na, R) fp32. int32 q8 . k8 -> fp32 softmax -> times vs
     -> one absmax int8 quantization of the weight row -> int32 w8 . v8 ->
     times the row's scale. Output (b, na*da) in ``out_dtype`` (default: the
     scales' dtype)."""

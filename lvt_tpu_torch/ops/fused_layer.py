@@ -129,14 +129,18 @@ def fused_layer_tokens_plain(tok, p: LayerParams, bias, causal: bool, with_x2: b
     return (out, x2.to(io)) if with_x2 else out
 
 
-def ffn_half_bwd_plain(x2, g, p: LayerParams, gate=None):
+def ffn_half_bwd_plain(x2, g, p: LayerParams):
     """Plain PyTorch version of kernel 8, the backward of
     out = x2 + FFN(LN(x2)) from the saved (rounded) x2 and the cotangent g.
     Returns (dx2, dw1, db1, dw2, db2, dls, dlb): dx2 in x2's dtype, the rest
-    summed in fp32 over all rows and cast to the weights' dtype. ``gate``
-    (rows, d) bool, where given, replaces the ReLU gate f_pre > 0 in the
-    backward (the kernel's gate, ``ffn_half_bwd_cuda(..., with_gate=True)``,
-    replayed)."""
+    summed in fp32 over all rows and cast to the weights' dtype."""
+    return _ffn_half_bwd_plain_gated(x2, g, p, None)
+
+
+def _ffn_half_bwd_plain_gated(x2, g, p: LayerParams, gate):
+    """``ffn_half_bwd_plain`` with the ReLU gate f_pre > 0 replaced by
+    ``gate`` (rows, d) bool where it is given: the card test replays kernel
+    8's own gate into it."""
     io = x2.dtype
     d = x2.shape[-1]
     gam = p["ffn_ln_scale"].float()
@@ -300,15 +304,17 @@ def fused_layer_fwd_cuda(tok, p: LayerParams, bias, causal: bool, with_x2: bool 
 
 
 @counted
-def ffn_half_bwd_cuda(x2, g, p: LayerParams, with_gate: bool = False):
+def ffn_half_bwd_cuda(x2, g, p: LayerParams):
     """Kernel 8 (csrc/fused_layer.cu) on CUDA tensors; arguments and result
     as ``ffn_half_bwd_plain``. Bit-identical from call to call: the sums over
-    the rows are taken per row range and added in a fixed order. With
-    ``with_gate`` two more come last, read from the kernel's scratch: its
-    ReLU gate (rows, d) bool and the LN output y2 (rows, d) that f_pre was
-    computed from. In bf16 the gate is bytes in ``part_r``; in fp32 the
-    kernel keeps it in shared memory, and its f = max(f_pre, 0) in ``acts``
-    is positive exactly where the gate is set."""
+    the rows are taken per row range and added in a fixed order."""
+    return _ffn_half_bwd_launch(x2, g, p)[0]
+
+
+def _ffn_half_bwd_launch(x2, g, p: LayerParams):
+    """Kernel 8's launch: (``ffn_half_bwd_cuda``'s outputs, acts, part_r),
+    the last two its scratch: acts (3, rows, d) holds y2, f and dfp, part_r
+    is laid out as ``ffn_bwd_scratch`` says."""
     _check_fused_inputs("ffn_half_bwd_cuda", p, None, x2, g)
     nb, n, d = x2.shape
     rows = nb * n
@@ -331,16 +337,8 @@ def ffn_half_bwd_cuda(x2, g, p: LayerParams, with_gate: bool = False):
     check_launch("ffn_half_bwd", err)
     ffn_half_bwd_cuda.launches += 1
     dt = p["ffn_w1"].dtype
-    out = (dx2, dw[0].to(dt), sums[0].to(dt), dw[1].to(dt), sums[1].to(dt), sums[2].to(dt),
-           sums[3].to(dt))
-    if not with_gate:
-        return out
-    if io == torch.float32:
-        gate = acts[1] > 0.0
-    else:  # after the partials, dy2, mean and rstd (ffn_bwd_scratch)
-        at = part_len - rows * d // 4
-        gate = part_r[at:].view(torch.uint8).reshape(rows, d) != 0
-    return out + (gate, acts[0])
+    return ((dx2, dw[0].to(dt), sums[0].to(dt), dw[1].to(dt), sums[1].to(dt), sums[2].to(dt),
+             sums[3].to(dt)), acts, part_r)
 
 
 @counted

@@ -105,11 +105,11 @@ def test_ffn_half_bwd_plain_replays_a_given_gate(rng, dtype):
                          p["ffn_ln_bias"].float())[0].to(x2.dtype)
     gate = (tfl._mm(y2, p["ffn_w1"]) + p["ffn_b1"].float() > 0).reshape(-1, d)
     want = tfl.ffn_half_bwd_plain(x2, g, p)
-    same = tfl.ffn_half_bwd_plain(x2, g, p, gate=gate)
+    same = tfl._ffn_half_bwd_plain_gated(x2, g, p, gate)
     assert all(torch.equal(a, b) for a, b in zip(same, want))
     flipped = gate.clone()
     flipped[3, 5] = ~flipped[3, 5]
-    got = tfl.ffn_half_bwd_plain(x2, g, p, gate=flipped)
+    got = tfl._ffn_half_bwd_plain_gated(x2, g, p, flipped)
     moved = (got[0] != want[0]).reshape(-1, d).any(dim=1)
     assert moved[3] and int(moved.sum()) == 1
     assert torch.nonzero(got[2] != want[2]).flatten().tolist() == [5]

@@ -346,6 +346,24 @@ def assert_gates_near_ties(gate, y2, p, x2, tol_share=1e-5):
     return len(rows)
 
 
+def _kernel8_with_gate(x2, g, p):
+    """Kernel 8's outputs, its ReLU gate (rows, d) bool and the LN output y2
+    (rows, d) that f_pre was computed from, read from its scratch. In bf16
+    the gate is bytes at the end of part_r (after the partials, dy2, mean
+    and rstd: ``ffn_bwd_scratch``); in fp32 the kernel keeps it in shared
+    memory, and its f = max(f_pre, 0) in acts is positive exactly where the
+    gate is set."""
+    import lvt_tpu_torch.ops.fused_layer as tfl
+
+    out, acts, part_r = tfl._ffn_half_bwd_launch(x2, g, p)
+    rows, d = acts.shape[1:]
+    if x2.dtype == torch.float32:
+        gate = acts[1] > 0.0
+    else:
+        gate = part_r[part_r.numel() - rows * d // 4:].view(torch.uint8).reshape(rows, d) != 0
+    return list(out), gate, acts[0]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -378,13 +396,13 @@ def test_fused_layer_kernels_match_plain(cuda, dtype, causal, nb, block, na, d, 
     _fused_close("out", out, want_out, tol)
     _fused_close("x2", x2, want_x2, tol)
     assert torch.equal(out, alone)
-    *got, gate, y2 = tfl.ffn_half_bwd_cuda(want_x2, go, p, with_gate=True)
+    got, gate, y2 = _kernel8_with_gate(want_x2, go, p)
     again = tfl.ffn_half_bwd(want_x2, go, p)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     flips = assert_gates_near_ties(gate, y2, p, want_x2)
     print(f"kernel 8, {dtype}, causal={causal}, nb={nb}, d={d}: {flips} of {gate.numel()} "
           "gates differ from the plain version's, each a float64 near-tie")
-    want = tfl.ffn_half_bwd_plain(want_x2, go, p, gate=gate)
+    want = tfl._ffn_half_bwd_plain_gated(want_x2, go, p, gate)
     for name, a, b in zip(("dx2", "dw1", "db1", "dw2", "db2", "dls", "dlb"), got, want):
         _fused_close(name, a, b, 5 * tol if dtype == torch.float32 and name != "dx2" else tol)
     groups = [(0, na)] + ([(0, na // 2), (na // 2, na)] if na > 1 else [])
@@ -900,12 +918,12 @@ def test_slice_graph_recaptures_after_the_weights_change(cuda):
 
     vt, params, video, n_prime = _graph_case(cuda, "dsfvt")
     first = vt.sample_video(params, video, n_prime=n_prime, greedy=True)
-    captures = SliceGraph.captures
+    captures, stale = SliceGraph.captures, vt._slice_graph_slot.graph
     with torch.no_grad():
         params["netG"]["decoder"]["layers"][0]["ffn_w2"].mul_(3.0)
     got = vt.sample_video(params, video, n_prime=n_prime, greedy=True)
     assert SliceGraph.captures == captures + 1
-    assert len(vt._slice_graphs._graphs) == 1
+    assert vt._slice_graph_slot.graph is not stale
     want = vt.sample_video(params, video, n_prime=n_prime, greedy=True, _eager=True)
     assert torch.equal(got, want) and not torch.equal(got, first)
 

@@ -10,7 +10,9 @@
   ``__bool__``, ``__int__``, ``__float__``, ``tolist``, ``cpu`` and ``numpy``
   raising, it runs and gives the same codes.
 * The graph cache's key changes with the weights (in place or replaced),
-  b, a knob or the temperature.
+  b, a knob or the temperature; the model's slot holds the weights its key
+  names, so a weight freed from the tree and allocated anew cannot take the
+  old address and pass for it.
 * The draw of a channel equals ``torch.multinomial``'s from the same
   generator state.
 
@@ -18,13 +20,16 @@ The graph itself runs on the card only: tests/test_torch_kernels.py holds
 it against the eager loop there.
 """
 
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from lvt_tpu_torch.models.rollout_graph import graph_key, launches_apart
+from lvt_tpu_torch.models import rollout_graph
+from lvt_tpu_torch.models.rollout_graph import SliceGraphSlot, graph_key, launches_apart
 from lvt_tpu_torch.models.vt import (_predictor_head, _predictor_u, vt_encode,
                                      vt_sample_pixel_channels)
 from lvt_tpu_torch.models.vt_incremental import SliceDecoder
@@ -121,6 +126,35 @@ def test_graph_key_names_weights_batch_knobs_and_temperature():
     changed = key()
     netg["predictor"]["ln_scale"] = netg["predictor"]["ln_scale"].clone()  # replaced
     assert key() not in (first, changed)
+
+
+def test_the_slot_holds_the_weights_its_key_names(monkeypatch):
+    """A weight deleted from the tree after a capture and allocated anew
+    (same shape, values and a fresh version) gets another address, because
+    the slot keeps the old tensor alive: the key changes and the slice is
+    captured again. The slot then lets the old weight go. The capture
+    itself needs the card and is stood in for here."""
+    _, _, tm, tp = _models(MIXED)
+    netg, shape = tp["netG"], tm.plan.slice_shape
+    monkeypatch.setattr(rollout_graph, "SliceGraph", lambda *args: object())
+    slot = SliceGraphSlot()
+    zl = torch.zeros((2, *shape, tm.c.d))
+    sl = torch.zeros((2, tm.c.nc, *shape), dtype=torch.int64)
+    primed = torch.zeros(int(np.prod(shape)), dtype=torch.bool)
+    knobs = dict(kv_dtype="native", weight_dtype="native", mm_dtype="native", attn_impl="xla")
+
+    def get():
+        return slot.get(netg, tm.c, shape, zl, sl, primed, knobs, 0.9, False)
+
+    first = get()
+    assert get() is first
+    lp = netg["decoder"]["layers"][0]
+    values, old = lp["wq"].numpy().copy(), weakref.ref(lp["wq"])
+    del lp["wq"]  # the tree lets go of it first
+    lp["wq"] = torch.tensor(values)
+    assert old() is not None and lp["wq"]._version == 0
+    assert get() is not first
+    assert old() is None
 
 
 def test_launches_apart_takes_the_counts_out():
