@@ -31,6 +31,13 @@ Phases, each fatal on failure (exit code 1, no result line):
                 (kernel 2) on the card against the plain path on the CPU,
                 and a control run of vt_logits with TF32 on that must
                 fall outside the bound.
+ 5b. pth      — reference-layout .pth files at full width from a numpy seed
+                (DSFVT's state dict and PR-DVQVAE2's netE, netG and netC,
+                each wrapped as fvcore's {"model": state_dict}): batch 1
+                through scripts/generate_videos_torch.py with the four files
+                configured, with phase 4's checks and exact launch counts;
+                the VT read from the same file on the card and on the CPU,
+                its leaves equal and one slice's fp32 logits within PATH_TOL.
   6. train kernels — kernel 10 (the attention backward) and kernel 1 against
                 their plain versions at DSFVT training shapes (nb=64), fp32
                 and bf16, causal and not; device times; kernel 10's outputs
@@ -64,8 +71,9 @@ Phases, each fatal on failure (exit code 1, no result line):
                 must fall outside the bound.
 
  10. i8 kernels — kernels 3, 4 and 5 (decode attention over an int8 KV cache)
-                at b in (16, 8, 1), na=8, R=256, da=128, live in (1, 64, 200,
-                256), bf16 and fp32 scales, and kernel 11 (the int8-weight
+                at b in (16, 8, 1) (kernel 5: 16, 1, 256), na=8, R=256,
+                da=128, live in (1, 64, 200, 256), bf16 and fp32 scales (kernel
+                5: fp32 scales, fp32 and bf16 q), and kernel 11 (the int8-weight
                 product) at b in (1, 8, 16) for DSFVT's three shapes and at K
                 = 1,040, each against its plain version under the bounds
                 below (kernel 11 bit-equal; kernels 3 and 4 also two calls
@@ -73,7 +81,8 @@ Phases, each fatal on failure (exit code 1, no result line):
                 device times over inputs larger than the L2: kernels 3 and 4
                 (and their fused entries) swept over b in (1, 8, 16) x live
                 in (16, 64, 128, 256), each beside the bound and kernel 2's
-                time at that shape; kernel 5 beside kernel 2's, kernel 11
+                time at that shape; kernel 5 beside kernel 2's and swept over
+                b in (1, 16, 256) x live in (1, 64, 200, 256), kernel 11
                 beside torch._int_mm plus the scaling (yardsticks, never on a
                 path).
  10b. i8 fold — kernels 3 and 4 with the quantization of q and of the new
@@ -138,8 +147,9 @@ Phases, each fatal on failure (exit code 1, no result line):
                 int8 K/V) against its plain version at the probe tool's shape
                 and DSFVT's, bf16 and fp32, live in (1, 64, 200, 256), with a
                 control (kernel 3's scheme) that must read above the bound;
-                tools/probe_decode_kernel_torch.py's timing run, beside
-                kernels 2 and 3.
+                device times swept over da in (16, 128) x b in (1, 16, 256) x
+                live in (1, 64, 200, 256); tools/probe_decode_kernel_torch.py's
+                timing run, beside kernels 2 and 3.
 
 Phases 10 to 13 run right after phase 5, while the generation models are
 loaded (10b right after 10, 11b and 12b after 11 and 12). The line before the last is {"kernels": [...]}; the last line is
@@ -169,8 +179,10 @@ PATH_TOL = 2e-5
 # kernel 10's dbias, |kernel - plain|: fp32 in both dtypes, a sum over nb
 # blocks of fp32 terms taken in another order (1e-4 + 1e-5 relative)
 DBIAS_TOL = (1e-4, 1e-5)
-# the generation runs sample from random weights: DSFVT.yaml names the
-# reference's .pth VQ-VAE files, which the port refuses
+PTH_SEED = 52  # numpy seed of phase 5b's reference .pth files
+# the generation runs of phase 4 sample from random weights: DSFVT.yaml names
+# the reference's .pth VQ-VAE files, which are not in the repository (phase 5b
+# writes its own)
 NO_VQ_WEIGHTS = ["TEST.VT_SAMPLER.VQ_VAE.ENCODER_WEIGHTS", "",
                  "TEST.VT_SAMPLER.VQ_VAE.GENERATOR_WEIGHTS", "",
                  "TEST.VT_SAMPLER.VQ_VAE.CODEBOOK_WEIGHTS", ""]
@@ -953,6 +965,173 @@ def phase_agree(card):
                              "the bound cannot tell a TF32 path from a true-fp32 one")
 
 
+def _reference_vt_state(rng, c):
+    """A VideoTransformer state dict in the reference key layout
+    (videotransformer.py's module paths, as checkpoint/torch_convert.py reads
+    them) for the port's VTConfig ``c``, from a numpy generator: weights
+    N(0, 1 / fan-in), embeddings N(0, 1), norms near 1, biases and bias
+    banks near 0."""
+    import numpy as np
+
+    def w(*shape, fan_in):
+        return (rng.standard_normal(shape, dtype=np.float32) / np.sqrt(fan_in)).astype(np.float32)
+
+    def small(*shape):
+        return (0.01 * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+
+    kt, kh, kw = c.kernel
+    sd = {"encoder.conv.weight": w(c.de, c.nc * c.nv, kt, kh, kw, fan_in=c.nc * kt * kh * kw),
+          "encoder.conv.bias": small(c.de),
+          "encoder.slice_embedding.weight": rng.standard_normal(
+              (c.stride[0] * c.stride[1] * c.stride[2], c.de), dtype=np.float32),
+          "encoder.linear_projector.weight": w(c.d, c.de, 1, 1, 1, fan_in=c.de)}
+    for pfx, blocks, heads in (("encoder", c.blocks_e, c.n_head_e),
+                               ("decoder", c.blocks_d, c.n_head_d)):
+        for i, ((t, h, bw), na) in enumerate(zip(blocks, heads)):
+            p = f"{pfx}.block_local_attention.{i}"
+            sd[f"{p}.mha.layer_norm.weight"], sd[f"{p}.mha.layer_norm.bias"] = \
+                1 + small(c.d), small(c.d)
+            for m in ("w_q", "w_k", "w_v"):
+                sd[f"{p}.mha.{m}"] = w(na, c.d, c.da, fan_in=c.d)
+            sd[f"{p}.mha.proj.weight"] = w(c.d, na * c.da, fan_in=na * c.da)
+            sd[f"{p}.ffn.0.weight"], sd[f"{p}.ffn.0.bias"] = 1 + small(c.d), small(c.d)
+            for j in (1, 3):
+                sd[f"{p}.ffn.{j}.weight"], sd[f"{p}.ffn.{j}.bias"] = \
+                    w(c.d, c.d, fan_in=c.d), small(c.d)
+            for axis, n in (("dt", t), ("dh", h), ("dw", bw)):
+                sd[f"{p}.{axis}_bank"] = small(na, 2 * n - 1)
+    for k in range(c.nc):
+        sd[f"decoder.ch_embedder.{k}.weight"] = rng.standard_normal((c.nv, c.de),
+                                                                    dtype=np.float32)
+    sd["decoder.conv.conv.weight"] = w(c.d, c.de, 3, 3, 3, fan_in=27 * c.de)
+    sd["decoder.conv.conv.bias"] = small(c.d)
+    sd["decoder.linear_projector.weight"] = w(c.d, c.d, 1, 1, 1, fan_in=c.d)
+    sd["ch_predictor.layer_norm.weight"] = 1 + small(c.d)
+    sd["ch_predictor.layer_norm.bias"] = small(c.d)
+    for k in range(c.nc):
+        sd[f"ch_predictor.U.{k}.weight"] = w(c.d, c.d + k * c.nv, fan_in=c.d + k)
+        sd[f"ch_predictor.U.{k}.bias"] = small(c.d)
+        sd[f"ch_predictor.P.{k}.weight"] = w(c.nv, c.d, fan_in=c.d)
+        sd[f"ch_predictor.P.{k}.bias"] = small(c.nv)
+    return sd
+
+
+def _reference_seqnet_state(rng, spec):
+    """A norm-free conv net's state dict in module order (the reference's
+    Sequential): ``layers.<i>.{weight,bias}`` for a conv (out, in, k, k) or
+    transposed conv (in, out, k, k), ``layers.<i>.block.{1,3}.*`` for a
+    residual block (ReLU, conv 3x3, ReLU, conv 1x1); N(0, 1 / fan-in)."""
+    import numpy as np
+
+    def w(*shape, fan_in):
+        return (rng.standard_normal(shape, dtype=np.float32) / np.sqrt(fan_in)).astype(np.float32)
+
+    sd = {}
+    for i, layer in enumerate(spec):
+        key = f"layers.{i}"
+        if layer[0] in ("conv", "convT"):
+            _, cin, cout, k = layer[:4]
+            shape = (cout, cin, k, k) if layer[0] == "conv" else (cin, cout, k, k)
+            sd[f"{key}.weight"], sd[f"{key}.bias"] = w(*shape, fan_in=cin * k * k), \
+                np.zeros(cout, np.float32)
+        elif layer[0] == "resblock":
+            _, dim, res = layer
+            sd[f"{key}.block.1.weight"] = w(res, dim, 3, 3, fan_in=9 * dim)
+            sd[f"{key}.block.1.bias"] = np.zeros(res, np.float32)
+            sd[f"{key}.block.3.weight"] = w(dim, res, 1, 1, fan_in=res)
+            sd[f"{key}.block.3.bias"] = np.zeros(dim, np.float32)
+    return sd
+
+
+def phase_pth(card):
+    """Generation from reference .pth files at full width: DSFVT's and
+    PR-DVQVAE2's netE, netG and netC state dicts in the reference key layout,
+    written from a numpy seed as fvcore's Checkpointer wraps them; the
+    generation script as a user runs it with the four files configured;
+    then one slice's fp32 logits of the VT loaded on the card against the
+    same file loaded on the CPU. Returns the phase's seconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.checkpoint.convert import flatten
+    from lvt_tpu_torch.evaluation.vt_sampler import load_vt_weights
+    from lvt_tpu_torch.models.vqvae import VQVAE
+    from lvt_tpu_torch.models.vt import VTConfig, vt_logits
+
+    t0 = time.perf_counter()
+    cfg_file = os.path.join(ROOT, "configs", "vt", "DSFVT.yaml")
+    cfg = gvt.load_config(cfg_file)
+    c = VTConfig.from_cfg(cfg)
+    vq = VQVAE(gvt.load_config(os.path.join(ROOT, cfg.TEST.VT_SAMPLER.VQ_VAE.CFG)))
+    rng = np.random.default_rng(PTH_SEED)
+    cb = vq.cfg.MODEL.CODEBOOK
+    dc = cb.DIM // cb.NUM
+    states = {"netE": _reference_seqnet_state(rng, vq.encoder.spec),
+              "netG": _reference_seqnet_state(rng, vq.generator.spec),
+              "netC": {k: v for i in range(cb.NUM) for k, v in (
+                  (f"ve.{i}.embedding.weight",
+                   rng.standard_normal((cb.SIZE, dc), dtype=np.float32)),
+                  (f"ve.{i}.running_size", np.ones(cb.SIZE, np.float32)),
+                  (f"ve.{i}.running_sum", rng.standard_normal((cb.SIZE, dc), dtype=np.float32)))},
+              "vt": _reference_vt_state(rng, c)}
+    n_slices = T_FRAMES - N_PRIME
+    per_run = (n_slices * 8, n_slices * 256 * 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, sd in states.items():
+            os.makedirs(os.path.join(tmp, name))
+            paths[name] = os.path.join(tmp, name, "model_final.pth")
+            torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                        "iteration": 0}, paths[name])
+        del states
+        opts = ["TEST.VT_SAMPLER.VQ_VAE.ENCODER_WEIGHTS", paths["netE"],
+                "TEST.VT_SAMPLER.VQ_VAE.GENERATOR_WEIGHTS", paths["netG"],
+                "TEST.VT_SAMPLER.VQ_VAE.CODEBOOK_WEIGHTS", paths["netC"],
+                "MODEL.GENERATOR.WEIGHTS", paths["vt"]]
+        written = time.perf_counter() - t0
+        _reset_counts()
+        before = _captures()
+        torch.cuda.reset_peak_memory_stats()
+        video, codes, primed, seconds = gvt.main(
+            ["--config-file", cfg_file, "--video-dir", os.path.join(ROOT, "example"), "--seed",
+             "0", "OUTPUT_DIR", os.path.join(ROOT, "output", "chip_smoke_pth")] + opts)
+        launches = _counts()
+        line = _rollout_line(seconds, before, 1, n_slices, torch.cuda.max_memory_allocated())
+        _check_run("pth batch 1", video, codes, primed, c.nv, 1)
+        check(launches == per_run, f"pth batch 1: kernel launches {launches}, want {per_run}")
+        print(f"pth main path batch 1 fp32, reference .pth weights [{card}]: {line}; launches "
+              f"{launches}; files written in {written:.1f} s")
+
+        # the VT read from the same file on the card and on the CPU: the same
+        # leaves, and one slice's teacher-forced fp32 logits within PATH_TOL
+        cfgp = gvt.load_config(cfg_file, opts)
+        video = np.random.default_rng(1).integers(0, c.nv, size=(2, c.nc, T_FRAMES, 16, 16))
+        out, trees = {}, {}
+        for device in (torch.device("cuda"), torch.device("cpu")):
+            vt, init = gvt.build_vt(cfgp, torch.Generator().manual_seed(0), device, 16, 16)
+            params = load_vt_weights(cfgp, init)["netG"]
+            trees[device.type] = flatten(params)
+            sidx = torch.full((2,), N_PRIME, dtype=torch.int64, device=device)
+            ctx, sl, _ = vt.prepare_slices(torch.from_numpy(video).to(device), sidx)
+            with torch.no_grad():
+                out[device.type] = vt_logits(params, c, ctx, sl, sidx).reshape(
+                    2, -1, c.nc, c.nv).cpu()
+    same = all(torch.equal(trees["cuda"][k].cpu(), v) for k, v in trees["cpu"].items())
+    check(same and trees["cuda"].keys() == trees["cpu"].keys(),
+          "pth: the VT's leaves loaded on the card differ from those loaded on the CPU")
+    e = float((out["cuda"] - out["cpu"]).abs().max())
+    took = time.perf_counter() - t0
+    print(f"pth agree fp32 b=2 full width: vt_logits card vs cpu plain on the same .pth "
+          f"max_abs_err {e:.3g}; bound {PATH_TOL:g} (|logits| <= "
+          f"{float(out['cpu'].abs().max()):.3g}); phase {took:.1f} s [{card}]")
+    check(e <= PATH_TOL, f"pth: vt_logits on the card disagree with the plain path: {e}")
+    return took
+
+
 def phase_train_kernels(card):
     """Kernels 10 and 1 at the training path's shapes (nb=64), each against
     its plain version on the same input sets."""
@@ -1645,6 +1824,40 @@ def i8_bound_ms(b, na, live, da):
                     + b * na * (da + 4) + b * na * da * 2, 4 * b * na * live * da)
 
 
+def cache_sweep(card, k, fn, da, g, bs=(1, 16, 256), lives=(1, 64, 200, 256)):
+    """Device ms of kernel 5 or 12 (``fn``, its CUDA wrapper) at na=8,
+    R=256, fp32 scales, bf16 q and output, over b x live, each beside its
+    bound_ms (the live rows' int8 K and V and their scales, the extra row,
+    q and the output; 4 fp32 operations a cache byte); the calls cycle
+    through input sets of >= 64 MB together."""
+    import torch
+
+    dev, na, R, scale = torch.device("cuda"), 8, 256, da ** -0.5
+    rows = []
+    for b in bs:
+        n_sets = max(1, min(128, -(-64 * 2 ** 20 // (2 * b * na * R * da))))
+        sets = [(torch.randint(-127, 128, (b, na, R, da), generator=g, device=dev,
+                               dtype=torch.int8),
+                 0.01 + 0.01 * torch.rand((b, na, R), generator=g, device=dev),
+                 torch.randint(-127, 128, (b, na, R, da), generator=g, device=dev,
+                               dtype=torch.int8),
+                 0.01 + 0.01 * torch.rand((b, na, R), generator=g, device=dev))
+                for _ in range(n_sets)]
+        q = torch.randn((b, na, da), generator=g, device=dev).bfloat16()
+        extra = 0.5 * torch.randn((1, na, R), generator=g, device=dev)
+        for live in lives:
+            ms = device_ms([lambda s=s: fn(q, *s, extra, scale, live) for s in sets], 200)
+            bd, by = bound_ms("float32", 2 * b * na * live * da + 2 * b * na * live * 4
+                              + na * live * 4 + 2 * b * na * da * 2, 4 * b * na * live * da)
+            rows.append({"b": b, "live": live, "da": da, "ms": ms, "bound_ms": bd,
+                         "bound_by": by})
+        print(f"kernel {k} sweep da={da} b={b} bf16 [{card}]: " + ", ".join(
+            f"live={r['live']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})" for r in rows
+            if r["b"] == b), flush=True)
+        del sets
+    return rows
+
+
 def phase_i8_kernels(card, kernel2_ms=None):
     """Kernels 3, 4, 5 and 11 at the quantized sampler's shapes, each against
     its plain version with its control; device times over inputs larger than
@@ -1723,9 +1936,9 @@ def phase_i8_kernels(card, kernel2_ms=None):
 
     # ---- kernel 5: q in float, fp32 scales
     err5, t5 = 0.0, {}
-    for b in (16, 1):
+    for b in (16, 1, 256):
         extra = 0.5 * torch.randn((1, na, R), generator=g, device=dev)
-        sets = [cache_set(b, torch.float32) for _ in range(8 if b == 16 else 1)]
+        sets = [cache_set(b, torch.float32) for _ in range({16: 8, 1: 1, 256: 1}[b])]
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             q = torch.randn((b, na, da), generator=g, device=dev).to(dt)
@@ -1763,9 +1976,11 @@ def phase_i8_kernels(card, kernel2_ms=None):
     b5, by5 = bound_ms("float32", nbytes, 4 * 16 * na * R * da)
     print(f"  kernel 5 b=16 live={R}: bound {b5:.4f} ms ({by5}); kernel 2 at the same shape "
           f"{kernel2_ms} ms [{card}]")
+    sweep5 = cache_sweep(card, 5, ca.cache_attention_i8_cuda, da, g)
     res["cache_attention_i8"] = dict(zip(("ms", "plain_ms"), t5["bfloat16"]), err=err5,
                                      bound_ms=b5, bound_by=by5, library_ms=None,
-                                     kernel2_ms=kernel2_ms, fp32_ms=t5["float32"][0])
+                                     kernel2_ms=kernel2_ms, fp32_ms=t5["float32"][0],
+                                     sweep=sweep5)
 
     # ---- kernel 11 at DSFVT's three shapes (timed) and at a K that is no
     # power of two and rows past one block's 8 (checked only), bit-equal
@@ -2609,6 +2824,9 @@ def phase_probe_kernel(card):
                     print(f"  control, kernel 3's scheme on the same inputs: max_abs_err {ce:.3g}")
                     check(not cok, f"kernel 12 ({label}, {dtype}): the control reads {ce}, within "
                                    "the bound")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    sweep = [r for da in (16, 128) for r in cache_sweep(card, 12, ca.decode_attention_i8kv_cuda,
+                                                        da, g)]
     ca.decode_attention_i8kv_cuda.launches = 0
     times = tool.bench(torch.bfloat16)
     launches = ca.decode_attention_i8kv_cuda.launches
@@ -2630,10 +2848,11 @@ def phase_probe_kernel(card):
     return {"err": err, "ms": probe["decode_attention_i8kv"], "plain_ms": probe["plain"],
             "bound_ms": bd, "bound_by": by, "library_ms": None,
             "dsfvt_ms": dsfvt["decode_attention_i8kv"], "dsfvt_plain_ms": dsfvt["plain"],
-            "dsfvt_bound_ms": bd2, "kernel2_ms": k2, "kernel3_ms": k3}, launches
+            "dsfvt_bound_ms": bd2, "kernel2_ms": k2, "kernel3_ms": k3, "sweep": sweep}, launches
 
 
 def main():
+    start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
         fail(f"no lvt_tpu_torch package beside {__file__}: run from a checkout of the repo")
     sys.path.insert(0, ROOT)
@@ -2657,6 +2876,8 @@ def main():
     lap("main")
     phase_agree(card)
     lap("agree")
+    phase_pth(card)
+    lap("pth")
     i8res = phase_i8_kernels(card, kres["decode_attention"]["ms"])
     lap("i8 kernels")
     fold_err = phase_i8_fold(card)
@@ -2690,7 +2911,7 @@ def main():
     lap("vqvae agree")
     k12, k12_launches = phase_probe_kernel(card)
     lap("probe kernel")
-    print("phase seconds: " + ", ".join(laps))
+    print("phase seconds: " + ", ".join(laps) + f"; whole run {time.perf_counter() - start:.1f} s")
 
     def entry(name, source, replaces, n_launches, r):
         keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,7 +1,8 @@
 // Per-pixel decode attention over one layer's int8 KV cache: kernels 3 and
 // 4, one launch of thread-block clusters each (with or without the
 // quantization of q and of the new cache row folded in), and kernels 5 and
-// 12, one block per (batch row, head).
+// 12, one launch of clusters too (one warp a head at da = 16; their design
+// above cache_i8_kernel below).
 //
 // They replace the TPU kernels of lvt_tpu/ops/cache_attention.py:
 //   lvt_decode_attention_i8(_step)       decode_attention_i8_pallas (pallas_call at :202)
@@ -113,13 +114,10 @@ namespace {
 
 using namespace lvt;
 
-constexpr int NTHREADS = 256;  // kernels 5 and 12: 8 warps
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int UNROLL = 4;      // row groups a warp loads before it reduces
-constexpr int VEC = 16;        // int8 per lane load
+constexpr int VEC = 16;  // int8 per lane load
 
 // how the lanes of a block of `WARPS` warps map onto cache rows of DA int8
-template <int DA, int WARPS = NWARPS>
+template <int DA, int WARPS>
 struct RowMap {
   static constexpr int LPR = DA / VEC;       // lanes per cache row
   static constexpr int RPW = 32 / LPR;       // rows per warp load
@@ -148,10 +146,6 @@ __device__ __forceinline__ void axpy16(int w, const uint4& v, int acc[VEC]) {
     for (int i = 0; i < 4; ++i)
       acc[4 * k + i] = __dp4a(words[k], (int)(wb << (8 * i)), acc[4 * k + i]);
   }
-}
-
-__device__ __forceinline__ float byte_to_float(unsigned word, int i) {
-  return (float)(int)(int8_t)((word >> (8 * i)) & 0xffu);
 }
 
 // ------------------------------------------------------- kernels 3 and 4
@@ -680,141 +674,512 @@ cudaError_t launch_i8(I8Args p, int b, int C, cudaStream_t stream) {
 }
 
 // ------------------------------------------------------- kernels 5 and 12
-// ROUND_W: round the weight row to the io dtype before the V product (the
-// probe kernel, 12); kernel 5 keeps it fp32.
-template <int DA, bool ROUND_W>
-__global__ void __launch_bounds__(NTHREADS)
-cache_attention_i8_kernel(const void* __restrict__ q, const int8_t* __restrict__ k8,
-                          const float* __restrict__ ks, const int8_t* __restrict__ v8,
-                          const float* __restrict__ vs, const float* __restrict__ extra,
-                          void* __restrict__ out, int na, int R, int live, size_t extra_stride,
-                          float scale, int io_bf16) {
-  using M = RowMap<DA>;
-  extern __shared__ __align__(16) float smem[];
-  float* s = smem;                      // [R] logits, then weights
-  float* partial = s + R;               // [NWARPS][DA]
-  float* qf = partial + NWARPS * DA;    // [DA]
-  float* red = qf + DA;                 // [NWARPS]
+// A float q over int8 K and V with fp32 scales. Kernel 5 keeps the weight
+// row in fp32; kernel 12 (ROUND_W) rounds it to the io dtype before the V
+// product. Two launches:
+//   cache_i8_kernel: C ranks of CW warps per (batch row, head), a cluster
+//     for C > 1 (cache_attention_plan in ops/cache_attention.py), rank r
+//     owning live rows [r * chunk, (r + 1) * chunk). Each thread requests
+//     its K rows, its V rows, their scales, the extra row and q straight
+//     into registers at entry (U = 4 or 8 rows of 16 bytes each, a "pass";
+//     a rank whose rows need more passes loads the later ones as it reaches
+//     them, keeping their logits in shared memory). The logits are held by
+//     the lanes of their row; each warp forms (max, sum) of its rows, the warps
+//     of a rank meet once, and the ranks push (m_r, l_r) to every rank
+//     (st.async onto its mbarrier). The weights follow from the global sum
+//     in registers (each lane of a row's group forms the exps and weights of
+//     its share of the rows and a shuffle hands them round), the V product
+//     in fp32, and each rank's column sums go to the column's owner, which
+//     adds them in rank order.
+//   cache_i8_warp_kernel (da 16 up to 256 live rows, the probe's shape): one
+//     warp per (batch row, head), 8 heads a block, a lane per row and 8 rows
+//     a lane, shuffles only and no block barrier.
+// No atomics: two calls are bit-identical.
 
-  const int a = blockIdx.x, bi = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane / M::LPR, col = (lane % M::LPR) * VEC;
-  const size_t head = (size_t)bi * na + a;
-  const size_t rows = head * (size_t)R;
-  const int8_t* kh = k8 + rows * DA + col;
-  const int8_t* vh = v8 + rows * DA + col;
-  const float* erow = extra + (size_t)bi * extra_stride + (size_t)a * R;
+struct CacheArgs {
+  const void* q;     // (b, na, da), io dtype
+  const int8_t* k8;  // (b, na, R, da)
+  const float* ks;   // (b, na, R)
+  const int8_t* v8;
+  const float* vs;
+  const float* extra;   // (eb, na, R)
+  void* out;            // (b, na, da), io dtype
+  size_t extra_stride;  // batch stride of extra: 0 (eb = 1) or na * R
+  int na, R, live, chunk;
+  float scale;
+  int io_bf16;
+};
 
-  for (int d = threadIdx.x; d < DA; d += NTHREADS) qf[d] = load_scalar(q, head * DA + d, io_bf16);
-  __syncthreads();
-  float qv[VEC];
+constexpr int WARP_U = 8;        // rows of a lane (cache_i8_warp_kernel)
+constexpr int WARP_HEADS = 8;    // heads (warps) of a block of cache_i8_warp_kernel
+
+// the 4 int8 of a word as exact floats: 2^23 + 128 + x assembled in the
+// mantissa (the sign bit flipped gives x + 128), then 2^23 + 128 taken off
+__device__ __forceinline__ void i8x4_to_f32(unsigned w, float* f) {
+  const unsigned u = w ^ 0x80808080u;
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) qv[e] = qf[col + e];
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.f;
+}
 
-  // logits: q . float(k8_j) in fp32
-  for (int j0 = warp * M::RPW; j0 < live; j0 += UNROLL * M::STEP) {
-    uint4 kv[UNROLL];
+__device__ __forceinline__ void row_to_f32(const uint4& r, float* f) {
+  i8x4_to_f32(r.x, f);
+  i8x4_to_f32(r.y, f + 4);
+  i8x4_to_f32(r.z, f + 8);
+  i8x4_to_f32(r.w, f + 12);
+}
+
+// q . float(row) over one lane's 16 columns, fp32 FMAs in column order
+__device__ __forceinline__ float dot16f(const float* q, const uint4& r) {
+  float k[VEC];
+  row_to_f32(r, k);
+  float d = 0.f;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + sub + u * M::STEP;
-      kv[u] = j < live ? load_row16(kh + (size_t)j * DA) : make_uint4(0, 0, 0, 0);
+  for (int e = 0; e < VEC; ++e) d = fmaf(q[e], k[e], d);
+  return d;
+}
+
+// acc[e] += w * float(row[e])
+__device__ __forceinline__ void axpy16f(float w, const uint4& r, float* acc) {
+  float v[VEC];
+  row_to_f32(r, v);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = fmaf(w, v[e], acc[e]);
+}
+
+// logit_j = (q . k_j) * scale * ks_j + extra_j, rounded where the plain version rounds
+__device__ __forceinline__ float cache_logit(float dot, float scale, float ks, float extra) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(dot, scale), ks), extra);
+}
+
+// The column sums of a warp's rows: acc[0..16) of columns col + e summed
+// over the lanes that share `lane % LPR` (the warp's 32 / LPR rows), as a
+// reduce-scatter: each level halves the values a lane keeps (the upper half
+// where the lane's bit o is set) and adds its partner's, so 32 / LPR rows
+// take 8 + 4 + ... shuffles where full butterflies take 16 a level. The lane
+// is left with N columns in acc[0..N), the first at col + the returned
+// offset; with LPR 1 the lanes L and L + 16 hold the same one.
+template <int LPR>
+struct ColumnSums {
+  static constexpr int LEVELS = LPR == 1 ? 5 : LPR == 4 ? 3 : LPR == 8 ? 2 : 0;
+  static constexpr int N = LEVELS >= 4 ? 1 : VEC >> LEVELS;
+  static_assert(LEVELS > 0, "LPR must be 1, 4 or 8");
+};
+
+// one level at lane bit O with N values kept so far, then the next (all
+// indices known at compile time, so acc stays in registers)
+template <int O, int N>
+__device__ __forceinline__ void column_sums_level(float (&acc)[VEC], int lane, int& c0) {
+  if constexpr (N > 1) {
+    constexpr int H = N / 2;
+    const bool upper = lane & O;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = upper ? acc[i] : acc[i + H];
+      const float keep = upper ? acc[i + H] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
     }
+    c0 += upper ? H : 0;
+    if constexpr (O < 16) column_sums_level<2 * O, H>(acc, lane, c0);
+  } else {
+    acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], O);
+    if constexpr (O < 16) column_sums_level<2 * O, 1>(acc, lane, c0);
+  }
+}
+
+template <int LPR>
+__device__ __forceinline__ int column_sums(float (&acc)[VEC], int lane) {
+  int c0 = 0;
+  column_sums_level<LPR, VEC>(acc, lane, c0);
+  return c0;
+}
+
+// x[i] for an index known at run time, without local memory
+template <int N>
+__device__ __forceinline__ float pick(const float (&x)[N], int i) {
+  float v = x[0];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const unsigned words[4] = {kv[u].x, kv[u].y, kv[u].z, kv[u].w};
-      float dot = 0.f;
+  for (int j = 1; j < N; ++j) v = j == i ? x[j] : v;
+  return v;
+}
+
+// w_j = p_j / sum * vs_j, kernel 12 rounding it to the io dtype
+template <bool ROUND_W>
+__device__ __forceinline__ float cache_weight(float p, float sum, float vs, int io_bf16) {
+  const float w = __fmul_rn(p / sum, vs);
+  return ROUND_W ? round_io(w, io_bf16) : w;
+}
+
+// shared memory of a rank of cache_i8_kernel with CW warps of U row loads a
+// thread, in floats: x1 [2 C] at 0 | red [2 CW] at 32 | x3 [C * per = DA] at
+// 48 | partial [CW][DA] | s (the logits of rows past the first pass) | 2
+// mbarriers
+__host__ __device__ inline size_t cache_smem_floats(int da, int cw, int u, int chunk) {
+  const int pass = u * cw * (32 / (da / VEC));
+  const size_t extra_rows = chunk > pass ? (size_t)(chunk - pass) : 0;
+  return (48 + (size_t)da + (size_t)cw * da + extra_rows + 1) & ~static_cast<size_t>(1);
+}
+__host__ __device__ inline size_t cache_smem_bytes(int da, int cw, int u, int chunk) {
+  return 4 * cache_smem_floats(da, cw, u, chunk) + 16;
+}
+
+// q's 16 columns of one lane (16-byte aligned: the wrapper sees to it)
+__device__ __forceinline__ void load_q16(const void* q, size_t i, int io_bf16, float* qv) {
+  if (io_bf16) {
+    const uint4* src = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(q) + i);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) dot = fmaf(qv[e], byte_to_float(words[e / 4], e % 4), dot);
+    for (int h = 0; h < 2; ++h) {
+      const uint4 w = src[h];
+      const unsigned words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // a bf16 is the upper half of its fp32
+        qv[8 * h + 2 * k] = __uint_as_float(words[k] << 16);
+        qv[8 * h + 2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
+      }
+    }
+  } else {
+    const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(q) + i);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float4 w = src[h];
+      qv[4 * h] = w.x, qv[4 * h + 1] = w.y, qv[4 * h + 2] = w.z, qv[4 * h + 3] = w.w;
+    }
+  }
+}
+
+template <int DA, int CW, int U, bool ROUND_W>
+__global__ void __launch_bounds__(CW * 32) cache_i8_kernel(const CacheArgs p) {
+  using namespace lvt_hopper;
+  using M = RowMap<DA, CW>;
+  constexpr int PASS = U * M::STEP;  // rows of a rank per pass
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int per = DA / C;  // output columns each rank owns
+  const bool solo = C == 1;
+
+  extern __shared__ __align__(16) float csm[];
+  float* x1 = csm;
+  float* red = csm + 32;
+  float* x3 = csm + 48;
+  float* partial = x3 + DA;
+  float* s = partial + CW * DA;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(csm + cache_smem_floats(DA, CW, U, p.chunk));
+
+  const int a = blockIdx.x / C, bi = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int sub = lane / M::LPR, col = (lane % M::LPR) * VEC;
+  const int gl = lane % M::LPR;  // a lane's place in its row's group
+  const bool leader = gl == 0;
+  // the rows of the first pass whose exps and weights a lane forms, u = gl +
+  // k * LPR: every lane of a group holds the group's logits, and each takes
+  // its own share of them
+  constexpr int K = (U + M::LPR - 1) / M::LPR;
+  const size_t head = (size_t)bi * p.na + a;
+  const int j0 = min(rank * p.chunk, p.live);  // this rank's rows [j0, j0 + rows)
+  const int rows = min(j0 + p.chunk, p.live) - j0;
+  const size_t row0 = head * (size_t)p.R + j0;
+  const int8_t* kh = p.k8 + row0 * DA + col;
+  const int8_t* vh = p.v8 + row0 * DA + col;
+  const float* ksr = p.ks + row0;
+  const float* vsr = p.vs + row0;
+  const float* er = p.extra + (size_t)bi * p.extra_stride + (size_t)a * p.R + j0;
+
+  if (!solo) {
+    if (tid == 0) {
+      mbar_init(&bars[0], 1);
+      mbar_init(&bars[1], 1);
+      fence_barrier_init();
+      mbar_expect_tx(&bars[0], C * 8);        // (m_r, l_r) of every rank
+      mbar_expect_tx(&bars[1], C * 4 * per);  // every rank's sums of this rank's columns
+    }
+    cluster_arrive();
+  }
+  // the first pass of rows, its scales and extra row, and q, all requested now
+  uint4 kreg[U], vreg[U];
+  float ksv[U], vsv[U], ev[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int jt = u * M::STEP + warp * M::RPW + sub;
+    const bool in = jt < rows;
+    kreg[u] = in ? load_row16(kh + (size_t)jt * DA) : make_uint4(0, 0, 0, 0);
+    vreg[u] = in ? load_row16(vh + (size_t)jt * DA) : make_uint4(0, 0, 0, 0);
+    ksv[u] = in ? ksr[jt] : 0.f;
+    vsv[u] = in ? vsr[jt] : 0.f;
+    ev[u] = in ? er[jt] : 0.f;
+  }
+  float qv[VEC];
+  load_q16(p.q, head * DA + col, p.io_bf16, qv);
+
+  // ---- logits: LPR lanes per row, every lane of the group holds the sum
+  float lg[U];
+  float mw = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float dot = dot16f(qv, kreg[u]);
+#pragma unroll
+    for (int o = M::LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    const bool in = u * M::STEP + warp * M::RPW + sub < rows;
+    lg[u] = in ? cache_logit(dot, p.scale, ksv[u], ev[u]) : -INFINITY;
+    mw = fmaxf(mw, lg[u]);
+  }
+  for (int base = PASS; base < rows; base += PASS) {  // later passes: logits into s
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int jt = base + u * M::STEP + warp * M::RPW + sub;
+      const bool in = jt < rows;
+      float dot = dot16f(qv, in ? load_row16(kh + (size_t)jt * DA) : make_uint4(0, 0, 0, 0));
 #pragma unroll
       for (int o = M::LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      const int j = j0 + sub + u * M::STEP;
-      if (lane % M::LPR == 0 && j < live)
-        s[j] = __fadd_rn(__fmul_rn(__fmul_rn(dot, scale), ks[rows + j]), erow[j]);
+      if (in) {
+        const float l = cache_logit(dot, p.scale, ksr[jt], er[jt]);
+        s[jt - PASS] = l;  // the row's lanes write the same value, and read it back
+        mw = fmaxf(mw, l);
+      }
     }
   }
-  __syncthreads();
 
+  // ---- (max, sum) of each warp's rows, then of the rank's, then of all ranks'
+  mw = warp_max(mw);
+  float lw = 0.f;
+  if (mw > -INFINITY) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = gl + k * M::LPR;
+      const float x = u < U ? pick(lg, u) : -INFINITY;
+      if (x > -INFINITY) lw += expf(x - mw);
+    }
+    for (int base = PASS; base < rows; base += PASS)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int jt = base + u * M::STEP + warp * M::RPW + sub;
+        if (leader && jt < rows) lw += expf(s[jt - PASS] - mw);
+      }
+  }
+  lw = warp_sum(lw);
+  if (lane == 0) red[warp] = mw, red[CW + warp] = lw;
+  __syncthreads();
   float m = -INFINITY;
-  for (int j = threadIdx.x; j < live; j += NTHREADS) m = fmaxf(m, s[j]);
-  m = block_reduce<true, NWARPS>(m, red);
+#pragma unroll
+  for (int w = 0; w < CW; ++w) m = fmaxf(m, red[w]);
   float sum = 0.f;
-  for (int j = threadIdx.x; j < live; j += NTHREADS) {
-    const float e = expf(s[j] - m);
-    s[j] = e;
-    sum += e;
+#pragma unroll
+  for (int w = 0; w < CW; ++w)
+    if (red[CW + w] > 0.f) sum += red[CW + w] * expf(red[w] - m);
+  if (!solo) {
+    cluster_wait();  // every rank's mbarriers are initialised
+    if (tid < C) push2(map_rank(x1 + 2 * rank, tid), m, sum, map_rank(&bars[0], tid));
+    mbar_wait(&bars[0], 0);
+    m = -INFINITY;
+    for (int r = 0; r < C; ++r) m = fmaxf(m, x1[2 * r]);
+    sum = 0.f;
+    for (int r = 0; r < C; ++r)
+      if (x1[2 * r + 1] > 0.f) sum += x1[2 * r + 1] * expf(x1[2 * r] - m);
   }
-  sum = block_reduce<false, NWARPS>(sum, red);
-  for (int j = threadIdx.x; j < live; j += NTHREADS) {
-    float w = __fmul_rn(s[j] / sum, vs[rows + j]);
-    if (ROUND_W && io_bf16) w = __bfloat162float(__float2bfloat16(w));
-    s[j] = w;
-  }
-  __syncthreads();
 
-  // sum_j w_j float(v8_j) in fp32
+  // ---- weights (each lane its share, handed to the group by a shuffle)
+  // and the fp32 V product
+  float wk[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int u = gl + k * M::LPR;
+    const float x = u < U ? pick(lg, u) : -INFINITY;
+    wk[k] = x > -INFINITY ? cache_weight<ROUND_W>(expf(x - m), sum, pick(vsv, u), p.io_bf16)
+                          : 0.f;
+  }
   float acc[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-  for (int j0 = warp * M::RPW; j0 < live; j0 += UNROLL * M::STEP) {
-    uint4 vv[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + sub + u * M::STEP;
-      vv[u] = j < live ? load_row16(vh + (size_t)j * DA) : make_uint4(0, 0, 0, 0);
-    }
+  for (int u = 0; u < U; ++u) {
+    const float w = M::LPR == 1 ? wk[u]
+                                : __shfl_sync(0xffffffffu, wk[u / M::LPR],
+                                              (lane & ~(M::LPR - 1)) | (u % M::LPR));
+    axpy16f(w, vreg[u], acc);
+  }
+  for (int base = PASS; base < rows; base += PASS) {
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + sub + u * M::STEP;
-      const float w = j < live ? s[j] : 0.f;
-      const unsigned words[4] = {vv[u].x, vv[u].y, vv[u].z, vv[u].w};
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(w, byte_to_float(words[e / 4], e % 4), acc[e]);
+    for (int u = 0; u < U; ++u) {
+      const int jt = base + u * M::STEP + warp * M::RPW + sub;
+      if (jt < rows)
+        axpy16f(cache_weight<ROUND_W>(expf(s[jt - PASS] - m), sum, vsr[jt], p.io_bf16),
+                load_row16(vh + (size_t)jt * DA), acc);
     }
   }
+  // lanes of one warp that hold the same columns, then the warps in order
+  {
+    const int c0 = column_sums<M::LPR>(acc, lane);
+    if (M::LPR > 1 || lane < 16) {
 #pragma unroll
-  for (int o = M::LPR; o < 32; o <<= 1) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) partial[warp * DA + col + e] = acc[e];
+      for (int i = 0; i < ColumnSums<M::LPR>::N; ++i) partial[warp * DA + col + c0 + i] = acc[i];
+    }
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < DA; d += NTHREADS) {
-    float o = 0.f;
+  if (tid < DA) {
+    float o = partial[tid];
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) o += partial[w * DA + d];
-    store_scalar(out, head * DA + d, o, io_bf16);
+    for (int w = 1; w < CW; ++w) o += partial[w * DA + tid];
+    if (solo) store_scalar(p.out, head * DA + tid, o, p.io_bf16);
+    else push(map_rank(x3 + rank * per + tid % per, tid / per), o, map_rank(&bars[1], tid / per));
+  }
+  if (!solo) {
+    mbar_wait(&bars[1], 0);  // every rank's sums of this rank's columns have landed
+    if (tid < per) {
+      float o = x3[tid];
+      for (int r = 1; r < C; ++r) o += x3[r * per + tid];
+      store_scalar(p.out, head * DA + rank * per + tid, o, p.io_bf16);
+    }
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// da = 16: one warp per (batch row, head), `heads` = b * na of them, rows
+// lane + 32 u for u < WARP_U (live <= 256)
+template <bool ROUND_W>
+__global__ void __launch_bounds__(WARP_HEADS * 32) cache_i8_warp_kernel(const CacheArgs p,
+                                                                       int heads) {
+  constexpr int DA = 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int hidx = blockIdx.x * WARP_HEADS + warp;
+  if (hidx >= heads) return;
+  const int bi = hidx / p.na, a = hidx % p.na;
+  const size_t row0 = (size_t)hidx * p.R;
+  const float* er = p.extra + (size_t)bi * p.extra_stride + (size_t)a * p.R;
+
+  uint4 kreg[WARP_U], vreg[WARP_U];
+  float ksv[WARP_U], vsv[WARP_U], ev[WARP_U];
+#pragma unroll
+  for (int u = 0; u < WARP_U; ++u) {
+    const int j = lane + 32 * u;
+    const bool in = j < p.live;
+    kreg[u] = in ? load_row16(p.k8 + (row0 + j) * DA) : make_uint4(0, 0, 0, 0);
+    vreg[u] = in ? load_row16(p.v8 + (row0 + j) * DA) : make_uint4(0, 0, 0, 0);
+    ksv[u] = in ? p.ks[row0 + j] : 0.f;
+    vsv[u] = in ? p.vs[row0 + j] : 0.f;
+    ev[u] = in ? er[j] : 0.f;
+  }
+  float qv[DA];
+  load_q16(p.q, (size_t)hidx * DA, p.io_bf16, qv);
+
+  float lg[WARP_U], m = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < WARP_U; ++u) {
+    lg[u] = lane + 32 * u < p.live ? cache_logit(dot16f(qv, kreg[u]), p.scale, ksv[u], ev[u])
+                                   : -INFINITY;
+    m = fmaxf(m, lg[u]);
+  }
+  m = warp_max(m);
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < WARP_U; ++u)
+    if (lg[u] > -INFINITY) sum += expf(lg[u] - m);
+  sum = warp_sum(sum);
+  float acc[DA];
+#pragma unroll
+  for (int e = 0; e < DA; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int u = 0; u < WARP_U; ++u) {
+    const float w =
+        lg[u] > -INFINITY ? cache_weight<ROUND_W>(expf(lg[u] - m), sum, vsv[u], p.io_bf16) : 0.f;
+    axpy16f(w, vreg[u], acc);
+  }
+  const int c = column_sums<1>(acc, lane);
+  if (lane < 16) store_scalar(p.out, (size_t)hidx * DA + c, acc[0], p.io_bf16);
 }
 
-bool bad_shape(int b, int na, int R, int da, int live) {
-  return b < 1 || na < 1 || b > 65535 || na > 65535 || live < 1 || live > R || R > 32768 ||
-         (da != 64 && da != 128);
+// the launch of cache_i8_kernel with a cluster of C ranks of CW warps of U
+// row loads a thread
+template <int DA, int CW, int U, bool ROUND_W>
+cudaError_t launch_cache(const CacheArgs& p, int b, int C, cudaStream_t stream) {
+  const size_t smem = cache_smem_bytes(DA, CW, U, p.chunk);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  auto kernel = cache_i8_kernel<DA, CW, U, ROUND_W>;
+  static size_t smem_set = 48 * 1024;  // granted without the attribute
+  static bool wide_ok = false;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (C > 8 && !wide_ok) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    wide_ok = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.na * C, b);
+  cfg.blockDim = dim3(CW * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int DA, bool ROUND_W>
+cudaError_t launch_cache_warps(const CacheArgs& p, int b, int C, int warps, int loads,
+                               cudaStream_t stream) {
+  if (warps == 4) return launch_cache<DA, 4, 4, ROUND_W>(p, b, C, stream);
+  return loads == 8 ? launch_cache<DA, 8, 8, ROUND_W>(p, b, C, stream)
+                    : launch_cache<DA, 8, 4, ROUND_W>(p, b, C, stream);
+}
+
+// a plan of kernels 5 and 12: C ranks (a power of two up to MAX_CLUSTER) of
+// `chunk` rows each holding the live rows, ranks of 4 warps of 4 row loads a
+// thread or of 8 warps of 4 or 8; or one warp a head (warps 1: da 16, C 1,
+// live <= 32 * WARP_U)
+bool bad_cache_plan(int C, int chunk, int warps, int loads, int live, int da) {
+  if (warps == 1) return C != 1 || da != 16 || live > 32 * WARP_U || chunk < live;
+  return C < 1 || C > MAX_CLUSTER || (C & (C - 1)) != 0 || chunk < 1 ||
+         (long long)C * chunk < live || (warps != 4 && warps != 8) ||
+         (loads != 4 && (loads != 8 || warps != 8)) ||
+         cache_smem_bytes(da, warps, loads, chunk) > MAX_SMEM;
 }
 
 template <bool ROUND_W>
 int launch_cache_attention(const void* q, const void* k8, const float* ks, const void* v8,
                            const float* vs, const float* extra, void* out, int b, int na, int R,
-                           int da, int live, int eb, int io_bf16, float scale,
-                           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)R + NWARPS * da + da + NWARPS);
-  auto kernel = da == 128  ? cache_attention_i8_kernel<128, ROUND_W>
-                : da == 64 ? cache_attention_i8_kernel<64, ROUND_W>
-                           : cache_attention_i8_kernel<16, ROUND_W>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(na, b), NTHREADS, smem, stream>>>(
-      q, static_cast<const int8_t*>(k8), ks, static_cast<const int8_t*>(v8), vs, extra, out, na,
-      R, live, eb == 1 ? (size_t)0 : (size_t)na * R, scale, io_bf16);
-  return (int)cudaGetLastError();
+                           int da, int live, int eb, int C, int chunk, int warps, int loads,
+                           int io_bf16, float scale, cudaStream_t stream) {
+  if (bad_cache_plan(C, chunk, warps, loads, live, da)) return (int)cudaErrorInvalidValue;
+  CacheArgs p = {};
+  p.q = q;
+  p.k8 = static_cast<const int8_t*>(k8);
+  p.ks = ks;
+  p.v8 = static_cast<const int8_t*>(v8);
+  p.vs = vs;
+  p.extra = extra;
+  p.out = out;
+  p.extra_stride = eb == 1 ? 0 : (size_t)na * R;
+  p.na = na;
+  p.R = R;
+  p.live = live;
+  p.chunk = chunk;
+  p.scale = scale;
+  p.io_bf16 = io_bf16;
+  if (warps == 1) {
+    const int heads = b * na;
+    cache_i8_warp_kernel<ROUND_W>
+        <<<(heads + WARP_HEADS - 1) / WARP_HEADS, WARP_HEADS * 32, 0, stream>>>(p, heads);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t err = da == 128  ? launch_cache_warps<128, ROUND_W>(p, b, C, warps, loads, stream)
+                    : da == 64 ? launch_cache_warps<64, ROUND_W>(p, b, C, warps, loads, stream)
+                               : launch_cache_warps<16, ROUND_W>(p, b, C, warps, loads, stream);
+  return (int)err;
+}
+
+bool bad_shape(int b, int na, int R, int da, int live) {
+  return b < 1 || na < 1 || b > 65535 || na > 65535 || live < 1 || live > R || R > 32768 ||
+         (da != 64 && da != 128);
 }
 
 // 8 warps a rank where its rows, read directly, need them; else 4
@@ -960,24 +1325,34 @@ extern "C" int lvt_decode_attention_i8_live_step(
 }
 
 // Kernel 5. q, out (b, na, da) fp32 or bf16 (io_bf16); k8, v8 (b, na, R, da)
-// int8; ks, vs (b, na, R) fp32; extra (eb, na, R) fp32 with eb = b or 1.
+// int8; ks, vs (b, na, R) fp32; extra (eb, na, R) fp32 with eb = b or 1; q
+// 16-byte aligned; a cluster of `cluster` ranks of `warps` warps of `loads`
+// row loads a thread and `chunk` rows each per (batch row, head)
+// (ops/cache_attention.py cache_attention_plan). Returns the cudaError_t of
+// the launch: a cluster the card cannot place fails it.
 extern "C" int lvt_cache_attention_i8(const void* q, const void* k8, const float* ks,
                                       const void* v8, const float* vs, const float* extra,
                                       void* out, int b, int na, int R, int da, int live, int eb,
-                                      int io_bf16, float scale, cudaStream_t stream) {
-  if (bad_shape(b, na, R, da, live) || (eb != 1 && eb != b)) return (int)cudaErrorInvalidValue;
+                                      int cluster, int chunk, int warps, int loads, int io_bf16,
+                                      float scale, cudaStream_t stream) {
+  if (bad_shape(b, na, R, da, live) || (eb != 1 && eb != b) ||
+      reinterpret_cast<uintptr_t>(q) % 16)
+    return (int)cudaErrorInvalidValue;
   return launch_cache_attention<false>(q, k8, ks, v8, vs, extra, out, b, na, R, da, live, eb,
-                                       io_bf16, scale, stream);
+                                       cluster, chunk, warps, loads, io_bf16, scale, stream);
 }
 
-// Kernel 12, the probe kernel: kernel 5's operands and layouts, da also 16;
-// the weight row is rounded to the io dtype before the V product.
+// Kernel 12, the probe kernel: kernel 5's operands, layouts and plans, da
+// also 16 (there also one warp a head: warps = 1); the weight row is rounded
+// to the io dtype before the V product.
 extern "C" int lvt_decode_attention_i8kv(const void* q, const void* k8, const float* ks,
                                          const void* v8, const float* vs, const float* extra,
                                          void* out, int b, int na, int R, int da, int live,
-                                         int eb, int io_bf16, float scale, cudaStream_t stream) {
-  if (bad_shape(b, na, R, da == 16 ? 64 : da, live) || (eb != 1 && eb != b))
+                                         int eb, int cluster, int chunk, int warps, int loads,
+                                         int io_bf16, float scale, cudaStream_t stream) {
+  if (bad_shape(b, na, R, da == 16 ? 64 : da, live) || (eb != 1 && eb != b) ||
+      reinterpret_cast<uintptr_t>(q) % 16)
     return (int)cudaErrorInvalidValue;
   return launch_cache_attention<true>(q, k8, ks, v8, vs, extra, out, b, na, R, da, live, eb,
-                                      io_bf16, scale, stream);
+                                      cluster, chunk, warps, loads, io_bf16, scale, stream);
 }

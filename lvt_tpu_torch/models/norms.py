@@ -19,7 +19,7 @@ lvt_tpu/models/norms.py; reference vidgen/layers/batch_norm.py).
 State (running mean/var) is threaded explicitly: ``apply_norm`` returns
 (y, new_state), and the new state's tensors hold no autograd graph.
 Channels-last layouts: x is (..., C). The statistics synced across training
-processes wait for multi-GPU training (ROADMAP.md queue 1 item 8).
+processes wait for multi-GPU training (ROADMAP.md queue 1 item 10).
 """
 
 from typing import Tuple
@@ -77,7 +77,7 @@ def apply_norm(norm: str, params: dict, state: dict, x: torch.Tensor, train: boo
             if norm != "BN" and comm.get_world_size() > 1:
                 raise NotImplementedError(
                     f"norm {norm!r} across training processes is not ported to lvt_tpu_torch "
-                    "yet (ROADMAP.md queue 1 item 8, multi-GPU)")
+                    "yet (ROADMAP.md queue 1 item 10, multi-GPU)")
             mean = x.mean(dim=reduce_axes)
             meansqr = (x * x).mean(dim=reduce_axes)
             n = x.numel() // x.shape[-1]  # elements per channel

@@ -543,9 +543,67 @@ def decode_attention_i8_live_step_cuda(q, kv, k8, ks, v8, vs, live: int, bias, s
     return out
 
 
-def _float_query_cuda(name, entry, das, q, k8, ks, v8, vs, extra, scale, live):
+# Kernels 5 and 12: C ranks of 4 or 8 warps per (batch row, head), a
+# cluster for C > 1, each thread's K and V rows, scales, extra row and q
+# requested into registers at entry, 4 row loads of 16 bytes a thread (8 in
+# a rank of 8 warps whose rows need them; one "pass": a rank with more rows
+# loads later passes as it reaches them). The plan, from sweeps of every
+# plan on the H100 (tools/time_cache_attention_torch.py; na = 8, R = 256,
+# b in 1, 16, 256 x live in 1, 64, 200, 256, da 16 and 128): kernel 3's rule
+# (one rank while 8 warps hold its rows in one pass of 4 loads, 4 warps while
+# 4 do, else the fewest ranks of 4 warps that hold theirs), the cluster grown
+# only while every block has an SM of its own (b * na * C <= CARD_SMS), and a
+# single rank that needs more than one pass of 4 loads takes 8 warps of 8
+# (da = 128, live = 256: b = 1 four ranks 0.0047 ms against one rank of 8 x
+# 8 loads 0.0055; b = 16 0.0086 against 0.0080; b = 256 0.0677 against
+# 0.0545, two passes of 4 loads 0.0660). At da = 16 up to CACHE_WARP_ROWS
+# live rows, one warp takes a head, 8 rows a lane ("warps" 1), where the heads
+# exceed CACHE_WARP_HEADS (the probe tool's b = 256: 0.0117 ms against 0.0136
+# for ranks of 4 warps; at b <= 16 the ranks win, 0.0038 against 0.0052).
+CACHE_WARP_ROWS = 256
+CACHE_WARP_HEADS = 8 * CARD_SMS
+
+
+def cache_attention_plan(b: int, na: int, live: int, da: int):
+    """(C, chunk, warps, loads) of kernels 5 and 12 for b batch rows and na
+    heads over `live` rows of width da: the cluster size, the live rows of
+    each rank (rank r owns [r * chunk, min((r + 1) * chunk, live))), the warps
+    of a rank (1: one warp a head, da = 16 only) and its row loads a thread
+    per pass."""
+    heads = b * na
+    if da == 16 and live <= CACHE_WARP_ROWS and heads > CACHE_WARP_HEADS:
+        return 1, live, 1, 8
+    c = 1
+    if live * da > 8 * I8_WARP_BYTES:
+        while c < MAX_CLUSTER and -(-live // c) * da > 4 * I8_WARP_BYTES \
+                and heads * 2 * c <= CARD_SMS:
+            c *= 2
+    chunk = -(-live // c)
+    if chunk * da <= 4 * I8_WARP_BYTES:
+        return c, chunk, 4, 4
+    return c, chunk, 8, 4 if chunk * da <= 8 * I8_WARP_BYTES else 8
+
+
+def cache_pass_rows(da: int, warps: int, loads: int) -> int:
+    """Rows a rank of kernels 5 and 12 loads into registers at entry (one
+    pass): ``loads`` loads of 16 bytes a thread, da / 16 threads a row."""
+    return loads * warps * 32 * 16 // da
+
+
+def cache_smem_bytes(da: int, warps: int, loads: int, chunk: int) -> int:
+    """Dynamic shared memory of one rank of kernels 5 and 12
+    (csrc/decode_attention_i8.cu cache_smem_bytes): the pushed (m, l) pairs,
+    the warps' (max, sum), the pushed column sums, the warps' column sums,
+    the logits of rows past the first pass, two mbarriers."""
+    floats = 48 + da + warps * da + max(0, chunk - cache_pass_rows(da, warps, loads))
+    return 4 * (floats + floats % 2) + 16
+
+
+def _float_query_cuda(name, entry, das, q, k8, ks, v8, vs, extra, scale, live, plan=None):
     """Kernels 5 and 12 share their operands: a float q over int8 caches with
-    fp32 scales and an fp32 ``extra`` row."""
+    fp32 scales and an fp32 ``extra`` row. ``plan``, (C, chunk, warps,
+    loads), is ``cache_attention_plan``'s unless given
+    (tools/time_cache_attention_torch.py times every plan)."""
     live = k8.shape[2] if live is None and k8.dim() == 4 else live
     b, na, R, da = _check_i8_cache(name, q, k8, ks, v8, vs, live, (torch.float32,), das)
     if q.dtype not in _FLOATS:
@@ -555,11 +613,15 @@ def _float_query_cuda(name, entry, das, q, k8, ks, v8, vs, extra, scale, live):
             or extra.device != q.device:
         raise ValueError(f"{name}: extra must be contiguous float32 (b or 1, {na}, {R}) on q's "
                          f"device, got {extra.dtype} {tuple(extra.shape)}")
+    c, chunk, warps, loads = plan or cache_attention_plan(b, na, int(live), da)
+    if q.data_ptr() % 16:  # the kernels read q 16 bytes at a time
+        q = q.clone()
     out = torch.empty((b, na, da), dtype=q.dtype, device=q.device)
     err = getattr(LIBRARY.get(), entry)(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
-        extra.data_ptr(), out.data_ptr(), b, na, R, da, int(live), extra.shape[0],
-        int(q.dtype == torch.bfloat16), float(scale), torch.cuda.current_stream().cuda_stream)
+        extra.data_ptr(), out.data_ptr(), b, na, R, da, int(live), extra.shape[0], c, chunk,
+        warps, loads, int(q.dtype == torch.bfloat16), float(scale),
+        torch.cuda.current_stream().cuda_stream)
     check_launch(name, err)
     return out
 
@@ -568,7 +630,8 @@ def _float_query_cuda(name, entry, das, q, k8, ks, v8, vs, extra, scale, live):
 def cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, scale: float,
                             live: Optional[int] = None) -> torch.Tensor:
     """Kernel 5 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes and
-    types of ``cache_attention_i8_plain``, all contiguous, da in {64, 128}."""
+    types of ``cache_attention_i8_plain``, all contiguous, da in {64, 128}.
+    One cluster launch, its size from ``cache_attention_plan``."""
     out = _float_query_cuda("cache_attention_i8_cuda", "lvt_cache_attention_i8", (64, 128),
                             q, k8, ks, v8, vs, extra, scale, live)
     cache_attention_i8_cuda.launches += 1
@@ -597,7 +660,7 @@ def decode_attention_i8kv_cuda(q, k8, ks, v8, vs, extra, scale: float,
                                live: Optional[int] = None) -> torch.Tensor:
     """Kernel 12 (csrc/decode_attention_i8.cu) on CUDA tensors: the shapes
     and types of ``decode_attention_i8kv_plain``, all contiguous, da in
-    {16, 64, 128}."""
+    {16, 64, 128}. One launch, its plan from ``cache_attention_plan``."""
     out = _float_query_cuda("decode_attention_i8kv_cuda", "lvt_decode_attention_i8kv",
                             (16, 64, 128), q, k8, ks, v8, vs, extra, scale, live)
     decode_attention_i8kv_cuda.launches += 1

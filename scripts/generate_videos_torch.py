@@ -15,16 +15,21 @@ quantized sampler, e.g. an int8 KV cache read by the int8 decode kernel:
 
 Weights: TEST.VT_SAMPLER.VQ_VAE.{ENCODER,GENERATOR,CODEBOOK}_WEIGHTS for the
 VQ-VAE, MODEL.GENERATOR.WEIGHTS or else the latest checkpoint under
-OUTPUT_DIR for the VT, each a checkpoint of tools/train_net_torch.py or a
-training OUTPUT_DIR (lvt_tpu_torch/evaluation/vt_sampler.py). A configured
-path that does not exist raises, a reference .pth raises (its key layout is
-not ported yet); with nothing configured or found, the weights are random
-from --seed, with a warning. The VT is built on the latent grid of the
-encoded priming frames, so frames of any size the VQ-VAE takes generate.
+OUTPUT_DIR for the VT, each a reference .pth state dict (the paper's
+released per-sub-net files, as configs/vt/DSFVT.yaml names them), a
+checkpoint of tools/train_net_torch.py or a training OUTPUT_DIR
+(lvt_tpu_torch/evaluation/vt_sampler.py). A configured path that does not
+exist, or a .pth that cannot be read, raises; with nothing configured or
+found, the weights are random from --seed, with a warning. The VT is built
+on the latent grid of the encoded priming frames, so frames of any size the
+VQ-VAE takes generate.
 
 Usage:
   python scripts/generate_videos_torch.py --config-file configs/vt/DSFVT.yaml \
       --video-dir example/ [OUTPUT_DIR out] [opts...]
+With the reference weights at the paths DSFVT.yaml names
+(pretrained/PR-DVQVAE2/net{E,G,C}/model_final.pth) and the VT's:
+  ... MODEL.GENERATOR.WEIGHTS <path of the VT's model_final.pth>
 """
 
 import argparse

@@ -68,8 +68,9 @@ def test_copied_events_equals_original_but_its_memory_probe():
 
 
 def test_port_imports_neither_jax_nor_lvt_tpu():
-    """Every module of lvt_tpu_torch, the generation and training scripts, the
-    probe tool and chip_smoke.py, imported in a fresh interpreter, pull in no jax and no
+    """Every module of lvt_tpu_torch (the .pth converter included), the
+    generation and training scripts, the probe and timing tools and
+    chip_smoke.py, imported in a fresh interpreter, pull in no jax and no
     lvt_tpu."""
     code = r"""
 import importlib, pkgutil, sys
@@ -78,9 +79,12 @@ sys.path.insert(0, {scripts!r})
 sys.path.insert(0, {tools!r})
 import lvt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lvt_tpu_torch.__path__, "lvt_tpu_torch.")]
+assert "lvt_tpu_torch.checkpoint.torch_convert" in names, names
 for name in names + ["generate_videos_torch", "train_net_torch", "probe_decode_kernel_torch",
                      "ab_attention_torch", "time_attention_parts_torch",
-                     "time_decode_parts_torch", "time_decode_i8_torch", "chip_smoke"]:
+                     "time_decode_parts_torch", "time_decode_i8_torch",
+                     "time_cache_attention_torch", "time_cache_attention_parts_torch",
+                     "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lvt_tpu"))

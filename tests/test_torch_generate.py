@@ -167,8 +167,10 @@ def test_configured_weights_are_loaded(tmp_path):
 
 def test_configured_weights_that_cannot_be_read_are_refused(tmp_path):
     """A configured path that does not exist raises FileNotFoundError naming
-    its key; a reference .pth raises NotImplementedError (its key layout is
-    not ported); neither samples from random weights."""
+    its key, and a .pth that is no state dict raises ValueError naming its
+    key; neither samples from random weights. A reference .pth that can be
+    read is loaded: the codebook of a netC file (DVQEmbedding's ``ve.<i>``
+    keys, wrapped as fvcore writes it) is the one the VQ-VAE decodes with."""
     prime, vq_yaml = _frames(tmp_path), _vq_yaml(tmp_path, True)
     out_dir = str(tmp_path / "out")
     pth = tmp_path / "model_final.pth"
@@ -177,13 +179,28 @@ def test_configured_weights_that_cannot_be_read_are_refused(tmp_path):
     with pytest.raises(FileNotFoundError, match="ENCODER_WEIGHTS"):
         gvt.main(_argv(prime, out_dir, vq_yaml, *NO_VQ_WEIGHTS[2:],
                        "TEST.VT_SAMPLER.VQ_VAE.ENCODER_WEIGHTS", missing), device="cpu")
-    with pytest.raises(NotImplementedError, match="CODEBOOK_WEIGHTS"):
+    with pytest.raises(ValueError, match="CODEBOOK_WEIGHTS"):
         gvt.main(_argv(prime, out_dir, vq_yaml, *NO_VQ_WEIGHTS[:4],
                        "TEST.VT_SAMPLER.VQ_VAE.CODEBOOK_WEIGHTS", str(pth)), device="cpu")
     with pytest.raises(FileNotFoundError, match="MODEL.GENERATOR.WEIGHTS"):
         gvt.main(_argv(prime, out_dir, vq_yaml, *NO_VQ_WEIGHTS,
                        "MODEL.GENERATOR.WEIGHTS", missing), device="cpu")
-    with pytest.raises(NotImplementedError, match="MODEL.GENERATOR.WEIGHTS"):
+    with pytest.raises(ValueError, match="MODEL.GENERATOR.WEIGHTS"):
         gvt.main(_argv(prime, out_dir, vq_yaml, *NO_VQ_WEIGHTS,
                        "MODEL.GENERATOR.WEIGHTS", str(pth)), device="cpu")
     assert not os.path.exists(out_dir)  # nothing was sampled
+
+    from lvt_tpu_torch.evaluation.vt_sampler import load_paired_vqvae
+
+    rng = np.random.default_rng(2)
+    emb = [rng.standard_normal((16, 4)).astype(np.float32) for _ in range(4)]
+    netc = tmp_path / "netC.pth"
+    torch.save({"model": {f"ve.{i}.embedding.weight": torch.from_numpy(e)
+                          for i, e in enumerate(emb)}}, netc)
+    opts = [*NO_VQ_WEIGHTS[:4], "TEST.VT_SAMPLER.VQ_VAE.CODEBOOK_WEIGHTS", str(netc)]
+    _, codes, _, _ = gvt.main(_argv(prime, out_dir, vq_yaml, *opts), device="cpu")
+    assert codes.shape == (1, 4, T, 8, 8) and os.path.exists(os.path.join(out_dir, "0.png"))
+    cfg = gvt.load_config(VT_CFG, VT_OPTS + ["TEST.VT_SAMPLER.VQ_VAE.CFG", vq_yaml] + opts)
+    _, _, state, _, loaded = load_paired_vqvae(cfg, torch.Generator(), "cpu")
+    assert loaded and torch.equal(state["netC"]["embedding"], torch.from_numpy(np.stack(emb)))
+    assert torch.equal(state["netC"]["running_sum"], state["netC"]["embedding"])

@@ -380,3 +380,54 @@ def test_matmul_i8w_plan_covers_each_output_and_word_once(b, K, N):
     warps_a_column = max(1, tpc // 32)
     smem = tq.I8W_ROWS * K + 4 * tq.I8W_ROWS + 4 * cpb * tq.I8W_ROWS * warps_a_column
     assert smem <= SMEM_BLOCK
+
+
+# --------------------------------------------------------------------------
+# Kernels 5 and 12: cache_attention_plan
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,na", [(1, 8), (16, 8), (64, 8), (256, 8), (3, 2)])
+@pytest.mark.parametrize("da", [16, 64, 128])
+def test_cache_attention_plan_holds_each_live_row_once(b, na, da):
+    """Rank r owns rows [r * chunk, (r + 1) * chunk) cut at live; every live
+    row once, ranks in order, a power-of-two cluster of at most 16 with a
+    block an SM, ranks of 4 warps of 4 row loads or of 8 warps of 4 or 8
+    (one warp a head only at da 16 up to 256 rows, and only past
+    CACHE_WARP_HEADS heads), one pass of register loads wherever such a
+    cluster holds the rows in passes of 8 loads, and a rank's shared memory
+    within a block's."""
+    heads = b * na
+    for live in LIVES:
+        c, chunk, warps, loads = tca.cache_attention_plan(b, na, live, da)
+        assert 1 <= c <= tca.MAX_CLUSTER and c & (c - 1) == 0
+        assert c == 1 or heads * c <= tca.CARD_SMS
+        ranges = [(min(r * chunk, live), min((r + 1) * chunk, live)) for r in range(c)]
+        assert [j for lo, hi in ranges for j in range(lo, hi)] == list(range(live))
+        warp_heads = da == 16 and live <= tca.CACHE_WARP_ROWS and heads > tca.CACHE_WARP_HEADS
+        assert (warps == 1) == warp_heads
+        if warps == 1:
+            assert c == 1 and chunk == live and loads == 8
+            continue
+        assert (warps, loads) in ((4, 4), (8, 4), (8, 8))
+        assert loads == 4 or chunk > tca.cache_pass_rows(da, 8, 4)  # 8 loads only if needed
+        most = min(tca.MAX_CLUSTER, max(1, tca.CARD_SMS // heads))
+        if live * da <= most * 8 * tca.I8_WARP_BYTES:
+            assert chunk <= tca.cache_pass_rows(da, warps, loads)
+        assert tca.cache_smem_bytes(da, warps, loads, chunk) + 1024 <= SMEM_BLOCK
+
+
+@pytest.mark.parametrize("b,live,da,plan", [
+    (16, 1, 128, (1, 1, 4, 4)), (16, 64, 128, (1, 64, 4, 4)), (16, 128, 128, (1, 128, 8, 4)),
+    (16, 200, 128, (1, 200, 8, 8)), (16, 256, 128, (1, 256, 8, 8)), (1, 256, 128, (4, 64, 4, 4)),
+    (8, 256, 128, (2, 128, 8, 4)),
+    (256, 256, 128, (1, 256, 8, 8)), (256, 64, 128, (1, 64, 4, 4)),
+    (16, 256, 64, (1, 256, 8, 4)), (256, 256, 16, (1, 256, 1, 8)), (256, 1, 16, (1, 1, 1, 8)),
+    (16, 256, 16, (1, 256, 4, 4)), (256, 257, 16, (1, 257, 4, 4))])
+def test_cache_attention_plans_at_the_probe_and_rollout_shapes(b, live, da, plan):
+    """Kernel 3's rule at DSFVT's width and 8 heads (one rank while 8 warps
+    hold its rows in registers, else ranks of 4 warps that hold theirs: four
+    at 256 live rows for b = 1), the cluster only while each block has an SM
+    of its own (b = 8: two ranks; b = 16 and 256: one rank a head of 8 warps
+    and 8 row loads a thread); one warp a head at the probe tool's shape
+    (b 256, da 16)."""
+    assert tca.cache_attention_plan(b, 8, live, da) == plan

@@ -1166,3 +1166,77 @@ def test_i8kv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         tca.decode_attention_i8kv_cuda(q, k8, ks, v8, vs, extra, 1.0, live=33)
     with pytest.raises(ValueError):  # da = 16 is kernel 12's alone
         tca.cache_attention_i8_cuda(q, k8, ks, v8, vs, extra, 1.0)
+
+
+def _cache_plans(live, da):
+    """Every launch plan of kernels 5 and 12 at `live` rows: C = 1 to the
+    largest cluster, ranks of 4 warps and of 8 warps of 4 or 8 row loads a
+    thread, and one warp a head at da 16."""
+    plans = [(c, -(-live // c), w, u) for c in (1, 2, 4, 8, 16)
+             for w, u in ((4, 4), (8, 4), (8, 8))]
+    if da == 16 and live <= tca.CACHE_WARP_ROWS:
+        plans.append((1, live, 1, 8))
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [5, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("live", [1, 63, 200, 256])
+@pytest.mark.parametrize("b,da,eb", [(3, 16, 1), (3, 64, 3), (2, 128, 1), (2, 128, 2)])
+def test_cache_attention_kernels_take_every_plan(cuda, kernel, dtype, live, b, da, eb):
+    """Kernels 5 and 12 against their plain versions at every plan the launch
+    takes (kernel 5 has no da 16); each plan's two calls bit-identical; the
+    public wrapper launches once, at cache_attention_plan's plan."""
+    if kernel == 5 and da == 16:
+        da = 64
+    na, R, scale = 4, 256, da ** -0.5
+    q, k8, ks, v8, vs, extra = _i8kv_inputs(cuda, b, na, R, da, dtype, eb, seed=kernel + live)
+    k8[:, :, live:], v8[:, :, live:] = 127, -128  # rows >= live are never read
+    name, entry, public, plain = {
+        5: ("cache_attention_i8_cuda", "lvt_cache_attention_i8", tca.cache_attention_i8_cuda,
+            tca.cache_attention_i8_plain),
+        12: ("decode_attention_i8kv_cuda", "lvt_decode_attention_i8kv",
+             tca.decode_attention_i8kv_cuda, tca.decode_attention_i8kv_plain)}[kernel]
+    want = plain(q, k8, ks, v8, vs, extra, scale, live)
+    if kernel == 12:
+        atol, rtol = i8kv_tol(q, k8, ks, v8, vs, extra, scale, live, want)
+    else:
+        atol = 1e-5 * float(want.float().abs().max())
+        rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+    for plan in _cache_plans(live, da):
+        got = tca._float_query_cuda(name, entry, (16, 64, 128), q, k8, ks, v8, vs, extra, scale,
+                                    live, plan)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m, plan=plan: f"plan {plan}: {m}")
+        again = tca._float_query_cuda(name, entry, (16, 64, 128), q, k8, ks, v8, vs, extra,
+                                      scale, live, plan)
+        assert torch.equal(again, got), plan
+    before = public.launches
+    got = public(q, k8, ks, v8, vs, extra, scale, live)
+    assert public.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [5, 12])
+@pytest.mark.parametrize("da,live,plan", [
+    (128, 4096, None), (128, 4096, (16, 256, 4, 4)), (128, 3000, (1, 3000, 8, 8)),
+    (128, 600, (1, 600, 8, 4)), (64, 32768, None), (16, 4000, None), (16, 4000, (1, 4000, 4, 4)),
+    (16, 257, None)])
+def test_cache_attention_long_caches_take_passes(cuda, kernel, da, live, plan):
+    """Ranks with more rows than one pass of register loads (4 or 8 rows a
+    thread) keep the later passes' logits in shared memory; the plan's own
+    choice (None) at long caches, and single ranks of 600-4,000 rows."""
+    if kernel == 5 and da == 16:
+        da = 64
+    b, na, R, scale = 1, 2, max(live, 256), da ** -0.5
+    q, k8, ks, v8, vs, extra = _i8kv_inputs(cuda, b, na, R, da, torch.float32, 1, seed=7)
+    name, entry, plain = {
+        5: ("cache_attention_i8_cuda", "lvt_cache_attention_i8", tca.cache_attention_i8_plain),
+        12: ("decode_attention_i8kv_cuda", "lvt_decode_attention_i8kv",
+             tca.decode_attention_i8kv_plain)}[kernel]
+    got = tca._float_query_cuda(name, entry, (16, 64, 128), q, k8, ks, v8, vs, extra, scale, live,
+                                plan)
+    want = plain(q, k8, ks, v8, vs, extra, scale, live)
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0.0)

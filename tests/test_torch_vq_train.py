@@ -331,7 +331,7 @@ def test_sync_norms_raise_across_processes(monkeypatch):
     monkeypatch.setattr(comm, "get_world_size", lambda: 2)
     p, s = tnorms.init_norm("SyncBN", 4)
     for norm in ("SyncBN", "nnSyncBN"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
             tnorms.apply_norm(norm, p, s, torch.zeros(2, 3, 3, 4), True)
     tnorms.apply_norm("BN", p, s, torch.zeros(2, 3, 3, 4), True)  # BN never syncs
     with pytest.raises(ValueError):

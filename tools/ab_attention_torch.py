@@ -27,7 +27,11 @@ both trees, calling only the kernels' public wrappers. Phases:
   device busy share);
 * ``vq_kernel``: phase 13, kernel 6 at PR-DVQVAE2's step (all four
   sub-codebooks) and Base-VQVAE's; where the turn's tree has no grouped
-  launch, its one-codebook wrapper is called once per sub-codebook.
+  launch, its one-codebook wrapper is called once per sub-codebook;
+* ``probe_kernel``: phase 16, kernel 12 against its plain version, swept
+  over da in (16, 128) x b in (1, 16, 256) x live in (1, 64, 200, 256),
+  and tools/probe_decode_kernel_torch.py's timing run (``i8_kernels``
+  sweeps kernel 5 the same way at da 128).
 
 Device and build (phases 1 and 2) always run first. Each turn's whole
 output goes to ``<out-dir>/ab_<turn>_<tree>.txt`` (default
@@ -52,7 +56,8 @@ CALLS = {"kernels": "c.phase_kernels(card)\n",
          "train_fused": "c.phase_train(card, unfused=False)\n",
          "i8_kernels": "c.phase_i8_kernels(card)\n",
          "i8_rollouts": "c.phase_i8_rollouts(card)\n",
-         "vq_kernel": "c.phase_vq_kernel(card)\n"}
+         "vq_kernel": "c.phase_vq_kernel(card)\n",
+         "probe_kernel": "c.phase_probe_kernel(card)\n"}
 # this tree's chip_smoke.py, the turn's tree's package (its root is the
 # working directory, first on sys.path)
 HEAD = ("import importlib.util\n"
@@ -67,7 +72,8 @@ KEEP = ("kernel 1 ", "kernel 10 ", "  time ", "bf16 nb=", "kernel 2 ", "fused ke
         "layer times", "by __global__", "train DSFVT", "profile, one train",
         "hand-written kernels per step", "H100", "build:", "package:", "kernel 6 ",
         "kernel 11 ", "kernels 3 and 4", "kernel 3 ", "kernel 4 ", "kernel 5 ",
-        "main path batch", "profile, one slice", "hand-written kernels in the slice")
+        "main path batch", "profile, one slice", "hand-written kernels in the slice",
+        "kernel 12 ", "probe (b=", "dsfvt (b=")
 
 
 def main(argv=None):
