@@ -706,24 +706,31 @@ SLICE_MODES = (  # label, knobs of sample_slice_incremental: every sampler mode
 # device activities of a slice under the graph against the eager loop's: the
 # same launches, plus the copies of the slice's inputs into the graph's
 # buffers and of its codes out (4 a slice), within a share of the eager
-# count. torch.profiler now and then drops records of a profile this long:
-# one eager slice read 185,769 activities in one call and 185,828 in
-# another, its graph 185,825; in a third call an eager `pallas` slice lacked
-# 5 of the 1,536 records of kernel 3's 4-warp launches that the launch
-# counts show ran. So each is profiled PROFILES times and the fullest
-# profile kept.
+# count. torch.profiler drops records of a profile this long now and then:
+# the same eager slice has read 185,769 activities in one call and 185,828 in
+# another, and in one call both eager profiles of a slice lacked 6 or 7
+# launches each of several of PyTorch's kernels that its graph, replaying the
+# same launches, showed. A profile may drop records, never add one. So each way is profiled
+# at least PROFILES times, and on until a profile records within
+# PROFILES_AGREE of the most that each function showed in the profiles so far
+# (PROFILES_MAX times at the most); each function's launches are the most any
+# of them recorded.
 ACTIVITY_GAP = 1e-3
 PROFILES = 2
+PROFILES_MAX = 4
+PROFILES_AGREE = ACTIVITY_GAP / 4
 
 
-def _profiled(fn, profiles=1):
+def _profiled(fn, profiles=1, most=1):
     """(result, wall s, wall s under torch.profiler, device events as (name,
-    µs), launches of each hand-written kernel) of fn(), run once unprofiled
-    and ``profiles`` times profiled, each synchronized; the profile with the
-    most device events is kept, and each kernel's launches are the most any
-    profile recorded (a profile may drop records, never add one). The
-    events are the profiler's raw records: turning ~100k of them into
-    FunctionEvents took ~15 s a profile."""
+    µs) of the profile with the most of them, {device function: launches},
+    totals of the profiles) of fn(), run once unprofiled and then profiled
+    ``profiles`` times, and on while the last profile records fewer
+    activities than the most each function showed in the profiles so far by
+    more than a share PROFILES_AGREE of them, ``most`` times at the most; each
+    run synchronized. A function's launches are the most any profile
+    recorded. The events are the profiler's raw records: turning ~100k of
+    them into FunctionEvents took ~15 s a profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -732,8 +739,8 @@ def _profiled(fn, profiles=1):
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    best, hand = None, {}
-    for _ in range(profiles):
+    best, counts, totals = None, {}, []
+    while True:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -743,9 +750,13 @@ def _profiled(fn, profiles=1):
                 if e.device_type() == torch.autograd.DeviceType.CUDA]
         if best is None or len(kern) > len(best[1]):
             best = (wall_prof, kern)
-        for label, (_, cnt) in _hand_sums(_by_name(kern)).items():
-            hand[label] = max(hand.get(label, 0), cnt)
-    return (out, wall) + best + (hand,)
+        for name, (_, cnt) in _by_name(kern).items():
+            counts[name] = max(counts.get(name, 0), cnt)
+        totals.append(len(kern))
+        full = sum(counts.values())
+        if len(totals) >= most or (len(totals) >= profiles
+                                   and full - len(kern) <= PROFILES_AGREE * full):
+            return (out, wall) + best + (counts, totals)
 
 
 def _by_name(kern):
@@ -770,17 +781,33 @@ HAND_WRITTEN = (
     ("kernel 11", ("matmul_i8w_kernel",), ("matmul_i8w_cuda",)))
 
 
+def _label(name):
+    """The hand-written kernel a device function belongs to (the first whose
+    key its name holds), or None."""
+    return next((lb for lb, ks, _ in HAND_WRITTEN if any(k in name for k in ks)), None)
+
+
 def _hand_sums(by_name):
     """{label: (device ms, launches)} of the hand-written kernels, each summed
-    over its templates (a function counts under the first key its name
-    holds)."""
+    over its templates."""
     sums = {}
     for name, (tot, cnt) in by_name.items():
-        label = next((lb for lb, ks, _ in HAND_WRITTEN if any(k in name for k in ks)), None)
+        label = _label(name)
         if label is not None:
             t0, c0 = sums.get(label, (0.0, 0))
             sums[label] = (t0 + tot, c0 + cnt)
     return sums
+
+
+def _hand_counts(counts):
+    """{label: launches} of the hand-written kernels from {device function:
+    launches}."""
+    out = {}
+    for name, cnt in counts.items():
+        label = _label(name)
+        if label is not None:
+            out[label] = out.get(label, 0) + cnt
+    return out
 
 
 def _hand_written(by_name):
@@ -805,11 +832,12 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
     (captured first, outside the timings, unless ``vts``, phase 11's model of
     the mode by label, holds it already): the codes bit-equal; wall time,
     device busy share, device activities per pixel (copies and casts among
-    them) of each, under torch.profiler; the graph's activities per pixel
-    within a share ACTIVITY_GAP of the eager loop's, and each hand-written
-    kernel's launches in the graph's profile exactly those the capture
-    recorded (kernel 1: the encoder's); device time by kernel and of the
-    hand-written kernels in the graph's slice. Each run includes the slice's
+    them) of each, under torch.profiler, each device function's launches the
+    most that any of its profiles recorded (see PROFILES); the graph's
+    activities per pixel within a share ACTIVITY_GAP of the eager loop's, and
+    each hand-written kernel's launches in the graph's profiles exactly those
+    the capture recorded (kernel 1: the encoder's); device time by kernel and
+    of the hand-written kernels in the graph's slice. Each run includes the slice's
     encoder pass (kernel 1), as the rollout runs it."""
     import numpy as np
     import torch
@@ -848,7 +876,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                     return dec.run(zl, sl, primed_t, None, 1.0, True)
                 return sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl,
                                                 None, primed, 1.0, greedy=True, **knobs)
-            runs["eager"] = _profiled(eager, PROFILES)
+            runs["eager"] = _profiled(eager, PROFILES, PROFILES_MAX)
             if on_graph:
                 zl, sl = encoded()
                 graph = (vts or {}).get(label, vt)._slice_graph(params, zl, sl, primed_t, knobs,
@@ -857,7 +885,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                 def replay():
                     zl, sl = encoded()
                     return graph(zl, sl, primed_t)
-                runs["graph"] = _profiled(replay, PROFILES)
+                runs["graph"] = _profiled(replay, PROFILES, PROFILES_MAX)
                 # the launches a replay must show: the capture's, and the
                 # encoder's (kernel 1, eager, outside the graph)
                 with launches_apart() as took:
@@ -865,18 +893,20 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                 want_hand = _hand_launches(took)
                 for kernel, n in _hand_launches(graph.launches).items():
                     want_hand[kernel] = want_hand.get(kernel, 0) + n
-        acts, names = {}, {}
-        for way, (out, wall, wall_prof, kern, _) in runs.items():
+        acts = {}
+        for way, (out, wall, wall_prof, kern, counts, totals) in runs.items():
             busy = sum(us for _, us in kern) / 1e6
-            by_name = names[way] = _by_name(kern)
-            copies = sum(cnt for name, (_, cnt) in by_name.items()
+            by_name = _by_name(kern)
+            copies = sum(cnt for name, cnt in counts.items()
                          if "copy" in name.lower() or "memcpy" in name.lower())
-            acts[way] = len(kern) / thw
+            n = sum(counts.values())
+            acts[way] = n / thw
             print(f"profile, one slice (256 pixels) of the batch-{b} bf16 rollout, {label}, "
                   f"{way} [{card}]: wall {wall:.3f} s ({wall_prof:.3f} s under the profiler), "
                   f"device busy {busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled "
-                  f"wall time, {100 * busy / wall:.1f}% of the unprofiled; {len(kern)} device "
-                  f"activities = {len(kern) / thw:.2f} per pixel, copies and casts "
+                  f"wall time, {100 * busy / wall:.1f}% of the unprofiled; {n} device "
+                  f"activities = {n / thw:.2f} per pixel (each function's most in "
+                  f"{len(totals)} profiles of {', '.join(map(str, totals))}), copies and casts "
                   f"{copies / thw:.2f} per pixel"
                   + (f"; captured in {graph.capture_seconds:.3f} s (warm-up "
                      f"{graph.warmup_seconds:.3f} s)" if way == "graph" else ""))
@@ -894,8 +924,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
         if on_graph:
             check(torch.equal(runs["graph"][0], runs["eager"][0]),
                   f"{label}: the graph's greedy codes differ from the eager loop's")
-            counts = {way: {name: cnt for name, (_, cnt) in by_name.items()}
-                      for way, by_name in names.items()}
+            counts = {way: run[4] for way, run in runs.items()}
             differ = {name: (counts["eager"].get(name, 0), counts["graph"].get(name, 0))
                       for name in set(counts["eager"]) | set(counts["graph"])
                       if counts["eager"].get(name, 0) != counts["graph"].get(name, 0)}
@@ -903,7 +932,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                   f"{label}: device activities per pixel {acts['graph']:.3f} under the graph, "
                   f"{acts['eager']:.3f} eager; want within {ACTIVITY_GAP:g} of the eager count; "
                   f"counts (eager, graph) that differ: {differ}")
-            seen = runs["graph"][4]
+            seen = _hand_counts(counts["graph"])
             check(seen == want_hand,
                   f"{label}: hand-written kernels' launches in the graph's profile {seen}, want "
                   f"exactly the capture's and the encoder's {want_hand}")
@@ -2273,7 +2302,7 @@ def phase_bench_slice(card, models):
             t0 = time.perf_counter()
             graph = vt._slice_graph(params, zl, sl, primed, knobs, 1.0, True)
             capture = time.perf_counter() - t0
-            out, wall, wall_prof, kern, _ = _profiled(lambda: graph(zl, sl, primed))
+            out, wall, wall_prof, kern, *_ = _profiled(lambda: graph(zl, sl, primed))
         peak = torch.cuda.max_memory_allocated()
         busy = sum(us for _, us in kern) / 1e6
         check(tuple(out.shape) == tuple(sl.shape),
