@@ -150,10 +150,32 @@ Phases, each fatal on failure (exit code 1, no result line):
                 device times swept over da in (16, 128) x b in (1, 16, 256) x
                 live in (1, 64, 200, 256); tools/probe_decode_kernel_torch.py's
                 timing run, beside kernels 2 and 3.
+ 17. eval     — tools/train_net_torch.py --eval-only at full width on a test
+                set of 8 videos x 16 PNG frames of 64x64 written from a numpy
+                seed (bair_test_seq's layout). Stage 1: PR-DVQVAE2 from phase
+                14's OUTPUT_DIR, MSE and the 8 x 16 latent files (4, 16, 16)
+                of CodesExtractor, no launch of kernel 6 (codes stay on the
+                plain fp32 path); seconds, device busy share, peak memory.
+                Stage 2: DSFVT from phase 8's fused OUTPUT_DIR over those
+                latents with BitsEvaluator, VTSampler and FVDEvaluator, the
+                paired VQ-VAE from phase 14's: bits/dim, FVD_stub, every
+                sampled video's codes and PNGs, exactly 256 launches of
+                kernel 7 per video (bits, fused layer) and 88 of kernel 1 and
+                22,528 of kernel 2 per rollout, one rollout capture for the
+                whole run; seconds of bits, of the logits' host transfer and
+                of sampling apart. fp32 agreement, card vs the plain path on
+                the CPU: 2 videos' MSE (1e-4 relative) and latents (near-ties
+                only), 1 video's bits/dim (6e-5), i3d_apply at (2, 16, 224,
+                224, 3) on seeded .npz weights (1e-4 of the largest logit).
+                EvalHook: 4 fused DSFVT steps at TEST.EVAL_PERIOD 2 evaluate
+                twice (the storage holds both, metrics.json the last), one
+                rollout capture each.
 
 Phases 10 to 13 run right after phase 5, while the generation models are
-loaded (10b right after 10, 11b and 12b after 11 and 12). The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+loaded (10b right after 10, 11b and 12b after 11 and 12); phases 8 and 14
+keep their OUTPUT_DIRs for phase 17. The line before the last is
+{"kernels": [...]}, each kernel with its main-path launches and phase 17's
+("eval_launches"); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -1496,11 +1518,12 @@ def _train_kernels():
             ffn_half_bwd_cuda, attn_half_bwd_cuda)
 
 
-def phase_train(card, unfused=True):
+def phase_train(card, unfused=True, keep=None):
     """DSFVT training through tools/train_net_torch.py's main, then --resume,
     with the fused layer (DSFVT's defaults) and, unless ``unfused`` is
     False, with TPU.FUSED_LAYER False; per-step launch counts and times
-    recorded around Trainer.train_step."""
+    recorded around Trainer.train_step. ``keep``: a path that the fused run's
+    OUTPUT_DIR is moved to (phase 17 evaluates its checkpoint)."""
     import shutil
     import tempfile
 
@@ -1514,6 +1537,8 @@ def phase_train(card, unfused=True):
         print(f"train data: 128 latent videos of {T_FRAMES} frames written in "
               f"{time.perf_counter() - t0:.2f} s")
         fused = _train_run(card, os.path.join(tmp, "fused"), True, TRAIN_STEPS, RESUME_STEPS)
+        if keep:
+            shutil.move(os.path.join(tmp, "fused"), keep)
         if not unfused:
             return fused, None
         unfused = _train_run(card, os.path.join(tmp, "unfused"), False, TRAIN_STEPS // 2,
@@ -2539,8 +2564,8 @@ def _vq_real_z(card, models):
     check(n_far == 0, f"nearest_indices on real z_e: {n_far} indices differ at no near-tie")
 
 
-def _write_frames(root, n_videos, n_frames, seed):
-    """PNG frames of 64x64 in the BAIR layout, <root>/train/video_<v>/<f>.png:
+def _write_frames(root, n_videos, n_frames, seed, split="train"):
+    """PNG frames of 64x64 in the BAIR layout, <root>/<split>/video_<v>/<f>.png:
     8x8 colour blocks that drift from frame to frame, plus noise, drawn from a
     numpy seed."""
     import numpy as np
@@ -2548,7 +2573,7 @@ def _write_frames(root, n_videos, n_frames, seed):
 
     rng = np.random.default_rng(seed)
     for v in range(n_videos):
-        d = os.path.join(root, "train", f"video_{v}")
+        d = os.path.join(root, split, f"video_{v}")
         os.makedirs(d)
         blocks = rng.uniform(0, 255, (8, 8, 3))
         for f in range(n_frames):
@@ -2558,10 +2583,11 @@ def _write_frames(root, n_videos, n_frames, seed):
                 os.path.join(d, f"{f}.png"))
 
 
-def phase_vqvae_train(card):
+def phase_vqvae_train(card, keep=None):
     """PR-DVQVAE2 training through tools/train_net_torch.py's main at full
     width, then --resume; per-step launches of kernel 6 and times recorded
-    around Trainer.train_step."""
+    around Trainer.train_step. ``keep``: a path that the run's OUTPUT_DIR is
+    moved to (phase 17 evaluates its checkpoint)."""
     import shutil
     import tempfile
     from contextlib import nullcontext
@@ -2637,6 +2663,8 @@ def phase_vqvae_train(card):
             "SOLVER.MAX_ITER", str(n_steps + n_resume)]))
         check(tr2.start_iter == n_steps and tr2.state.step == n_steps + n_resume,
               f"vqvae resume: started at {tr2.start_iter}, ended at {tr2.state.step}")
+        if keep:
+            shutil.move(out, keep)
     finally:
         Trainer.train_step = inner
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2880,6 +2908,395 @@ def phase_probe_kernel(card):
             "dsfvt_bound_ms": bd2, "kernel2_ms": k2, "kernel3_ms": k3, "sweep": sweep}, launches
 
 
+# Phase 17, "eval": the evaluation path at full width. Its test set: EVAL_VIDEOS
+# videos of T_FRAMES 64x64 frames. Launches, stated before any run of it
+# (models/vt.py logits_for_entire_video and sample_video): bits/dim
+# teacher-forces all T_FRAMES slices of a video (DSFVT's stride 16, 1, 1: a
+# frame a slice), each through 8 + 8 fused layers, one kernel-7 launch each
+# and none of kernel 1; a rollout encodes each of its 11 sampled slices (8
+# layers of kernel 1) and decodes 256 pixels x 8 layers (kernel 2).
+EVAL_VIDEOS = 8
+EVAL_K7_PER_VIDEO = T_FRAMES * (8 + 8)
+EVAL_K1_PER_ROLLOUT = (T_FRAMES - N_PRIME) * 8
+EVAL_K2_PER_ROLLOUT = (T_FRAMES - N_PRIME) * 256 * 8
+# bits/dim, fp32, card vs the plain path on the CPU: PATH_TOL on each logit
+# moves a cross-entropy (logsumexp minus one logit) by at most 2 x 2e-5 nats,
+# 5.8e-5 bits
+BITS_TOL = 6e-5
+# reconstruction MSE, card vs CPU, relative: fp32 convolutions summed in
+# other orders (~1e-6), a reconstruction moved by a near-tie code at most
+MSE_TOL = 1e-4
+# I3D logits, card vs CPU, fp32, against the largest: sums of up to 22,464
+# terms (Mixed_5c's 3x3x3 over 832 channels) in another order through 22
+# convolutions; measured ~2e-6 between lvt_tpu and the port on the CPU
+I3D_TOL = 1e-4
+# bits/dim of phase 8's DSFVT (24 steps from its init on uniform random codes,
+# its training loss down to 6.2384 nats = log 512) over stage 1's latents: the
+# model is close to uniform, so a hair above log2 512 (the cross-entropy of a
+# near-uniform model on any data); above log2 512 + BITS_SLACK means a broken
+# path
+BITS_SLACK = 0.5
+
+
+def _device_busy_ms(prof):
+    """Device ms of a torch.profiler run (its raw CUDA records)."""
+    import torch
+
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+
+
+def _latent_tree(root):
+    """{"video_<v>/<f>.npy": array} of a CodesExtractor tree."""
+    import numpy as np
+
+    return {os.path.relpath(os.path.join(d, f), root): np.load(os.path.join(d, f))
+            for d, _, fs in os.walk(root) for f in fs if f.endswith(".npy")}
+
+
+def _latent_near_ties(got, want, frames_root, vq_dir, vq_yaml):
+    """(indices that differ, of them no float64 near-tie, indices) between two
+    CodesExtractor trees of the same videos; z_e from the plain fp32 path on
+    the CPU."""
+    import numpy as np
+    import torch
+
+    from lvt_tpu_torch.config import get_cfg
+    from lvt_tpu_torch.evaluation.vt_sampler import load_vqvae_weights
+    from lvt_tpu_torch.models.vqvae import VQVAE
+    from lvt_tpu_torch.utils.image import read_image
+
+    n_diff = n_far = total = 0
+    vq = None
+    for video in sorted({os.path.dirname(k) for k in want}):
+        g = np.stack([got[f"{video}/{f}.npy"] for f in range(T_FRAMES)])  # (T, nc, h, w)
+        w = np.stack([want[f"{video}/{f}.npy"] for f in range(T_FRAMES)])
+        total += w.size
+        if np.array_equal(g, w):
+            continue
+        if vq is None:
+            cfg = get_cfg()
+            cfg.merge_from_file(vq_yaml)
+            vq = VQVAE(cfg)
+            p, st, _ = load_vqvae_weights(vq, *vq.init(torch.Generator().manual_seed(0)),
+                                          vq_dir, "", "")
+        x = np.stack([read_image(os.path.join(frames_root, "test", video, f"{f}.png"), "RGB")
+                      for f in range(T_FRAMES)]).astype(np.float32)
+        if cfg.INPUT.SCALE_TO_ZEROONE:
+            x /= 255.0
+        with torch.no_grad():
+            z = vq.encode_features(p, st, vq.normalize(torch.from_numpy(x)))[0]
+        emb = st["netC"]["embedding"]
+        num, _, dc = emb.shape
+        z = z.reshape(-1, num, dc)
+        gi = torch.from_numpy(g.transpose(0, 2, 3, 1).reshape(-1, num))
+        wi = torch.from_numpy(w.transpose(0, 2, 3, 1).reshape(-1, num))
+        for c in range(num):
+            d, f = _near_ties(gi[:, c], wi[:, c], z[:, c], emb[c])
+            n_diff, n_far = n_diff + d, n_far + f
+    return n_diff, n_far, total
+
+
+def _i3d_agree(card):
+    """i3d_apply on the card and on the CPU, fp32, on the same .npz (lvt_tpu's
+    layout, weights from a numpy seed) and the same (2, 16, 224, 224, 3)
+    video. Returns (max |card - cpu|, max |cpu|, the same with TF32 on,
+    card ms a call, by CUDA events)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lvt_tpu_torch.evaluation.i3d import i3d_apply, init_i3d, load_i3d_npz
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", tuple(v.shape)
+
+    rng = np.random.default_rng(17)
+    arrays = {}
+    for key, shape in flat(init_i3d(torch.Generator())):
+        if key.endswith("/w"):  # (out, in, t, h, w) -> lvt_tpu's (t, h, w, in, out)
+            o, i, *k = shape
+            scale = 0.01 if key.startswith("Logits") else 1.0 / np.sqrt(i * np.prod(k))
+            arrays[key] = rng.standard_normal((*k, i, o)) * scale
+        elif key.endswith("/var"):
+            arrays[key] = rng.uniform(0.5, 1.5, shape)
+        else:  # beta, mean, b
+            arrays[key] = rng.normal(0.0, 0.1, shape)
+    video = rng.uniform(-1.0, 1.0, (2, T_FRAMES, 224, 224, 3)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "i3d.npz")
+        np.savez(path, **{k: v.astype(np.float32) for k, v in arrays.items()})
+        params = {d: load_i3d_npz(path, d) for d in ("cuda", "cpu")}
+    out = {}
+    with torch.no_grad():
+        out["cpu"] = i3d_apply(params["cpu"], torch.from_numpy(video))
+        x = torch.from_numpy(video).cuda()
+        out["card"] = i3d_apply(params["cuda"], x).cpu()
+        ms = host_ms([lambda: i3d_apply(params["cuda"], x)], 3)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            out["tf32"] = i3d_apply(params["cuda"], x).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    top = float(out["cpu"].abs().max())
+    return (float((out["card"] - out["cpu"]).abs().max()), top,
+            float((out["tf32"] - out["cpu"]).abs().max()), ms)
+
+
+def phase_eval(card, vq_dir, vt_dir):
+    """Evaluation at full width through tools/train_net_torch.py --eval-only:
+    stage 1 (PR-DVQVAE2 from phase 14's OUTPUT_DIR ``vq_dir``: MSE and the
+    latents of a test set written here), stage 2 (DSFVT from phase 8's fused
+    OUTPUT_DIR ``vt_dir`` over those latents: bits/dim, sampled videos,
+    FVD_stub, the paired VQ-VAE from ``vq_dir``) with exact launch counts and
+    one rollout capture; card against CPU for both stages and for I3D; and
+    EvalHook in a 4-step DSFVT training run. Returns {kernel: launches} of
+    stage 2."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_net_torch
+    import lvt_tpu_torch.engine.defaults as defaults
+    from lvt_tpu_torch.data.datasets.bair import register_bair
+    from lvt_tpu_torch.data.datasets.latents import register_latents
+    from lvt_tpu_torch.engine.defaults import default_argument_parser
+    from lvt_tpu_torch.models.vt import VideoTransformer
+    from lvt_tpu_torch.ops.attention import block_attention_fwd_cuda
+    from lvt_tpu_torch.ops.cache_attention import decode_attention_cuda
+    from lvt_tpu_torch.ops.fused_layer import fused_layer_fwd_cuda
+    from lvt_tpu_torch.ops.vq import nearest_indices_grouped_cuda
+
+    parse = default_argument_parser().parse_args
+    main = train_net_torch.main
+    vq_yaml = os.path.join(ROOT, "configs", "vqvae", "PR-DVQVAE2.yaml")
+    vt_yaml = os.path.join(ROOT, "configs", "vt", "DSFVT.yaml")
+    paired = ["TEST.VT_SAMPLER.VQ_VAE.CFG", vq_yaml, "TEST.VT_SAMPLER.VQ_VAE.ENCODER_WEIGHTS",
+              vq_dir, "TEST.VT_SAMPLER.VQ_VAE.GENERATOR_WEIGHTS", "",
+              "TEST.VT_SAMPLER.VQ_VAE.CODEBOOK_WEIGHTS", ""]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        # ---- the test set: bair_test_seq's layout
+        t0 = time.perf_counter()
+        frames_root = os.path.join(tmp, "frames")
+        _write_frames(frames_root, EVAL_VIDEOS, T_FRAMES, 1, split="test")
+        register_bair("chip_smoke_eval_seq", frames_root, "test", False)
+        print(f"eval data: {EVAL_VIDEOS} test videos of {T_FRAMES} PNG frames of 64x64 written "
+              f"in {time.perf_counter() - t0:.2f} s")
+
+        # ---- stage 1: PR-DVQVAE2 --eval-only, MSE + CodesExtractor
+        stage1 = ["--config-file", vq_yaml, "--eval-only", "DATASETS.TEST",
+                  "('chip_smoke_eval_seq',)", "DATALOADER.NUM_WORKERS", "0"]
+        k6 = nearest_indices_grouped_cuda.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res1 = main(parse(stage1 + ["OUTPUT_DIR", vq_dir]))
+            torch.cuda.synchronize()
+            sec1 = time.perf_counter() - t0
+        peak1, busy1 = torch.cuda.max_memory_allocated() - held, _device_busy_ms(prof)
+        mse = res1["reconstruction"]["MSE"]
+        check(np.isfinite(mse), f"eval stage 1: MSE {mse}")
+        check(nearest_indices_grouped_cuda.launches == k6,
+              "eval stage 1: code extraction launched kernel 6 (its indices stay on the plain "
+              "fp32 path, as lvt_tpu keeps use_pallas=False there)")
+        codes_root = os.path.join(vq_dir, "inference", "chip_smoke_eval_seq")
+        latents = _latent_tree(codes_root)
+        want_files = {f"video_{v}/{f}.npy" for v in range(EVAL_VIDEOS) for f in range(T_FRAMES)}
+        check(set(latents) == want_files, f"eval stage 1: latents {sorted(latents)[:4]}..., want "
+                                          f"{EVAL_VIDEOS} x {T_FRAMES} files")
+        for k, a in latents.items():
+            check(a.shape == (4, 16, 16) and a.dtype == np.int32 and 0 <= a.min()
+                  and a.max() < 512, f"eval stage 1: {k} {a.shape} {a.dtype} [{a.min()}, {a.max()}]")
+        used = len(np.unique(np.stack(list(latents.values()))))
+        print(f"eval stage 1 PR-DVQVAE2 --eval-only [{card}]: {EVAL_VIDEOS} videos in "
+              f"{sec1:.2f} s with set-up (model, checkpoint, PNG reads), device busy "
+              f"{busy1:.1f} ms ({100 * busy1 / 1e3 / sec1:.1f}%), max_memory_allocated "
+              f"{peak1 / 2 ** 20:.1f} MiB above the {held / 2 ** 20:.0f} MiB earlier phases "
+              f"hold; MSE {mse:.6g}; {len(latents)} latent files of (4, 16, "
+              f"16) int32, {used} distinct codes")
+
+        # ---- stage 2: DSFVT --eval-only, bits/dim + samples + FVD_stub
+        register_latents("chip_smoke_eval_latents", codes_root)
+        stage2 = ["--config-file", vt_yaml, "--eval-only", "DATASETS.TEST",
+                  "('chip_smoke_eval_latents',)", "DATALOADER.NUM_WORKERS", "0", *paired]
+        timed = {"bits": 0.0, "host": 0.0, "sample": 0.0}
+        seen = []  # the first bits call, profiled again after the run
+        inner_logits, inner_sample = (VideoTransformer.logits_for_entire_video,
+                                      VideoTransformer.sample_video)
+
+        def logits(self, *a, **k):
+            if not seen:
+                seen.append((self, a, k))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner_logits(self, *a, **k)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = out.cpu()  # the host transfer, apart
+            timed["bits"] += t1 - t0
+            timed["host"] += time.perf_counter() - t1
+            return out
+
+        def sample(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner_sample(self, *a, **k)
+            torch.cuda.synchronize()
+            timed["sample"] += time.perf_counter() - t0
+            return out
+
+        counted = (fused_layer_fwd_cuda, block_attention_fwd_cuda, decode_attention_cuda)
+        want = (EVAL_VIDEOS * EVAL_K7_PER_VIDEO, EVAL_VIDEOS * EVAL_K1_PER_ROLLOUT,
+                EVAL_VIDEOS * EVAL_K2_PER_ROLLOUT)
+        VideoTransformer.logits_for_entire_video, VideoTransformer.sample_video = logits, sample
+        try:
+            caps = _captures()
+            for k in counted:
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res2 = main(parse(stage2 + ["TEST.EVALUATORS", "BitsEvaluator,VTSampler,FVDEvaluator",
+                                        "OUTPUT_DIR", vt_dir]))
+            torch.cuda.synchronize()
+            sec2 = time.perf_counter() - t0
+            launches = tuple(k.launches for k in counted)
+            n_caps, cap_sec = (x - y for x, y in zip(_captures(), caps))
+        finally:
+            VideoTransformer.logits_for_entire_video = inner_logits
+            VideoTransformer.sample_video = inner_sample
+        peak2 = torch.cuda.max_memory_allocated() - held
+        vt_self, a, k = seen[0]  # one video's bits pass under torch.profiler, after the counts
+        _, _, bits_wall, kern, _, _ = _profiled(lambda: inner_logits(vt_self, *a, **k))
+        bits_busy = sum(us for _, us in kern) / 1e3
+        del seen[:], vt_self, a, k
+        bits = res2["likelihood"]["bits_per_dim"]
+        fvd = res2["generation"]["FVD_stub"]
+        check(launches == want, f"eval stage 2: launches of kernels 7, 1, 2 {launches}, want "
+                                f"exactly {want}")
+        check(n_caps == 1, f"eval stage 2: {n_caps} rollout graphs captured, want 1 for the run")
+        check(0.0 < bits <= np.log2(512) + BITS_SLACK, f"eval stage 2: bits/dim {bits}")
+        check(np.isfinite(fvd), f"eval stage 2: FVD_stub {fvd}")
+        samples = os.path.join(vt_dir, "inference", "samples", "chip_smoke_eval_latents")
+        for v in range(EVAL_VIDEOS):
+            d = os.path.join(samples, f"video_0_{v}")
+            names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+            check(names == sorted(["codes.npy"] + [f"{f}.png" for f in range(T_FRAMES)]),
+                  f"eval stage 2: {d} holds {names}")
+            codes = np.load(os.path.join(d, "codes.npy"))
+            primed = np.stack([latents[f"video_{v}/{f}.npy"] for f in range(N_PRIME)], axis=1)
+            check(codes.shape == (4, T_FRAMES, 16, 16) and 0 <= codes.min() and codes.max() < 512
+                  and np.array_equal(codes[:, :N_PRIME], primed),
+                  f"eval stage 2: video_0_{v}/codes.npy {codes.shape}, primed frames changed or "
+                  "codes out of range")
+        mib = 4 * 16 * 16 * 16 * 4 * 512 / 2 ** 20
+        print(f"eval stage 2 DSFVT --eval-only BitsEvaluator,VTSampler,FVDEvaluator [{card}]: "
+              f"{EVAL_VIDEOS} videos in {sec2:.2f} s with set-up; bits/dim {timed['bits']:.3f} s "
+              f"(logits on the card; one video's pass profiled: device busy {bits_busy:.1f} ms "
+              f"of {1e3 * bits_wall:.1f}) + {timed['host']:.3f} s moving {EVAL_VIDEOS} x "
+              f"{mib:.0f} MiB of fp32 logits to the host; sampling {timed['sample']:.3f} s for "
+              f"{EVAL_VIDEOS} rollouts of b=1 fp32, of it {cap_sec:.3f} s capturing {n_caps} "
+              f"graph(s); max_memory_allocated {peak2 / 2 ** 20:.1f} MiB above what earlier "
+              f"phases hold; launches of kernels 7, "
+              f"1, 2 {launches} (want {want}); bits/dim {bits:.6f}, FVD_stub {fvd:.6g}")
+
+        # ---- agreement, fp32: the card against the plain path on the CPU
+        t0 = time.perf_counter()
+        runs = {}
+        for name, device in (("card", "cuda"), ("cpu", "cpu")):
+            out = os.path.join(tmp, f"vq_{name}")
+            r = main(parse(stage1 + ["TEST.N_SAMPLES", "2", "MODEL.ENCODER.WEIGHTS", vq_dir,
+                                     "OUTPUT_DIR", out]), device=device)
+            runs[name] = (r["reconstruction"]["MSE"],
+                          _latent_tree(os.path.join(out, "inference", "chip_smoke_eval_seq")))
+        (m_card, l_card), (m_cpu, l_cpu) = runs["card"], runs["cpu"]
+        check(set(l_card) == set(l_cpu) and len(l_cpu) == 2 * T_FRAMES,
+              f"eval agree: latent files differ ({len(l_card)} vs {len(l_cpu)})")
+        n_diff, n_far, total = _latent_near_ties(l_card, l_cpu, frames_root, vq_dir, vq_yaml)
+        e_mse = abs(m_card - m_cpu) / abs(m_cpu)
+        check(e_mse <= MSE_TOL, f"eval agree: MSE card {m_card} vs cpu {m_cpu}")
+        check(n_far == 0 and n_diff <= max(1, int(NEAR_TIE_SHARE * total)),
+              f"eval agree: {n_diff} of {total} latent codes differ, {n_far} of them no near-tie")
+        bits_runs = {}
+        for name, device in (("card", "cuda"), ("cpu", "cpu")):
+            r = main(parse(stage2 + ["TEST.EVALUATORS", "BitsEvaluator", "TEST.N_SAMPLES", "1",
+                                     "MODEL.GENERATOR.WEIGHTS", vt_dir,
+                                     "OUTPUT_DIR", os.path.join(tmp, f"vt_{name}")]),
+                     device=device)
+            bits_runs[name] = r["likelihood"]["bits_per_dim"]
+        e_bits = abs(bits_runs["card"] - bits_runs["cpu"])
+        check(e_bits <= BITS_TOL, f"eval agree: bits/dim card {bits_runs['card']} vs cpu "
+                                  f"{bits_runs['cpu']}")
+        e_i3d, top, e_tf32, i3d_ms = _i3d_agree(card)
+        check(e_i3d <= I3D_TOL * top, f"eval agree: i3d_apply card vs cpu {e_i3d} > "
+                                      f"{I3D_TOL} x {top}")
+        print(f"eval agree fp32 [{card}]: MSE over 2 videos card {m_card:.8g} vs cpu {m_cpu:.8g} "
+              f"(rel {e_mse:.3g}, bound {MSE_TOL:g}); latents {n_diff} of {total} codes differ, "
+              f"{n_far} no near-tie; bits/dim of 1 video card {bits_runs['card']:.8f} vs cpu "
+              f"{bits_runs['cpu']:.8f} (|diff| {e_bits:.3g}, bound {BITS_TOL:g}); i3d_apply "
+              f"(2, 16, 224, 224, 3) max_abs_err {e_i3d:.3g} of |logits| <= {top:.3g} (bound "
+              f"{I3D_TOL:g} relative; TF32 on reads {e_tf32:.3g}), {i3d_ms:.3f} ms on the card; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- EvalHook: 4 fused DSFVT steps, TEST.EVAL_PERIOD 2
+        hook_out = os.path.join(tmp, "hook")
+        calls = []
+        inner_run_test = defaults.run_test
+        defaults.run_test = lambda *a, **k: calls.append(1) or inner_run_test(*a, **k)
+        try:
+            caps = _captures()
+            t0 = time.perf_counter()
+            tr = main(parse(["--config-file", vt_yaml, "DATASETS.TRAIN",
+                             "('chip_smoke_eval_latents',)", "DATASETS.TEST",
+                             "('chip_smoke_eval_latents',)", "TEST.EVAL_PERIOD", "2",
+                             "TEST.EVALUATORS", "BitsEvaluator,VTSampler", "TEST.N_SAMPLES", "1",
+                             "SOLVER.MAX_ITER", "4", "DATALOADER.NUM_WORKERS", "0", *paired,
+                             "OUTPUT_DIR", hook_out]))
+            torch.cuda.synchronize()
+            sec_hook = time.perf_counter() - t0
+            n_caps = _captures()[0] - caps[0]
+        finally:
+            defaults.run_test = inner_run_test
+        check(tr.state.step == 4 and tr.model.fused, "eval hook: not 4 fused DSFVT steps")
+        key = "eval/likelihood/bits_per_dim"
+        stored = [v for v, _ in tr.storage.histories()[key].values()]
+        del tr
+        # metrics.json gets a row at the last step and after training (the
+        # writer's period, 20, passes step 2 by): the final evaluation's value
+        with open(os.path.join(hook_out, "metrics.json")) as f:
+            logged = [r[key] for r in map(json.loads, f) if key in r]
+        check(len(calls) == 2 and len(stored) == 2 and all(np.isfinite(stored))
+              and logged and logged[-1] == stored[-1],
+              f"eval hook: {len(calls)} evaluations, {key} stored {stored}, logged {logged}; "
+              "want 2 evaluations, the last in metrics.json")
+        check(n_caps == 2, f"eval hook: {n_caps} rollout graphs captured, want 2 (one an "
+                           "evaluation: the optimizer changed the weights in place between)")
+        print(f"eval hook DSFVT b=64, 4 fused steps, TEST.EVAL_PERIOD 2 [{card}]: "
+              f"{len(calls)} evaluations (BitsEvaluator, VTSampler on 1 video), {key} "
+              f"{stored} ({logged[-1]} in metrics.json), {n_caps} captures; "
+              f"{sec_hook:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"fused_layer_fwd": launches[0], "block_attention_fwd": launches[1],
+            "decode_attention": launches[2]}
+
+
 def main():
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
@@ -2930,16 +3347,26 @@ def main():
     lap("train kernels")
     fres, fbounds = phase_fused_kernels(card)
     lap("fused kernels")
-    fused_run, unfused_run = phase_train(card)
+    # phases 8 and 14 hand their OUTPUT_DIRs on to phase 17
+    import atexit
+    import shutil
+    import tempfile
+
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    atexit.register(shutil.rmtree, keep, True)
+    vt_dir, vq_dir = os.path.join(keep, "dsfvt"), os.path.join(keep, "prdvqvae2")
+    fused_run, unfused_run = phase_train(card, keep=vt_dir)
     lap("train")
     phase_train_agree(card)
     lap("train agree")
-    vq_run = phase_vqvae_train(card)
+    vq_run = phase_vqvae_train(card, keep=vq_dir)
     lap("vqvae train")
     phase_vqvae_agree(card)
     lap("vqvae agree")
     k12, k12_launches = phase_probe_kernel(card)
     lap("probe kernel")
+    eval_launches = phase_eval(card, vq_dir, vt_dir)
+    lap("eval")
     print("phase seconds: " + ", ".join(laps) + f"; whole run {time.perf_counter() - start:.1f} s")
 
     def entry(name, source, replaces, n_launches, r):
@@ -2999,6 +3426,8 @@ def main():
         dict(entry("decode_attention_i8kv", "lvt_tpu_torch/csrc/decode_attention_i8.cu",
                    "tools/probe_decode_kernel.py:49", k12_launches, k12), on_main_path=False),
     ]
+    for k in kernels:  # phase 17's launches: the evaluation path, apart from the main path's
+        k["eval_launches"] = eval_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Weights carried across from the JAX package.
 
-``from_jax_vt``, ``from_jax_vqvae`` and ``from_jax_autoencoder`` take the JAX
+``from_jax_vt``, ``from_jax_vqvae``, ``from_jax_autoencoder`` and
+``from_jax_i3d`` take the JAX
 package's parameter trees with numpy leaves
 (``jax.tree_util.tree_map(np.asarray, tree)``) and return the port's trees: the same nested dicts and lists, NamedTuples
 (``BlockAttnParams``, ``EmaCodebookState``) as dicts of their fields, and
@@ -87,3 +88,24 @@ def from_jax_autoencoder(params, state) -> Tuple[Dict[str, Any], Dict[str, Any]]
     if set(p) != {"netE", "netG"} or set(s) != {"netE", "netG"}:
         raise ValueError(f"from_jax_autoencoder: want netE and netG, got {sorted(p)}, {sorted(s)}")
     return p, s
+
+
+def from_jax_i3d(tree) -> Dict[str, Any]:
+    """lvt_tpu's I3D param tree (``init_i3d``, or ``load_i3d_npz``'s nested
+    tree) -> the port's: the same unit paths, each convolution weight ``w``
+    from (t, h, w, in, out) to PyTorch's (out, in, t, h, w)."""
+    out = _convert(tree)
+    if "Logits" not in out or "Conv3d_1a_7x7" not in out:
+        raise ValueError(f"from_jax_i3d: not an I3D tree (keys {sorted(out)[:4]}...)")
+
+    def turn(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                turn(v, f"{path}/{k}")
+            elif k == "w":
+                if v.ndim != 5:
+                    raise ValueError(f"from_jax_i3d: {path}/w has shape {tuple(v.shape)}")
+                node[k] = v.permute(4, 3, 0, 1, 2).contiguous()
+
+    turn(out, "")
+    return out

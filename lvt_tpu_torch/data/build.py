@@ -1,5 +1,5 @@
 """Loader builders (counterpart of lvt_tpu/data/build.py; reference
-vidgen/data/build.py:41-107).
+vidgen/data/build.py:41-145).
 
 A ``torch.utils.data.DataLoader`` runs the mapper in DATALOADER.NUM_WORKERS
 worker processes, forked as PyTorch does on Linux (0: in this process); the
@@ -19,7 +19,7 @@ import torch.utils.data
 from ..utils import comm
 from .catalog import DatasetCatalog
 from .mapper import DatasetMapper
-from .samplers import TrainingSampler
+from .samplers import InferenceSampler, TrainingSampler
 
 logger = logging.getLogger(__name__)
 
@@ -118,3 +118,17 @@ def build_train_loader(cfg, mapper: Optional[DatasetMapper] = None):
         num_workers=workers, collate_fn=collate, drop_last=True,
         persistent_workers=workers > 0)
     return loader, len(dataset_dicts)
+
+
+def build_test_loader(cfg, dataset_name: str, mapper: Optional[DatasetMapper] = None,
+                      batch_size: int = 1):
+    """One finite pass over the dataset in order (or over TEST.N_SAMPLES of
+    it, drawn once from a fixed seed), batch 1 by default, the last batch
+    kept (reference build.py:110-145)."""
+    dataset_dicts = get_dataset_dicts([dataset_name])
+    if mapper is None:
+        mapper = DatasetMapper(cfg, is_train=False)
+    sampler = InferenceSampler(len(dataset_dicts), cfg.TEST.N_SAMPLES)
+    return torch.utils.data.DataLoader(
+        _MappedDataset(dataset_dicts, mapper), batch_size=batch_size, sampler=sampler,
+        num_workers=cfg.DATALOADER.NUM_WORKERS, collate_fn=collate, drop_last=False)

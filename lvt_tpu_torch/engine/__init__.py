@@ -1,5 +1,6 @@
 from .hooks import (
     CallbackHook,
+    EvalHook,
     IterationTimer,
     LRSchedulerHook,
     PeriodicCheckpointer,
@@ -10,6 +11,7 @@ from .trainer import TrainState, Trainer
 
 __all__ = [
     "CallbackHook",
+    "EvalHook",
     "HookBase",
     "IterationTimer",
     "LRSchedulerHook",

@@ -1,26 +1,57 @@
-"""Default CLI plumbing, setup and the DefaultTrainer (counterpart of
-lvt_tpu/engine/defaults.py:50-93, :274-314; reference
-vidgen/engine/defaults.py:37-310), for VT and VQ-VAE training alike: the
-config's META_ARCHITECTURE picks the model, DATASETS.TRAIN the latent-code or
-image datasets. Evaluation (run_test, the evaluators, EvalHook) comes with
-the port of evaluation."""
+"""Default CLI plumbing, setup, inference adapters and the DefaultTrainer
+(counterpart of lvt_tpu/engine/defaults.py; reference
+vidgen/engine/defaults.py:37-363), for VT and VQ-VAE alike: the config's
+META_ARCHITECTURE picks the model, DATASETS.TRAIN / DATASETS.TEST the
+latent-code or image datasets.
+
+The inference adapters wrap each meta-architecture's passes into the
+``infer_fn(batch) -> list[dict]`` protocol of
+evaluation.inference_on_dataset, on the device that holds the params. They
+have no compile cache to keep (lvt_tpu's ``_cached_jit``): the one costly
+set-up, the rollout's CUDA graph of a slice, is kept by the model
+(``models/rollout_graph.py`` ``SliceGraphSlot``) across batches and across
+EvalHook calls while the weights stand, and captured anew once after an
+optimizer step changed them in place.
+"""
 
 import argparse
 import logging
 import os
+from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from ..config import set_global_cfg
-from ..data import build_train_loader
+from ..data import build_test_loader, build_train_loader
+from ..evaluation import (
+    BitsEvaluator,
+    CodesExtractor,
+    DatasetEvaluators,
+    FVDEvaluator,
+    MSEEvaluator,
+    VTSampler,
+    inference_on_dataset,
+    print_csv_format,
+    verify_results,
+)
+from ..models import tree_leaves
 from ..utils import comm
 from ..utils.env import seed_all_rng
 from ..utils.events import CommonMetricPrinter, JSONWriter, TensorboardWriter
 from ..utils.logger import setup_logger
-from .hooks import IterationTimer, LRSchedulerHook, PeriodicCheckpointer, PeriodicWriter
+from .hooks import EvalHook, IterationTimer, LRSchedulerHook, PeriodicCheckpointer, PeriodicWriter
 from .trainer import Trainer
 
 logger = logging.getLogger(__name__)
+
+EVALUATOR_REGISTRY = {
+    "MSEEvaluator": MSEEvaluator,
+    "BitsEvaluator": BitsEvaluator,
+    "CodesExtractor": CodesExtractor,
+    "VTSampler": VTSampler,
+    "FVDEvaluator": FVDEvaluator,
+}
 
 
 def default_argument_parser():
@@ -56,14 +87,152 @@ def default_setup(cfg, args):
     set_global_cfg(cfg)
 
 
+# --------------------------------------------------------------------------
+# Inference adapters
+# --------------------------------------------------------------------------
+
+def params_device(params) -> torch.device:
+    """The device of a param tree (of its first tensor)."""
+    return tree_leaves(params)[0].device
+
+
+def build_vqvae_infer_fn(cfg, model, params, state):
+    """Per-video reconstruction + latent extraction (reference
+    AutoEncoderModel.forward mode='inference', ae.py:120-147): frames to the
+    device, reconstruct, clip(denormalize, 0, 1 or 255); latents (T, nc, h, w)."""
+    clamp_hi = 1.0 if cfg.INPUT.SCALE_TO_ZEROONE else 255.0
+    device = params_device(params)
+
+    @torch.no_grad()
+    def infer(batch):
+        outputs = []
+        key = "image_sequence" if "image_sequence" in batch else "image"
+        arr = batch[key]
+        for i in range(len(arr)):
+            frames = torch.as_tensor(np.asarray(arr[i])).to(device)  # (T, H, W, C)
+            recon, idx = model.reconstruct(params, state, model.normalize(frames))
+            recon = model.denormalize(recon).clamp(0.0, clamp_hi)
+            outputs.append({
+                "reconstruction": recon.cpu().numpy(),
+                # (T, h, w, nc) -> reference layout (T, nc, h, w)
+                "latent": idx.permute(0, 3, 1, 2).cpu().numpy(),
+            })
+        return outputs
+
+    return infer
+
+
+def build_vt_infer_fn(cfg, model, params, *, gen=None):
+    """Whole-video teacher-forced logits and/or sampling, dispatched on
+    TEST.EVALUATORS (reference VideoTransformerModel.forward
+    mode='inference', vt.py:192-206). ``gen``: the sampler's generator, on
+    the params' device; by default one seeded from max(SEED, 0), which each
+    batch's draws advance."""
+    evaluators = cfg.TEST.EVALUATORS
+    want_logits = "BitsEvaluator" in evaluators
+    want_samples = ("VTSampler" in evaluators) or ("FVDEvaluator" in evaluators)
+    n_prime_eval = cfg.MODEL.AUTOREGRESSIVE.VT.N_PRIME
+    knobs = cfg.TEST.VT_SAMPLER
+    n_prime_sample = knobs.N_PRIME
+    num_samples = knobs.NUM_SAMPLES
+    device = params_device(params)
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(max(cfg.SEED, 0))
+
+    @torch.no_grad()
+    def infer(batch):
+        codes = np.asarray(batch["video"])  # (b, nc, T, H, W)
+        video = torch.as_tensor(codes).to(device).long()
+        cls = torch.as_tensor(np.asarray(batch["class"])).to(device).long() if (
+            "class" in batch and model.c.class_num > 0) else None
+        b, _, T = video.shape[:3]
+        outputs = [{} for _ in range(b)]
+
+        if want_logits:
+            # BitsEvaluator reduces on the host in float64, as in lvt_tpu: the
+            # fp32 logits of a DSFVT video, 16 x 16 x 16 x 4 x 512, are 32 MiB
+            lg = model.logits_for_entire_video(params, video, cls).cpu().numpy()
+            ignore_t = np.arange(T) < n_prime_eval
+            for i in range(b):
+                outputs[i]["logits"] = lg[i]
+                outputs[i]["ignore_t"] = ignore_t
+        if want_samples:
+            # all num_samples rollouts ride the batch axis of ONE sample_video
+            # call (the reference loops sample_video num_samples times,
+            # vt.py:221-223)
+            vrep = video.repeat(num_samples, 1, 1, 1, 1)
+            crep = None if cls is None else cls.repeat(num_samples)
+            primed = vrep.clone()
+            primed[:, :, n_prime_sample:] = 0
+            out = model.sample_video(params, primed, gen, n_prime=n_prime_sample,
+                                     class_idx=crep, kv_cache_dtype=knobs.KV_DTYPE,
+                                     kv_seg_size=knobs.SEG, weight_dtype=knobs.WEIGHT_DTYPE,
+                                     attn_impl=knobs.ATTN_IMPL)
+            samples = out.reshape((num_samples,) + tuple(video.shape)).cpu().numpy()
+            samples = samples.astype(codes.dtype)  # (S, b, ...) in the loader's dtype
+            for i in range(b):
+                outputs[i]["samples"] = [samples[s, i] for s in range(num_samples)]
+        assert all(outputs), "No evaluator-compatible output produced"
+        return outputs
+
+    return infer
+
+
+def build_evaluators(cfg, dataset_name, output_dir, device="cuda"):
+    """TEST.EVALUATORS' evaluators; VTSampler and FVDEvaluator decode on
+    ``device``."""
+    names = [n.strip().strip("'\"") for n in cfg.TEST.EVALUATORS.split(",")
+             if n.strip().strip("'\"")]
+    evs = []
+    for name in names:
+        if name not in EVALUATOR_REGISTRY:
+            raise KeyError(
+                f"Unknown evaluator {name!r}; available: "
+                f"{sorted(EVALUATOR_REGISTRY)}")
+        cls = EVALUATOR_REGISTRY[name]
+        if name in ("VTSampler", "FVDEvaluator"):
+            evs.append(cls(cfg, dataset_name, distributed=True, output_dir=output_dir,
+                           device=device))
+        else:
+            evs.append(cls(dataset_name, distributed=True, output_dir=output_dir))
+    return DatasetEvaluators(evs)
+
+
+def run_test(cfg, model, params, state=None):
+    """Loop DATASETS.TEST on the device that holds ``params`` (reference
+    DefaultTrainer.test, defaults.py:312-363)."""
+    from ..models.vqvae import VQVAE, AutoEncoder
+    from ..models.vt import VideoTransformer
+
+    results = OrderedDict()
+    for dataset_name in cfg.DATASETS.TEST:
+        loader = build_test_loader(cfg, dataset_name)
+        out_dir = os.path.join(cfg.OUTPUT_DIR, "inference")
+        evaluator = build_evaluators(cfg, dataset_name, out_dir, params_device(params))
+        if isinstance(model, (VQVAE, AutoEncoder)):
+            infer_fn = build_vqvae_infer_fn(cfg, model, params, state)
+        elif isinstance(model, VideoTransformer):
+            infer_fn = build_vt_infer_fn(cfg, model, params)
+        else:
+            raise TypeError(f"Cannot infer with {type(model)}")
+        r = inference_on_dataset(infer_fn, loader, evaluator)
+        results[dataset_name] = r
+        if comm.is_main_process() and r:
+            logger.info(f"Evaluation results for {dataset_name}:")
+            print_csv_format(r)
+    if len(results) == 1:
+        results = list(results.values())[0]
+    return results
+
+
+# --------------------------------------------------------------------------
+# DefaultTrainer
+# --------------------------------------------------------------------------
+
 class DefaultTrainer(Trainer):
     """Trainer + default hooks and writers (reference defaults.py:124-310)."""
 
     def __init__(self, cfg, device="cuda"):
-        if cfg.TEST.EVAL_PERIOD > 0:
-            raise NotImplementedError(
-                "TEST.EVAL_PERIOD > 0 needs EvalHook and the evaluators, which are not "
-                "ported to lvt_tpu_torch yet (ROADMAP.md queue 1)")
         loader, _ = build_train_loader(cfg)
         super().__init__(cfg, loader, device=device)
         self.register_hooks(self.build_hooks())
@@ -82,9 +251,23 @@ class DefaultTrainer(Trainer):
         from ..solver.build import build_lr_schedule
 
         cfg = self.cfg
-        return [
+        hooks = [
             IterationTimer(),
             LRSchedulerHook(cfg.SOLVER.LR_G, build_lr_schedule(cfg)),
             PeriodicCheckpointer(cfg.OUTPUT_DIR, cfg.SOLVER.CHECKPOINT_PERIOD),
-            PeriodicWriter(self.build_writers()),
         ]
+        if cfg.TEST.EVAL_PERIOD > 0:
+            def eval_fn():
+                return run_test(cfg, self.model, self.state.params, self.state.model_state)
+
+            hooks.append(EvalHook(cfg.TEST.EVAL_PERIOD, eval_fn))
+        hooks.append(PeriodicWriter(self.build_writers()))
+        return hooks
+
+    def test(self):
+        """run_test on the current weights, then verify_results against
+        TEST.EXPECTED_RESULTS (exits with 1 on a miss)."""
+        results = run_test(self.cfg, self.model, self.state.params, self.state.model_state)
+        if comm.is_main_process():
+            verify_results(self.cfg, results)
+        return results

@@ -1,6 +1,6 @@
 """Training hooks (counterpart of lvt_tpu/engine/hooks.py; reference
-vidgen/engine/hooks.py:21-228). EvalHook and the profiler hook come with the
-port of evaluation."""
+vidgen/engine/hooks.py:21-351). The profiler hook is not ported:
+torch.profiler wraps a step directly."""
 
 import datetime
 import logging
@@ -14,6 +14,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "CallbackHook",
+    "EvalHook",
     "IterationTimer",
     "PeriodicWriter",
     "PeriodicCheckpointer",
@@ -142,3 +143,37 @@ class LRSchedulerHook(HookBase):
     def after_step(self):
         lr = float(self._base_lr * self._schedule(self.trainer.iter))
         self.trainer.storage.put_scalar("lr", lr, smoothing_hint=False)
+
+
+class EvalHook(HookBase):
+    """Run an eval function every ``period`` iterations and at the end
+    (reference hooks.py:297-351); its results go into the storage as
+    ``eval/<task>/<metric>`` scalars."""
+
+    def __init__(self, eval_period, eval_function):
+        self._period = eval_period
+        self._func = eval_function
+
+    def _do_eval(self):
+        results = self._func()
+        if results:
+            assert isinstance(results, dict)
+            from ..evaluation.testing import flatten_results_dict
+
+            flat = flatten_results_dict(results)
+            for k, v in flat.items():
+                try:
+                    self.trainer.storage.put_scalar(f"eval/{k}", float(v),
+                                                    smoothing_hint=False)
+                except (TypeError, ValueError):
+                    pass
+        comm.synchronize()
+
+    def after_step(self):
+        it = self.trainer.iter + 1
+        if self._period > 0 and it % self._period == 0 and it != self.trainer.max_iter:
+            self._do_eval()
+
+    def after_train(self):
+        if self.trainer.iter + 1 >= self.trainer.max_iter:
+            self._do_eval()

@@ -1,7 +1,11 @@
-"""Weights of the paired VQ-VAE and of the VT for sampling (counterpart of
-lvt_tpu/evaluation/vt_sampler.py:27-114, and of the VT branch of
-scripts/generate_videos.py). The VTSampler evaluator itself is not ported
-yet.
+"""VTSampler: decode sampled code videos with the paired VQ-VAE and dump
+codes + png frames (counterpart of lvt_tpu/evaluation/vt_sampler.py;
+reference vidgen/evaluation/vt_sampler.py:18-89), and the weights of the
+paired VQ-VAE and of the VT for sampling (also the VT branch of
+scripts/generate_videos.py).
+
+Output layout preserved:
+<output_dir>/samples/<dataset>/video_<sample_idx>_<video_idx>/{codes.npy, <i>.png}
 
 A configured path is one of:
 - a reference ``.pth`` file (the paper's released weights, per sub-net:
@@ -18,9 +22,13 @@ or a ``.pth`` that cannot be read, raises naming its key: neither is ever
 replaced by random weights.
 """
 
+import logging
 import os
+import time
+from collections import OrderedDict
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..checkpoint import latest_checkpoint, load_checkpoint
@@ -28,6 +36,11 @@ from ..checkpoint.io import _place
 from ..checkpoint.torch_convert import (convert_video_transformer, load_pretrained_vqvae,
                                         load_torch_state_dict)
 from ..config import get_cfg
+from ..utils import comm
+from ..utils.image import save_image
+from .evaluator import DatasetEvaluator
+
+logger = logging.getLogger(__name__)
 
 
 def _is_pth(path: str) -> bool:
@@ -88,10 +101,30 @@ def load_vqvae_weights(model, params, state, enc_path: str, gen_path: str, cb_pa
     return params, state, True
 
 
-def load_paired_vqvae(cfg, gen: torch.Generator, device="cpu"):
+_PAIRED_VQVAE_CACHE = {}
+
+
+def load_paired_vqvae(cfg, gen: Optional[torch.Generator] = None, device="cpu"):
     """(model, params, state, vq_cfg, loaded): the VQ-VAE named in
     TEST.VT_SAMPLER.VQ_VAE.CFG, initialised from ``gen`` and then given the
-    weights of TEST.VT_SAMPLER.VQ_VAE.{ENCODER,GENERATOR,CODEBOOK}_WEIGHTS."""
+    weights of TEST.VT_SAMPLER.VQ_VAE.{ENCODER,GENERATOR,CODEBOOK}_WEIGHTS.
+
+    With no ``gen`` (the evaluators) it is initialised from seed 0 and
+    memoized on the four path strings and the device: VTSampler and
+    FVDEvaluator run in the same eval and need the identical model and
+    weights, built once."""
+    if gen is not None:
+        return _load_paired_vqvae(cfg, gen, device)
+    vq = cfg.TEST.VT_SAMPLER.VQ_VAE
+    key = (vq.CFG, vq.ENCODER_WEIGHTS, vq.GENERATOR_WEIGHTS, vq.CODEBOOK_WEIGHTS,
+           str(torch.device(device)))
+    if key not in _PAIRED_VQVAE_CACHE:
+        _PAIRED_VQVAE_CACHE[key] = _load_paired_vqvae(cfg, torch.Generator().manual_seed(0),
+                                                      device)
+    return _PAIRED_VQVAE_CACHE[key]
+
+
+def _load_paired_vqvae(cfg, gen: torch.Generator, device):
     from ..models.vqvae import VQVAE
 
     vq = cfg.TEST.VT_SAMPLER.VQ_VAE
@@ -102,6 +135,24 @@ def load_paired_vqvae(cfg, gen: torch.Generator, device="cpu"):
     params, state, loaded = load_vqvae_weights(model, params, state, vq.ENCODER_WEIGHTS,
                                                vq.GENERATOR_WEIGHTS, vq.CODEBOOK_WEIGHTS)
     return model, params, state, vq_cfg, loaded
+
+
+def decode_codes_fn(model, params, state, scale_to_zeroone: bool):
+    """(T, nc, h, w) int codes (numpy) -> (T, H, W, 3) float32 frames in
+    [0, 255] (numpy): clip(denormalize(decode) x 255 where the VQ-VAE's
+    INPUT.SCALE_TO_ZEROONE is set, else x 1), on the device of ``params``."""
+    from ..models import tree_leaves
+
+    factor = 255.0 if scale_to_zeroone else 1.0
+    device = tree_leaves(params)[0].device
+
+    @torch.no_grad()
+    def decode_codes(codes: np.ndarray) -> np.ndarray:
+        idx = torch.as_tensor(np.asarray(codes)).to(device).permute(0, 2, 3, 1)  # (T, h, w, nc)
+        out = model.denormalize(model.decode(params, state, idx)) * factor
+        return out.clamp(0.0, 255.0).cpu().numpy()
+
+    return decode_codes
 
 
 def load_vt_weights(cfg, params) -> Optional[dict]:
@@ -128,3 +179,61 @@ def load_vt_weights(cfg, params) -> Optional[dict]:
         if path is None:
             return None
     return load_checkpoint(path, {"params": params}, partial=True)["params"]
+
+
+class VTSampler(DatasetEvaluator):
+    """Decodes each output's sampled code videos with the paired VQ-VAE (on
+    ``device``) and writes codes.npy and one png a frame per sample."""
+
+    def __init__(self, cfg, dataset_name, distributed=True, output_dir=None, device="cuda"):
+        self._dataset_name = dataset_name
+        self._distributed = distributed
+        self._output_dir = output_dir
+
+        self.vqvae, self._vq_params, self._vq_state, vq_cfg, _ = load_paired_vqvae(
+            cfg, device=device)
+        self.scale_to_zeroone = vq_cfg.INPUT.SCALE_TO_ZEROONE
+        self._decode_shared = decode_codes_fn(
+            self.vqvae, self._vq_params, self._vq_state, self.scale_to_zeroone)
+
+    def _decode_codes(self, codes):
+        """(T, nc, h, w) int codes -> (T, H, W, 3) uint8 frames."""
+        return self._decode_shared(codes).astype(np.uint8)
+
+    def process(self, inputs, outputs):
+        for inp, out in zip(inputs, outputs):
+            samples = out["samples"]  # list of (nc, T, h, w) code arrays
+            v_idx = inp["video_idx"]
+            for sample_idx, sample in enumerate(samples):
+                sample = np.asarray(sample)
+                if sample.ndim == 3:
+                    sample = sample[None]
+                code = sample  # (nc, T, h, w)
+                video = self._decode_codes(np.transpose(sample, (1, 0, 2, 3)))
+
+                video_dir = os.path.join(self._output_dir, "samples",
+                                         self._dataset_name,
+                                         f"video_{sample_idx}_{v_idx}")
+                os.makedirs(video_dir, exist_ok=True)
+                np.save(os.path.join(video_dir, "codes.npy"), code)
+                for frame_idx in range(len(video)):
+                    frame_path = os.path.join(video_dir, f"{frame_idx}.png")
+                    for attempt in range(10):  # flaky-FS retry (vt_sampler.py:74-81)
+                        try:
+                            save_image(video[frame_idx], frame_path)
+                            break
+                        except OSError:
+                            if attempt == 9:
+                                # a persistent failure (disk full, permissions)
+                                # surfaces: a silently missing frame would read
+                                # as success downstream
+                                raise
+                            logger.warning(f"save retry #{attempt} for {frame_path}")
+                            time.sleep(3)
+
+    def evaluate(self):
+        if self._distributed:
+            comm.synchronize()
+            if not comm.is_main_process():
+                return None
+        return OrderedDict({"samples": {}})

@@ -1,6 +1,6 @@
-"""The port's package boundary: its copied config/utils/engine/data modules
-equal their lvt_tpu originals (events.py apart from its one device-memory
-probe), all 7 configs merge to the same tree in both packages, and
+"""The port's package boundary: its copied config/utils/engine/data/
+evaluation modules equal their lvt_tpu originals (events.py apart from its
+one device-memory probe), all 7 configs merge to the same tree in both packages, and
 lvt_tpu_torch (with its entry points) imports neither JAX nor lvt_tpu."""
 
 import ast
@@ -21,7 +21,8 @@ COPIES = ["config/__init__.py", "config/config.py", "config/defaults.py",
           "utils/registry.py", "utils/image.py", "utils/strings.py", "utils/labels.py",
           "utils/logger.py", "engine/train_loop.py", "data/catalog.py",
           "data/datasets/latents.py", "data/samplers.py", "data/datasets/bair.py",
-          "data/datasets/kinetics.py", "data/datasets/builtin.py"]
+          "data/datasets/kinetics.py", "data/datasets/builtin.py", "evaluation/testing.py",
+          "evaluation/metrics.py", "evaluation/codes_extractor.py"]
 
 
 def test_all_seven_configs_found():

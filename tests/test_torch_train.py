@@ -617,6 +617,9 @@ def test_train_net_torch_main_on_cpu(rng, tmp_path, fused):
         parse(["--config-file", cfg_file, "--resume", "SOLVER.MAX_ITER", "4"] + opts),
         device="cpu")
     assert tr.start_iter == 3 and tr.state.step == 4
-    with pytest.raises(NotImplementedError):
-        train_net_torch.main(parse(["--config-file", cfg_file, "--eval-only"] + opts),
-                             device="cpu")
+    # --eval-only: the latest checkpoint under OUTPUT_DIR, bits/dim over the same videos
+    res = train_net_torch.main(parse(
+        ["--config-file", cfg_file, "--eval-only", "DATASETS.TEST", "('toy_train_latents',)",
+         "TEST.EVALUATORS", "BitsEvaluator", "INPUT.N_FRAMES_PER_VIDEO_TEST", str(T)] + opts),
+        device="cpu")
+    assert 0.0 < res["likelihood"]["bits_per_dim"] < 2 * np.log2(8)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Training entry point of the PyTorch port (lvt_tpu_torch) on one NVIDIA
-GPU; the counterpart of tools/train_net.py for training and --resume.
+"""Training and evaluation entry point of the PyTorch port (lvt_tpu_torch)
+on one NVIDIA GPU; the counterpart of tools/train_net.py.
 
 Examples:
   python tools/train_net_torch.py --config-file configs/vqvae/PR-DVQVAE2.yaml \
@@ -9,6 +9,10 @@ Examples:
       OUTPUT_DIR out/dsfvt
   python tools/train_net_torch.py --config-file configs/vt/DSFVT.yaml --resume \
       OUTPUT_DIR out/dsfvt
+  python tools/train_net_torch.py --config-file configs/vqvae/PR-DVQVAE2.yaml \
+      --eval-only OUTPUT_DIR out/prdvqvae2
+  python tools/train_net_torch.py --config-file configs/vt/DSFVT.yaml --eval-only \
+      TEST.EVALUATORS "BitsEvaluator,VTSampler,FVDEvaluator" OUTPUT_DIR out/dsfvt
 
 A VQ-VAE config (stage 1) trains on the frames of the image datasets named in
 DATASETS.TRAIN (bair_train: PNG frames under datasets/bair/train); its
@@ -21,8 +25,20 @@ unfused layers with per-layer remat.
 
 A VT config's latent-code datasets are read from the CodesExtractor layout
 (<root>/video_<i>/<frame>.npy); all dataset paths are those of
-lvt_tpu_torch/data/datasets/builtin.py. --eval-only waits for the port of
-evaluation.
+lvt_tpu_torch/data/datasets/builtin.py.
+
+--eval-only runs TEST.EVALUATORS over DATASETS.TEST with the latest
+checkpoint under OUTPUT_DIR, or else the configured weights
+(MODEL.{ENCODER,GENERATOR,CODEBOOK}.WEIGHTS for a VQ-VAE,
+MODEL.GENERATOR.WEIGHTS for the VT: reference .pth files or port
+checkpoints), then checks TEST.EXPECTED_RESULTS. For PR-DVQVAE2 that is the
+reconstruction MSE and the latents of every test video under
+OUTPUT_DIR/inference/<dataset>/ (CodesExtractor), which the VT's latent
+datasets read; for DSFVT bits/dim (BitsEvaluator), sampled videos under
+OUTPUT_DIR/inference/samples/ (VTSampler) and FVD (FVDEvaluator; FVD_stub
+without TEST.FVD.I3D_WEIGHTS), with the paired VQ-VAE of
+TEST.VT_SAMPLER.VQ_VAE. A training run with TEST.EVAL_PERIOD > 0 evaluates
+the same way every EVAL_PERIOD steps and after the last.
 """
 
 import os
@@ -47,22 +63,52 @@ def setup(args):
 
 
 def main(args, device="cuda"):
-    """Train as the config says; returns the trainer. ``device`` is the
-    card; the tests pass "cpu" to run the same path on the kernels' plain
-    versions."""
+    """Train as the config says and return the trainer, or with --eval-only
+    evaluate and return the results. ``device`` is the card; the tests pass
+    "cpu" to run the same path on the kernels' plain versions."""
     from lvt_tpu_torch.engine.defaults import DefaultTrainer
 
-    if args.eval_only:
-        raise NotImplementedError("--eval-only needs the evaluators, which are not ported "
-                                  "to lvt_tpu_torch yet (ROADMAP.md queue 1)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_net_torch.py needs a CUDA card (torch.cuda.is_available() "
                          "is false)")
     cfg = setup(args)
+    if args.eval_only:
+        return evaluate(cfg, device)
     trainer = DefaultTrainer(cfg, device=device)
     start_iter = trainer.resume_or_load(resume=args.resume)
     trainer.train(start_iter, cfg.SOLVER.MAX_ITER)
     return trainer
+
+
+def evaluate(cfg, device):
+    """The model with the latest checkpoint under OUTPUT_DIR, or else its
+    configured weights, through run_test and verify_results. A configured
+    path that does not exist raises FileNotFoundError: the weights are never
+    silently random."""
+    from lvt_tpu_torch.checkpoint import latest_checkpoint, load_checkpoint
+    from lvt_tpu_torch.engine.defaults import run_test
+    from lvt_tpu_torch.evaluation import verify_results
+    from lvt_tpu_torch.evaluation.vt_sampler import load_vqvae_weights, load_vt_weights
+    from lvt_tpu_torch.models import build_model
+    from lvt_tpu_torch.models.vqvae import VQVAE, AutoEncoder
+
+    model = build_model(cfg)
+    params, state = model.init(torch.Generator().manual_seed(max(cfg.SEED, 0)), device)
+    ckpt = latest_checkpoint(cfg.OUTPUT_DIR)
+    if ckpt is not None:
+        tree = load_checkpoint(ckpt, {"params": params, "model_state": state}, partial=True)
+        params, state = tree["params"], tree["model_state"]
+    elif isinstance(model, (VQVAE, AutoEncoder)):
+        params, state, _ = load_vqvae_weights(
+            model, params, state, cfg.MODEL.ENCODER.WEIGHTS, cfg.MODEL.GENERATOR.WEIGHTS,
+            cfg.MODEL.CODEBOOK.WEIGHTS)
+    else:
+        loaded = load_vt_weights(cfg, params)
+        if loaded is not None:
+            params = loaded
+    results = run_test(cfg, model, params, state)
+    verify_results(cfg, results)
+    return results
 
 
 if __name__ == "__main__":
