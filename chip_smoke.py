@@ -171,11 +171,29 @@ Phases, each fatal on failure (exit code 1, no result line):
                 twice (the storage holds both, metrics.json the last), one
                 rollout capture each.
 
+ 18. data parallel — engine.launch worlds, each rank on its rows of the
+                global batches for 4 steps (the last profiled): DSFVT at full
+                width, fused (kernels 7, 8, 9; 16 videos), and PR-DVQVAE2 as
+                it stands (kernel 6; 32 frames). (a) 2 ranks on the one card
+                over gloo, (b) NCCL at one rank per card (up to 4). On rank 0
+                a one-process Trainer takes each step from the same state on
+                the whole batch: the averaged gradient, the params and the
+                model state within GRAD_TOL / GRAD_TOL_WHOLE (bit-equal at
+                one NCCL rank), the codes of rank 0's frames under the
+                near-tie rule; the ranks' params and model state bit-equal
+                after every step; exact launches per rank; s/step,
+                videos/s and frames/s for the global batch, the gradient
+                average's share of the step, peak memory, per rank. Then,
+                at two ranks or more, one greedy video a rank through
+                generate_sharded (kernels 1 and 2 in the rollout's graph),
+                each equal to it generated alone.
+
 Phases 10 to 13 run right after phase 5, while the generation models are
 loaded (10b right after 10, 11b and 12b after 11 and 12); phases 8 and 14
 keep their OUTPUT_DIRs for phase 17. The line before the last is
-{"kernels": [...]}, each kernel with its main-path launches and phase 17's
-("eval_launches"); the last line is {"ok": true, "device": {...}}.
+{"kernels": [...]}, each kernel with its main-path launches, phase 17's
+("eval_launches") and phase 18's per rank of each world ("dp_launches"); the
+last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -3297,6 +3315,408 @@ def phase_eval(card, vq_dir, vt_dir):
             "decode_attention": launches[2]}
 
 
+# phase 18: data parallel. Steps of each run (the last one profiled), global
+# batches of DSFVT (videos) and PR-DVQVAE2 (frames), the most ranks NCCL
+# takes (one per card), and the seconds a world may run before launch stops it
+DP_STEPS, DP_VT_BATCH, DP_VQ_BATCH, DP_MAX_WORLD, DP_JOIN_TIMEOUT = 4, 16, 32, 4, 420
+
+
+def _dp_runs():
+    """Phase 18's runs: DSFVT at full width with the fused layer (kernels 7,
+    8, 9) and PR-DVQVAE2 as it stands (EMA codebook, kernel 6), each with
+    its global batches drawn from a numpy seed and a fixed SEED (the
+    reference trainer must start from the same weights)."""
+    import numpy as np
+
+    rng = np.random.default_rng(18)
+    vt = os.path.join(ROOT, "configs", "vt", "DSFVT.yaml")
+    videos = [{"video": rng.integers(0, 512, (DP_VT_BATCH, 4, T_FRAMES, 16, 16))
+               .astype(np.int32)} for _ in range(DP_STEPS)]
+    return [
+        {"name": "DSFVT", "config": vt, "opts": ["SEED", "7"], "unit": "videos",
+         "frames_per_row": T_FRAMES, "batches": videos,
+         "per_step": {"fused_layer_fwd": 16, "ffn_half_bwd": 16, "attn_half_bwd": 16}},
+        {"name": "DSFVT unfused", "config": vt, "opts": ["SEED", "7", "TPU.FUSED_LAYER", "False"],
+         "unit": "videos", "frames_per_row": T_FRAMES, "batches": videos,
+         "per_step": {"block_attention_fwd": 32, "block_attention_bwd": 16}},
+        {"name": "PR-DVQVAE2", "config": os.path.join(ROOT, "configs", "vqvae",
+                                                      "PR-DVQVAE2.yaml"),
+         "opts": ["SEED", "5"], "unit": "frames", "frames_per_row": 1,
+         "per_step": {"nearest_indices": 1},
+         "batches": [{"image": rng.uniform(0, 1, (DP_VQ_BATCH, 64, 64, 3)).astype(np.float32)}
+                     for _ in range(DP_STEPS)]},
+    ]
+
+
+def _dp_wrappers():
+    """The kernel wrappers of phase 18's runs, by their names in the kernels
+    line."""
+    from lvt_tpu_torch.ops.attention import block_attention_bwd_cuda, block_attention_fwd_cuda
+    from lvt_tpu_torch.ops.cache_attention import decode_attention_cuda
+    from lvt_tpu_torch.ops.fused_layer import (attn_half_bwd_cuda, ffn_half_bwd_cuda,
+                                               fused_layer_fwd_cuda)
+    from lvt_tpu_torch.ops.vq import nearest_indices_grouped_cuda
+
+    return {"fused_layer_fwd": fused_layer_fwd_cuda, "ffn_half_bwd": ffn_half_bwd_cuda,
+            "attn_half_bwd": attn_half_bwd_cuda, "nearest_indices": nearest_indices_grouped_cuda,
+            "block_attention_fwd": block_attention_fwd_cuda,
+            "block_attention_bwd": block_attention_bwd_cuda,
+            "decode_attention": decode_attention_cuda}
+
+
+def _dp_generate(rank, world, device, wrappers):
+    """Sharded greedy generation at full width (DSFVT in bf16, PR-DVQVAE2,
+    seeded weights): one video a rank, each from the example frames rolled
+    by 8 pixels a row, through generate_sharded (kernels 1 and 2 in the
+    rollout's graph, per rank); on rank 0 every video again alone (b = 1),
+    whose codes the gathered ones must equal bit for bit."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+
+    models = gvt.build_models(gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml")),
+                              0, device, torch.bfloat16)
+    frames = torch.from_numpy(gvt.load_priming_frames(os.path.join(ROOT, "example"), N_PRIME))
+    rows = torch.stack([frames.roll(8 * r, dims=2) for r in range(world)]).to(device)
+    kernels = {k: wrappers[k] for k in ("block_attention_fwd", "decode_attention")}
+    for k in kernels.values():
+        k.launches = 0  # the counts cover the sharded rollout only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gvt.generate_sharded(*models, rows, N_PRIME, None, greedy=True)
+    torch.cuda.synchronize()
+    res = {"seconds": time.perf_counter() - t0,
+           "launches": {n: k.launches for n, k in kernels.items()}}
+    if out is not None:
+        codes = out[1]
+        res["shape"] = list(codes.shape)
+        res["in_range"] = bool(codes.min() >= 0 and codes.max() < 512)
+        res["equal"] = all(torch.equal(codes[r:r + 1], gvt.generate(
+            *models, rows[r:r + 1], N_PRIME, None, greedy=True)[1].cpu()) for r in range(world))
+    return res
+
+
+def _rel_frobenius(got, ref):
+    """(worst leaf, its name, whole) of ||got - ref|| / ||ref|| per leaf
+    (Frobenius; the denominator floored at 1e-2 of the largest leaf norm)
+    and over all leaves as one vector: the measure of GRAD_TOL."""
+    import torch
+
+    floor = 1e-2 * max(float(r.float().norm()) for r in ref.values())
+    rel = {k: float((got[k].float() - r.float()).norm()) / max(float(r.float().norm()), floor)
+           for k, r in ref.items()}
+    k = max(rel, key=rel.get)
+    whole = float(torch.stack([(got[n].float() - r.float()).norm() for n, r in ref.items()])
+                  .norm()) / float(torch.stack([r.float().norm() for r in ref.values()]).norm())
+    return rel[k], k, whole
+
+
+def _dp_train(run, rank, world, device, kernels):
+    """DP_STEPS steps of a Trainer of ``run`` on this rank's rows of the
+    global batches, the last under torch.profiler. On rank 0 a one-process
+    Trainer steps in lockstep on the whole batches: before each step it
+    takes the data-parallel trainer's state (the synced scheme of the CPU
+    tests), so that each step's averaged gradient, update and new model
+    state are held to the whole batch's from the same state. Returns per
+    step: synchronized seconds of the step and of its gradient average, a
+    digest of params and model state after it and, on rank 0, the
+    comparisons; with the kernel launches of the data-parallel run, the
+    peak memory, the losses and the profile."""
+    import copy
+    import hashlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.checkpoint.convert import flatten
+    from lvt_tpu_torch.engine.hooks import CallbackHook
+    from lvt_tpu_torch.engine.trainer import Trainer
+    from lvt_tpu_torch.models import tree_leaves
+    from lvt_tpu_torch.ops import vq
+
+    cfg = gvt.load_config(run["config"], run["opts"])
+    field = next(iter(run["batches"][0]))
+    n = len(run["batches"][0][field]) // world
+    local = [{field: b[field][rank * n:(rank + 1) * n]} for b in run["batches"]]
+    tr = Trainer(cfg, iter(local), device=device)
+    ref = None
+    if rank == 0:
+        ref = Trainer(cfg, iter(()), device=device)
+        ref.group = None  # the one-process trainer: its batch is the whole batch
+    out = {"step_s": [], "avg_s": [], "digests": [], "cmp": []}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    grads, ref_launches = {}, [0] * len(kernels)
+
+    def wrap_average(trainer, key):
+        inner = trainer._average_grads
+
+        def averaged():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner()
+            torch.cuda.synchronize()
+            if key == "dp":
+                out["avg_s"].append(time.perf_counter() - t0)
+            names = flatten(trainer.state.params)
+            grads[key] = {k: m.grad.detach().clone()
+                          for k, m in zip(names, tree_leaves(trainer.state.params))}
+        trainer._average_grads = averaged
+
+    def state_of(trainer):
+        return ({k: v.detach().clone() for k, v in flatten(trainer.state.params).items()},
+                {k: v.clone() for k, v in flatten(trainer.state.model_state).items()})
+
+    def before(t):
+        if ref is not None:
+            out["tree"] = copy.deepcopy(t.checkpoint_tree())
+            out["before"] = state_of(t)
+        if t.iter == DP_STEPS - 1:
+            prof.__enter__()
+        torch.cuda.synchronize()
+        out["t0"] = time.perf_counter()
+
+    def after(t):
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - out["t0"])
+        if t.iter == DP_STEPS - 1:
+            prof.__exit__(None, None, None)
+        h = hashlib.sha256()
+        for v in list(flatten(t.state.params).values()) + list(
+                flatten(t.state.model_state).values()):
+            h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        out["digests"].append(h.hexdigest())
+        if ref is None:
+            return
+        c0 = [k.launches for k in kernels]
+        ref.load_tree(out.pop("tree"))
+        dp_codes[:] = list(taken)
+        taken.clear()
+        metrics = ref.train_step(ref._put_batch(run["batches"][t.iter]))
+        ref_codes = list(taken)
+        for i, k in enumerate(kernels):
+            ref_launches[i] += k.launches - c0[i]
+        (p0, _), (p1, s1), (q1, r1) = out.pop("before"), state_of(t), state_of(ref)
+        c = {"loss": float(sum(float(v) for v in metrics.values())),
+             "grads": _rel_frobenius(grads["dp"], grads["ref"]),
+             "grads_equal": all(torch.equal(grads["dp"][k], v) for k, v in grads["ref"].items()),
+             "update": _rel_frobenius({k: p1[k].float() - p0[k].float() for k in p0},
+                                      {k: q1[k].float() - p0[k].float() for k in p0}),
+             "params": _rel_frobenius(p1, q1),
+             "params_equal": all(torch.equal(p1[k], v) for k, v in q1.items()),
+             "state": _rel_frobenius(s1, r1) if r1 else None,
+             "state_equal": all(torch.equal(s1[k], v) for k, v in r1.items())}
+        if dp_codes and ref_codes:  # this step's codes of rank 0's frames, near-tie rule
+            (_, idx), (z, want) = dp_codes[-1], ref_codes[-1]
+            rows = idx.shape[0]
+            got, want = idx.reshape(-1, 4).cpu(), want[:rows].reshape(-1, 4).cpu()
+            z = z[:rows].float().reshape(-1, 4, 64).cpu()
+            emb = out["emb"]
+            counts = [_indices_ok(got[:, g], want[:, g], z[:, g, :], emb[g]) for g in range(4)]
+            c["indices"] = [sum(x[0] for x in counts), sum(x[1] for x in counts),
+                            all(x[2] for x in counts), int(want.numel())]
+        out["cmp"].append(c)
+
+    wrap_average(tr, "dp")
+    if ref is not None:
+        wrap_average(ref, "ref")
+    tr.register_hooks([CallbackHook(before_step=before, after_step=after)])
+    inner_q, taken, dp_codes = vq.quantize_st, [], []
+
+    def recording(z_e, codebook, *a, **k):
+        res = inner_q(z_e, codebook, *a, **k)
+        taken.append((z_e.detach(), res[2]))
+        out["emb"] = codebook["embedding"].detach().cpu()  # the codebook the codes were found in
+        return res
+
+    vq.quantize_st = recording
+    for k in kernels:
+        k.launches = 0  # the counts cover this run only
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        tr.train(0, DP_STEPS)
+    finally:
+        vq.quantize_st = inner_q
+    out["launches"] = [k.launches - r for k, r in zip(kernels, ref_launches)]
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["losses"] = [v for v, _ in tr.storage.history("total_loss").values()]
+    ev = prof.key_averages()
+    # self times: an op's device time also counts in the ops that call it
+    device_ms = [getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                 for e in ev]
+    out["profile"] = {
+        "all_reduce_cpu_ms": sum(e.cpu_time_total for e in ev if "all_reduce" in e.key) / 1e3,
+        "nccl_device_ms": sum(t for e, t in zip(ev, device_ms) if "nccl" in e.key.lower()) / 1e3,
+        "device_ms": sum(device_ms) / 1e3}
+    for k in ("emb", "t0"):
+        out.pop(k, None)
+    return out
+
+
+def _dp_rank(spec, out_dir):
+    """One rank of phase 18's world: each run data-parallel (with, on rank
+    0, the one-process trainer in lockstep). Writes rank<r>.json into
+    ``out_dir``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from lvt_tpu_torch.engine.defaults import rank_device
+    from lvt_tpu_torch.utils import comm
+
+    spec = pickle.loads(spec)
+    rank, world = comm.get_rank(), comm.get_world_size()
+    device = rank_device("cuda")
+    wrappers = _dp_wrappers()
+    res = {"rank": rank, "world": world, "backend": str(dist.get_backend()),
+           "device": str(device), "runs": {}}
+    for run in spec["runs"]:
+        names = list(run["per_step"])
+        out = _dp_train(run, rank, world, device, [wrappers[k] for k in names])
+        out["launches"] = dict(zip(names, out["launches"]))
+        res["runs"][run["name"]] = out
+        torch.cuda.empty_cache()
+    if world > 1:  # at one rank the sharded rollout is phase 4's
+        res["generate"] = _dp_generate(rank, world, device, wrappers)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_data_parallel(card):
+    """(a) Two ranks on the card over gloo, (b) NCCL at one rank per card (up
+    to DP_MAX_WORLD), each through engine.launch: every run of _dp_runs held
+    on rank 0 to the one-process Trainer from the same state on the same
+    global batch (world 1 under NCCL: bit-equal), the ranks' params and
+    model state bit-equal after every step, exact launches per rank; then
+    sharded greedy generation equal to each video generated alone. Returns
+    {world: {kernel: [launches of rank 0, rank 1, ...]}}."""
+    import datetime
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lvt_tpu_torch.engine.launch import launch
+
+    runs = _dp_runs()
+    spec = pickle.dumps({"runs": runs})
+    worlds = [("gloo", 2), ("nccl", min(torch.cuda.device_count(), DP_MAX_WORLD))]
+    print(f"data parallel: worlds {worlds} (backend, ranks); {DP_STEPS} steps a run, the last "
+          f"profiled; DSFVT global batch {DP_VT_BATCH} videos (fused and unfused), PR-DVQVAE2 "
+          f"{DP_VQ_BATCH} frames; then one greedy video a rank")
+    launches = {}
+    for backend, world in worlds:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+        try:
+            t0 = time.perf_counter()
+            launch(_dp_rank, world, backend=backend, args=(spec, tmp),
+                   timeout=datetime.timedelta(seconds=DP_JOIN_TIMEOUT),
+                   join_timeout=DP_JOIN_TIMEOUT)
+            wall = time.perf_counter() - t0
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"data parallel {backend} world {world} [{card}]: {wall:.1f} s with the spawn")
+        counts = launches.setdefault(f"{backend}{world}", {})
+        exact = backend == "nccl" and world == 1
+        for run in runs:
+            name, batch = run["name"], len(run["batches"][0][next(iter(run["batches"][0]))])
+            per = [rk["runs"][name] for rk in ranks]
+            for rk, r in zip(ranks, per):
+                check(rk["world"] == world and rk["backend"] == backend,
+                      f"dp {name}: rank {rk['rank']} in a world of {rk['world']} over "
+                      f"{rk['backend']}")
+                sec = float(np.median(r["step_s"][1:-1]))
+                share = float(np.median([a / t for a, t in zip(r["avg_s"][1:-1],
+                                                               r["step_s"][1:-1])]))
+                prof = r["profile"]
+                print(f"  {name} rank {rk['rank']} {backend} world {world} on {rk['device']}: "
+                      f"{sec:.4f} s/step (median of steps 2-{DP_STEPS - 1}, synchronized), "
+                      f"global batch {batch}: {batch / sec:.2f} {run['unit']}/s, "
+                      f"{batch * run['frames_per_row'] / sec:.1f} frames/s; gradient average "
+                      f"{100 * share:.1f}% of the step (synchronized); profiled step "
+                      f"{r['step_s'][-1]:.4f} s: all_reduce {prof['all_reduce_cpu_ms']:.2f} ms on "
+                      f"the host, NCCL kernels {prof['nccl_device_ms']:.2f} ms, device busy "
+                      f"{prof['device_ms']:.2f} ms; max_memory_allocated "
+                      f"{r['peak'] / 2 ** 30:.2f} GiB; launches {r['launches']}")
+                for k, n in r["launches"].items():
+                    want = DP_STEPS * run["per_step"][k]
+                    check(n == want, f"dp {name} rank {rk['rank']}: {n} launches of {k}, want "
+                                     f"{want}")
+                    counts.setdefault(k, [0] * world)[rk["rank"]] += n
+            for i in range(DP_STEPS):
+                check(len({r["digests"][i] for r in per}) == 1,
+                      f"dp {name} {backend}: the ranks' params differ after step {i + 1}")
+            cmp = per[0]["cmp"]
+            check(len(cmp) == DP_STEPS, f"dp {name} {backend}: {len(cmp)} steps compared")
+            for i, c in enumerate(cmp):
+                (e, k, w), (e_p, k_p, w_p), (e_u, k_u, w_u) = c["grads"], c["params"], c["update"]
+                line = (f"  {name} {backend} world {world}, step {i + 1} vs one process from "
+                        f"the same state [{card}]: loss {per[0]['losses'][i]:.6f}/"
+                        f"{c['loss']:.6f}; relative Frobenius, worst leaf and whole: averaged "
+                        f"gradient {e:.3g} ({k}), {w:.3g}; params {e_p:.3g} ({k_p}), {w_p:.3g}; "
+                        f"the step's update {e_u:.3g} ({k_u}), {w_u:.3g} (printed, not held)")
+                if c["state"] is not None:
+                    line += (f"; model state {c['state'][0]:.3g} ({c['state'][1]}), "
+                             f"{c['state'][2]:.3g}")
+                if "indices" in c:
+                    line += (f"; codes of rank 0's frames: {c['indices'][0]} of "
+                             f"{c['indices'][3]} differ ({c['indices'][1]} no near-tie)")
+                bit_equal = c["grads_equal"] and c["params_equal"] and c["state_equal"]
+                print(line + (f"; bit-equal {bit_equal}" if exact else ""))
+                if exact:
+                    check(bit_equal and per[0]["losses"][i] == c["loss"],
+                          f"dp {name} step {i + 1}: one NCCL rank is not bit-equal to the "
+                          f"one-process trainer (gradient {c['grads_equal']}, params "
+                          f"{c['params_equal']}, model state {c['state_equal']}, loss "
+                          f"{per[0]['losses'][i]} vs {c['loss']})")
+                    continue
+                check(e <= GRAD_TOL and w <= GRAD_TOL_WHOLE,
+                      f"dp {name} {backend} step {i + 1}: averaged gradient off by {e} ({k}), "
+                      f"whole {w}")
+                # the update itself is not held: RMSprop's and Adam's first steps are
+                # sign-like (lr g / |g|), so an element whose gradient sits at fp32/bf16
+                # noise steps either way in the two runs (DSFVT's dt_bank, biases)
+                check(e_p <= GRAD_TOL and w_p <= GRAD_TOL_WHOLE,
+                      f"dp {name} {backend} step {i + 1}: params off by {e_p} ({k_p}), "
+                      f"whole {w_p}")
+                if c["state"] is not None:
+                    check(c["state"][0] <= GRAD_TOL and c["state"][2] <= GRAD_TOL_WHOLE,
+                          f"dp {name} {backend} step {i + 1}: model state off by {c['state']}")
+                if "indices" in c:
+                    check(c["indices"][2], f"dp {name} {backend} step {i + 1}: codes "
+                                           f"{c['indices']}")
+                check(abs(per[0]["losses"][i] - c["loss"]) <= 1e-3 * abs(c["loss"]),
+                      f"dp {name} {backend} step {i + 1}: loss {per[0]['losses'][i]}, one "
+                      f"process {c['loss']}")
+        if world == 1:
+            continue
+        gens = [rk["generate"] for rk in ranks]
+        per_rollout = {"block_attention_fwd": (T_FRAMES - N_PRIME) * 8,
+                       "decode_attention": (T_FRAMES - N_PRIME) * 256 * 8}
+        for rk, g in zip(ranks, gens):
+            check(g["launches"] == per_rollout, f"dp generation rank {rk['rank']}: launches "
+                                                f"{g['launches']}, want {per_rollout}")
+            for k, n in g["launches"].items():
+                counts.setdefault(k, [0] * world)[rk["rank"]] += n
+        g0 = gens[0]
+        print(f"  sharded generation {backend} world {world} [{card}]: one greedy bf16 video a "
+              f"rank in {max(g['seconds'] for g in gens):.2f} s (the slowest rank, the graph's "
+              f"capture included); codes {g0['shape']}, each video's equal to it generated "
+              f"alone: {g0['equal']}; launches per rank {g0['launches']}")
+        check(g0["shape"] == [world, 4, T_FRAMES, 16, 16] and g0["in_range"] and g0["equal"],
+              f"dp generation {backend}: {g0}")
+    return launches
+
+
 def main():
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
@@ -3367,6 +3787,8 @@ def main():
     lap("probe kernel")
     eval_launches = phase_eval(card, vq_dir, vt_dir)
     lap("eval")
+    dp_launches = phase_data_parallel(card)
+    lap("data parallel")
     print("phase seconds: " + ", ".join(laps) + f"; whole run {time.perf_counter() - start:.1f} s")
 
     def entry(name, source, replaces, n_launches, r):
@@ -3428,6 +3850,8 @@ def main():
     ]
     for k in kernels:  # phase 17's launches: the evaluation path, apart from the main path's
         k["eval_launches"] = eval_launches.get(k["name"], 0)
+        # phase 18's, per rank of each world ("gloo2": two ranks on the card)
+        k["dp_launches"] = {w: c[k["name"]] for w, c in dp_launches.items() if k["name"] in c}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

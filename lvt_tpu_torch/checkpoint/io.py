@@ -6,6 +6,10 @@ whole training tree: nested dicts and lists of tensors and numbers. A save
 writes a temporary file and renames it, so a checkpoint that exists is
 complete. Loads read onto the CPU with ``weights_only=True`` and are placed
 into the structure (device and dtype) of a target tree.
+
+Across processes (``engine/launch.py``) rank 0 alone writes, and every rank
+waits for it; every rank loads, onto the CPU and from there onto the device
+of its own target (never onto card 0, where a saved CUDA tensor was).
 """
 
 import logging
@@ -15,6 +19,8 @@ import tempfile
 from typing import Any, Optional
 
 import torch
+
+from ..utils import comm
 
 logger = logging.getLogger(__name__)
 
@@ -38,18 +44,22 @@ def _to_cpu(tree):
 
 
 def save_checkpoint(output_dir: str, step: int, tree: Any) -> str:
+    """Write ``tree`` as step ``step``'s checkpoint, on rank 0, then a
+    barrier; returns the path (on every rank)."""
     d = checkpoint_dir(output_dir)
-    os.makedirs(d, exist_ok=True)
     path = os.path.join(d, f"{_CKPT_PREFIX}{step}{_CKPT_SUFFIX}")
-    fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=d)
-    os.close(fd)
-    try:
-        torch.save(_to_cpu(tree), tmp)
-        os.replace(tmp, path)
-    except BaseException:
-        os.unlink(tmp)
-        raise
-    logger.info(f"Saved checkpoint to {path}")
+    if comm.is_main_process():
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=d)
+        os.close(fd)
+        try:
+            torch.save(_to_cpu(tree), tmp)
+            os.replace(tmp, path)
+        except BaseException:
+            os.unlink(tmp)
+            raise
+        logger.info(f"Saved checkpoint to {path}")
+    comm.synchronize()
     return path
 
 

@@ -27,8 +27,16 @@ _ARRAY_KEYS = ("image", "image_sequence", "video", "class")
 
 
 def get_dataset_dicts(dataset_names) -> List[dict]:
+    """The datasets' dicts, concatenated. Across processes rank 0 lists them
+    first and the others after it: a dataset's first listing writes a cache
+    of its paths into its root (utils/image.py, datasets/latents.py), and a
+    rank that read that file while another wrote it would read it cut."""
     assert len(dataset_names)
+    if not comm.is_main_process():
+        comm.synchronize()
     all_dicts = [DatasetCatalog.get(name) for name in dataset_names]
+    if comm.is_main_process():
+        comm.synchronize()
     for name, dicts in zip(dataset_names, all_dicts):
         assert len(dicts), f"Dataset '{name}' is empty!"
     return [d for dicts in all_dicts for d in dicts]
@@ -60,15 +68,17 @@ class _MappedDataset(torch.utils.data.Dataset):
     """Dataset dicts through the mapper; a sample the mapper refuses (None)
     is replaced by another drawn at random (reference MapDataset,
     data/common.py:37-58). Each worker process draws from a generator of its
-    own, seeded in the worker from its DataLoader seed, so that workers do
-    not all replace a refused sample by the same sequence; without workers
-    one generator serves the process."""
+    own, seeded in the worker from its DataLoader seed (which comes from the
+    process's torch seed, SEED + rank), so that workers, on one rank or on
+    several, do not all replace a refused sample by the same sequence;
+    without workers one generator, seeded with the rank, serves the
+    process."""
 
     def __init__(self, dataset_dicts, mapper, max_retries=50):
         self._dicts = dataset_dicts
         self._mapper = mapper
         self._max_retries = max_retries
-        self._fallback_rng = np.random.default_rng(0)
+        self._fallback_rng = np.random.default_rng(comm.get_rank())
         self._worker_rng = None  # made in the worker, on its first replacement
 
     def __len__(self):
@@ -93,7 +103,8 @@ class _MappedDataset(torch.utils.data.Dataset):
 
 def build_train_loader(cfg, mapper: Optional[DatasetMapper] = None):
     """Infinite sharded training loader; global IMS_PER_BATCH split across
-    host processes (reference build.py:41-107)."""
+    processes, each rank reading its own part (reference build.py:41-107).
+    With SEED <= 0 the sampler's seed is rank 0's draw, shared by all."""
     world = comm.get_world_size()
     total = cfg.SOLVER.IMS_PER_BATCH
     assert total % world == 0 and total >= world, (

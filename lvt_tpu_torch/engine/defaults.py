@@ -55,36 +55,60 @@ EVALUATOR_REGISTRY = {
 
 
 def default_argument_parser():
-    """reference defaults.py:37-69 minus the multi-process options (the
-    port trains on one card)."""
+    """reference defaults.py:37-69: the config, --resume, --eval-only, and the
+    world of processes that engine.launch starts, one per GPU."""
     parser = argparse.ArgumentParser(description="lvt_tpu_torch training")
     parser.add_argument("--config-file", default="", metavar="FILE",
                         help="path to config file")
     parser.add_argument("--resume", action="store_true",
                         help="resume from OUTPUT_DIR checkpoints")
     parser.add_argument("--eval-only", action="store_true", help="evaluate only")
+    parser.add_argument("--num-gpus", type=int, default=1, help="processes (GPUs) per machine")
+    parser.add_argument("--num-machines", type=int, default=1, help="total number of machines")
+    parser.add_argument("--machine-rank", type=int, default=0,
+                        help="the rank of this machine (unique per machine)")
+    parser.add_argument("--dist-url", default="auto",
+                        help="tcp://<host>:<port> of machine 0; 'auto' takes a free port on "
+                             "this machine (one machine only)")
+    parser.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                        help="the process group's backend: NCCL unless gloo is asked for "
+                             "(gloo runs on the CPU, or puts several processes on one card)")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="config overrides: KEY VALUE pairs")
     return parser
 
 
 def default_setup(cfg, args):
-    """Logging, seeding, config dump (reference defaults.py:72-121)."""
+    """Logging, seeding, config dump (reference defaults.py:72-121). Each
+    process seeds its global generators with SEED + its rank, as lvt_tpu
+    does, so that the data workers of different ranks draw differently."""
     output_dir = cfg.OUTPUT_DIR
-    if output_dir:
+    rank = comm.get_rank()
+    if output_dir:  # every rank: the others' logs go there too
         os.makedirs(output_dir, exist_ok=True)
-    log = setup_logger(output_dir, distributed_rank=comm.get_rank(), name="lvt_tpu_torch")
+    log = setup_logger(output_dir, distributed_rank=rank, name="lvt_tpu_torch")
+    log.info(f"Rank of current process: {rank}. World size: {comm.get_world_size()}")
     log.info(f"torch {torch.__version__}, cuda "
              f"{torch.cuda.get_device_name(0) if torch.cuda.is_available() else 'none'}")
     if getattr(args, "config_file", ""):
         log.info(f"Loaded config file {args.config_file}")
-    if output_dir:
+    if comm.is_main_process() and output_dir:
         path = os.path.join(output_dir, "config.yaml")
         with open(path, "w") as f:
             f.write(cfg.dump())
         log.info(f"Full config saved to {path}")
-    seed_all_rng(None if cfg.SEED < 0 else cfg.SEED)
+    seed_all_rng(None if cfg.SEED < 0 else cfg.SEED + rank)
     set_global_cfg(cfg)
+
+
+def rank_device(device) -> torch.device:
+    """``device`` as this process's own: "cuda" becomes cuda:<index> of the
+    card that engine.launch gave the process (its local rank; card 0 with
+    no launch)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 # --------------------------------------------------------------------------
@@ -126,8 +150,9 @@ def build_vt_infer_fn(cfg, model, params, *, gen=None):
     """Whole-video teacher-forced logits and/or sampling, dispatched on
     TEST.EVALUATORS (reference VideoTransformerModel.forward
     mode='inference', vt.py:192-206). ``gen``: the sampler's generator, on
-    the params' device; by default one seeded from max(SEED, 0), which each
-    batch's draws advance."""
+    the params' device; by default one seeded from max(SEED, 0) plus the
+    process's rank (each rank samples its own videos), which each batch's
+    draws advance."""
     evaluators = cfg.TEST.EVALUATORS
     want_logits = "BitsEvaluator" in evaluators
     want_samples = ("VTSampler" in evaluators) or ("FVDEvaluator" in evaluators)
@@ -137,7 +162,7 @@ def build_vt_infer_fn(cfg, model, params, *, gen=None):
     num_samples = knobs.NUM_SAMPLES
     device = params_device(params)
     if gen is None:
-        gen = torch.Generator(device=device).manual_seed(max(cfg.SEED, 0))
+        gen = torch.Generator(device=device).manual_seed(max(cfg.SEED, 0) + comm.get_rank())
 
     @torch.no_grad()
     def infer(batch):
@@ -200,7 +225,10 @@ def build_evaluators(cfg, dataset_name, output_dir, device="cuda"):
 
 def run_test(cfg, model, params, state=None):
     """Loop DATASETS.TEST on the device that holds ``params`` (reference
-    DefaultTrainer.test, defaults.py:312-363)."""
+    DefaultTrainer.test, defaults.py:312-363). In a world of several
+    processes each evaluates its shard of the test set (InferenceSampler)
+    and the evaluators gather to rank 0, which alone returns results (the
+    others return {} per dataset)."""
     from ..models.vqvae import VQVAE, AutoEncoder
     from ..models.vt import VideoTransformer
 
@@ -230,11 +258,12 @@ def run_test(cfg, model, params, state=None):
 # --------------------------------------------------------------------------
 
 class DefaultTrainer(Trainer):
-    """Trainer + default hooks and writers (reference defaults.py:124-310)."""
+    """Trainer + default hooks and writers (reference defaults.py:124-310),
+    on this process's card (``rank_device``)."""
 
     def __init__(self, cfg, device="cuda"):
         loader, _ = build_train_loader(cfg)
-        super().__init__(cfg, loader, device=device)
+        super().__init__(cfg, loader, device=rank_device(device))
         self.register_hooks(self.build_hooks())
 
     def build_writers(self):
@@ -261,7 +290,8 @@ class DefaultTrainer(Trainer):
                 return run_test(cfg, self.model, self.state.params, self.state.model_state)
 
             hooks.append(EvalHook(cfg.TEST.EVAL_PERIOD, eval_fn))
-        hooks.append(PeriodicWriter(self.build_writers()))
+        if comm.is_main_process():  # the metrics are the global batch's on every rank
+            hooks.append(PeriodicWriter(self.build_writers()))
         return hooks
 
     def test(self):

@@ -109,7 +109,9 @@ class PeriodicWriter(HookBase):
 
 class PeriodicCheckpointer(HookBase):
     """Checkpoint every ``period`` iterations + final (reference
-    hooks.py:172-188); prunes to the newest ``max_to_keep`` when > 0."""
+    hooks.py:172-188); prunes to the newest ``max_to_keep`` when > 0. Every
+    rank runs it (the tree's accumulated gradients are averaged across
+    them); rank 0 writes the file, after a barrier."""
 
     def __init__(self, output_dir, period, max_to_keep=0):
         self._output_dir = output_dir
@@ -117,6 +119,7 @@ class PeriodicCheckpointer(HookBase):
         self._max_to_keep = max_to_keep
 
     def _save(self):
+        comm.synchronize()
         tree = self.trainer.checkpoint_tree()
         save_checkpoint(self._output_dir, self.trainer.iter + 1, tree)
         if self._max_to_keep > 0 and comm.is_main_process():
@@ -148,13 +151,15 @@ class LRSchedulerHook(HookBase):
 class EvalHook(HookBase):
     """Run an eval function every ``period`` iterations and at the end
     (reference hooks.py:297-351); its results go into the storage as
-    ``eval/<task>/<metric>`` scalars."""
+    ``eval/<task>/<metric>`` scalars. Every rank runs it (each evaluates its
+    shard of the test set), between two barriers."""
 
     def __init__(self, eval_period, eval_function):
         self._period = eval_period
         self._func = eval_function
 
     def _do_eval(self):
+        comm.synchronize()
         results = self._func()
         if results:
             assert isinstance(results, dict)

@@ -1,12 +1,26 @@
 """The trainer (counterpart of lvt_tpu/engine/trainer.py; reference
 vidgen/engine/trainer.py, defaults.py).
 
-One process, one device, for both model families: the Video Transformer on
+One device per process, for both model families: the Video Transformer on
 latent-code videos and the VQ-VAE (or auto-encoder) on frames. A step is: the
 batch onto the device, the loss of the model's ``train_loss`` on the
 compute-dtype copy of the fp32 master weights, ``backward()`` into the
 masters' ``.grad``, and every ACCUMULATION_STEPS-th step the optimizer update
 and the LR schedule step.
+
+* Data parallelism, one process per GPU (``engine/launch.py``): with a
+  process group initialised, each rank's batch is its part of the global
+  batch of SOLVER.IMS_PER_BATCH, and the step computes what ``lvt_tpu``'s
+  step jitted over its data mesh computes. The forward runs inside
+  ``parallel.global_batch``: batch norms and the EMA codebook reduce their
+  statistics over the global batch, and the step's random draws are made
+  for the global batch, of which each rank takes its rows. Before each
+  optimizer update the masters' gradients are averaged over the ranks, one
+  all-reduce per flat fp32 bucket. The metrics are averaged at each flush,
+  so every rank sees the global batch's and the non-finite guard trips on
+  every rank together. A mid-window checkpoint replaces each rank's partial
+  gradient sum by the ranks' average and stores it: avg(partial) +
+  avg(rest) = avg(whole window).
 
 * The model state (the VQ-VAE's EMA codebook, batch-norm statistics,
   spectral-norm ``u``; empty for the VT) stays fp32, is replaced by the one
@@ -34,11 +48,14 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import resume_or_load as load_latest
 from ..checkpoint.convert import flatten
-from ..models import build_model, cast_floats, param_count
+from ..models import build_model, cast_floats, param_count, tree_leaves
+from ..parallel.mesh import data_group, global_batch
 from ..solver import build_optimizer
+from ..utils import comm
 from ..utils.env import seed_all_rng
 from .train_loop import TrainerBase
 
@@ -79,6 +96,28 @@ def _zip_leaves(fn, a, b):
         fn(a, b)
 
 
+# the most fp32 gradient bytes one all-reduce carries (DDP's default bucket)
+GRAD_BUCKET_BYTES = 25 * 2 ** 20
+
+
+def average_over(tensors, group) -> None:
+    """Replace each fp32 tensor by its mean over ``group``'s ranks, in place:
+    one all-reduce per run of tensors of at most GRAD_BUCKET_BYTES, flat."""
+    world = dist.get_world_size(group)
+    bucket, size = [], 0
+    for t in list(tensors) + [None]:
+        if bucket and (t is None or size + 4 * t.numel() > GRAD_BUCKET_BYTES):
+            flat = torch.cat([b.reshape(-1) for b in bucket])
+            dist.all_reduce(flat, group=group)
+            flat.div_(world)
+            for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                b.copy_(part.view_as(b))
+            bucket, size = [], 0
+        if t is not None:
+            bucket.append(t)
+            size += 4 * t.numel()
+
+
 def _compute_dtype(cfg):
     cdt = cfg.TPU.COMPUTE_DTYPE
     return None if cdt in ("", "float32") else getattr(torch, cdt)
@@ -95,8 +134,9 @@ class Trainer(TrainerBase):
         self.device = torch.device(device)
         self.model = model if model is not None else build_model(cfg)
         self.metrics_period = 20
-        # SEED <= 0 draws a fresh seed (reference utils/env.seed_all_rng)
-        self.seed = cfg.SEED if cfg.SEED > 0 else seed_all_rng(-1)
+        self.group = data_group(cfg)  # None: this process's batch is the whole batch
+        # SEED <= 0 draws a fresh seed (reference utils/env.seed_all_rng), rank 0's on every rank
+        self.seed = cfg.SEED if cfg.SEED > 0 else comm.all_gather(seed_all_rng(-1))[0]
         params, mstate = self.model.init(torch.Generator().manual_seed(self.seed), self.device)
         params = _map_leaves(lambda x: x.detach().float().requires_grad_(True), params)
         optimizer, scheduler = build_optimizer(cfg, flatten(params), suffix="_G")
@@ -109,9 +149,10 @@ class Trainer(TrainerBase):
         vt = cfg.MODEL.AUTOREGRESSIVE.VT
         self._bounds = {k: b for k, b in (("video", vt.NV), ("class", vt.CLASS_NUM)) if b > 0}
         self._checked = set()
+        world = 1 if self.group is None else dist.get_world_size(self.group)
         logger.info(f"Model has {param_count(params) / 1e6:.2f}M parameters; device "
                     f"{self.device}; compute dtype {self.compute_dtype or torch.float32}; "
-                    f"accumulation={self.accumulation}")
+                    f"accumulation={self.accumulation}; data-parallel ranks {world}")
 
     # -- step ---------------------------------------------------------------
     def step_generator(self, step: int) -> torch.Generator:
@@ -124,16 +165,29 @@ class Trainer(TrainerBase):
         st = self.state
         p = st.params if self.compute_dtype is None else cast_floats(st.params,
                                                                      self.compute_dtype)
-        loss, (metrics, new_mstate) = self.model.train_loss(
-            p, st.model_state, batch, self.step_generator(st.step))
-        loss.float().backward()
+        with global_batch(self.group):
+            loss, (metrics, new_mstate) = self.model.train_loss(
+                p, st.model_state, batch, self.step_generator(st.step))
+            loss.float().backward()
         st.model_state = _map_leaves(lambda x: x.detach(), new_mstate)
         st.step += 1
         if st.step % self.accumulation == 0:
+            self._average_grads()
             st.optimizer.step()
             st.scheduler.step()
             st.optimizer.zero_grad(set_to_none=True)
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _average_grads(self):
+        """The masters' gradients averaged over the data group, in place (a
+        master with no gradient counts as zeros); nothing without a group."""
+        if self.group is None:
+            return
+        masters = tree_leaves(self.state.params)
+        for m in masters:
+            if m.grad is None:
+                m.grad = torch.zeros_like(m)
+        average_over([m.grad for m in masters], self.group)
 
     def run_step(self):
         start = time.perf_counter()
@@ -177,6 +231,12 @@ class Trainer(TrainerBase):
 
     def flush_metrics(self):
         pending, self._pending_metrics = self._pending_metrics, []
+        if self.group is not None and pending:
+            # the global batch's metrics, every pending step's in one all-reduce
+            flat = comm.reduce_dict({f"{i}/{k}": v for i, (_, _, m) in enumerate(pending)
+                                     for k, v in m.items()})
+            pending = [(it, dt, {k: flat[f"{i}/{k}"] for k in m})
+                       for i, (it, dt, m) in enumerate(pending)]
         for it, data_time, metrics in pending:
             host = {k: float(v) for k, v in metrics.items()}
             total = sum(host.values())
@@ -204,7 +264,11 @@ class Trainer(TrainerBase):
                               "scheduler": st.scheduler.state_dict()},
                 "step": st.step}
         if self.accumulation > 1:
-            # a resume mid-window must keep the partial gradient sum
+            # a resume mid-window must keep the partial gradient sum. Across
+            # ranks each rank's sum is first replaced by their average (which
+            # leaves the window's final average as it was), so that every
+            # rank resumes from the one saved sum and continues bit for bit
+            self._average_grads()
             tree["accum_grads"] = st.accum_grads()
         return tree
 

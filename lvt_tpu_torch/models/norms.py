@@ -4,10 +4,10 @@ lvt_tpu/models/norms.py; reference vidgen/layers/batch_norm.py).
   ""        -> identity
   "BN"      -> batch norm with running statistics
   "SyncBN"  -> batch norm whose batch statistics are averaged over the
-               training processes; in one process it is "BN" (the
+               ranks of ``group``; with no group it is "BN" (the
                reference's NaiveSyncBatchNorm falls back to nn.BatchNorm2d at
                world size 1)
-  "nnSyncBN"-> nn.SyncBatchNorm; in one process it is "BN" too
+  "nnSyncBN"-> nn.SyncBatchNorm; with no group it is "BN" too
   "FrozenBN"-> batch norm on its stored statistics; scale and bias get no
                gradient
   "IN"      -> instance norm without affine parameters
@@ -18,15 +18,27 @@ lvt_tpu/models/norms.py; reference vidgen/layers/batch_norm.py).
 
 State (running mean/var) is threaded explicitly: ``apply_norm`` returns
 (y, new_state), and the new state's tensors hold no autograd graph.
-Channels-last layouts: x is (..., C). The statistics synced across training
-processes wait for multi-GPU training (ROADMAP.md queue 1 item 10).
+Channels-last layouts: x is (..., C).
+
+Statistics across processes follow two rules, both of ``lvt_tpu``, both
+differentiable (``parallel.collectives.all_reduce``):
+  * ``group=g`` is ``lvt_tpu``'s ``axis_name`` under ``shard_map``: "SyncBN"
+    and "nnSyncBN" average their statistics over g's ranks (n is the global
+    count; "SyncBN" then keeps the biased running variance), and "BN" stays
+    per rank.
+  * The trainer's global batch (``parallel.global_batch``), as ``lvt_tpu``'s
+    step jitted over its data mesh sees it: every train-mode batch norm
+    reduces over the whole global batch and takes the n / (n - 1) running
+    variance of a batch norm of one process.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from ..utils import comm
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import global_batch_group
 
 VALID_NORMS = ("", "BN", "SyncBN", "nnSyncBN", "FrozenBN", "IN", "GN", "StdN", "StdNV2")
 _BATCH_NORMS = ("BN", "SyncBN", "nnSyncBN", "FrozenBN")
@@ -47,7 +59,8 @@ def init_norm(norm: str, num_features: int):
 
 
 def apply_norm(norm: str, params: dict, state: dict, x: torch.Tensor, train: bool,
-               momentum: float = 0.1, eps: float = 1e-5) -> Tuple[torch.Tensor, dict]:
+               momentum: float = 0.1, eps: float = 1e-5,
+               group: Optional[dist.ProcessGroup] = None) -> Tuple[torch.Tensor, dict]:
     if norm == "":
         return x, state
     spatial = tuple(range(1, x.dim() - 1))
@@ -74,17 +87,25 @@ def apply_norm(norm: str, params: dict, state: dict, x: torch.Tensor, train: boo
 
     if norm in _BATCH_NORMS:
         if train and norm != "FrozenBN":
-            if norm != "BN" and comm.get_world_size() > 1:
-                raise NotImplementedError(
-                    f"norm {norm!r} across training processes is not ported to lvt_tpu_torch "
-                    "yet (ROADMAP.md queue 1 item 10, multi-GPU)")
             mean = x.mean(dim=reduce_axes)
             meansqr = (x * x).mean(dim=reduce_axes)
-            n = x.numel() // x.shape[-1]  # elements per channel
+            n = x.numel() // x.shape[-1]  # elements per channel, this rank
+            if group is not None:  # lvt_tpu's axis_name: "BN" stays per rank
+                over = group if norm in ("SyncBN", "nnSyncBN") else None
+                synced = over is not None
+            else:  # the trainer's global batch, one batch to lvt_tpu's jit
+                over, synced = global_batch_group(), False
+            if over is not None:
+                w = dist.get_world_size(over)
+                stats = all_reduce(torch.stack([mean, meansqr]), over) / w
+                mean, meansqr, n = stats[0], stats[1], n * w
             var = meansqr - mean * mean
             # the running variance takes the unbiased batch variance
-            # (n / (n - 1)) while the batch is normalized with the biased one
-            var_upd = var * (n / (n - 1)) if n > 1 else var
+            # (n / (n - 1)) while the batch is normalized with the biased
+            # one; a synced "SyncBN" keeps the biased one (reference
+            # batch_norm.py:225-232)
+            unbiased = norm != "SyncBN" or not synced
+            var_upd = var * (n / (n - 1)) if unbiased and n > 1 else var
             new_state = {
                 "mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
                 "var": (1 - momentum) * state["var"] + momentum * var_upd.detach(),

@@ -28,6 +28,8 @@ from ..ops.conv import masked_conv3d, subscale_context_encode
 from ..ops.embedding import take_rows
 from ..ops.fused_layer import fused_block_layer, fused_layer_supported
 from ..ops.posenc import add_positional_encoding
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import batch_rows, global_batch_group
 from . import to_device
 
 
@@ -345,12 +347,20 @@ class VideoTransformer:
         """Cross-entropy over one random slice per video, as lvt_tpu's
         VideoTransformer.loss. batch: {"video": (b, nc, T, H, W) int, optional
         "class": (b,)}; slice_idx: optional fixed (b,) slice indices instead
-        of the draw from ``gen``. Returns (loss, {"loss_cross_entropy": loss})."""
+        of the draw from ``gen``. Returns (loss, {"loss_cross_entropy": loss}).
+
+        Inside the trainer's global batch (``parallel.global_batch``) the
+        batch is this rank's rows of it: the slice indices are drawn for the
+        global batch, of which the rank takes its rows, and the loss is the
+        global batch's (its per-channel sums and counts all-reduced), the
+        same value on every rank."""
         self._check_trainable()
         video = batch["video"]
         b = video.shape[0]
+        group = global_batch_group()
         if slice_idx is None:
-            slice_idx = self.sample_train_slice_idx(gen, b, T=video.shape[2])
+            total, first = batch_rows(group, b)
+            slice_idx = self.sample_train_slice_idx(gen, total, T=video.shape[2])[first:first + b]
         slice_idx = torch.as_tensor(slice_idx).to(video.device).long()
         ctx, slice_codes, ignore = self.prepare_slices(video, slice_idx)
         class_idx = batch.get("class") if self.c.class_num > 0 else None
@@ -367,8 +377,10 @@ class VideoTransformer:
         valid = (~ignore)[..., None].expand(ce.shape).float()
         # per-channel mean over non-primed positions, then mean over channels
         num = (ce * valid).sum(dim=(0, 1, 2, 3))
-        den = valid.sum(dim=(0, 1, 2, 3)).clamp(min=1.0)
-        loss = (num / den).mean()
+        den = valid.sum(dim=(0, 1, 2, 3))
+        if group is not None:
+            num, den = all_reduce(torch.stack([num, den]), group)
+        loss = (num / den.clamp(min=1.0)).mean()
         return loss, {"loss_cross_entropy": loss}
 
     def train_loss(self, params, model_state, batch, gen=None):

@@ -26,7 +26,9 @@ A codebook is a dict with the fields of lvt_tpu's ``EmaCodebookState``:
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import global_batch_group
 from ._lib import CARD_SMS, LIBRARY, check_launch, counted
 from .embedding import take_rows
 
@@ -192,10 +194,18 @@ def _ema_stats(z: torch.Tensor, indices: torch.Tensor, K: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-batch cluster size (K,) and vector sum (K, Dc), fp32, no gradient.
     A one-hot product as in the JAX package, not a scatter-add: atomics would
-    sum in another order on every call on the card."""
+    sum in another order on every call on the card. Inside the trainer's
+    global batch both are summed over its ranks in one all-reduce
+    (lvt_tpu/ops/vq.py:181-183); kernel 6's indices stay per rank."""
     z = z.detach().float()
     one_hot = torch.nn.functional.one_hot(indices.long(), K).to(torch.float32)  # (N, K)
-    return one_hot.sum(dim=0), one_hot.T @ z
+    size, vec_sum = one_hot.sum(dim=0), one_hot.T @ z
+    group = global_batch_group()
+    if group is not None:
+        both = torch.cat([size[:, None], vec_sum], dim=1)
+        dist.all_reduce(both, group=group)
+        size, vec_sum = both[:, 0], both[:, 1:]
+    return size, vec_sum
 
 
 def _ema_update(running_size, running_sum, size, vec_sum, decay: float, eps: float):

@@ -1,0 +1,119 @@
+"""Differentiable collectives over a process group (counterpart of
+lvt_tpu/parallel/collectives.py; reference vidgen/layers/all_gather.py:13-133,
+batch_norm.py:148-160).
+
+``lvt_tpu``'s are ``jax.lax`` collectives, whose transposes are the matching
+collectives; here they are autograd Functions, as the reference writes them:
+the backward of ``all_gather`` is a reduce-scatter of the gradient, that of
+``reduce_scatter`` an all-gather, and ``all_reduce`` (a sum) is its own
+backward. Every rank of the group calls each one, forward and backward, in
+the same order. The gathered and scattered axis is 0 and every rank's part
+has the same shape (``tiled``, as ``lvt_tpu`` calls them).
+
+Under a gloo group, CUDA tensors go straight through ``all_reduce``; the
+gather and the reduce-scatter are staged through host copies, because gloo
+does not take CUDA tensors for them. The backend is never switched: an NCCL
+group runs every op on the card.
+"""
+
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_gather", "reduce_scatter", "all_reduce"]
+
+
+def _world(group) -> int:
+    return dist.get_world_size(group=group)
+
+
+def _staged(group, x: torch.Tensor) -> bool:
+    """Whether ``x`` takes a host copy for a gather or reduce-scatter: a CUDA
+    tensor in a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    src = x.contiguous()
+    host = _staged(group, src)
+    if host:
+        src = src.cpu()
+    parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(_world(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=0)
+    return out.to(x.device) if host else out
+
+
+def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    world = _world(group)
+    if x.shape[0] % world:
+        raise ValueError(f"reduce_scatter: axis 0 ({x.shape[0]}) does not divide by the "
+                         f"group's {world} ranks")
+    src = x.contiguous()
+    host = _staged(group, src)
+    if host:
+        src = src.cpu()
+    parts = [p.contiguous() for p in src.chunk(world, dim=0)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out.to(x.device) if host else out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group), None
+
+
+def all_reduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks; the gradient is summed over
+    them too (``jax.lax.psum``)."""
+    return _AllReduce.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along axis 0 in rank order; the
+    gradient is the reduce-scatter of the output's (``jax.lax.all_gather``,
+    tiled)."""
+    return _AllGather.apply(x, group)
+
+
+def reduce_scatter(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The sum over ranks of ``x``, of which this rank keeps its chunk of
+    axis 0; the gradient is the all-gather of the chunks'
+    (``jax.lax.psum_scatter``, tiled)."""
+    return _ReduceScatter.apply(x, group)

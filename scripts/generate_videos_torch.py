@@ -24,9 +24,19 @@ found, the weights are random from --seed, with a warning. The VT is built
 on the latent grid of the encoded priming frames, so frames of any size the
 VQ-VAE takes generate.
 
+--batch B samples B videos from the priming frames, one row each of one
+batch, written to OUTPUT_DIR/video_<j>/ (B = 1: to OUTPUT_DIR). --num-gpus N
+rolls the batch out data-parallel in N processes, one per card (B divisible
+by N; --dist-backend gloo puts them on gloo, e.g. several on one card): each
+rolls out its consecutive rows, sampling from its own generator (--seed plus
+its rank), and rank 0 gathers the frames and writes them
+(lvt_tpu_torch/engine/launch.py).
+
 Usage:
   python scripts/generate_videos_torch.py --config-file configs/vt/DSFVT.yaml \
       --video-dir example/ [OUTPUT_DIR out] [opts...]
+  python scripts/generate_videos_torch.py --num-gpus 4 --batch 8 \
+      --config-file configs/vt/DSFVT.yaml --video-dir example/ OUTPUT_DIR out
 With the reference weights at the paths DSFVT.yaml names
 (pretrained/PR-DVQVAE2/net{E,G,C}/model_final.pth) and the VT's:
   ... MODEL.GENERATOR.WEIGHTS <path of the VT's model_final.pth>
@@ -49,6 +59,12 @@ def parse_args(argv=None):
     parser.add_argument("--config-file", required=True, metavar="FILE")
     parser.add_argument("--video-dir", required=True, help="folder with priming frame pngs")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--batch", type=int, default=1,
+                        help="videos sampled from the priming frames")
+    parser.add_argument("--num-gpus", type=int, default=1,
+                        help="processes (cards) that share the batch's rollouts")
+    parser.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                        help="the process group's backend: NCCL unless gloo is asked for")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return parser.parse_args(argv)
 
@@ -153,18 +169,53 @@ def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
     return out, sampled, primed, seconds
 
 
+def generate_sharded(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
+                     greedy: bool = False):
+    """generate() over the processes of the world (utils/comm): each rank
+    rolls out its consecutive rows of ``frames``' batch (b divisible by the
+    world), with ``gen``, and rank 0 gathers them in rank order (the
+    sharding of lvt_tpu's sample_video over its data mesh,
+    tests/test_multichip_sampling.py). Returns generate()'s result on rank 0,
+    as CPU tensors, with the slowest rank's rollout seconds; None on the
+    others. In a world of one it is generate()."""
+    from lvt_tpu_torch.utils import comm
+
+    world, rank = comm.get_world_size(), comm.get_rank()
+    b = frames.shape[0]
+    if b % world:
+        raise ValueError(f"a batch of {b} videos does not divide over {world} processes")
+    rows = frames[rank * (b // world):(rank + 1) * (b // world)]
+    video, codes, primed, seconds = generate(vqvae, vq_params, vq_state, vt, vt_params, rows,
+                                             n_prime, gen, greedy=greedy)
+    parts = comm.gather((video.cpu(), codes.cpu(), primed.cpu(), seconds))
+    if rank != 0:
+        return None
+    return (*(torch.cat([p[i] for p in parts]) for i in range(3)), max(p[3] for p in parts))
+
+
 def main(argv=None, device="cuda"):
-    """Generate as the command line says; returns generate()'s result.
+    """Generate as the command line says; returns generate()'s result (with
+    --num-gpus above 1 or a --dist-backend, the processes' run and None).
     ``device`` is the card; the tests pass "cpu" to run the same path on the
     kernels' plain versions."""
-    from lvt_tpu_torch.evaluation.vt_sampler import load_paired_vqvae, load_vt_weights
-    from lvt_tpu_torch.utils.image import save_image
+    from lvt_tpu_torch.engine.launch import launch
 
     args = parse_args(argv)
+    return launch(_main, args.num_gpus, backend=args.dist_backend, args=(args, device))
+
+
+def _main(args, device):
+    """main() in one process: rank 0 of the world, or the only process."""
+    from lvt_tpu_torch.engine.defaults import rank_device
+    from lvt_tpu_torch.evaluation.vt_sampler import load_paired_vqvae, load_vt_weights
+    from lvt_tpu_torch.utils import comm
+    from lvt_tpu_torch.utils.image import save_image
+
     cfg = load_config(args.config_file, args.opts)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script runs the port's CUDA kernels")
+    device = rank_device(device)
     n_prime = cfg.TEST.VT_SAMPLER.N_PRIME
     gen = torch.Generator().manual_seed(args.seed)
 
@@ -183,15 +234,27 @@ def main(argv=None, device="cuda"):
         print(f"WARNING: no VT weights found; sampling with random init (seed {args.seed})")
     else:
         vt_params = loaded
-    sample_gen = torch.Generator(device=device).manual_seed(args.seed)
-    video, codes, primed, seconds = generate(vqvae, vq_params, vq_state, vt, vt_params, frames,
-                                             n_prime, sample_gen, primed=primed)
-    print(f"Sampled new video: rollout {seconds:.3f} s")
-    frames_out = video[0].to(torch.uint8).cpu().numpy()
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    for i, frame in enumerate(frames_out):
-        save_image(frame, os.path.join(cfg.OUTPUT_DIR, f"{i}.png"))
-    print(f"Saved {len(frames_out)} frames to {cfg.OUTPUT_DIR}")
+    sample_gen = torch.Generator(device=device).manual_seed(args.seed + comm.get_rank())
+    if comm.get_world_size() == 1 and args.batch == 1:
+        out = generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, sample_gen,
+                       primed=primed)
+    else:
+        out = generate_sharded(vqvae, vq_params, vq_state, vt, vt_params,
+                               frames.expand((args.batch,) + frames.shape[1:]), n_prime,
+                               sample_gen)
+    if out is None:  # not rank 0
+        return None
+    video, codes, primed, seconds = out
+    print(f"Sampled {video.shape[0]} new video(s) in {comm.get_world_size()} process(es): "
+          f"rollout {seconds:.3f} s")
+    for j in range(video.shape[0]):
+        out_dir = cfg.OUTPUT_DIR if video.shape[0] == 1 else os.path.join(cfg.OUTPUT_DIR,
+                                                                          f"video_{j}")
+        os.makedirs(out_dir, exist_ok=True)
+        frames_out = video[j].to(torch.uint8).cpu().numpy()
+        for i, frame in enumerate(frames_out):
+            save_image(frame, os.path.join(out_dir, f"{i}.png"))
+        print(f"Saved {len(frames_out)} frames to {out_dir}")
     return video, codes, primed, seconds
 
 

@@ -326,14 +326,21 @@ def test_bn_on_a_bf16_activation_promotes_as_jax_does(rng):
 
 
 def test_sync_norms_raise_across_processes(monkeypatch):
+    """SyncBN and nnSyncBN across processes raised until their statistics
+    were ported (apply_norm's ``group``, the trainer's global batch: held to
+    lvt_tpu in tests/test_torch_comm.py and tests/test_torch_data_parallel.py).
+    With neither, in a world of any size, they are BN on the process's batch,
+    and an unknown norm still raises."""
     from lvt_tpu_torch.utils import comm
 
     monkeypatch.setattr(comm, "get_world_size", lambda: 2)
     p, s = tnorms.init_norm("SyncBN", 4)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, 3, 4)).astype(np.float32))
+    want, want_state = tnorms.apply_norm("BN", p, s, x, True)
     for norm in ("SyncBN", "nnSyncBN"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            tnorms.apply_norm(norm, p, s, torch.zeros(2, 3, 3, 4), True)
-    tnorms.apply_norm("BN", p, s, torch.zeros(2, 3, 3, 4), True)  # BN never syncs
+        got, state = tnorms.apply_norm(norm, p, s, x, True)
+        assert torch.equal(got, want), norm
+        assert all(torch.equal(state[k], want_state[k]) for k in want_state), norm
     with pytest.raises(ValueError):
         tnorms.init_norm("LN", 4)
 

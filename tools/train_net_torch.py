@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Training and evaluation entry point of the PyTorch port (lvt_tpu_torch)
-on one NVIDIA GPU; the counterpart of tools/train_net.py.
+on NVIDIA GPUs, one process per GPU; the counterpart of tools/train_net.py.
 
 Examples:
   python tools/train_net_torch.py --config-file configs/vqvae/PR-DVQVAE2.yaml \
@@ -39,6 +39,15 @@ OUTPUT_DIR/inference/samples/ (VTSampler) and FVD (FVDEvaluator; FVD_stub
 without TEST.FVD.I3D_WEIGHTS), with the paired VQ-VAE of
 TEST.VT_SAMPLER.VQ_VAE. A training run with TEST.EVAL_PERIOD > 0 evaluates
 the same way every EVAL_PERIOD steps and after the last.
+
+--num-gpus N trains (or evaluates) data-parallel in N processes, one per
+card, over NCCL (lvt_tpu_torch/engine/launch.py); SOLVER.IMS_PER_BATCH stays
+the global batch, of which each process loads its part:
+  python tools/train_net_torch.py --num-gpus 4 --config-file configs/vt/DSFVT.yaml \
+      OUTPUT_DIR out/dsfvt
+--dist-backend gloo puts the processes on gloo instead: several on one card,
+or on the CPU. Evaluation shards the test set over the processes and rank 0
+gathers the metrics. A process that fails makes the command exit non-zero.
 """
 
 import os
@@ -64,8 +73,9 @@ def setup(args):
 
 def main(args, device="cuda"):
     """Train as the config says and return the trainer, or with --eval-only
-    evaluate and return the results. ``device`` is the card; the tests pass
-    "cpu" to run the same path on the kernels' plain versions."""
+    evaluate and return the results, in this process (one rank of
+    ``launch``'s world, or the only process). ``device`` is the card; the
+    tests pass "cpu" to run the same path on the kernels' plain versions."""
     from lvt_tpu_torch.engine.defaults import DefaultTrainer
 
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -87,11 +97,14 @@ def evaluate(cfg, device):
     silently random."""
     from lvt_tpu_torch.checkpoint import latest_checkpoint, load_checkpoint
     from lvt_tpu_torch.engine.defaults import run_test
+    from lvt_tpu_torch.engine.defaults import rank_device
     from lvt_tpu_torch.evaluation import verify_results
     from lvt_tpu_torch.evaluation.vt_sampler import load_vqvae_weights, load_vt_weights
     from lvt_tpu_torch.models import build_model
     from lvt_tpu_torch.models.vqvae import VQVAE, AutoEncoder
+    from lvt_tpu_torch.utils import comm
 
+    device = rank_device(device)
     model = build_model(cfg)
     params, state = model.init(torch.Generator().manual_seed(max(cfg.SEED, 0)), device)
     ckpt = latest_checkpoint(cfg.OUTPUT_DIR)
@@ -107,8 +120,22 @@ def evaluate(cfg, device):
         if loaded is not None:
             params = loaded
     results = run_test(cfg, model, params, state)
-    verify_results(cfg, results)
+    if comm.is_main_process():
+        verify_results(cfg, results)
     return results
+
+
+def run(args, device="cuda"):
+    """``main`` in each process of the world that --num-gpus,
+    --num-machines, --machine-rank, --dist-url and --dist-backend describe
+    (lvt_tpu_torch/engine/launch.py). One process with no backend named runs
+    here and returns ``main``'s result; a spawned world returns None, and a
+    process that fails makes it raise."""
+    from lvt_tpu_torch.engine.launch import launch
+
+    return launch(main, args.num_gpus, num_machines=args.num_machines,
+                  machine_rank=args.machine_rank, dist_url=args.dist_url,
+                  backend=args.dist_backend, args=(args, device))
 
 
 if __name__ == "__main__":
@@ -116,4 +143,4 @@ if __name__ == "__main__":
 
     args = default_argument_parser().parse_args()
     print("Command Line Args:", args)
-    main(args)
+    run(args)
