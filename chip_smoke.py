@@ -131,7 +131,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 bit-identical; device times of the grouped call beside the
                 plain version, G calls of torch.cdist + argmin and the bound;
                 the kernel's indices of the real z_e of example/*.png beside
-                encode_indices' plain ones.
+                the plain version's.
  14. vqvae train — tools/train_net_torch.py's main on
                 configs/vqvae/PR-DVQVAE2.yaml with no model override: batch 32,
                 bf16 compute, the config's solver, 512 PNG frames of 64x64
@@ -154,8 +154,10 @@ Phases, each fatal on failure (exit code 1, no result line):
                 set of 8 videos x 16 PNG frames of 64x64 written from a numpy
                 seed (bair_test_seq's layout). Stage 1: PR-DVQVAE2 from phase
                 14's OUTPUT_DIR, MSE and the 8 x 16 latent files (4, 16, 16)
-                of CodesExtractor, no launch of kernel 6 (codes stay on the
-                plain fp32 path); seconds, device busy share, peak memory.
+                of CodesExtractor, exactly one launch of kernel 6 a video
+                (encode_indices' default on the card since phase 19's count
+                on a trained codebook); seconds, device busy share, peak
+                memory.
                 Stage 2: DSFVT from phase 8's fused OUTPUT_DIR over those
                 latents with BitsEvaluator, VTSampler and FVDEvaluator, the
                 paired VQ-VAE from phase 14's: bits/dim, FVD_stub, every
@@ -188,12 +190,37 @@ Phases, each fatal on failure (exit code 1, no result line):
                 generate_sharded (kernels 1 and 2 in the rollout's graph),
                 each equal to it generated alone.
 
+ 19. e2e      — the native IO library (lvt_tpu_torch/native) must build and
+                load. tools/e2e_demo_torch.py's main at its defaults, full
+                width, in both modes (BAIR: PR-DVQVAE2 -> DSFVT on 64 seeded
+                moving-squares videos; class-conditional: K-DVQVAE -> KDSFVT,
+                CLASS_NUM 600, on 3 classes x 22), 300 + 300 steps at batch
+                16, every count set to 0 before each mode: each stage's
+                seconds and launches, held to _e2e_expected (kernel 6 a VQ-VAE
+                step, kernels 7, 8, 9 16 a VT step, kernel 7 256 a video of
+                bits/dim, kernels 1 and 2 88 and 22,528 a rollout); losses at
+                start and end, MSE, bits/dim; codes in range, decoded frames
+                finite in [0, 255], the class-conditional rollouts differ;
+                kernel 6 against the plain fp32 search on every frame under
+                the trained codebook, every difference a float64 near-tie.
+                scripts/convert_kinetics_torch.py's process_video
+                --preprocess device on 64 seeded 240x320 frames (ffmpeg
+                stubbed), against PIL (PIL_MAX_STEPS, PIL_BEYOND_SHARE);
+                center_crop_resize card vs CPU, its device time against the
+                per-frame PIL loop.
+                scripts/generate_videos_torch.py --img-size 64 on seeded
+                96x128 priming frames (88 + 22,528 launches). PR-DVQVAE2's
+                steps through the loader with the native reader and with PIL
+                (tools/bench_pipeline_torch.py): s/iteration and data_time;
+                the loader alone and each PNG decoder alone on the host.
+
 Phases 10 to 13 run right after phase 5, while the generation models are
 loaded (10b right after 10, 11b and 12b after 11 and 12); phases 8 and 14
 keep their OUTPUT_DIRs for phase 17. The line before the last is
 {"kernels": [...]}, each kernel with its main-path launches, phase 17's
-("eval_launches") and phase 18's per rank of each world ("dp_launches"); the
-last line is {"ok": true, "device": {...}}.
+("eval_launches"), phase 18's per rank of each world ("dp_launches") and
+phase 19's per run ("e2e_launches"); the last line is {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -337,11 +364,11 @@ AGREE_I8 = {"native": 0.6, "int8": 0.6, "int8-pallas": 0.85}  # by WEIGHT_DTYPE
 GREEDY_FLOOR = 0.5
 
 # Kernel 6 returns indices: equal to the plain version's, or differing only
-# where the float64 distances of the two codes lie within NEAR_TIE_ULPS fp32
-# ulps of the sums that form them (||z||^2 + ||c||^2): the two versions sum in
-# other orders, which can decide such a choice and no other. At most 1 row per
-# 1000 may differ so. Control: the plain version on bf16-rounded z must fail.
-NEAR_TIE_ULPS, NEAR_TIE_SHARE = 8, 1e-3
+# at near-ties (lvt_tpu_torch/ops/vq.py index_differences: the float64
+# distances of the two codes within NEAR_TIE_ULPS fp32 ulps of the sums that
+# form them, ||z||^2 + ||c||^2): the two versions sum in other orders, which
+# can decide such a choice and no other. At most NEAR_TIE_SHARE of the rows
+# may differ so. Control: the plain version on bf16-rounded z must fail.
 # vqvae agree, fp32, card vs CPU: loss terms 1e-5 relative; gradients by the
 # relative-Frobenius measures of the VT's train agree, both held to GRAD_TOL:
 # ReLU gates near 0 flip under fp32 noise here too, and 28 leaves average
@@ -2417,21 +2444,22 @@ def phase_agree_i8(card):
 def _near_ties(got, want, z, codebook):
     """(rows that differ, rows among them that are no near-tie) of two index
     vectors over z (N, Dc) and codebook (K, Dc), by float64 distances."""
-    import torch
+    from lvt_tpu_torch.ops.vq import index_differences
 
-    rows = torch.nonzero(got != want).flatten()
-    if not len(rows):
-        return 0, 0
-    z64, c64 = z[rows].double(), codebook.double()
-    dg = ((z64 - c64[got[rows].long()]) ** 2).sum(1)
-    dw = ((z64 - c64[want[rows].long()]) ** 2).sum(1)
-    size = (z64 ** 2).sum(1) + (c64[want[rows].long()] ** 2).sum(1)
-    return len(rows), int(((dg - dw).abs() > NEAR_TIE_ULPS * 2 ** -23 * size).sum())
+    return index_differences(got[:, None], want[:, None], z[:, None], codebook[None])
+
+
+def _within_share(n_diff, n_far, total):
+    """The near-tie rule: no far miss, and at most NEAR_TIE_SHARE of the
+    indices (one, of a few) differing."""
+    from lvt_tpu_torch.ops.vq import NEAR_TIE_SHARE
+
+    return n_far == 0 and n_diff <= max(1, int(NEAR_TIE_SHARE * total))
 
 
 def _indices_ok(got, want, z, codebook):
     n_diff, n_far = _near_ties(got, want, z, codebook)
-    return n_diff, n_far, n_far == 0 and n_diff <= max(1, int(NEAR_TIE_SHARE * want.numel()))
+    return n_diff, n_far, _within_share(n_diff, n_far, want.numel())
 
 
 def _grouped_kernel(vq):
@@ -2554,8 +2582,8 @@ def phase_vq_kernel(card, models=None):
 
 
 def _vq_real_z(card, models):
-    """Kernel 6 on the real z_e of example/*.png, beside encode_indices'
-    plain indices: a record for encode_indices' default."""
+    """Kernel 6 on the real z_e of example/*.png, beside the plain
+    version's indices."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -2568,7 +2596,7 @@ def _vq_real_z(card, models):
     with torch.no_grad():
         z_e, _ = vqvae.encode_features(vq_params, vq_state,
                                        vqvae.normalize(frames.to(dev) / 255.0))
-        plain = vq.encode_indices(z_e, vq_state["netC"])
+        plain = vq.encode_indices(z_e, vq_state["netC"], use_kernel=False)
         kernel = vq.encode_indices(z_e, vq_state["netC"], use_kernel=True)
     emb = vq_state["netC"]["embedding"]
     num, _, Dc = emb.shape
@@ -2577,7 +2605,7 @@ def _vq_real_z(card, models):
                         emb[i]) for i in range(num)]
     n_diff, n_far = sum(d[0] for d in diffs), sum(d[1] for d in diffs)
     print(f"kernel 6 on the z_e of example/*.png (seeded random PR-DVQVAE2 weights, "
-          f"{plain.numel()} indices): {n_diff} differ from encode_indices' plain ones, {n_far} "
+          f"{plain.numel()} indices): {n_diff} differ from the plain version's, {n_far} "
           "of them no near-tie")
     check(n_far == 0, f"nearest_indices on real z_e: {n_far} indices differ at no near-tie")
 
@@ -3075,8 +3103,8 @@ def phase_eval(card, vq_dir, vt_dir):
     OUTPUT_DIR ``vt_dir`` over those latents: bits/dim, sampled videos,
     FVD_stub, the paired VQ-VAE from ``vq_dir``) with exact launch counts and
     one rollout capture; card against CPU for both stages and for I3D; and
-    EvalHook in a 4-step DSFVT training run. Returns {kernel: launches} of
-    stage 2."""
+    EvalHook in a 4-step DSFVT training run. Returns {kernel: launches}:
+    kernel 6's of stage 1, the others' of stage 2."""
     import json
     import shutil
     import tempfile
@@ -3129,9 +3157,9 @@ def phase_eval(card, vq_dir, vt_dir):
         peak1, busy1 = torch.cuda.max_memory_allocated() - held, _device_busy_ms(prof)
         mse = res1["reconstruction"]["MSE"]
         check(np.isfinite(mse), f"eval stage 1: MSE {mse}")
-        check(nearest_indices_grouped_cuda.launches == k6,
-              "eval stage 1: code extraction launched kernel 6 (its indices stay on the plain "
-              "fp32 path, as lvt_tpu keeps use_pallas=False there)")
+        k6 = nearest_indices_grouped_cuda.launches - k6
+        check(k6 == EVAL_VIDEOS, f"eval stage 1: {k6} launches of kernel 6, want "
+                                 f"{EVAL_VIDEOS} (encode_indices takes it, one a video)")
         codes_root = os.path.join(vq_dir, "inference", "chip_smoke_eval_seq")
         latents = _latent_tree(codes_root)
         want_files = {f"video_{v}/{f}.npy" for v in range(EVAL_VIDEOS) for f in range(T_FRAMES)}
@@ -3249,7 +3277,7 @@ def phase_eval(card, vq_dir, vt_dir):
         n_diff, n_far, total = _latent_near_ties(l_card, l_cpu, frames_root, vq_dir, vq_yaml)
         e_mse = abs(m_card - m_cpu) / abs(m_cpu)
         check(e_mse <= MSE_TOL, f"eval agree: MSE card {m_card} vs cpu {m_cpu}")
-        check(n_far == 0 and n_diff <= max(1, int(NEAR_TIE_SHARE * total)),
+        check(_within_share(n_diff, n_far, total),
               f"eval agree: {n_diff} of {total} latent codes differ, {n_far} of them no near-tie")
         bits_runs = {}
         for name, device in (("card", "cuda"), ("cpu", "cpu")):
@@ -3311,8 +3339,8 @@ def phase_eval(card, vq_dir, vt_dir):
               f"{sec_hook:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"fused_layer_fwd": launches[0], "block_attention_fwd": launches[1],
-            "decode_attention": launches[2]}
+    return {"nearest_indices": k6, "fused_layer_fwd": launches[0],
+            "block_attention_fwd": launches[1], "decode_attention": launches[2]}
 
 
 # phase 18: data parallel. Steps of each run (the last one profiled), global
@@ -3717,6 +3745,289 @@ def phase_data_parallel(card):
     return launches
 
 
+# phase 19: the e2e chain of tools/e2e_demo_torch.py at its defaults
+E2E_ITERS = 300  # the tool's --iters1 and --iters2
+E2E_VIDEOS = {"bair": 64, "class-conditional": 66}  # the tool's sets: 64 videos; 3 x 22
+E2E_BITS_VIDEOS = 4  # the tool's TEST.N_SAMPLES for bits/dim
+E2E_PIPE_STEPS = 100  # steps of each bench_pipeline_torch trainer run (native, PIL)
+KINETICS_FRAMES = 64  # seeded 240 x 320 frames of the converter's video: one device chunk
+# converted frames against the reference's per-frame PIL recipe. PIL filters
+# in fixed point and clips its uint8 intermediate between the two passes;
+# on uniform noise the Lanczos ringing overshoots [0, 255] there, and a few
+# pixels land several steps from the float filter: on these frames 11 of
+# 786,432 pixels lie 2 to 5 steps away, and lvt_tpu's device path reads the
+# same (scripts/convert_kinetics.py). So: at most 1 pixel in 10,000 beyond
+# one step, none beyond tests/test_preprocess.py's bound of 12.
+PIL_MAX_STEPS, PIL_BEYOND_SHARE = 12, 1e-4
+# whether encode_indices (code extraction, generation) takes kernel 6 on a CUDA
+# tensor: decided by this phase's count on the trained codebook (ops/vq.py)
+ENCODE_KERNEL6 = True
+
+
+def _e2e_expected(mode):
+    """The launches of each kernel (by its name in the kernels line) in each
+    stage of tools/e2e_demo_torch.py at its defaults, stated before the run:
+    kernel 6 once a VQ-VAE step (and once a test video where encode_indices
+    takes it) plus the check's own calls, one per 256 frames; kernels 7, 8
+    and 9 16 times a fused VT step; kernel 7 256 times a video of bits/dim
+    (16 slices x 16 layers, fp32); 88 of kernel 1 and 22,528 of kernel 2 a
+    rollout."""
+    n = E2E_VIDEOS[mode]
+    rollout = {"block_attention_fwd": (T_FRAMES - N_PRIME) * 8,
+               "decode_attention": (T_FRAMES - N_PRIME) * 256 * 8}
+    want = {"dataset": {}, "vqvae_train": {"nearest_indices": E2E_ITERS},
+            "vqvae_eval": {"nearest_indices": n} if ENCODE_KERNEL6 else {},
+            "kernel6_check": {"nearest_indices": -(-n * T_FRAMES // 256)},
+            "vt_train": {k: 16 * E2E_ITERS for k in ("fused_layer_fwd", "ffn_half_bwd",
+                                                     "attn_half_bwd")},
+            "bits": {"fused_layer_fwd": 256 * E2E_BITS_VIDEOS},
+            "rollout": rollout, "decode": {}}
+    if mode == "class-conditional":
+        want["rollout_alt_class"] = rollout
+    return want
+
+
+def _e2e_run(card, workdir, mode):
+    """tools/e2e_demo_torch.py's main in one mode at its defaults (full
+    width, 300 + 300 steps), every count set to 0 just before and read just
+    after; each stage's launches held to _e2e_expected. Returns (the tool's
+    result, {kernel: launches of the run, the kernel-6 check's apart})."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import e2e_demo_torch
+    from lvt_tpu_torch.ops._lib import COUNTED
+
+    wrappers = _dp_wrappers()
+    names = {w.__name__: n for n, w in wrappers.items()}
+    argv = ["--workdir", os.path.join(workdir, mode)]
+    if mode == "class-conditional":
+        argv.append("--class-conditional")
+    for f in COUNTED:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = e2e_demo_torch.main(argv)
+    wall = time.perf_counter() - t0
+    total = {n: w.launches for n, w in wrappers.items() if w.launches}
+    others = [f.__name__ for f in COUNTED if f.launches and f.__name__ not in names]
+    peak = torch.cuda.max_memory_allocated()
+    got = {stage: {names.get(k, k): v for k, v in counts.items()}
+           for stage, counts in res["launches"].items()}
+    want = _e2e_expected(mode)
+    check(got == want, f"e2e {mode}: launches by stage {got}, want {want}")
+    check(not others, f"e2e {mode}: launches of {others}")
+    check_launches = got["kernel6_check"]["nearest_indices"]
+    main_path = dict(total, nearest_indices=total["nearest_indices"] - check_launches)
+
+    codes, frames = res["codes"], res["frames"]
+    check(tuple(codes.shape) == (1, 4, T_FRAMES, 16, 16) and int(codes.min()) >= 0
+          and int(codes.max()) < 512, f"e2e {mode}: codes {tuple(codes.shape)} in "
+                                      f"[{int(codes.min())}, {int(codes.max())}]")
+    check(tuple(frames.shape) == (T_FRAMES, 64, 64, 3) and bool(torch.isfinite(frames).all())
+          and float(frames.min()) >= 0.0 and float(frames.max()) <= 255.0,
+          f"e2e {mode}: decoded frames {tuple(frames.shape)} not finite in [0, 255]")
+    check(sorted(os.listdir(res["generated_dir"])) == sorted(f"{i}.png" for i in range(T_FRAMES)),
+          f"e2e {mode}: PNGs {os.listdir(res['generated_dir'])}")
+    for key in ("loss_reconstruction", "loss_cross_entropy"):
+        check(all(np.isfinite(res[key])), f"e2e {mode}: {key} {res[key]}")
+    check(np.isfinite(res["mse"]) and np.isfinite(res["bits_per_dim"]),
+          f"e2e {mode}: MSE {res['mse']}, bits/dim {res['bits_per_dim']}")
+    if mode == "class-conditional":
+        check(res["class_codes_differ"] > 0, "e2e: the class made no difference to the rollout")
+    k6 = res["kernel6"]
+    share = k6["differ"] / k6["indices"]
+    near_ties_only = _within_share(k6["differ"], k6["far"], k6["indices"])
+    check(k6["kernel"] and k6["far"] == 0,
+          f"e2e {mode}: kernel 6 on the trained codebook: {k6['far']} of {k6['differ']} "
+          "differing indices are no near-tie")
+    sec = res["seconds"]
+    print(f"e2e {mode} [{card}]: {wall:.1f} s, by stage " +
+          ", ".join(f"{k} {v:.2f}" for k, v in sec.items()) +
+          f" s; VQ-VAE loss_reconstruction {res['loss_reconstruction'][0]:.4f} -> "
+          f"{res['loss_reconstruction'][1]:.4f} (median of the last 20), VT loss_cross_entropy "
+          f"{res['loss_cross_entropy'][0]:.4f} -> {res['loss_cross_entropy'][1]:.4f}; MSE "
+          f"{res['mse']:.6f}, bits/dim {res['bits_per_dim']:.4f}; VQ-VAE data_time median "
+          f"{res['data_time'] * 1e3:.3f} ms; max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    print(f"  launches by stage {got}")
+    print(f"  kernel 6 on the trained codebook: {k6['differ']} of {k6['indices']} indices "
+          f"({share:.2e}) differ from the plain fp32 search, {k6['far']} of them no float64 "
+          f"near-tie: {'every difference a near-tie within the share' if near_ties_only else 'NOT within the near-tie rule'}"
+          f" (encode_indices on the card takes {'kernel 6' if ENCODE_KERNEL6 else 'the plain version'})")
+    if mode == "class-conditional":
+        print(f"  the same priming and generator with another class: {res['class_codes_differ']} "
+              f"of {codes.numel()} codes differ")
+    return res, main_path
+
+
+def _e2e_kinetics(card, tmp):
+    """convert_kinetics_torch.process_video --preprocess device on
+    KINETICS_FRAMES seeded 240 x 320 frames, ffmpeg stubbed: the frames are
+    center_crop_resize's on the card, held to the reference's PIL recipe
+    (PIL_MAX_STEPS, PIL_BEYOND_SHARE); center_crop_resize on the card against
+    the CPU on the same chunk; its device time against the per-frame PIL
+    loop's host time."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import convert_kinetics_torch as ck
+    from lvt_tpu_torch.data.preprocess import center_crop_resize
+
+    rng = np.random.default_rng(19)
+    frames = rng.integers(0, 256, (KINETICS_FRAMES, 240, 320, 3), dtype=np.uint8)
+
+    def fake_ffmpeg(cmd, shell=None, stderr=None):  # "extracts" the frames into save_dir
+        save_dir = os.path.dirname(cmd.split('"')[3])
+        for i, f in enumerate(frames):
+            Image.fromarray(f).save(os.path.join(save_dir, f"{i + 1}.png"))
+        return b""
+
+    def pil(f):
+        img = Image.fromarray(f)
+        left, top = (320 - 240) / 2, 0
+        return np.asarray(img.crop((left, top, left + 240, top + 240))
+                          .resize((64, 64), Image.LANCZOS))
+
+    video = os.path.join(tmp, "kinetics", "archery", "vid.mp4")
+    os.makedirs(os.path.dirname(video))
+    open(video, "wb").close()
+    out = os.path.join(tmp, "kinetics_out")
+    saved, ck.subprocess.check_output = ck.subprocess.check_output, fake_ffmpeg
+    try:
+        t0 = time.perf_counter()
+        n = ck.process_video(video, out, 64, preprocess="device")
+        sec = time.perf_counter() - t0
+    finally:
+        ck.subprocess.check_output = saved
+    check(n == KINETICS_FRAMES, f"kinetics: {n} frames converted")
+    t0 = time.perf_counter()
+    ref = np.stack([pil(f) for f in frames]).astype(np.int32)
+    pil_ms = (time.perf_counter() - t0) * 1e3
+    got = np.stack([np.asarray(Image.open(os.path.join(out, "archery", "vid", f"{i + 1}.png")))
+                    for i in range(KINETICS_FRAMES)]).astype(np.int32)
+    diff = np.abs(got - ref)
+    beyond = float((diff > 1).mean())
+    check(got.shape == (KINETICS_FRAMES, 64, 64, 3) and diff.max() <= PIL_MAX_STEPS
+          and beyond <= PIL_BEYOND_SHARE,
+          f"kinetics: converted frames {got.shape}, {diff.max()} steps from PIL, "
+          f"{beyond:.2e} of pixels beyond one step")
+
+    x = torch.from_numpy(frames).cuda()
+    card_out = center_crop_resize(x, 64).cpu().numpy().astype(np.int32)
+    check(np.array_equal(card_out, got), "kinetics: process_video's frames are not "
+                                         "center_crop_resize's on the card")
+    cpu_out = center_crop_resize(torch.from_numpy(frames), 64).numpy().astype(np.int32)
+    d = np.abs(card_out - cpu_out)
+    check(d.max() <= 1 and (d > 0).mean() <= 1e-3,
+          f"center_crop_resize: card vs CPU {d.max()} steps, {(d > 0).mean():.2e} of pixels")
+    ms = device_ms([lambda: center_crop_resize(x, 64)], 20)
+    nbytes = x.numel() + KINETICS_FRAMES * 64 * 64 * 3
+    flops = 2 * KINETICS_FRAMES * 3 * (64 * 240 * 240 + 64 * 64 * 240)
+    bound, by = bound_ms("float32", nbytes, flops)
+    print(f"kinetics [{card}]: process_video --preprocess device, {KINETICS_FRAMES} frames of "
+          f"240x320 -> 64x64 in {sec:.2f} s (stubbed ffmpeg, PNG reads and writes included); "
+          f"against PIL: {(diff > 0).mean():.2e} of pixels differ, {beyond:.2e} by more than "
+          f"one step, at most {diff.max()}; "
+          f"center_crop_resize on the chunk: card {ms:.4f} ms (device, CUDA graph replay), "
+          f"bound {bound:.4f} ms ({by}), the per-frame PIL loop {pil_ms:.2f} ms on the host; "
+          f"card vs CPU {d.max()} step, {(d > 0).mean():.2e} of pixels")
+    return {"ms": ms, "pil_ms": pil_ms, "bound_ms": bound}
+
+
+def _e2e_img_size(card, tmp):
+    """scripts/generate_videos_torch.py --img-size 64 on N_PRIME seeded 96 x 128
+    priming frames, at full width with random weights: codes in range, frames
+    finite in [0, 255], exactly 88 launches of kernel 1 and 22,528 of kernel 2."""
+    import numpy as np
+    from PIL import Image
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+
+    rng = np.random.default_rng(20)
+    prime = os.path.join(tmp, "prime_96x128")
+    os.makedirs(prime)
+    for i in range(N_PRIME):
+        Image.fromarray(rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)).save(
+            os.path.join(prime, f"{i}.png"))
+    argv = ["--config-file", os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"),
+            "--video-dir", prime, "--img-size", "64", *NO_VQ_WEIGHTS,
+            "OUTPUT_DIR", os.path.join(tmp, "generated_img_size")]
+    _reset_counts()
+    video, codes, primed, seconds = gvt.main(argv)
+    launches = _counts()
+    _check_run("generate --img-size 64", video, codes, primed, 512, 1)
+    want = ((T_FRAMES - N_PRIME) * 8, (T_FRAMES - N_PRIME) * 256 * 8)
+    check(launches == want, f"generate --img-size: launches of kernels 1, 2 {launches}, want "
+                            f"{want}")
+    print(f"generate --img-size 64 [{card}]: 5 priming frames of 96x128 cropped and resized on "
+          f"the card, codes {tuple(codes.shape)}, rollout {seconds:.2f} s (the capture "
+          f"included); launches of kernels 1, 2 {launches}")
+    return dict(zip(("block_attention_fwd", "decode_attention"), launches))
+
+
+def phase_e2e(card):
+    """Phase 19: the e2e chain in both modes at full width, the Kinetics
+    converter on the card, generation with --img-size, the native IO library
+    and the loader's data_time with it against PIL. Returns {run: {kernel:
+    launches}}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bench_pipeline_torch as bp
+    from lvt_tpu_torch import native
+    from lvt_tpu_torch.utils.image import get_image_paths, read_image
+
+    check(native.available(), "native lvt_io did not build or load (g++ and zlib)")
+    print(f"native lvt_io: loaded from {os.path.relpath(native.LIBRARY.path, ROOT)}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    launches = {}
+    try:
+        for mode in ("bair", "class-conditional"):
+            _, launches[mode] = _e2e_run(card, tmp, mode)
+        _e2e_kinetics(card, tmp)
+        launches["generate --img-size"] = _e2e_img_size(card, tmp)
+
+        # data_time: PR-DVQVAE2 as it stands over the BAIR run's frames
+        bench = os.path.join(tmp, "bench")
+        os.makedirs(bench)
+        os.symlink(os.path.join(tmp, "bair", "videos"), os.path.join(bench, "frames"))
+        cfg = bp.build_cfg("vqvae", bench)
+        rates = bp.both(bp.measure_e2e, cfg, "vqvae", E2E_PIPE_STEPS, torch.device("cuda"))
+        for kind, r in rates.items():
+            print(f"pipeline PR-DVQVAE2 b={r['batch']} workers {r['workers']} [{card}], {kind} "
+                  f"reader: {r['sec_per_iter']:.5f} s/iteration ({r['items_per_sec']:.1f} "
+                  f"frames/s) over {r['steps']} steps, the step alone "
+                  f"{r['device_only_sec_per_iter']:.5f} s; data_time mean "
+                  f"{r['data_time_mean_ms']:.3f} ms, max {r['data_time_max_ms']:.3f} ms")
+        # the same frames through the loader alone, and through each decoder alone
+        rates = bp.both(bp.measure_loader, cfg, "vqvae", 50)
+        paths = [d["image_path"] for d in get_image_paths(os.path.join(bench, "frames"),
+                                                          use_cache=False)]
+        decode = {}
+        for kind, read in (("native", native.read_png_rgb),
+                           ("pil", lambda p: read_image(p, "RGB"))):
+            t0 = time.perf_counter()
+            for path in paths:
+                read(path)
+            decode[kind] = (time.perf_counter() - t0) / len(paths) * 1e3
+        print(f"loader PR-DVQVAE2 b={cfg.SOLVER.IMS_PER_BATCH} workers "
+              f"{cfg.DATALOADER.NUM_WORKERS}, no card in the loop: native "
+              f"{rates['native']['items_per_sec']:.1f} frames/s, PIL "
+              f"{rates['pil']['items_per_sec']:.1f}; one 64x64 PNG decoded on the host: "
+              f"native {decode['native']:.4f} ms, PIL {decode['pil']:.4f} ms ({len(paths)} "
+              f"frames)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
@@ -3789,6 +4100,8 @@ def main():
     lap("eval")
     dp_launches = phase_data_parallel(card)
     lap("data parallel")
+    e2e_launches = phase_e2e(card)
+    lap("e2e")
     print("phase seconds: " + ", ".join(laps) + f"; whole run {time.perf_counter() - start:.1f} s")
 
     def entry(name, source, replaces, n_launches, r):
@@ -3852,6 +4165,8 @@ def main():
         k["eval_launches"] = eval_launches.get(k["name"], 0)
         # phase 18's, per rank of each world ("gloo2": two ranks on the card)
         k["dp_launches"] = {w: c[k["name"]] for w, c in dp_launches.items() if k["name"] in c}
+        # phase 19's, per run: each e2e mode (kernel 6's check apart), generate --img-size
+        k["e2e_launches"] = {r: c[k["name"]] for r, c in e2e_launches.items() if k["name"] in c}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

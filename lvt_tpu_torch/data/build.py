@@ -8,6 +8,8 @@ eager train step holds the GIL while it dispatches its launches, and np.load
 is mostly Python, so a thread loader and the step take turns instead of
 overlapping. Batches are collated into stacked numpy arrays (not the
 reference's list-of-dicts), so one copy moves the whole batch to the card.
+The native IO library (``native/``) is built and loaded before the workers
+fork, so that they inherit it instead of each building it at its first frame.
 """
 
 import logging
@@ -16,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 import torch.utils.data
 
+from .. import native
 from ..utils import comm
 from .catalog import DatasetCatalog
 from .mapper import DatasetMapper
@@ -124,6 +127,7 @@ def build_train_loader(cfg, mapper: Optional[DatasetMapper] = None):
     logger.info(f"Train loader: {len(dataset_dicts)} samples, "
                 f"{per_proc}/process of global batch {total}")
     workers = cfg.DATALOADER.NUM_WORKERS
+    native.available()
     loader = torch.utils.data.DataLoader(
         _MappedDataset(dataset_dicts, mapper), batch_size=per_proc, sampler=sampler,
         num_workers=workers, collate_fn=collate, drop_last=True,
@@ -140,6 +144,7 @@ def build_test_loader(cfg, dataset_name: str, mapper: Optional[DatasetMapper] = 
     if mapper is None:
         mapper = DatasetMapper(cfg, is_train=False)
     sampler = InferenceSampler(len(dataset_dicts), cfg.TEST.N_SAMPLES)
+    native.available()
     return torch.utils.data.DataLoader(
         _MappedDataset(dataset_dicts, mapper), batch_size=batch_size, sampler=sampler,
         num_workers=cfg.DATALOADER.NUM_WORKERS, collate_fn=collate, drop_last=False)

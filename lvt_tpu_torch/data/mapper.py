@@ -3,10 +3,13 @@
 vidgen/data/dataset_mapper.py:22-153).
 
 * images and frame sequences come out channels-last, (H, W, C) and
-  (T, H, W, C) float32, divided by 255 when INPUT.SCALE_TO_ZEROONE; frames on
-  disk are read with PIL (``utils/image.read_image``);
-* latent code videos come out as (nc, T, h, w) int32 under "video": the VT
-  prepares its subscale slices from whole videos on the device
+  (T, H, W, C) float32, divided by 255 when INPUT.SCALE_TO_ZEROONE; RGB PNG
+  frames on disk are decoded by the native library (``native.read_png_rgb``,
+  the same pixels as PIL), other frames with PIL (``utils/image.read_image``);
+* latent code videos come out as (nc, T, h, w) int32 under "video", a
+  video's .npy files read in one native call
+  (``native.load_npy_sequence_i32``; numpy where it cannot): the VT prepares
+  its subscale slices from whole videos on the device
   (models/vt.py:prepare_slices);
 * a random temporal crop at train time, the head crop at test time; short
   videos return None and the loader draws another sample.
@@ -18,7 +21,28 @@ from typing import Optional
 
 import numpy as np
 
+from .. import native
 from ..utils import image as image_utils
+
+
+def _read_frame(path: str, img_format: str) -> np.ndarray:
+    """PNG fast path through the native decoder (bit-equal to PIL for the
+    formats the converters write); PIL otherwise."""
+    if img_format == "RGB" and path.endswith(".png"):
+        arr = native.read_png_rgb(path)
+        if arr is not None:
+            return arr
+    return image_utils.read_image(path, img_format)
+
+
+def _load_latents(paths) -> np.ndarray:
+    """A video's latent files -> (T, ...) int32, in one native call where
+    it can (int32 or int64 files of one shape), else numpy."""
+    first = np.load(paths[0])
+    seq = native.load_npy_sequence_i32(paths, first.shape)
+    if seq is None:
+        seq = np.stack([first] + [np.load(p) for p in paths[1:]], axis=0)
+    return seq
 
 
 class ShortVideoException(Exception):
@@ -70,16 +94,15 @@ class DatasetMapper:
                 sel = self._start_end(len(out["latent_names"]))
                 paths = [os.path.join(out["video_root"], f)
                          for f in out["latent_names"][sel]]
-                out["video"] = self._code_video(np.stack([np.load(p) for p in paths], axis=0))
+                out["video"] = self._code_video(_load_latents(paths))
 
             elif "image_path" in out:
                 out["image"] = self._scaled(
-                    image_utils.read_image(out["image_path"], self.img_format))  # (H, W, C)
+                    _read_frame(out["image_path"], self.img_format))  # (H, W, C)
 
             elif "image_names" in out:
                 sel = self._start_end(len(out["image_names"]))
-                frames = [image_utils.read_image(os.path.join(out["video_root"], f),
-                                                 self.img_format)
+                frames = [_read_frame(os.path.join(out["video_root"], f), self.img_format)
                           for f in out["image_names"][sel]]
                 out["image_sequence"] = self._scaled(np.stack(frames, axis=0))  # (T, H, W, C)
 

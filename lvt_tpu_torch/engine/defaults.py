@@ -37,6 +37,7 @@ from ..evaluation import (
 )
 from ..models import tree_leaves
 from ..utils import comm
+from ..utils.collect_env import collect_env_info
 from ..utils.env import seed_all_rng
 from ..utils.events import CommonMetricPrinter, JSONWriter, TensorboardWriter
 from ..utils.logger import setup_logger
@@ -79,17 +80,17 @@ def default_argument_parser():
 
 
 def default_setup(cfg, args):
-    """Logging, seeding, config dump (reference defaults.py:72-121). Each
-    process seeds its global generators with SEED + its rank, as lvt_tpu
-    does, so that the data workers of different ranks draw differently."""
+    """Logging, the environment report (utils/collect_env.py), seeding and
+    the config dump (reference defaults.py:72-121). Each process seeds its
+    global generators with SEED + its rank, as lvt_tpu does, so that the
+    data workers of different ranks draw differently."""
     output_dir = cfg.OUTPUT_DIR
     rank = comm.get_rank()
     if output_dir:  # every rank: the others' logs go there too
         os.makedirs(output_dir, exist_ok=True)
     log = setup_logger(output_dir, distributed_rank=rank, name="lvt_tpu_torch")
     log.info(f"Rank of current process: {rank}. World size: {comm.get_world_size()}")
-    log.info(f"torch {torch.__version__}, cuda "
-             f"{torch.cuda.get_device_name(0) if torch.cuda.is_available() else 'none'}")
+    log.info("Environment info:\n" + collect_env_info())
     if getattr(args, "config_file", ""):
         log.info(f"Loaded config file {args.config_file}")
     if comm.is_main_process() and output_dir:

@@ -22,7 +22,10 @@ checkpoint of tools/train_net_torch.py or a training OUTPUT_DIR
 exist, or a .pth that cannot be read, raises; with nothing configured or
 found, the weights are random from --seed, with a warning. The VT is built
 on the latent grid of the encoded priming frames, so frames of any size the
-VQ-VAE takes generate.
+VQ-VAE takes generate. --img-size S center-crops the priming frames to a
+square and Lanczos-resizes them to S x S on the card before they are encoded
+(lvt_tpu_torch/data/preprocess.py), e.g. Kinetics frames of any size to the
+64 x 64 the VQ-VAEs take.
 
 --batch B samples B videos from the priming frames, one row each of one
 batch, written to OUTPUT_DIR/video_<j>/ (B = 1: to OUTPUT_DIR). --num-gpus N
@@ -58,6 +61,10 @@ def parse_args(argv=None):
         description="Sample a 16-frame video given priming frames (PyTorch port)")
     parser.add_argument("--config-file", required=True, metavar="FILE")
     parser.add_argument("--video-dir", required=True, help="folder with priming frame pngs")
+    parser.add_argument("--img-size", type=int, default=0,
+                        help="if >0, center-crop and Lanczos-resize the priming frames to this "
+                             "size on the card before they are encoded "
+                             "(lvt_tpu_torch/data/preprocess.py); 0 = the frames as loaded")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--batch", type=int, default=1,
                         help="videos sampled from the priming frames")
@@ -121,13 +128,20 @@ def _sync(device):
 
 
 @torch.no_grad()
-def encode_priming(vqvae, vq_params, vq_state, frames):
+def encode_priming(vqvae, vq_params, vq_state, frames, img_size: int = 0):
     """frames (b, n_prime, H, W, 3) floats in [0, 255] -> codes (b, nc,
-    n_prime, h, w)."""
+    n_prime, h, w). With ``img_size`` > 0 the frames, once scaled as the
+    VQ-VAE's INPUT.SCALE_TO_ZEROONE says, are center-cropped and
+    Lanczos-resized to img_size x img_size on their device before they are
+    normalized, in lvt_tpu's order (scripts/generate_videos.py)."""
+    from lvt_tpu_torch.data.preprocess import center_crop_resize
+
     b, n_prime = frames.shape[:2]
     x = frames.reshape((-1,) + frames.shape[2:])
     if vqvae.cfg.INPUT.SCALE_TO_ZEROONE:
         x = x / 255.0
+    if img_size > 0:
+        x = center_crop_resize(x, img_size)
     primed = vqvae.encode(vq_params, vq_state, vqvae.normalize(x))  # (b*n_prime, h, w, nc)
     h, w, nc = primed.shape[1:]
     return primed.reshape(b, n_prime, h, w, nc).permute(0, 4, 1, 2, 3)
@@ -135,11 +149,11 @@ def encode_priming(vqvae, vq_params, vq_state, frames):
 
 @torch.no_grad()
 def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
-             greedy: bool = False, primed=None):
+             greedy: bool = False, primed=None, img_size: int = 0):
     """frames (b, n_prime, H, W, 3) floats in [0, 255] on the device ->
     (videos (b, T, H, W, 3) in [0, 255], codes (b, nc, T, h, w), primed codes
     (b, nc, n_prime, h, w), rollout seconds). ``primed``, where given, is
-    encode_priming's result for ``frames``. The frames are decoded as
+    encode_priming's result for ``frames`` (and ``img_size``). The frames are decoded as
     lvt_tpu's decode_codes_fn does: clip(denormalize(x) * 255, 0, 255) where
     the VQ-VAE's INPUT.SCALE_TO_ZEROONE is set, else clip(denormalize(x), 0,
     255). The sampler's knobs come from the VT's config:
@@ -151,7 +165,7 @@ def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
     knobs = vt.cfg.TEST.VT_SAMPLER
     b = frames.shape[0]
     if primed is None:
-        primed = encode_priming(vqvae, vq_params, vq_state, frames)
+        primed = encode_priming(vqvae, vq_params, vq_state, frames, img_size)
     nc, _, h, w = primed.shape[1:]
     video = torch.zeros((b, nc, vt.T, h, w), dtype=torch.int64, device=frames.device)
     video[:, :, :n_prime] = primed
@@ -170,7 +184,7 @@ def generate(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
 
 
 def generate_sharded(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime, gen, *,
-                     greedy: bool = False):
+                     greedy: bool = False, img_size: int = 0):
     """generate() over the processes of the world (utils/comm): each rank
     rolls out its consecutive rows of ``frames``' batch (b divisible by the
     world), with ``gen``, and rank 0 gathers them in rank order (the
@@ -186,7 +200,7 @@ def generate_sharded(vqvae, vq_params, vq_state, vt, vt_params, frames, n_prime,
         raise ValueError(f"a batch of {b} videos does not divide over {world} processes")
     rows = frames[rank * (b // world):(rank + 1) * (b // world)]
     video, codes, primed, seconds = generate(vqvae, vq_params, vq_state, vt, vt_params, rows,
-                                             n_prime, gen, greedy=greedy)
+                                             n_prime, gen, greedy=greedy, img_size=img_size)
     parts = comm.gather((video.cpu(), codes.cpu(), primed.cpu(), seconds))
     if rank != 0:
         return None
@@ -225,7 +239,7 @@ def _main(args, device):
         print(f"WARNING: no VQ-VAE weights configured; random init (seed {args.seed})")
     frames = torch.from_numpy(load_priming_frames(args.video_dir, n_prime))[None].to(device)
     print(f"Loaded {frames.shape[1]} priming frames")
-    primed = encode_priming(vqvae, vq_params, vq_state, frames)
+    primed = encode_priming(vqvae, vq_params, vq_state, frames, args.img_size)
     h, w = primed.shape[-2:]
 
     vt, vt_params = build_vt(cfg, gen, device, h, w)
@@ -241,7 +255,7 @@ def _main(args, device):
     else:
         out = generate_sharded(vqvae, vq_params, vq_state, vt, vt_params,
                                frames.expand((args.batch,) + frames.shape[1:]), n_prime,
-                               sample_gen)
+                               sample_gen, img_size=args.img_size)
     if out is None:  # not rank 0
         return None
     video, codes, primed, seconds = out

@@ -1240,3 +1240,71 @@ def test_cache_attention_long_caches_take_passes(cuda, kernel, da, live, plan):
                                 plan)
     want = plain(q, k8, ks, v8, vs, extra, scale, live)
     torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0.0)
+
+
+# --------------------------------------------------------------------------
+# The data path on the card machine: center_crop_resize (plain PyTorch on
+# the device, no hand-written kernel) and the native IO library
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size", [((64, 240, 320, 3), 64), ((2, 3, 48, 40, 3), 32),
+                                        ((1, 77, 50, 3), 20)])
+def test_center_crop_resize_on_the_card_matches_the_cpu(cuda, shape, size):
+    """The bounds of tests/test_torch_preprocess.py: uint8 within one step
+    of the CPU's result, at most 0.1% of the pixels apart; float frames on a
+    [0, 255] scale within 2e-4 of the filter in float64 (13 fp32 ulps at
+    255; cuBLAS sums the 240-term products in its own order). TF32 off."""
+    import numpy as np
+
+    from lvt_tpu_torch.data.preprocess import center_crop_resize, center_crop_square, \
+        lanczos_weights
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8))
+    got = center_crop_resize(x.to(cuda), size).cpu()
+    want = center_crop_resize(x, size)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).double().mean()) <= 1e-3
+    w = lanczos_weights(min(shape[-3:-1]), size).double()
+    exact = torch.einsum("...hwc,ho,wp->...opc", center_crop_square(x).double(), w, w)
+    got_f = center_crop_resize(x.to(cuda).float(), size).cpu().double()
+    assert float((got_f - exact).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_native_loader_gives_the_batch_pil_gives(cuda, tmp_path):
+    """On the card machine the native IO library builds and loads, and the
+    mapper's frames read through it equal those read with PIL."""
+    import numpy as np
+    from PIL import Image
+
+    from lvt_tpu_torch import native
+    from lvt_tpu_torch.config import get_cfg
+    from lvt_tpu_torch.data.mapper import DatasetMapper
+
+    assert native.available(), "native lvt_io did not build or load (g++, zlib)"
+    rng = np.random.default_rng(1)
+    for f in range(4):
+        Image.fromarray(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)).save(
+            tmp_path / f"{f}.png")
+    cfg = get_cfg()
+    cfg.INPUT.FORMAT = "RGB"
+    cfg.INPUT.N_FRAMES_PER_VIDEO_TEST = 4
+    video = {"video_root": str(tmp_path), "image_names": [f"{f}.png" for f in range(4)],
+             "video_idx": 0}
+    mapper = DatasetMapper(cfg, is_train=False)
+    got = mapper(dict(video))["image_sequence"]
+
+    class NoLibrary:
+        def get(self):
+            return None
+
+    saved, native.LIBRARY = native.LIBRARY, NoLibrary()
+    try:
+        want = mapper(dict(video))["image_sequence"]
+    finally:
+        native.LIBRARY = saved
+    assert got.shape == (4, 64, 64, 3)
+    np.testing.assert_array_equal(got, want)
