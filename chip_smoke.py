@@ -194,7 +194,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 load. tools/e2e_demo_torch.py's main at its defaults, full
                 width, in both modes (BAIR: PR-DVQVAE2 -> DSFVT on 64 seeded
                 moving-squares videos; class-conditional: K-DVQVAE -> KDSFVT,
-                CLASS_NUM 600, on 3 classes x 22), 300 + 300 steps at batch
+                CLASS_NUM 600, on 3 classes x 22), but 150 + 150 steps at batch
                 16, every count set to 0 before each mode: each stage's
                 seconds and launches, held to _e2e_expected (kernel 6 a VQ-VAE
                 step, kernels 7, 8, 9 16 a VT step, kernel 7 256 a video of
@@ -214,13 +214,42 @@ Phases, each fatal on failure (exit code 1, no result line):
                 (tools/bench_pipeline_torch.py): s/iteration and data_time;
                 the loader alone and each PNG decoder alone on the host.
 
+ 20. geometries — the other shipped geometries at full width (d = 512, 8
+                heads of 128, 8 + 8 layers), as their files stand. DSSVT (4
+                slices of 16 x 8 x 8) and DSTSVT (16 slices of 4 x 8 x 8),
+                every slice holding primed positions: b = 8 bf16 greedy
+                rollouts through tools/bench_sample_torch.py's run, native
+                (kernels 1, 2) and one int8 mode each (DSSVT: int8 KV + pallas
+                + int8-pallas weights, kernels 3 and 11; DSTSVT: pallas-live,
+                kernel 4); the first call (with the graph's capture) and
+                GEO_ITERS timed calls, every count set to 0 just before and
+                read just after, held exactly to _geo_rollout_expected; the
+                graph's node count and capture seconds, replay seconds a
+                slice, frames/s, peak memory; codes in range, primed
+                positions kept, slice 0 of the graph equal to the eager
+                loop's. fp32, b = 1, TF32 off, in DSFVT, DSSVT and DSTSVT:
+                logits_for_entire_video_incremental (kernels 1 and 2) against
+                logits_for_entire_video (kernel 7) on the card within
+                GEO_EXACT_TOL, and the card's logits_for_entire_video against
+                the CPU's within PATH_TOL, with exact launches. Training
+                through tools/train_net_torch.py: DSSVT (4-frame clips) and
+                DSTSVT at the configs' batch of 64, fused and bf16, on seeded
+                latent videos (kernels 7, 8, 9 exactly 16 a step), and
+                Base-VQVAE (RGB channels, seeded PNG frames, batch 32;
+                kernel 6 once a step), GEO_TRAIN_STEPS steps each: finite
+                losses, Base-VQVAE's falling, s/step and peak memory; the
+                example frames through the trained Base-VQVAE, kernel 6's
+                indices against the plain search under the near-tie rule,
+                decoded. tools/bench_train_torch.py --steps 5 (its JSON line,
+                exact launches).
+
 Phases 10 to 13 run right after phase 5, while the generation models are
 loaded (10b right after 10, 11b and 12b after 11 and 12); phases 8 and 14
 keep their OUTPUT_DIRs for phase 17. The line before the last is
 {"kernels": [...]}, each kernel with its main-path launches, phase 17's
-("eval_launches"), phase 18's per rank of each world ("dp_launches") and
-phase 19's per run ("e2e_launches"); the last line is {"ok": true,
-"device": {...}}.
+("eval_launches"), phase 18's per rank of each world ("dp_launches"),
+phase 19's per run ("e2e_launches") and phase 20's per run
+("geometry_launches"); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -775,17 +804,72 @@ SLICE_MODES = (  # label, knobs of sample_slice_incremental: every sampler mode
 # buffers and of its codes out (4 a slice), within a share of the eager
 # count. torch.profiler drops records of a profile this long now and then:
 # the same eager slice has read 185,769 activities in one call and 185,828 in
-# another, and in one call both eager profiles of a slice lacked 6 or 7
-# launches each of several of PyTorch's kernels that its graph, replaying the
-# same launches, showed. A profile may drop records, never add one. So each way is profiled
-# at least PROFILES times, and on until a profile records within
-# PROFILES_AGREE of the most that each function showed in the profiles so far
-# (PROFILES_MAX times at the most); each function's launches are the most any
-# of them recorded.
+# another, in one call both eager profiles of a slice lacked 6 or 7 launches
+# each of several of PyTorch's kernels that its graph, replaying the same
+# launches, showed, and in another the two eager profiles of a slice read
+# 87,386 and 91,414 of its ~91,620. A profile may drop records, never add
+# one. So each function's launches are the most any profile of its way
+# recorded; the eager loop is profiled at least PROFILES times and the graph
+# once, each way on until a profile records within PROFILES_AGREE of those
+# maxima; and while the slice's checks (activities within ACTIVITY_GAP, the
+# hand-written kernels' launches exact) do not hold on the maxima, each way
+# is profiled once more, PROFILES_MAX times at the most.
 ACTIVITY_GAP = 1e-3
 PROFILES = 2
 PROFILES_MAX = 4
 PROFILES_AGREE = ACTIVITY_GAP / 4
+
+
+class _Profiles:
+    """fn() run once unprofiled (``wall``), then under torch.profiler once a
+    call of ``add``, each run synchronized: ``counts`` {device function: the
+    most launches any profile recorded}, ``totals`` the profiles' activity
+    counts, ``best`` (wall s under the profiler, device events as (name, µs))
+    of the profile with the most events. The events are the profiler's raw
+    records: turning ~100k of them into FunctionEvents took ~15 s a profile."""
+
+    def __init__(self, fn):
+        import torch
+
+        self.fn = fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.out = fn()
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - t0
+        self.best, self.counts, self.totals = None, {}, []
+
+    def add(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            self.fn()
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+        kern = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if self.best is None or len(kern) > len(self.best[1]):
+            self.best = (wall_prof, kern)
+        for name, (_, cnt) in _by_name(kern).items():
+            self.counts[name] = max(self.counts.get(name, 0), cnt)
+        self.totals.append(len(kern))
+
+    def settled(self):
+        """The last profile lies within PROFILES_AGREE of the maxima."""
+        full = sum(self.counts.values())
+        return full - self.totals[-1] <= PROFILES_AGREE * full
+
+    def fill(self, least, most):
+        """Profile at least ``least`` times, and on until settled, ``most``
+        times at the most."""
+        while len(self.totals) < most and (len(self.totals) < least or not self.settled()):
+            self.add()
+        return self
+
+    def result(self):
+        return (self.out, self.wall) + self.best + (self.counts, self.totals)
 
 
 def _profiled(fn, profiles=1, most=1):
@@ -794,36 +878,9 @@ def _profiled(fn, profiles=1, most=1):
     totals of the profiles) of fn(), run once unprofiled and then profiled
     ``profiles`` times, and on while the last profile records fewer
     activities than the most each function showed in the profiles so far by
-    more than a share PROFILES_AGREE of them, ``most`` times at the most; each
-    run synchronized. A function's launches are the most any profile
-    recorded. The events are the profiler's raw records: turning ~100k of
-    them into FunctionEvents took ~15 s a profile."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    best, counts, totals = None, {}, []
-    while True:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_prof = time.perf_counter() - t0
-        kern = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
-                if e.device_type() == torch.autograd.DeviceType.CUDA]
-        if best is None or len(kern) > len(best[1]):
-            best = (wall_prof, kern)
-        for name, (_, cnt) in _by_name(kern).items():
-            counts[name] = max(counts.get(name, 0), cnt)
-        totals.append(len(kern))
-        full = sum(counts.values())
-        if len(totals) >= most or (len(totals) >= profiles
-                                   and full - len(kern) <= PROFILES_AGREE * full):
-            return (out, wall) + best + (counts, totals)
+    more than a share PROFILES_AGREE of them, ``most`` times at the most
+    (``_Profiles``)."""
+    return _Profiles(fn).fill(profiles, most).result()
 
 
 def _by_name(kern):
@@ -930,7 +987,6 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
     for label, knobs in modes:
         knobs = {"kv_dtype": "native", "weight_dtype": "native", "mm_dtype": "native",
                  "attn_impl": "xla", **knobs}
-        runs = {}
         with torch.no_grad():
             if on_graph:  # the set-up made once, as sample_video makes it
                 from lvt_tpu_torch.models.vt_incremental import SliceDecoder
@@ -943,7 +999,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                     return dec.run(zl, sl, primed_t, None, 1.0, True)
                 return sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl,
                                                 None, primed, 1.0, greedy=True, **knobs)
-            runs["eager"] = _profiled(eager, PROFILES, PROFILES_MAX)
+            ways = {"eager": _Profiles(eager).fill(PROFILES, PROFILES_MAX)}
             if on_graph:
                 zl, sl = encoded()
                 graph = (vts or {}).get(label, vt)._slice_graph(params, zl, sl, primed_t, knobs,
@@ -952,7 +1008,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                 def replay():
                     zl, sl = encoded()
                     return graph(zl, sl, primed_t)
-                runs["graph"] = _profiled(replay, PROFILES, PROFILES_MAX)
+                ways["graph"] = _Profiles(replay).fill(1, PROFILES_MAX)
                 # the launches a replay must show: the capture's, and the
                 # encoder's (kernel 1, eager, outside the graph)
                 with launches_apart() as took:
@@ -960,6 +1016,16 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                 want_hand = _hand_launches(took)
                 for kernel, n in _hand_launches(graph.launches).items():
                     want_hand[kernel] = want_hand.get(kernel, 0) + n
+
+                def holds():  # the slice's checks below, on the maxima so far
+                    e, g = (sum(ways[w].counts.values()) for w in ("eager", "graph"))
+                    return (abs(g - e) <= ACTIVITY_GAP * e
+                            and _hand_counts(ways["graph"].counts) == want_hand)
+                while not holds() and any(len(w.totals) < PROFILES_MAX for w in ways.values()):
+                    for w in ways.values():
+                        if len(w.totals) < PROFILES_MAX:
+                            w.add()
+            runs = {way: w.result() for way, w in ways.items()}
         acts = {}
         for way, (out, wall, wall_prof, kern, counts, totals) in runs.items():
             busy = sum(us for _, us in kern) / 1e6
@@ -3746,7 +3812,7 @@ def phase_data_parallel(card):
 
 
 # phase 19: the e2e chain of tools/e2e_demo_torch.py at its defaults
-E2E_ITERS = 300  # the tool's --iters1 and --iters2
+E2E_ITERS = 150  # the tool's --iters1 and --iters2 (its defaults are 300: cut for the time limit)
 E2E_VIDEOS = {"bair": 64, "class-conditional": 66}  # the tool's sets: 64 videos; 3 x 22
 E2E_BITS_VIDEOS = 4  # the tool's TEST.N_SAMPLES for bits/dim
 E2E_PIPE_STEPS = 100  # steps of each bench_pipeline_torch trainer run (native, PIL)
@@ -3789,7 +3855,7 @@ def _e2e_expected(mode):
 
 def _e2e_run(card, workdir, mode):
     """tools/e2e_demo_torch.py's main in one mode at its defaults (full
-    width, 300 + 300 steps), every count set to 0 just before and read just
+    width) but E2E_ITERS + E2E_ITERS steps, every count set to 0 just before and read just
     after; each stage's launches held to _e2e_expected. Returns (the tool's
     result, {kernel: launches of the run, the kernel-6 check's apart})."""
     import numpy as np
@@ -3801,7 +3867,8 @@ def _e2e_run(card, workdir, mode):
 
     wrappers = _dp_wrappers()
     names = {w.__name__: n for n, w in wrappers.items()}
-    argv = ["--workdir", os.path.join(workdir, mode)]
+    argv = ["--workdir", os.path.join(workdir, mode), "--iters1", str(E2E_ITERS),
+            "--iters2", str(E2E_ITERS)]
     if mode == "class-conditional":
         argv.append("--class-conditional")
     for f in COUNTED:
@@ -4028,6 +4095,365 @@ def phase_e2e(card):
     return launches
 
 
+
+# --------------------------------------------------------------------------
+# phase 20: the other shipped geometries at full width
+# --------------------------------------------------------------------------
+
+GEO_B, GEO_ITERS, GEO_TRAIN_STEPS = 8, 1, 8  # rollout batch, timed calls after the first; steps
+# bench_sample_torch options of each rollout: native, and one int8 mode a geometry
+GEO_ROLLOUTS = (
+    ("DSSVT", "native", ()),
+    ("DSSVT", "int8 KV + pallas + int8-pallas weights",
+     ("--kv", "int8", "--attn", "pallas", "--weights", "int8-pallas")),
+    ("DSTSVT", "native", ()),
+    ("DSTSVT", "int8 KV + pallas-live", ("--kv", "int8", "--attn", "pallas-live")),
+)
+# (slices, pixels a slice) of a 16 x 16 x 16 video. Primed with 5 frames, every
+# DSSVT slice (16 x 8 x 8) and every DSTSVT slice (4 x 8 x 8) holds primed and
+# unprimed positions, so all are sampled
+GEO_SLICES = {"DSFVT": (16, 256), "DSSVT": (4, 1024), "DSTSVT": (16, 256)}
+GEO_EXACT_TOL = 2e-4  # logits_for_entire_video_incremental vs logits_for_entire_video, rtol = atol
+
+
+def _geo_rollout_expected(name, label):
+    """Launches of one rollout (b = 8, every slice sampled, 8 + 8 layers),
+    stated before the run: kernel 1 8 a slice (the encoder, outside the
+    graph); kernel 2, or 3 / 4 in the int8 modes, once a layer and pixel;
+    kernel 11 4 products a layer and pixel."""
+    slices, pixels = GEO_SLICES[name]
+    want = {"block_attention_fwd": slices * 8}
+    steps = slices * pixels * 8
+    if label == "native":
+        want["decode_attention"] = steps
+    elif "pallas-live" in label:
+        want["decode_attention_i8_live"] = steps
+    else:
+        want["decode_attention_i8"] = steps
+    if "int8-pallas" in label:
+        want["matmul_i8w"] = 4 * steps
+    return want
+
+
+def _geo_names():
+    """{wrapper's __name__: the kernel's name in the kernels line}."""
+    names = {w.__name__: n for n, w in _dp_wrappers().items()}
+    names.update({"decode_attention_i8_cuda": "decode_attention_i8",
+                  "decode_attention_i8_step_cuda": "decode_attention_i8",
+                  "decode_attention_i8_live_cuda": "decode_attention_i8_live",
+                  "decode_attention_i8_live_step_cuda": "decode_attention_i8_live",
+                  "matmul_i8w_cuda": "matmul_i8w"})
+    return names
+
+
+def _zero_counts():
+    from lvt_tpu_torch.ops._lib import COUNTED
+
+    for f in COUNTED:
+        f.launches = 0
+
+
+def _launched():
+    """{kernel name: launches} of every counted wrapper since _zero_counts."""
+    from lvt_tpu_torch.ops._lib import COUNTED
+
+    names, got = _geo_names(), {}
+    for f in COUNTED:
+        if f.launches:
+            n = names.get(f.__name__, f.__name__)
+            got[n] = got.get(n, 0) + f.launches
+    return got
+
+
+def _geo_rollout(card, name, label, opts):
+    """One rollout configuration through tools/bench_sample_torch.py's run at
+    b = 8, bf16, greedy: the first call (the graph's capture and one rollout)
+    and GEO_ITERS timed calls, every count set to 0 just before and read just
+    after; then slice 0 by the eager loop against the graph's codes. Returns
+    the launches of one rollout."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bench_sample_torch as bs
+    from lvt_tpu_torch.models.vt import vt_encode
+    from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
+
+    args = bs.parse_args(["--config", f"configs/vt/{name}.yaml", "--batch", str(GEO_B),
+                          "--iters", str(GEO_ITERS), "--greedy", *opts])
+    cfg = bs.load_cfg(args)
+    want = _geo_rollout_expected(name, label)
+    caps = _captures()
+    _zero_counts()
+    res, model, params, video, out = bs.run(cfg, args, torch.device("cuda"))
+    got = _launched()
+    calls = 1 + GEO_ITERS
+    n_caps = _captures()[0] - caps[0]
+    plan, c = model.plan, model.c
+    slices, pixels = GEO_SLICES[name]
+    sampled = sum(not (plan.slice_src[s].reshape(-1) // (16 * 16) < N_PRIME).all()
+                  for s in range(plan.num_slices))
+    check((sampled, plan.slice_src[0].size) == (slices, pixels),
+          f"{name}: {sampled} sampled slices of {plan.slice_src[0].size} pixels, want "
+          f"{slices} of {pixels}")
+    check(got == {k: v * calls for k, v in want.items()},
+          f"{name} {label}: launches {got} in {calls} rollouts, want {want} each")
+    check(n_caps == 1, f"{name} {label}: {n_caps} graph captures, want 1")
+    check(int(out.min()) >= 0 and int(out.max()) < c.nv,
+          f"{name} {label}: codes in [{int(out.min())}, {int(out.max())}]")
+    check(torch.equal(out[:, :, :N_PRIME], video[:, :, :N_PRIME]),
+          f"{name} {label}: primed positions changed")
+    check(not torch.equal(out, video), f"{name} {label}: nothing was sampled")
+    # slice 0 by the eager loop (a SliceDecoder of its own), from the same
+    # inputs as the rollout's first slice
+    knobs = {"kv_dtype": args.kv, "weight_dtype": args.weights, "mm_dtype": args.mm,
+             "attn_impl": args.attn}
+    primed = plan.slice_src[0].reshape(-1) // (16 * 16) < N_PRIME
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sidx = torch.zeros((GEO_B,), dtype=torch.int64, device=video.device)
+        ctx, sl, _ = model.prepare_slices(video, sidx)
+        zl = vt_encode(params["netG"], c, ctx, sidx)
+        eager = sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl, None,
+                                         primed, 1.0, greedy=True, **knobs)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    graph_sl = model.prepare_slices(out, sidx)[1]
+    check(torch.equal(eager, graph_sl),
+          f"{name} {label}: slice 0 of the graph differs from the eager loop's "
+          f"({int((eager != graph_sl).sum())} of {eager.numel()} codes)")
+    per_slice = res["seconds_median"] / slices
+    print(f"geometry {name} rollout b={GEO_B} bf16 greedy, {label} [{card}]: first call "
+          f"{res['capture_seconds']:.3f} s (the graph's capture {res['graph_capture_seconds']:.3f} s "
+          f"with its eager warm-up slice, then the rollout); graph of {res['graph_nodes']} nodes "
+          f"({res['graph_nodes'] / pixels:.1f} a pixel); rollout {res['seconds_median']:.3f} s = "
+          f"{slices} replays of {per_slice:.4f} s a slice, {res['frames_per_sec_per_chip']:.2f} "
+          f"generated frames/s; peak memory {res['peak_memory_gb']:.3f} GiB; launches per "
+          f"rollout {want}, exactly; codes in [0, {c.nv}), primed positions kept; slice 0 by "
+          f"the eager loop ({eager_s:.2f} s) equal to the graph's, {eager.numel()} codes")
+    print(f"  bench_sample_torch: {json.dumps(res)}")
+    return {k: v * calls for k, v in want.items()}
+
+
+def _geo_exact(card, name):
+    """fp32, b = 1, full width, TF32 off: logits_for_entire_video_incremental
+    (native cache: kernels 1 and 2) against logits_for_entire_video (the fused
+    layer, kernel 7) on the card within GEO_EXACT_TOL, and the card's
+    logits_for_entire_video against the CPU's within PATH_TOL. Returns the
+    launches of the two card calls."""
+    import numpy as np
+    import torch
+
+    from lvt_tpu_torch.config import get_cfg
+    from lvt_tpu_torch.models import to_device
+    from lvt_tpu_torch.models.vt import VideoTransformer
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", "vt", f"{name}.yaml"))
+    vt = VideoTransformer(cfg)
+    dev = torch.device("cuda")
+    params, _ = vt.init(torch.Generator().manual_seed(11), dev)
+    video = torch.from_numpy(np.random.default_rng(11).integers(
+        0, vt.c.nv, size=(1, vt.c.nc, T_FRAMES, 16, 16)))
+    slices, pixels = GEO_SLICES[name]
+    want_full = {"fused_layer_fwd": slices * 16}
+    want_inc = {"block_attention_fwd": 8, "decode_attention": pixels * 8}
+    _zero_counts()
+    t0 = time.perf_counter()
+    full = vt.logits_for_entire_video(params, video.to(dev))
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    got_full = _launched()
+    _zero_counts()
+    t0 = time.perf_counter()
+    inc = vt.logits_for_entire_video_incremental(params, video.to(dev))
+    torch.cuda.synchronize()
+    t_inc = time.perf_counter() - t0
+    got_inc = _launched()
+    check(vt.fused and got_full == want_full,
+          f"{name} exact: logits_for_entire_video launches {got_full}, want {want_full}")
+    check(got_inc == want_inc,
+          f"{name} exact: logits_for_entire_video_incremental launches {got_inc}, want {want_inc}")
+    t0 = time.perf_counter()
+    cpu = vt.logits_for_entire_video(to_device(params, "cpu"), video)
+    t_cpu = time.perf_counter() - t0
+    full, inc = full.cpu(), inc.cpu()
+    shape = (1, T_FRAMES, 16, 16, vt.c.nc, vt.c.nv)
+    check(tuple(inc.shape) == shape and inc.dtype == torch.float32 and
+          bool(torch.isfinite(inc).all()), f"{name} exact: {tuple(inc.shape)} {inc.dtype}")
+    e_inc = float((inc - full).abs().max())
+    over = float(((inc - full).abs() - GEO_EXACT_TOL * full.abs()).max())
+    e_cpu = float((full - cpu).abs().max())
+    print(f"geometry {name} exact fp32 b=1 full width [{card}]: incremental (native cache) vs "
+          f"logits_for_entire_video on the card max_abs_err {e_inc:.3g} (bound {GEO_EXACT_TOL:g} "
+          f"+ {GEO_EXACT_TOL:g} |logits|, worst margin {over:.3g}); card vs CPU "
+          f"logits_for_entire_video {e_cpu:.3g} (bound {PATH_TOL:g}; |logits| <= "
+          f"{float(cpu.abs().max()):.3g}); seconds: card {t_full:.2f}, incremental {t_inc:.2f}, "
+          f"CPU {t_cpu:.2f}; launches {want_full} and {want_inc}, exactly")
+    check(over <= GEO_EXACT_TOL, f"{name} exact: incremental logits off by {e_inc}")
+    check(e_cpu <= PATH_TOL, f"{name} exact: card vs CPU logits off by {e_cpu}")
+    return {k: want_full.get(k, 0) + want_inc.get(k, 0) for k in {**want_full, **want_inc}}
+
+
+def _geo_train(card, label, opts, n_steps, per_step, loss_keys):
+    """tools/train_net_torch.py's main for ``n_steps`` steps, every count set
+    to 0 just before and read just after; each step's launches (by kernel
+    name) held to ``per_step``, its losses finite. Returns the trainer, the
+    launches of the run and the per-step seconds."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_net_torch
+    from lvt_tpu_torch.engine.defaults import default_argument_parser
+    from lvt_tpu_torch.engine.trainer import Trainer
+
+    steps = []
+    inner = Trainer.train_step
+
+    def recorded(self, batch):
+        torch.cuda.synchronize()
+        c0 = _launched()
+        t0 = time.perf_counter()
+        metrics = inner(self, batch)
+        terms = {k: float(v) for k, v in metrics.items()}  # synchronizes
+        took = time.perf_counter() - t0
+        c1 = _launched()
+        steps.append((took, terms, {k: v - c0.get(k, 0) for k, v in c1.items()
+                                    if v != c0.get(k, 0)}))
+        return metrics
+
+    parse = default_argument_parser().parse_args
+    try:
+        Trainer.train_step = recorded
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        tr = train_net_torch.main(parse(list(opts) + ["SOLVER.MAX_ITER", str(n_steps)]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launched()
+    finally:
+        Trainer.train_step = inner
+    peak = torch.cuda.max_memory_allocated()
+    check(tr.state.step == n_steps and len(steps) == n_steps,
+          f"{label}: {tr.state.step} steps taken, want {n_steps}")
+    for key in loss_keys:
+        vals = [s[1][key] for s in steps]
+        check(all(np.isfinite(vals)), f"{label}: non-finite {key} {vals}")
+    seen = [s[2] for s in steps]
+    check(all(s == per_step for s in seen), f"{label}: launches per step {seen}, want {per_step}")
+    sec = float(np.median([s[0] for s in steps[3:]]))
+    batch = tr.cfg.SOLVER.IMS_PER_BATCH
+    losses = ", ".join(f"{k} {steps[0][1][k]:.4f} -> {steps[-1][1][k]:.4f}" for k in loss_keys)
+    print(f"geometry train {label} b={batch} bf16 [{card}]: {n_steps} steps in {wall:.2f} s with "
+          f"set-up; median {sec:.4f} s/step over steps 4-{n_steps} (train_step, synchronized) = "
+          f"{batch / sec:.1f} samples/s; first step {steps[0][0]:.3f} s; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; launches per step {per_step}, exactly; {losses}")
+    return tr, launches, steps
+
+
+def phase_geometries(card):
+    """Phase 20: DSSVT, DSTSVT and Base-VQVAE at full width, as their files
+    stand. Returns {run: {kernel: launches}}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bench_train_torch
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.data.datasets.bair import register_bair
+    from lvt_tpu_torch.data.datasets.latents import register_latents
+    from lvt_tpu_torch.ops import vq
+
+    launches = {}
+    for name, label, opts in GEO_ROLLOUTS:
+        launches[f"{name} rollout, {label}"] = _geo_rollout(card, name, label, opts)
+        torch.cuda.empty_cache()
+    for name in GEO_SLICES:
+        launches[f"{name} exact"] = _geo_exact(card, name)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_geo_")
+    try:
+        _write_latents(os.path.join(tmp, "latents"), 128, 1)
+        register_latents("chip_smoke_geo_latents", os.path.join(tmp, "latents"))
+        fused = {k: 16 for k in ("fused_layer_fwd", "ffn_half_bwd", "attn_half_bwd")}
+        for name in ("DSSVT", "DSTSVT"):
+            tr, launches[f"{name} train"], _ = _geo_train(
+                card, name, ["--config-file", os.path.join(ROOT, "configs", "vt", f"{name}.yaml"),
+                             "DATASETS.TRAIN", "('chip_smoke_geo_latents',)",
+                             "DATALOADER.NUM_WORKERS", "8", "SOLVER.CHECKPOINT_PERIOD", "100000",
+                             "OUTPUT_DIR", os.path.join(tmp, name)],
+                GEO_TRAIN_STEPS, fused, ("loss_cross_entropy",))
+            check(tr.model.fused and tr.cfg.SOLVER.IMS_PER_BATCH == 64
+                  and tr.compute_dtype == torch.bfloat16,
+                  f"{name} train: not the config's fused bf16 step at batch 64")
+            del tr
+            torch.cuda.empty_cache()
+
+        _write_frames(os.path.join(tmp, "frames"), 16, T_FRAMES, 2)
+        register_bair("chip_smoke_geo_frames", os.path.join(tmp, "frames"), "train", True)
+        # Base-VQVAE is a _BASE_ file: RGB frames in, RGB frames out
+        tr, launches["Base-VQVAE train"], steps = _geo_train(
+            card, "Base-VQVAE",
+            ["--config-file", os.path.join(ROOT, "configs", "vqvae", "Base-VQVAE.yaml"),
+             "MODEL.ENCODER.IN_CHANNELS", "3", "MODEL.GENERATOR.OUT_CHANNELS", "3",
+             "INPUT.FORMAT", "RGB", "DATASETS.TRAIN", "('chip_smoke_geo_frames',)",
+             "DATALOADER.NUM_WORKERS", "4", "SOLVER.CHECKPOINT_PERIOD", "100000",
+             "OUTPUT_DIR", os.path.join(tmp, "base_vqvae")],
+            GEO_TRAIN_STEPS, {"nearest_indices": 1}, ("loss_reconstruction", "loss_commitment"))
+        cb = tr.cfg.MODEL.CODEBOOK
+        check((cb.NUM, cb.SIZE, cb.DIM, tr.cfg.SOLVER.IMS_PER_BATCH) == (1, 512, 256, 32),
+              f"Base-VQVAE: codebook {cb.NUM} x {cb.SIZE} x {cb.DIM}, batch "
+              f"{tr.cfg.SOLVER.IMS_PER_BATCH}")
+        rec = [s[1]["loss_reconstruction"] for s in steps]
+        check(rec[-1] < rec[0], f"Base-VQVAE: loss_reconstruction did not fall: {rec}")
+        # the 5 example frames through the trained model: kernel 6 against the
+        # plain fp32 search, then decoded
+        model, params, state = tr.model, tr.state.params, tr.state.model_state
+        frames = torch.from_numpy(gvt.load_priming_frames(os.path.join(ROOT, "example"),
+                                                          N_PRIME)).cuda()
+        _zero_counts()
+        with torch.no_grad():
+            z_e, _ = model.encode_features(params, state, model.normalize(frames / 255.0))
+            kernel = vq.encode_indices(z_e, state["netC"], use_kernel=True)
+            got = _launched()
+            plain = vq.encode_indices(z_e, state["netC"], use_kernel=False)
+            decoded = model.decode(params, state, kernel)
+        emb = state["netC"]["embedding"]
+        n_diff, n_far, ok = _indices_ok(kernel.reshape(-1), plain.reshape(-1),
+                                        z_e.reshape(-1, emb.shape[-1]), emb[0])
+        check(got == {"nearest_indices": 1}, f"Base-VQVAE encode: launches {got}")
+        check(tuple(kernel.shape) == (N_PRIME, 16, 16, 1) and ok,
+              f"Base-VQVAE encode: indices {tuple(kernel.shape)}, {n_diff} differ from the "
+              f"plain search, {n_far} of them no near-tie")
+        check(tuple(decoded.shape) == (N_PRIME, 64, 64, 3) and bool(torch.isfinite(decoded).all()),
+              f"Base-VQVAE decode: {tuple(decoded.shape)}, finite {bool(torch.isfinite(decoded).all())}")
+        print(f"geometry Base-VQVAE encode/decode of example/*.png [{card}]: {kernel.numel()} "
+              f"indices by kernel 6 (1 launch), {n_diff} differ from the plain fp32 search, "
+              f"{n_far} of them no near-tie; {len(torch.unique(kernel))} distinct codes; decoded "
+              f"{tuple(decoded.shape)} finite")
+        launches["Base-VQVAE train"]["nearest_indices"] += 1
+        del tr, model, params, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = bench_train_torch.main(["--steps", "5"])
+    launches["bench_train_torch"] = _launched()
+    want = {"nearest_indices": 8, **{k: 16 * 8 for k in ("fused_layer_fwd", "ffn_half_bwd",
+                                                          "attn_half_bwd")}}
+    check(launches["bench_train_torch"] == want,
+          f"bench_train_torch: launches {launches['bench_train_torch']}, want {want}")
+    print(f"geometry bench_train_torch --steps 5 [{card}] ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(res)}")
+    return launches
+
+
 def main():
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
@@ -4102,6 +4528,8 @@ def main():
     lap("data parallel")
     e2e_launches = phase_e2e(card)
     lap("e2e")
+    geo_launches = phase_geometries(card)
+    lap("geometries")
     print("phase seconds: " + ", ".join(laps) + f"; whole run {time.perf_counter() - start:.1f} s")
 
     def entry(name, source, replaces, n_launches, r):
@@ -4167,6 +4595,10 @@ def main():
         k["dp_launches"] = {w: c[k["name"]] for w, c in dp_launches.items() if k["name"] in c}
         # phase 19's, per run: each e2e mode (kernel 6's check apart), generate --img-size
         k["e2e_launches"] = {r: c[k["name"]] for r, c in e2e_launches.items() if k["name"] in c}
+        # phase 20's, per run: DSSVT and DSTSVT rollouts, exactness, training;
+        # Base-VQVAE; bench_train_torch
+        k["geometry_launches"] = {r: c[k["name"]] for r, c in geo_launches.items()
+                                  if k["name"] in c}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,7 @@ after its capture.
 """
 
 import contextlib
+import ctypes
 import time
 
 import torch
@@ -87,10 +88,24 @@ def graph_key(params, slice_shape, b: int, device, knobs: dict, temp: float, gre
             tuple(sorted(knobs.items())), bool(greedy), None if greedy else float(temp))
 
 
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a captured graph kept with ``keep_graph=True``, counted by
+    ``cuGraphGetNodes`` of libcuda."""
+    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    get_nodes.restype = ctypes.c_int
+    count = ctypes.c_size_t(0)
+    err = get_nodes(graph.raw_cuda_graph(), None, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned CUresult {err}")
+    return count.value
+
+
 class SliceGraph:
     """One slice of ``decoder`` captured as a CUDA graph, from the first
     slice's zl (b, t, h, w, d), codes sl (b, nc, t, h, w) and primed mask
-    (thw,) bool on the card. Call it on each slice's inputs."""
+    (thw,) bool on the card. Call it on each slice's inputs. ``nodes``: the
+    graph's node count."""
 
     captures = 0  # graphs captured in this process
     captures_seconds = 0.0  # their warm-ups, captures and instantiations, host clock
@@ -100,7 +115,7 @@ class SliceGraph:
         self.decoder, self.temp, self.greedy = decoder, temp, greedy
         self.zl, self.sl, self.primed = zl.clone(), sl.clone(), primed.clone()
         self.gen = None if greedy else torch.Generator(device=dev)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept to count its nodes
         if self.gen is not None:
             self.graph.register_generator_state(self.gen)
         stream = torch.cuda.Stream(dev)
@@ -115,7 +130,9 @@ class SliceGraph:
         with launches_apart() as self.launches, torch.no_grad():
             with torch.cuda.graph(self.graph, stream=stream):
                 self.out = self._slice()
+        self.graph.instantiate()
         torch.cuda.synchronize(dev)
+        self.nodes = graph_nodes(self.graph)
         self.capture_seconds = time.perf_counter() - t0
         SliceGraph.captures += 1
         SliceGraph.captures_seconds += self.capture_seconds

@@ -408,6 +408,42 @@ class VideoTransformer:
                 out[:, src[s].reshape(-1)] = lg.reshape(b, -1, nc, self.c.nv).float()
         return out.reshape(b, T, H, W, nc, self.c.nv)
 
+    def logits_for_entire_video_incremental(self, params, video, class_idx=None, *,
+                                            kv_cache_dtype: str = "native",
+                                            kv_seg_size: int = 0):
+        """Teacher-forced logits computed through the KV-cached decoder
+        (``SliceDecoder.teacher``), eagerly: the contract of
+        ``logits_for_entire_video``, (b, T, H, W, nc, nv) fp32. With
+        kv_cache_dtype "native" the result is that function's up to
+        accumulation order; with "int8" it carries the logit error the
+        quantized cache injects ("int4" raises NotImplementedError).
+        kv_seg_size is accepted and ignored, as in ``sample_video``.
+
+        Given the video every slice's inputs are known, so the S slices run
+        as S x b rows of one teacher pass (each row computes what a pass of
+        its slice alone computes) and are scattered by ``slice_src``. The
+        caches hold S x b rows: at DSFVT's geometry and b = 1 in fp32, 2 x
+        128 MiB."""
+        from .vt_incremental import SliceDecoder
+
+        b, nc, T, H, W = video.shape
+        plan = self._plan_for(T, H, W)
+        S = plan.num_slices
+        src = self._device_maps(plan, video.device)["slice_src"]  # (S, t, h, w)
+        sidx = torch.arange(S, device=video.device).repeat_interleave(b)  # row s * b + i
+        rows = video.repeat(S, 1, 1, 1, 1)
+        cls = None if class_idx is None else torch.as_tensor(class_idx).to(video.device).repeat(S)
+        with torch.no_grad():
+            ctx, sl, _ = self.prepare_slices(rows, sidx)
+            zl = vt_encode(params["netG"], self.c, ctx, sidx, cls)
+            dec = SliceDecoder(params["netG"], self.c, plan.slice_shape, S * b, video.device,
+                               kv_dtype=kv_cache_dtype)
+            lg = dec.teacher(*dec.inputs(zl, sl))  # (S * b, thw, nc, nv)
+        lg = lg.reshape(S, b, -1, nc, self.c.nv).transpose(0, 1).reshape(b, -1, nc, self.c.nv)
+        out = torch.zeros_like(lg)
+        out[:, src.reshape(-1)] = lg
+        return out.reshape(b, T, H, W, nc, self.c.nv)
+
     def visualize_training(self, params, state, batch):
         """Sample one slice given its context and show the ground-truth and
         sampled code maps as grayscale grids (lvt_tpu's visualize_training)."""

@@ -312,19 +312,17 @@ class SliceDecoder:
             emb[:, p] = _embed_sum_codes(self.dec, self.c, final).to(self.cdtype)
 
     def teacher(self, zlproj, sl_flat, emb):
-        """The teacher-forced loop: every pixel keeps its code, the channel
-        conditioning reads the given previous channels (vt_logits semantics).
-        Returns the fp32 channel logits (b, thw, nc, nv)."""
+        """The teacher-forced loop: every pixel keeps its code (``inputs``
+        made the embedding rows of all of them), and the channel
+        conditioning reads the given previous channels (vt_logits
+        semantics). No head feeds a later pixel, so the loop only steps the
+        decoder and the predictor heads run once, over every pixel's
+        output. Returns the fp32 channel logits (b, thw, nc, nv)."""
         c, pred = self.c, self.params["predictor"]
-        step_logits = []
-        for p in range(self.thw):
-            y_pix = self._pixel(p, emb, zlproj)
-            final = sl_flat[:, :, p]
-            step_logits.append(torch.stack(
-                [_predictor_head(pred, c, k, _predictor_u(pred, c, k, y_pix, final),
-                                 self.dec).float() for k in range(c.nc)], dim=1))  # (b, nc, nv)
-            emb[:, p] = _embed_sum_codes(self.dec, c, final).to(self.cdtype)
-        return torch.stack(step_logits, dim=1)
+        y = torch.stack([self._pixel(p, emb, zlproj) for p in range(self.thw)], dim=1)
+        codes = sl_flat.movedim(1, -1)  # (b, thw, nc)
+        return torch.stack([_predictor_head(pred, c, k, _predictor_u(pred, c, k, y, codes),
+                                            self.dec).float() for k in range(c.nc)], dim=2)
 
     def run(self, zl, sl, primed, gen, temp, greedy: bool = False):
         """One slice sampled eagerly: its inputs, then ``sample``. Returns the

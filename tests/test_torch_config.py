@@ -70,8 +70,8 @@ def test_copied_events_equals_original_but_its_memory_probe():
 
 def test_port_imports_neither_jax_nor_lvt_tpu():
     """Every module of lvt_tpu_torch (the .pth converter included), the
-    generation, training and conversion scripts, the e2e, pipeline, probe and
-    timing tools and chip_smoke.py, imported in a fresh interpreter, pull in no jax and no
+    generation, training and conversion scripts, the e2e, pipeline, bench,
+    probe and timing tools and chip_smoke.py, imported in a fresh interpreter, pull in no jax and no
     lvt_tpu."""
     code = r"""
 import importlib, pkgutil, sys
@@ -86,7 +86,8 @@ for name in names + ["generate_videos_torch", "train_net_torch", "probe_decode_k
                      "time_decode_parts_torch", "time_decode_i8_torch",
                      "time_cache_attention_torch", "time_cache_attention_parts_torch",
                      "e2e_demo_torch", "bench_pipeline_torch", "convert_kinetics_torch",
-                     "chip_smoke"]:
+                     "bench_sample_torch", "bench_train_torch", "probe_int8_noise_torch",
+                     "time_i8w_vq_parts_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lvt_tpu"))

@@ -1,6 +1,6 @@
 """Weights carried across: from_jax_vt / from_jax_vqvae take every leaf of the
-JAX trees and fill every parameter of the port, at full DSFVT and
-PR-DVQVAE2 shapes."""
+JAX trees and fill every parameter of the port, at the full width of every
+shipped configuration (four VTs, three VQ-VAEs)."""
 
 import os
 
@@ -43,8 +43,16 @@ def _assert_same_layout(got, want):
         assert fg[k].dtype == fw[k].dtype, k
 
 
-def test_vt_full_dsfvt_every_leaf_carried():
-    cfg = _cfg("configs/vt/DSFVT.yaml")
+VT_CONFIGS = ["configs/vt/DSFVT.yaml", "configs/vt/DSSVT.yaml", "configs/vt/DSTSVT.yaml",
+              "configs/vt/KDSFVT.yaml"]
+VQ_CONFIGS = ["configs/vqvae/PR-DVQVAE2.yaml", "configs/vqvae/K-DVQVAE.yaml",
+              "configs/vqvae/Base-VQVAE.yaml"]
+
+
+@pytest.mark.parametrize("rel", VT_CONFIGS, ids=lambda r: os.path.basename(r)[:-5])
+def test_vt_full_dsfvt_every_leaf_carried(rel):
+    """Every shipped VT config at full width (DSFVT first)."""
+    cfg = _cfg(rel)
     shapes = jax.eval_shape(JaxVT(cfg).init, jax.random.key(0))[0]["netG"]
     jtree = _zeros_like_shapes(shapes)
     got = from_jax_vt(jtree)
@@ -55,8 +63,14 @@ def test_vt_full_dsfvt_every_leaf_carried():
         sum(int(np.prod(x.shape)) for x in _jax_leaves(jtree))
 
 
-def test_vqvae_full_prdvqvae2_every_leaf_carried():
-    cfg = _cfg("configs/vqvae/PR-DVQVAE2.yaml")
+@pytest.mark.parametrize("rel", VQ_CONFIGS, ids=lambda r: os.path.basename(r)[:-5])
+def test_vqvae_full_prdvqvae2_every_leaf_carried(rel):
+    """Every shipped VQ-VAE config at full width (PR-DVQVAE2 first);
+    Base-VQVAE with the RGB channels of tests/test_configs_build.py."""
+    cfg = _cfg(rel)
+    if rel.endswith("Base-VQVAE.yaml"):
+        cfg.MODEL.ENCODER.IN_CHANNELS = 3
+        cfg.MODEL.GENERATOR.OUT_CHANNELS = 3
     p_shapes, s_shapes = jax.eval_shape(JaxVQVAE(cfg).init, jax.random.key(0))
     jp, js = _zeros_like_shapes(p_shapes), _zeros_like_shapes(s_shapes)
     p, s = from_jax_vqvae(jp, js)
