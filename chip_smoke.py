@@ -151,9 +151,9 @@ Phases, each fatal on failure (exit code 1, no result line):
                 live in (1, 64, 200, 256); tools/probe_decode_kernel_torch.py's
                 timing run, beside kernels 2 and 3.
  17. eval     — tools/train_net_torch.py --eval-only at full width on a test
-                set of 8 videos x 16 PNG frames of 64x64 written from a numpy
+                set of 4 videos x 16 PNG frames of 64x64 written from a numpy
                 seed (bair_test_seq's layout). Stage 1: PR-DVQVAE2 from phase
-                14's OUTPUT_DIR, MSE and the 8 x 16 latent files (4, 16, 16)
+                14's OUTPUT_DIR, MSE and the 4 x 16 latent files (4, 16, 16)
                 of CodesExtractor, exactly one launch of kernel 6 a video
                 (encode_indices' default on the card since phase 19's count
                 on a trained codebook); seconds, device busy share, peak
@@ -194,7 +194,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 load. tools/e2e_demo_torch.py's main at its defaults, full
                 width, in both modes (BAIR: PR-DVQVAE2 -> DSFVT on 64 seeded
                 moving-squares videos; class-conditional: K-DVQVAE -> KDSFVT,
-                CLASS_NUM 600, on 3 classes x 22), but 150 + 150 steps at batch
+                CLASS_NUM 600, on 3 classes x 22), but 60 + 60 steps at batch
                 16, every count set to 0 before each mode: each stage's
                 seconds and launches, held to _e2e_expected (kernel 6 a VQ-VAE
                 step, kernels 7, 8, 9 16 a VT step, kernel 7 256 a video of
@@ -243,13 +243,31 @@ Phases, each fatal on failure (exit code 1, no result line):
                 decoded. tools/bench_train_torch.py --steps 5 (its JSON line,
                 exact launches).
 
+ 21. tools    — DSFVT at full width through the last ported reference tools,
+                every count set to 0 just before each run and read just
+                after, held exactly: tools/quality_int8_torch.py (QI_ITERS
+                fused bf16 training steps at batch 64, the native and int8
+                cached teacher passes of QI_EVAL videos beside the anchor,
+                five b = QI_SAMPLE rollouts, FVD_stub); tools/mfu_torch.py
+                at batch 64, fused, unfused with TPU.REMAT_POLICY "dots" and
+                "qkv", and fused with SOLVER.OPT_STATE_DTYPE bfloat16, then
+                --sample --kv native --batch 8 --measure (the sampler's
+                roofline beside a measured rollout), the unfused "" remat
+                beside them;
+                tools/soak_train_torch.py (a child SIGKILLed once its second
+                checkpoint is on disk, resumed there in a second child whose
+                launches it reports; cadence and pruning); the profiler hook
+                (TorchProfiler) on 3 fused steps at batch 16, its trace read
+                by tools/trace_summary_torch.py.
+
 Phases 10 to 13 run right after phase 5, while the generation models are
 loaded (10b right after 10, 11b and 12b after 11 and 12); phases 8 and 14
 keep their OUTPUT_DIRs for phase 17. The line before the last is
 {"kernels": [...]}, each kernel with its main-path launches, phase 17's
 ("eval_launches"), phase 18's per rank of each world ("dp_launches"),
-phase 19's per run ("e2e_launches") and phase 20's per run
-("geometry_launches"); the last line is {"ok": true, "device": {...}}.
+phase 19's per run ("e2e_launches"), phase 20's per run
+("geometry_launches") and phase 21's per run ("tools_launches"); the last
+line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -322,9 +340,13 @@ GRAD_TOL = 2e-2
 GRAD_TOL_WHOLE = 5e-3
 TRAIN_STEPS, RESUME_STEPS = 20, 4  # the fused run; the unfused run takes half
 
-# NVIDIA H100 SXM peaks (NVIDIA's data sheet, dense): the roofs of bound_ms
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+def peaks():
+    """(bytes/s, {dtype: operations/s}): the NVIDIA H100 SXM peaks that are
+    the roofs of bound_ms, from lvt_tpu_torch/utils/device_specs.py (read
+    when called: this module imports nothing of the port)."""
+    from lvt_tpu_torch.utils.device_specs import PEAK_BYTES, PEAK_FLOPS
+
+    return PEAK_BYTES, PEAK_FLOPS
 
 
 def bound_ms(dtype, nbytes, flops):
@@ -332,7 +354,8 @@ def bound_ms(dtype, nbytes, flops):
     (each input read once, each output written once) over the memory rate,
     or its operations over the peak rate for their type, whichever is
     larger. Returns (ms, "bytes" or "operations")."""
-    tb, tf = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_FLOPS[dtype]
+    peak_bytes, peak_flops = peaks()
+    tb, tf = 1e3 * nbytes / peak_bytes, 1e3 * flops / peak_flops[dtype]
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -809,13 +832,14 @@ SLICE_MODES = (  # label, knobs of sample_slice_incremental: every sampler mode
 # launches, showed, and in another the two eager profiles of a slice read
 # 87,386 and 91,414 of its ~91,620. A profile may drop records, never add
 # one. So each function's launches are the most any profile of its way
-# recorded; the eager loop is profiled at least PROFILES times and the graph
-# once, each way on until a profile records within PROFILES_AGREE of those
-# maxima; and while the slice's checks (activities within ACTIVITY_GAP, the
-# hand-written kernels' launches exact) do not hold on the maxima, each way
-# is profiled once more, PROFILES_MAX times at the most.
+# recorded; each way is profiled PROFILES times, on until a profile records
+# within PROFILES_AGREE of those maxima; and while the slice's checks
+# (activities within ACTIVITY_GAP, the hand-written kernels' launches exact)
+# do not hold on the maxima, each way is profiled once more, PROFILES_MAX
+# times at the most: a profile is followed by the next only where the records
+# it dropped fail those checks.
 ACTIVITY_GAP = 1e-3
-PROFILES = 2
+PROFILES = 1
 PROFILES_MAX = 4
 PROFILES_AGREE = ACTIVITY_GAP / 4
 
@@ -978,6 +1002,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
     thw = plan.slice_src[s].size
     primed = np.zeros(thw, bool)
     primed_t = torch.zeros(thw, dtype=torch.bool, device=codes.device)
+    taken = {}  # {mode: {way: profiles}}
 
     def encoded():
         sidx = torch.full((b,), s, dtype=torch.int64, device=codes.device)
@@ -1026,6 +1051,7 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                         if len(w.totals) < PROFILES_MAX:
                             w.add()
             runs = {way: w.result() for way, w in ways.items()}
+        taken[label] = {way: len(run[-1]) for way, run in runs.items()}
         acts = {}
         for way, (out, wall, wall_prof, kern, counts, totals) in runs.items():
             busy = sum(us for _, us in kern) / 1e6
@@ -1073,7 +1099,8 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                   "capture's and the encoder's exactly")
     if on_graph:
         print(f"slices [{card}]: greedy codes of the graph equal the eager loop's in all "
-              f"{len(modes)} modes (b = {b}, bf16, full width)")
+              f"{len(modes)} modes (b = {b}, bf16, full width); profiles each way took "
+              f"(least {PROFILES}, most {PROFILES_MAX}): {json.dumps(taken)}")
 
 
 def phase_agree(card):
@@ -2630,7 +2657,7 @@ def phase_vq_kernel(card, models=None):
         print(f"  kernel 6 N=8192 G={G} K={K} Dc={Dc}: bound {bounds[G][0]:.4f} ms "
               f"({bounds[G][1]}: "
               f"2 N G K Dc operations at the non-tensor fp32 peak, "
-              f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s); kernel bf16 z {t['bfloat16'][0]:.4f} "
+              f"{peaks()[1]['float32'] / 1e12:.0f} TFLOP/s); kernel bf16 z {t['bfloat16'][0]:.4f} "
               f"ms, fp32 z {t['float32'][0]:.4f}; plain {t['bfloat16'][1]:.4f} / "
               f"{t['float32'][1]:.4f}; library yardstick {G} x torch.cdist(z, c).argmin(1) "
               f"{t['bfloat16'][2]:.4f} / {t['float32'][2]:.4f} [{card}]")
@@ -3027,7 +3054,7 @@ def phase_probe_kernel(card):
 # frame a slice), each through 8 + 8 fused layers, one kernel-7 launch each
 # and none of kernel 1; a rollout encodes each of its 11 sampled slices (8
 # layers of kernel 1) and decodes 256 pixels x 8 layers (kernel 2).
-EVAL_VIDEOS = 8
+EVAL_VIDEOS = 4  # cut from BAIR's 256 for the time limit
 EVAL_K7_PER_VIDEO = T_FRAMES * (8 + 8)
 EVAL_K1_PER_ROLLOUT = (T_FRAMES - N_PRIME) * 8
 EVAL_K2_PER_ROLLOUT = (T_FRAMES - N_PRIME) * 256 * 8
@@ -3812,7 +3839,7 @@ def phase_data_parallel(card):
 
 
 # phase 19: the e2e chain of tools/e2e_demo_torch.py at its defaults
-E2E_ITERS = 150  # the tool's --iters1 and --iters2 (its defaults are 300: cut for the time limit)
+E2E_ITERS = 60  # the tool's --iters1 and --iters2 (its defaults are 300: cut for the time limit)
 E2E_VIDEOS = {"bair": 64, "class-conditional": 66}  # the tool's sets: 64 videos; 3 x 22
 E2E_BITS_VIDEOS = 4  # the tool's TEST.N_SAMPLES for bits/dim
 E2E_PIPE_STEPS = 100  # steps of each bench_pipeline_torch trainer run (native, PIL)
@@ -4454,6 +4481,176 @@ def phase_geometries(card):
     return launches
 
 
+
+# --------------------------------------------------------------------------
+# phase 21: the last reference tools and the training options
+# --------------------------------------------------------------------------
+
+QI_ITERS = 20  # quality_int8_torch's DSFVT training steps (its default 300: cut for the time limit)
+QI_EVAL, QI_SAMPLE = 2, 8  # its teacher-forced videos and rollout batch
+MFU_STEPS = 8  # timed steps of each mfu_torch train run (its default 20), after its 3 warm-up steps
+# soak_train_torch: DSFVT b64 fused, 40 steps, a checkpoint every 10, killed
+# once the second is on disk, resumed; an evaluation every 30 steps and at the
+# end; 64 training videos, 4 held out
+SOAK_ITERS, SOAK_EVAL, SOAK_TEST = 40, 30, 4
+SOAK_ARGS = ["--iters", str(SOAK_ITERS), "--ckpt-period", "10", "--kill-after-ckpts", "2",
+             "--kill-delay", "0.25", "--poll", "0.25", "--eval-period", str(SOAK_EVAL),
+             "--videos", str(16 * SOAK_TEST), "--max-to-keep", "2", "--phase-timeout", "600"]
+FUSED_STEP = {k: 16 for k in ("fused_layer_fwd", "ffn_half_bwd", "attn_half_bwd")}
+UNFUSED_STEP = {"block_attention_fwd": 32, "block_attention_bwd": 16}  # per-layer remat
+ROLLOUT = {"block_attention_fwd": 88, "decode_attention": 22528}  # DSFVT, 11 sampled slices
+
+
+def _times(per, n):
+    return {k: v * n for k, v in per.items()}
+
+
+def _plus(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def _tool_run(card, label, fn, want):
+    """fn() with every count set to 0 just before and read just after, the
+    launches held to ``want`` exactly. Returns (fn's result, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    got = _launched()
+    check(got == want, f"{label}: launches {got}, want {want}")
+    print(f"tools {label} [{card}] ({took:.1f} s): launches {want}, exactly; {json.dumps(res)}")
+    return res, got
+
+
+def phase_tools(card):
+    """Phase 21: tools/quality_int8_torch.py, tools/mfu_torch.py (fused,
+    unfused with the remat policies "dots" and "qkv", bf16 optimizer state,
+    the sampler's roofline with a measured b = 8 rollout),
+    tools/soak_train_torch.py (SIGKILL and --resume in child processes) and
+    the profiler hook's trace read by tools/trace_summary_torch.py, DSFVT at
+    full width. Returns {run: {kernel: launches}}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import mfu_torch
+    import quality_int8_torch as qi
+    import soak_train_torch
+    import trace_summary_torch as ts
+
+    launches = {}
+    # quality_int8: training, the teacher passes (native: kernels 1 and 2; int8
+    # cache: kernel 1, PyTorch's attention; the anchor: 256 of kernel 7 a call),
+    # five b = 8 rollouts (native ones kernels 1 and 2, int8 ones kernel 1), the
+    # two sampled sets scored in chunks of 8 (256 of kernel 7 each)
+    want = _plus(_times(FUSED_STEP, QI_ITERS), {"fused_layer_fwd": 256 + 2 * 256},
+                 {"block_attention_fwd": 8 + 8, "decode_attention": 256 * 8},
+                 _times(ROLLOUT, 3), {"block_attention_fwd": 2 * 88})
+    res, launches["quality_int8"] = _tool_run(
+        card, "quality_int8_torch", lambda: qi.main(
+            ["--iters", str(QI_ITERS), "--eval-batch", str(QI_EVAL),
+             "--sample-batch", str(QI_SAMPLE)]), want)
+    check(res["greedy_total_steps"] == 16 * 256 * 4
+          and 0.0 <= res["greedy_code_agreement"] <= 1.0
+          and all(np.isfinite(v) for v in res.values() if isinstance(v, float)),
+          f"quality_int8: {res}")
+    check(abs(res["tf_bits_per_dim_native"] - res["tf_bits_per_dim_xla_anchor"])
+          <= 1e-2 * res["tf_bits_per_dim_xla_anchor"],
+          "quality_int8: the cached native teacher pass strays from the anchor")
+    torch.cuda.empty_cache()
+
+    # mfu: the train step in four forms, then the sampler's roofline
+    steps = 3 + MFU_STEPS + 0  # warm-up and timed steps
+    peaks = {}
+    for label, argv, per in (
+            ("fused", [], FUSED_STEP),
+            ("unfused, remat ''", ["TPU.FUSED_LAYER", "False"], UNFUSED_STEP),
+            ("unfused, remat dots", ["--remat-policy", "dots", "TPU.FUSED_LAYER", "False"],
+             UNFUSED_STEP),
+            ("unfused, remat qkv", ["--remat-policy", "qkv", "TPU.FUSED_LAYER", "False"],
+             UNFUSED_STEP),
+            ("fused, bf16 optimizer state", ["SOLVER.OPT_STATE_DTYPE", "bfloat16"], FUSED_STEP)):
+        held = torch.cuda.memory_allocated() / 2 ** 30  # the process's, before the run
+        res, launches[f"mfu {label}"] = _tool_run(
+            card, f"mfu_torch {label}", lambda a=argv: mfu_torch.main(
+                ["--batch", "64", "--steps", str(MFU_STEPS)] + a), _times(per, steps))
+        check(res["achieved_tflops"] > 0 and res["fused_layer"] == (per is FUSED_STEP),
+              f"mfu {label}: {res}")
+        peaks[label] = (res["s_per_it"], res["peak_memory_gb"],
+                        round(res["peak_memory_gb"] - held, 3))
+        torch.cuda.empty_cache()
+    print(f"tools mfu_torch DSFVT b64 [{card}], each run's own (s a step, peak GiB "
+          f"allocated, of it above what the process held before): {json.dumps(peaks)}")
+    res, launches["mfu --sample"] = _tool_run(
+        card, "mfu_torch --sample --kv native --batch 8 --measure --iters 1",
+        lambda: mfu_torch.main(["--sample", "--kv", "native", "--batch", "8", "--measure",
+                                "--iters", "1"]), _times(ROLLOUT, 2))
+    check(res["measured_step_ms"] > 0 and 0 < res["sol_fraction"] < 1, f"mfu --sample: {res}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        # soak: the resumed child's launches, reported by the child itself
+        t0 = time.perf_counter()
+        res = soak_train_torch.main(SOAK_ARGS + ["--workdir", os.path.join(tmp, "soak")])
+        names = _geo_names()
+        got = {}
+        for fn, n in res["resume_launches"].items():
+            got[names.get(fn, fn)] = got.get(names.get(fn, fn), 0) + n
+        start = res["resume_start_iter"]
+        # the resumed child's steps, and its evaluations (BitsEvaluator: 256 of
+        # kernel 7 a held-out video): every SOAK_EVAL-th step and the end
+        evals = 1 + sum(1 for it in range(start + 1, SOAK_ITERS) if it % SOAK_EVAL == 0)
+        want = _plus(_times(FUSED_STEP, SOAK_ITERS - start),
+                     {"fused_layer_fwd": evals * SOAK_TEST * 256})
+        check(got == want and res["checkpoints_kept"] == [30, 40]
+              and res["killed_after_ckpt"] in (20, 30) and start == res["killed_after_ckpt"],
+              f"soak: launches {got} (want {want}), {res}")
+        launches["soak (resumed child)"] = got
+        print(f"tools soak_train_torch [{card}] ({time.perf_counter() - t0:.1f} s): killed after "
+              f"ckpt_{res['killed_after_ckpt']}, resumed there; resumed child's launches {want}, "
+              f"exactly; {json.dumps(res)}")
+
+        # the profiler hook: DSFVT fused at batch 16, the second of 3 steps traced
+        from lvt_tpu_torch.config import get_cfg
+        from lvt_tpu_torch.engine import TorchProfiler, Trainer
+
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"))
+        rng = np.random.default_rng(21)
+        batches = [{"video": rng.integers(0, 512, size=(16, 4, 16, 16, 16)).astype(np.int32)}
+                   for _ in range(3)]
+        tr = Trainer(cfg, batches)
+        hook = TorchProfiler(lambda trainer: trainer.iter == 1, os.path.join(tmp, "trace"))
+        tr.register_hooks([hook])
+        _, launches["profiler hook"] = _tool_run(card, "TorchProfiler, 3 DSFVT b16 steps",
+                                                 lambda: tr.train(0, 3) or {},
+                                                 _times(FUSED_STEP, 3))
+        agg, total = ts.main([os.path.join(tmp, "trace"), "--top", "12"])
+        wgmma = sum(n for k, (_, n) in agg.items() if "gemm_nt_wgmma" in k)
+        check(os.listdir(os.path.join(tmp, "trace")) == ["torch_trace_iter1.json"]
+              and total > 0 and wgmma >= 16,
+              f"profiler hook: trace {os.listdir(os.path.join(tmp, 'trace'))}, device self "
+              f"{total} us, {wgmma} gemm_nt_wgmma launches")
+        print(f"tools trace_summary_torch of the hook's trace [{card}]: device self-time "
+              f"{total / 1e3:.3f} ms in one step, {len(agg)} device functions, "
+              f"{wgmma} gemm_nt_wgmma launches (kernels 7 and 8)")
+        del tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
@@ -4530,6 +4727,8 @@ def main():
     lap("e2e")
     geo_launches = phase_geometries(card)
     lap("geometries")
+    tool_launches = phase_tools(card)
+    lap("tools")
     print("phase seconds: " + ", ".join(laps) + f"; whole run {time.perf_counter() - start:.1f} s")
 
     def entry(name, source, replaces, n_launches, r):
@@ -4599,6 +4798,10 @@ def main():
         # Base-VQVAE; bench_train_torch
         k["geometry_launches"] = {r: c[k["name"]] for r, c in geo_launches.items()
                                   if k["name"] in c}
+        # phase 21's, per run: quality_int8, mfu's five runs, the resumed soak
+        # child, the profiler hook's three steps
+        k["tools_launches"] = {r: c[k["name"]] for r, c in tool_launches.items()
+                               if k["name"] in c}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

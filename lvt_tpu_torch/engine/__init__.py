@@ -5,6 +5,7 @@ from .hooks import (
     LRSchedulerHook,
     PeriodicCheckpointer,
     PeriodicWriter,
+    TorchProfiler,
 )
 from .train_loop import HookBase, TrainerBase
 from .trainer import TrainState, Trainer
@@ -17,6 +18,7 @@ __all__ = [
     "LRSchedulerHook",
     "PeriodicCheckpointer",
     "PeriodicWriter",
+    "TorchProfiler",
     "TrainState",
     "Trainer",
     "TrainerBase",

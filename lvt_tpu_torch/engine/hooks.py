@@ -1,9 +1,11 @@
 """Training hooks (counterpart of lvt_tpu/engine/hooks.py; reference
-vidgen/engine/hooks.py:21-351). The profiler hook is not ported:
-torch.profiler wraps a step directly."""
+vidgen/engine/hooks.py:21-351). The profiler hook, lvt_tpu's JaxProfiler,
+is ``TorchProfiler``: torch.profiler's chrome traces, which
+tools/trace_summary_torch.py reads."""
 
 import datetime
 import logging
+import os
 import time
 
 from ..checkpoint import prune_checkpoints, save_checkpoint
@@ -19,6 +21,7 @@ __all__ = [
     "PeriodicWriter",
     "PeriodicCheckpointer",
     "LRSchedulerHook",
+    "TorchProfiler",
 ]
 
 
@@ -182,3 +185,51 @@ class EvalHook(HookBase):
     def after_train(self):
         if self.trainer.iter + 1 >= self.trainer.max_iter:
             self._do_eval()
+
+
+class TorchProfiler(HookBase):
+    """Write a chrome trace of selected iterations (lvt_tpu's JaxProfiler,
+    the reference's AutogradProfiler, hooks.py:231-294) through
+    torch.profiler: host activity, and the card's kernels where there is a
+    card. ``enable_predicate(trainer)`` picks the iterations; each trace is
+    ``<output_dir>/torch_trace_iter<k>.json``."""
+
+    def __init__(self, enable_predicate, output_dir):
+        self._enable_predicate = enable_predicate
+        self._output_dir = output_dir
+        self._prof = None
+        self._iter = None
+
+    def before_step(self):
+        if self._enable_predicate(self.trainer):
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self._iter = self.trainer.iter
+
+    def _stop(self, note=""):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the step's kernels end inside the trace
+        self._prof.stop()
+        os.makedirs(self._output_dir, exist_ok=True)
+        path = os.path.join(self._output_dir, f"torch_trace_iter{self._iter}.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        logger.info(f"Saved torch profiler trace{note} to {path}")
+
+    def after_step(self):
+        if self._prof is not None:
+            self._stop()
+
+    def after_train(self):
+        # run_step raising skips after_step: stop a dangling trace so it is
+        # saved and the profiler can be started again later
+        if self._prof is not None:
+            self._stop(" (cleanup)")

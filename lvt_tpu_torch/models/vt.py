@@ -15,6 +15,7 @@ Layouts: codes (b, nc, T, H, W) int at the API boundary, activations
 channels-last (b, t, h, w, d). Randomness comes from a ``torch.Generator``.
 """
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -22,8 +23,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..ops import subscale as ss
-from ..ops.attention import (_layer_norm, block_local_attention, merge_blocks, relative_bias,
-                             split_blocks)
+from ..ops.attention import (_layer_norm, block_local_attention, current_checkpoint_name,
+                             merge_blocks, relative_bias, split_blocks)
 from ..ops.conv import masked_conv3d, subscale_context_encode
 from ..ops.embedding import take_rows
 from ..ops.fused_layer import fused_block_layer, fused_layer_supported
@@ -144,17 +145,40 @@ def init_vt_params(gen: torch.Generator, c: VTConfig) -> Dict[str, Any]:
 # Forward passes
 # --------------------------------------------------------------------------
 
-def _apply_attn_stack(x, layers, blocks, causal: bool, remat: bool = False,
-                      fused: bool = False):
-    """Run a stack of BlockLocalAttention layers. remat=True (TPU.REMAT with
-    the policy "") keeps only each layer's input for the backward and
-    recomputes the layer there, as jax.checkpoint with no saved names does.
-    fused=True (TPU.FUSED_LAYER) runs each layer as the fused layer of
-    ops/fused_layer.py when the stack has more than one layer and its
-    geometry passes ``fused_layer_supported``, as lvt_tpu does: the token
-    form round-trips once for the whole stack, and the fused layer is its own
-    remat unit, so ``remat`` adds no checkpoint around it. Any other stack
-    runs the unfused layers."""
+def _checkpoint_policy(remat):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
+    (lvt_tpu's ``_checkpoint_policy``), or None: True saves nothing but the
+    layer's input. "dots" saves the products (jax's checkpoint_dots) and
+    recomputes the rest; the attention core is a custom Function whose
+    forward runs without grad, so its output (kernel 1's) is recomputed, as
+    the Pallas call's is. "qkv" saves only the q/k/v projections, the
+    products ``ops.attention.mha_tokens`` tags with ``checkpoint_name``."""
+    if remat not in ("dots", "qkv"):
+        return None
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        save = (op in dots and torch.is_grad_enabled()
+                and (remat == "dots" or current_checkpoint_name() == "qkv"))
+        return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _apply_attn_stack(x, layers, blocks, causal: bool, remat=False, fused: bool = False):
+    """Run a stack of BlockLocalAttention layers. remat (TPU.REMAT and
+    TPU.REMAT_POLICY: False, True, "dots" or "qkv") checkpoints each layer:
+    True keeps only its input for the backward and recomputes the layer
+    there, as jax.checkpoint with no saved names does; the policies save
+    what ``_checkpoint_policy`` says. fused=True (TPU.FUSED_LAYER) runs each
+    layer as the fused layer of ops/fused_layer.py when the stack has more
+    than one layer and its geometry passes ``fused_layer_supported``, as
+    lvt_tpu does: the token form round-trips once for the whole stack, and
+    the fused layer is its own remat unit, so ``remat`` (any policy) adds no
+    checkpoint around it. Any other stack runs the unfused layers."""
     if fused and len(layers) > 1 and fused_layer_supported(layers, blocks):
         blk = tuple(blocks[0])
         tokens, geom = split_blocks(x, blk)
@@ -162,16 +186,18 @@ def _apply_attn_stack(x, layers, blocks, causal: bool, remat: bool = False,
             bias = relative_bias(p["dt_bank"], p["dh_bank"], p["dw_bank"], blk)
             tokens = fused_block_layer(tokens, p, bias, causal)
         return merge_blocks(tokens, geom)
+    policy = _checkpoint_policy(remat) if remat else None
     for p, blk in zip(layers, blocks):
         if remat and torch.is_grad_enabled():
+            kw = {} if policy is None else {"context_fn": policy}
             x = torch.utils.checkpoint.checkpoint(block_local_attention, x, p, tuple(blk),
-                                                  causal, use_reentrant=False)
+                                                  causal, use_reentrant=False, **kw)
         else:
             x = block_local_attention(x, p, tuple(blk), causal)
     return x
 
 
-def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None, remat: bool = False,
+def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None, remat=False,
               fused: bool = False):
     """Context branch. ctx: (b, nc, T', H', W') codes with pad_value at
     invisible positions; slice_idx: (b,). Returns zl (b, t, h, w, d)."""
@@ -193,7 +219,7 @@ def _embed_sum_codes(dec, c: VTConfig, codes):
     return out
 
 
-def vt_decode(params, c: VTConfig, slice_codes, zl, remat: bool = False, fused: bool = False):
+def vt_decode(params, c: VTConfig, slice_codes, zl, remat=False, fused: bool = False):
     """Slice branch. slice_codes: (b, nc, t, h, w) int; zl: (b, t, h, w, d).
     Returns yl (b, t, h, w, d)."""
     dec = params["decoder"]
@@ -227,7 +253,7 @@ def _predictor_u(pred, c: VTConfig, k: int, y, codes):
 
 
 def vt_logits(params, c: VTConfig, ctx, slice_codes, slice_idx, class_idx=None,
-              remat: bool = False, fused: bool = False):
+              remat=False, fused: bool = False):
     """Teacher-forced logits for all positions/channels: (b, t, h, w, nc, nv)
     in the parameter dtype."""
     zl = vt_encode(params, c, ctx, slice_idx, class_idx, remat, fused)
@@ -278,7 +304,7 @@ class VideoTransformer:
         self.plan = self._plan_for(T, H, W)
         self._maps = {}
         # False | True (per-layer remat) | "dots" | "qkv", as lvt_tpu reads
-        # TPU.REMAT / TPU.REMAT_POLICY; the port runs only True
+        # TPU.REMAT / TPU.REMAT_POLICY
         policy = getattr(cfg.TPU, "REMAT_POLICY", "")
         if policy not in ("", "dots", "qkv"):
             raise ValueError(f"TPU.REMAT_POLICY must be '' (full remat), 'dots' or 'qkv', "
@@ -337,12 +363,6 @@ class VideoTransformer:
         lo = self.c.n_prime if (t == 1 and sh == 1 and sw == 1) else 0
         return torch.randint(lo, st * sh * sw, (batch,), generator=gen)
 
-    def _check_trainable(self):
-        if self.remat not in (False, True):
-            raise NotImplementedError(
-                f"TPU.REMAT_POLICY {self.remat!r} is not ported to lvt_tpu_torch yet; "
-                "use '' (per-layer remat) or TPU.REMAT False")
-
     def loss(self, params, batch, gen: Optional[torch.Generator] = None, *, slice_idx=None):
         """Cross-entropy over one random slice per video, as lvt_tpu's
         VideoTransformer.loss. batch: {"video": (b, nc, T, H, W) int, optional
@@ -354,7 +374,6 @@ class VideoTransformer:
         global batch, of which the rank takes its rows, and the loss is the
         global batch's (its per-channel sums and counts all-reduced), the
         same value on every rank."""
-        self._check_trainable()
         video = batch["video"]
         b = video.shape[0]
         group = global_batch_group()
@@ -365,7 +384,7 @@ class VideoTransformer:
         ctx, slice_codes, ignore = self.prepare_slices(video, slice_idx)
         class_idx = batch.get("class") if self.c.class_num > 0 else None
         logits = vt_logits(params["netG"], self.c, ctx, slice_codes, slice_idx, class_idx,
-                           remat=bool(self.remat), fused=self.fused)  # (b, t, h, w, nc, nv)
+                           remat=self.remat, fused=self.fused)  # (b, t, h, w, nc, nv)
         targets = slice_codes.movedim(1, -1).long()  # (b, t, h, w, nc)
         # CE as logsumexp minus the true logit: the one-hot contraction of
         # lvt_tpu read as the gather of the one logit it keeps (the same

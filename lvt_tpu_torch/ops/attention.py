@@ -16,7 +16,9 @@ plain PyTorch versions of the same functions. A layer's parameters are a dict
 with the field names of lvt_tpu's ``BlockAttnParams``.
 """
 
+import contextlib
 import math
+import threading
 from functools import lru_cache
 from typing import Dict, Tuple
 
@@ -266,14 +268,37 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+_CHECKPOINT_NAME = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tags the ops this thread runs inside with ``name`` for a
+    selective-checkpoint policy (``models/vt.py`` ``_checkpoint_policy``),
+    as lvt_tpu's ``checkpoint_name`` tags a value; without such a policy it
+    does nothing."""
+    outer = current_checkpoint_name()
+    _CHECKPOINT_NAME.value = name
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.value = outer
+
+
+def current_checkpoint_name():
+    return getattr(_CHECKPOINT_NAME, "value", None)
+
+
 def mha_tokens(x: torch.Tensor, p: LayerParams, bias: torch.Tensor, causal: bool) -> torch.Tensor:
     """Multi-head attention over token sequences x: (nb, n, d)."""
     nb, n, d = x.shape
     na, _, da = p["wq"].shape
     y = _layer_norm(x, p["ln_scale"], p["ln_bias"])
-    q = torch.einsum("bnd,adk->bank", y, p["wq"])
-    k = torch.einsum("bnd,adk->bank", y, p["wk"])
-    v = torch.einsum("bnd,adk->bank", y, p["wv"])
+    # under TPU.REMAT_POLICY "qkv" the three projections are what is saved
+    with checkpoint_name("qkv"):
+        q = torch.einsum("bnd,adk->bank", y, p["wq"])
+        k = torch.einsum("bnd,adk->bank", y, p["wk"])
+        v = torch.einsum("bnd,adk->bank", y, p["wv"])
     out = attention_core(q, k, v, bias, causal)  # (nb, na, n, da)
     out = out.permute(0, 2, 1, 3).reshape(nb, n, na * da)
     return out @ p["proj"] + x

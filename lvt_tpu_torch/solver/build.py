@@ -80,10 +80,9 @@ def build_optimizer(cfg, named_params: Dict[str, torch.Tensor],
     reference's hyperparameter suffix scheme. Group order: base, bias, norm
     (empty groups left out)."""
     S = cfg.SOLVER
-    if S.OPT_STATE_DTYPE != "float32":
-        raise NotImplementedError(
-            f"SOLVER.OPT_STATE_DTYPE {S.OPT_STATE_DTYPE!r} is not ported to lvt_tpu_torch "
-            "yet (only 'float32')")
+    if S.OPT_STATE_DTYPE not in ("float32", "bfloat16"):
+        raise ValueError(f"SOLVER.OPT_STATE_DTYPE must be 'float32' or 'bfloat16', "
+                         f"got {S.OPT_STATE_DTYPE!r}")
     lr = getattr(S, "LR" + suffix)
     decay = {g: getattr(S.WEIGHT_DECAY, g.upper() + suffix) for g in ("base", "bias", "norm")}
     members: Dict[str, List[torch.Tensor]] = {"base": [], "bias": [], "norm": []}
@@ -101,6 +100,36 @@ def build_optimizer(cfg, named_params: Dict[str, torch.Tensor],
                                   momentum=getattr(S.RMSPROP, "MOMENTUM" + suffix))
     else:
         raise ValueError(f"Unknown optimizer: {S.OPTIMIZER_NAME}")
+    if S.OPT_STATE_DTYPE != "float32":
+        cast_opt_state(opt, getattr(torch, S.OPT_STATE_DTYPE))
     schedule = build_lr_schedule(cfg)
     accum = S.ACCUMULATION_STEPS
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: schedule(k * accum))
+
+
+def cast_opt_state(opt: torch.optim.Optimizer, dtype: torch.dtype) -> torch.optim.Optimizer:
+    """Store ``opt``'s moments in ``dtype`` between steps while each update is
+    computed in fp32, as lvt_tpu's ``cast_opt_state``: a hook before every
+    step upcasts the state, one after it rounds the new state back, and one
+    after ``load_state_dict`` rounds a loaded state. bf16 halves the memory
+    the moments hold between steps, not a step's traffic: the two casts add
+    a read and a write of every moment to the fp32 update. Each cast is one
+    ``_foreach_copy_`` over all moments. The moments are the floating tensors
+    of a parameter's shape; ``step``, a count that torch keeps as a float
+    scalar, stays as it is, as optax's integer count does."""
+    def cast(to):
+        slots = [(st, k) for p, st in opt.state.items() for k, v in st.items()
+                 if k != "step" and isinstance(v, torch.Tensor) and v.is_floating_point()
+                 and v.shape == p.shape and v.dtype != to]
+        if not slots:
+            return
+        src = [st[k] for st, k in slots]
+        dst = [torch.empty_like(v, dtype=to) for v in src]
+        torch._foreach_copy_(dst, src)
+        for (st, k), v in zip(slots, dst):
+            st[k] = v
+
+    opt.register_step_pre_hook(lambda *_: cast(torch.float32))
+    opt.register_step_post_hook(lambda *_: cast(dtype))
+    opt.register_load_state_dict_post_hook(lambda *_: cast(dtype))
+    return opt

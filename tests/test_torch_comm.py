@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
@@ -32,7 +33,10 @@ from lvt_tpu.parallel import collectives as jcoll
 from lvt_tpu_torch.engine.launch import launch
 from lvt_tpu_torch.parallel import mesh as tmesh
 from lvt_tpu_torch.utils import comm
-from torch_dp_worker import comm_scenarios, failing_rank, hanging_rank, spawn_world
+from torch_dp_worker import (comm_scenarios, failing_rank, hanging_rank, one_thread_children,
+                             spawn_world)
+
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -191,7 +195,7 @@ def test_a_failing_rank_makes_launch_raise(tmp_path):
 
 
 def test_a_hanging_rank_is_killed_at_the_join_timeout():
-    with pytest.raises(TimeoutError):
+    with pytest.raises(TimeoutError), one_thread_children():
         launch(hanging_rank, WORLD, backend="gloo", args=(None,), join_timeout=8)
 
 
@@ -239,4 +243,5 @@ def test_the_cli_launches_its_world_and_verifies_on_rank_0(tmp_path, monkeypatch
     assert np.isfinite(bits)
     args = parse(["--num-gpus", "2", "--dist-backend", "gloo", "--eval-only"] + argv +
                  ["TEST.EXPECTED_RESULTS", f"[['likelihood', 'bits_per_dim', {bits!r}, 1e-9]]"])
-    assert train_net_torch.run(args, device="cpu") is None
+    with one_thread_children():
+        assert train_net_torch.run(args, device="cpu") is None

@@ -11,9 +11,12 @@ import sys
 import tokenize
 
 import pytest
+import torch
 
 from lvt_tpu.config import get_cfg as jax_get_cfg
 from lvt_tpu_torch.config import get_cfg as torch_get_cfg
+
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
@@ -22,7 +25,8 @@ COPIES = ["config/__init__.py", "config/config.py", "config/defaults.py",
           "utils/logger.py", "engine/train_loop.py", "data/catalog.py",
           "data/datasets/latents.py", "data/samplers.py", "data/datasets/bair.py",
           "data/datasets/kinetics.py", "data/datasets/builtin.py", "evaluation/testing.py",
-          "evaluation/metrics.py", "evaluation/codes_extractor.py"]
+          "evaluation/metrics.py", "evaluation/codes_extractor.py", "utils/pbar.py",
+          "utils/serialize.py"]
 
 
 def test_all_seven_configs_found():
@@ -87,7 +91,8 @@ for name in names + ["generate_videos_torch", "train_net_torch", "probe_decode_k
                      "time_cache_attention_torch", "time_cache_attention_parts_torch",
                      "e2e_demo_torch", "bench_pipeline_torch", "convert_kinetics_torch",
                      "bench_sample_torch", "bench_train_torch", "probe_int8_noise_torch",
-                     "time_i8w_vq_parts_torch", "chip_smoke"]:
+                     "time_i8w_vq_parts_torch", "quality_int8_torch", "convert_i3d_torch",
+                     "trace_summary_torch", "mfu_torch", "soak_train_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lvt_tpu"))
@@ -95,6 +100,7 @@ print(len(names), bad)
 assert not bad, bad
 """.format(root=ROOT, scripts=os.path.join(ROOT, "scripts"), tools=os.path.join(ROOT, "tools"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # the test workers share the cores
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

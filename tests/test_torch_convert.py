@@ -17,6 +17,8 @@ from lvt_tpu_torch.checkpoint.convert import flatten
 from lvt_tpu_torch.models.vqvae import VQVAE
 from lvt_tpu_torch.models.vt import VideoTransformer
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

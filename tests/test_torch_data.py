@@ -14,6 +14,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import lvt_tpu.data.build as jbuild
 import lvt_tpu.data.datasets.latents as jlat
@@ -25,6 +26,8 @@ from lvt_tpu_torch.data import build as tbuild
 from lvt_tpu_torch.data.datasets import latents as tlat
 from lvt_tpu_torch.data.mapper import DatasetMapper
 from lvt_tpu_torch.data.samplers import TrainingSampler
+
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
 
 
 @pytest.fixture

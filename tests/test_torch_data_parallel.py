@@ -65,7 +65,9 @@ from test_torch_train import _solver as vt_solver
 from test_torch_vqvae_train import _cfg as vq_cfg
 from test_torch_vqvae_train import _leaf_close, _port_trees
 from test_torch_vqvae_trainer import _solver as vq_solver
-from torch_dp_worker import dp_scenarios, generation_models, spawn_world
+from torch_dp_worker import dp_scenarios, generation_models, one_thread_children, spawn_world
+
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLOBAL = 8  # global batch: 4 rows on each of 2 ranks, 1 on each of lvt_tpu's 8 devices
@@ -480,28 +482,6 @@ def test_sharded_generation_equals_a_world_of_one(dp):
     np.testing.assert_allclose(got[0], want[0].numpy(), atol=255 * 1e-5, rtol=0)
 
 
-# --------------------------------------------------------------------------
-# Sharded generation
-# --------------------------------------------------------------------------
-
-def test_sharded_generation_equals_a_world_of_one(dp):
-    """generate_sharded over 2 ranks (2 videos each) against generate() over
-    all 4 in this process: greedy codes and primed codes bit for bit, the
-    decoded frames within fp32 noise."""
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    import generate_videos_torch as gvt
-
-    gen = dp["generate"]
-    want = gvt.generate(*generation_models(gen), torch.from_numpy(gen["frames"]),
-                        gen["n_prime"], None, greedy=True)
-    got = dp["res"][0]["generate"]
-    assert dp["res"][1]["generate"] is None  # rank 0 alone gathers
-    assert got[1].shape == (4, 4, 8, 4, 4)
-    np.testing.assert_array_equal(got[1], want[1].numpy())
-    np.testing.assert_array_equal(got[2], want[2].numpy())
-    np.testing.assert_allclose(got[0], want[0].numpy(), atol=255 * 1e-5, rtol=0)
-
-
 def test_the_cli_launches_its_world_and_verifies_on_rank_0(dp, world_of_one, monkeypatch):
     """tools/train_net_torch.py's run(): --num-gpus 2 --dist-backend gloo
     spawns the world itself (engine.launch), whose processes read the test
@@ -525,4 +505,5 @@ def test_the_cli_launches_its_world_and_verifies_on_rank_0(dp, world_of_one, mon
         ["--num-gpus", "2", "--dist-backend", "gloo", "--eval-only"] + argv +
         ["DATASETS.TEST", "('prdvqvae_test',)",
          "TEST.EXPECTED_RESULTS", f"[['likelihood', 'bits_per_dim', {bits!r}, 1e-9]]"])
-    assert train_net_torch.run(args, device="cpu") is None
+    with one_thread_children():
+        assert train_net_torch.run(args, device="cpu") is None

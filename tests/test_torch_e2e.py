@@ -36,6 +36,8 @@ from lvt_tpu_torch.models.vqvae import VQVAE
 from lvt_tpu_torch.ops import vq
 from lvt_tpu_torch.utils.collect_env import collect_env_info
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))

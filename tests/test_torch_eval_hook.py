@@ -38,6 +38,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import train_net_torch  # noqa: E402
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 VQ_OPTS = ["MODEL.ENCODER.NF", "16", "MODEL.ENCODER.RES_CHANNELS", "8",
            "MODEL.ENCODER.N_LAYERS", "1", "MODEL.GENERATOR.NF", "16",
            "MODEL.GENERATOR.RES_CHANNELS", "8", "MODEL.GENERATOR.N_LAYERS", "1",

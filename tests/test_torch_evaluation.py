@@ -17,11 +17,13 @@ from_jax_vqvae and from_jax_vt:
   TEST.N_SAMPLES.
 """
 
+import logging
 import os
 
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import lvt_tpu.evaluation as jev
@@ -46,6 +48,8 @@ from lvt_tpu_torch.models.vqvae import VQVAE
 from lvt_tpu_torch.models.vt import VideoTransformer
 from lvt_tpu_torch.utils.image import get_video_paths
 from test_torch_vqvae import assert_indices_match
+
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -165,16 +169,25 @@ def test_evaluator_protocol_matches_lvt_tpu():
         np.testing.assert_array_equal(ij["video"], it["video"])
 
 
-def test_testing_module_matches_lvt_tpu(caplog):
+def test_testing_module_matches_lvt_tpu(caplog, monkeypatch):
     results = {"reconstruction": {"MSE": 0.55, "x-y": 2.0}, "likelihood": {"bits_per_dim": 3.25}}
     assert tev.flatten_results_dict({"a": {"b": 1, "c": {"d": 2}}, "e": 3}) == \
         jev.flatten_results_dict({"a": {"b": 1, "c": {"d": 2}}, "e": 3}) == \
         {"a/b": 1, "a/c/d": 2, "e": 3}
     logs = []
     for pkg in (jev, tev):
+        # the capture hangs on the module's own logger, which stops there:
+        # an earlier setup_logger (propagate off on the package's logger)
+        # cannot hide its records, nor the root hand them over twice
+        logger = logging.getLogger(pkg.print_csv_format.__module__)
+        monkeypatch.setattr(logger, "propagate", False)
+        logger.addHandler(caplog.handler)
         caplog.clear()
-        with caplog.at_level("INFO"):
-            pkg.print_csv_format(results)
+        try:
+            with caplog.at_level("INFO", logger=logger.name):
+                pkg.print_csv_format(results)
+        finally:
+            logger.removeHandler(caplog.handler)
         logs.append([r.getMessage() for r in caplog.records])
     assert logs[0] == logs[1] and "copypaste: 0.5500" in logs[1]
     for get, pkg in ((jax_get_cfg, jev), (get_cfg, tev)):

@@ -21,6 +21,8 @@ from lvt_tpu_torch.checkpoint import from_jax_layer
 from lvt_tpu_torch.ops import attention as tatt
 from lvt_tpu_torch.ops import fused_layer as tfl
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 BLOCK = (1, 4, 4)
 N = 16
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

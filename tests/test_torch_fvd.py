@@ -39,6 +39,8 @@ from lvt_tpu_torch.checkpoint import from_jax_i3d, from_jax_vqvae, save_checkpoi
 from lvt_tpu_torch.config import get_cfg
 from lvt_tpu_torch.evaluation.i3d import i3d_apply, init_i3d, load_i3d_npz, same_pad
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 VQ_CFG = """\
 MODEL:
   META_ARCHITECTURE: "VQVAEModel"

@@ -11,6 +11,8 @@ import pytest
 import torch
 from PIL import Image
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))

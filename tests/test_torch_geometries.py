@@ -33,6 +33,8 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 import bench_sample_torch  # noqa: E402
 import bench_train_torch  # noqa: E402
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 GEOMETRIES = {name: CASES[IDS.index(name)] for name in ("dsfvt", "dssvt", "dstsvt")}
 _BUILT = {}
 

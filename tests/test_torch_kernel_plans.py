@@ -18,6 +18,8 @@ import lvt_tpu_torch.ops.fused_layer as tfl
 import lvt_tpu_torch.ops.quant as tq
 import lvt_tpu_torch.ops.vq as tvq
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 # Shared memory of the H100: per block at most 232,448 bytes; per SM
 # 233,472, each resident block also holding 1 KB for the system
 SMEM_BLOCK, SMEM_SM = 232448, 233472

@@ -20,6 +20,8 @@ import torch
 import lvt_tpu_torch.ops.attention as tatt
 import lvt_tpu_torch.ops.cache_attention as tca
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-3, 2 ** -7)}
 
 

@@ -23,6 +23,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import lvt_tpu.data.datasets.bair as jbair
@@ -35,6 +36,8 @@ from lvt_tpu_torch import native
 from lvt_tpu_torch.config import get_cfg
 from lvt_tpu_torch.data.mapper import DatasetMapper
 from test_cli_scripts import make_example, write_tfrecord
+
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -96,10 +99,18 @@ def test_no_compiler_warns_once_and_reads_nothing(monkeypatch, tmp_path, pngs, c
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(native.subprocess, "run", missing)
     monkeypatch.setattr(native, "LIBRARY", native.NativeIO())
-    with caplog.at_level(logging.WARNING, logger=native.__name__):
-        assert native.read_png_rgb(str(pngs / "rgb.png")) is None
-        assert native.load_npy_sequence_i32([str(pngs / "rgb.png")], (1,)) is None
-        assert not native.available()
+    # the capture hangs on native's own logger, which stops there: a
+    # setup_logger of an earlier test (propagate off on the package's
+    # logger) cannot hide the record from it, nor the root hand it over twice
+    monkeypatch.setattr(native.logger, "propagate", False)
+    native.logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING, logger=native.__name__):
+            assert native.read_png_rgb(str(pngs / "rgb.png")) is None
+            assert native.load_npy_sequence_i32([str(pngs / "rgb.png")], (1,)) is None
+            assert not native.available()
+    finally:
+        native.logger.removeHandler(caplog.handler)
     assert len(caplog.records) == 1 and "PIL" in caplog.records[0].getMessage()
     assert os.listdir(tmp_path) == []  # no half-written library left behind
 

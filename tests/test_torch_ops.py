@@ -24,6 +24,8 @@ import lvt_tpu_torch.ops.subscale as tss
 import lvt_tpu_torch.ops.vq as tvq
 from lvt_tpu.config import get_cfg
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 T = torch.from_numpy
 
 

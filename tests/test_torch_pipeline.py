@@ -24,6 +24,8 @@ import generate_videos_torch as gvt  # noqa: E402
 
 from test_torch_vt import assert_greedy_codes_match  # noqa: E402
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 T_FRAMES, N_PRIME, B = 8, 3, 2
 
 

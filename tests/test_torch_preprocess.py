@@ -30,6 +30,8 @@ from lvt_tpu.data.preprocess import center_crop_resize as jax_crop_resize
 from lvt_tpu_torch.data.preprocess import (center_crop_resize, center_crop_square,
                                            lanczos_weights)
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 # (frames shape, img_size): the Kinetics geometry, a small downscale, odd
 # crop remainders (37 rows: no resize; 27 columns: a resize), a leading
 # batch of 2 x 3

@@ -36,6 +36,8 @@ from test_torch_generate import N_PRIME, T, VT_CFG, VT_OPTS, _argv, _frames, _vq
 from test_torch_vt import assert_greedy_codes_match  # noqa: E402
 from test_vt_torch_parity import _make_torch_state  # noqa: E402
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 VQ_CFG = os.path.join(ROOT, "configs", "vqvae", "PR-DVQVAE2.yaml")
 _np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
 

@@ -25,6 +25,8 @@ from lvt_tpu.ops import quant_matmul as jqm
 from lvt_tpu_torch.ops import cache_attention as tca
 from lvt_tpu_torch.ops import quant as tq
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 BF16 = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 

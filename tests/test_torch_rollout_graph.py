@@ -37,6 +37,8 @@ from lvt_tpu_torch.models.vt_incremental import SliceDecoder
 from test_torch_sampler_int8 import MODE_IDS, MODES, _knobs
 from test_torch_vt import CASES, _models
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 MIXED = ((4, 2, 2), (3, 3, 3), ((1, 2, 2),) * 2, (8, 4, 4))  # slices (2, 2, 2), 16 of them
 GEOMETRIES = {"dsfvt": (CASES[0], 1), "mixed-primed": (MIXED, 2)}  # (case, n_prime)
 ALL_MODES = [("native", "native", "native", "xla")] + MODES

@@ -33,6 +33,8 @@ from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
 
 from test_torch_vt import CASES, _models, _slice_inputs
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 LOGIT_TOL = 2e-5
 # A value that the port is about to round to an integer (a cache entry, a
 # weight, q) and that lies within this of x.5, in quantization steps, is a

@@ -13,6 +13,8 @@ import torch
 from test_torch_sampler_int8 import GEOMETRIES, MODE_IDS, MODES, _knobs
 from test_torch_vt import CASES, _models
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 
 @pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))

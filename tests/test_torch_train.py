@@ -27,6 +27,7 @@ carried across with from_jax_vt (the shapes of tests/test_trajectory_parity.py):
 """
 
 import contextlib
+import logging
 import os
 import sys
 
@@ -51,6 +52,8 @@ from lvt_tpu_torch.models import cast_floats
 from lvt_tpu_torch.models.vt import VideoTransformer
 from lvt_tpu_torch.ops import attention as tatt
 from lvt_tpu_torch.solver.build import build_lr_schedule, decay_group
+
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, H, W = 8, 4, 4
@@ -209,13 +212,22 @@ def _port_grads(jp, tm, video, si, dtype=None, remat=False):
     return float(loss.detach()), metrics, grads
 
 
-@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("remat", [False, True, "dots", "qkv"],
+                         ids=["plain", "remat", "dots", "qkv"])
 def test_loss_and_every_grad_match_jax_fp32(rng, remat):
+    """With TPU.REMAT_POLICY "dots" or "qkv" lvt_tpu runs the same policy,
+    and the port's loss and gradients are also bit-equal to its own
+    per-layer remat (what a policy saves is what the recompute gives)."""
     jm, jp, tm = _models()
     video = rng.integers(0, 8, size=(BATCH, 2, T, H, W)).astype(np.int32)
     si = np.asarray([0, 1], np.int32)  # slice 0 holds primed frame 0: the ignore mask runs
+    jm.remat = remat
     jl, want = _jax_grads(jm, jp, video, si)
     tl, metrics, grads = _port_grads(jp, tm, video, si, remat=remat)
+    if remat in ("dots", "qkv"):
+        full_l, _, full = _port_grads(jp, tm, video, si, remat=True)
+        assert tl == full_l
+        assert all(torch.equal(grads[n], full[n]) for n in full)
     np.testing.assert_allclose(tl, jl, rtol=2e-6)
     assert float(metrics["loss_cross_entropy"].detach()) == tl
     assert set(grads) == set(want) and len(grads) == 63
@@ -226,6 +238,61 @@ def test_loss_and_every_grad_match_jax_fp32(rng, remat):
     for name, g in grads.items():
         assert g is not None and g.dtype == torch.float32, name
         _leaf_close(name, g.numpy(), want[name].numpy(), 1e-5, floor)
+
+
+# each unfused layer runs 8 products: q, k and v (tagged "qkv"), the
+# attention core's two (inside its Function, with grad off), the output
+# projection and the FFN's two. The recompute stops once it has what the
+# backward needs, which never takes the last FFN product's output.
+PRODUCTS_PER_LAYER = 8
+RECOMPUTED_PER_LAYER = {True: 7, "dots": 2, "qkv": 4}
+
+
+@pytest.mark.parametrize("remat", [True, "dots", "qkv"], ids=["remat", "dots", "qkv"])
+def test_remat_policy_recomputes_only_what_it_does_not_save(remat):
+    """The products (aten mm/bmm/addmm/baddbmm) that the backward of an
+    unfused stack runs beyond those of the stack without remat are the
+    forward's products its policy did not save: every one for the per-layer
+    remat, for "dots" only the attention core's two a layer (saved by no
+    policy, as the Pallas call's output is not in lvt_tpu), for "qkv" all but
+    the three projections."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from lvt_tpu_torch.models.vt import _apply_attn_stack
+
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in dots
+            return func(*args, **(kwargs or {}))
+
+    tm = VideoTransformer(_cfg(), T=T, H=H, W=W)
+    params, _ = tm.init(torch.Generator().manual_seed(0))
+    enc, c = params["netG"]["encoder"], tm.c
+    for leaf in flatten(enc).values():
+        leaf.requires_grad_(True)
+    x0 = torch.randn(BATCH, 4, H, W, c.d, generator=torch.Generator().manual_seed(1))
+
+    def products(policy):
+        x = x0.clone().requires_grad_(True)
+        fwd, bwd = Products(), Products()
+        with fwd:
+            y = _apply_attn_stack(x, enc["layers"], c.blocks_e, False, policy)
+        with bwd:
+            y.square().sum().backward()
+        return fwd.n, bwd.n
+
+    layers = len(enc["layers"])
+    fwd0, bwd0 = products(False)
+    fwd, bwd = products(remat)
+    assert fwd == fwd0 == PRODUCTS_PER_LAYER * layers
+    assert bwd - bwd0 == RECOMPUTED_PER_LAYER[remat] * layers
 
 
 def test_loss_and_every_grad_match_jax_bf16_compute(rng):
@@ -351,18 +418,25 @@ def _solver(name):
                     "WEIGHT_DECAY.NORM_G": 0.0})
 
 
+def _jax_moments(name, jopt):
+    """lvt_tpu's optimizer moments under the port's state names, {field:
+    {param name: fp32 tensor}} (bf16 moments are exact in fp32)."""
+    inner = jopt[1]
+    if name == "rmsprop":
+        fields = {"square_avg": inner.v, "momentum_buffer": inner.buf}
+    else:
+        fields = {"exp_avg": inner.mu, "exp_avg_sq": inner.nu}
+    return {k: flatten(_to_port(jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32), v["netG"]))) for k, v in fields.items()}
+
+
 def _port_tree(trainer, name, jparams, jopt, jacc, step):
     """lvt_tpu's params, optimizer moments and accumulated gradients as the
     port's checkpoint tree. The learning rate, the scheduler and each
     parameter's update count stay the port's own; the count is held to
     lvt_tpu's."""
-    _, inner, sched = jopt
-    count = int(sched.count)
-    if name == "rmsprop":
-        fields = {"square_avg": inner.v, "momentum_buffer": inner.buf}
-    else:
-        fields = {"exp_avg": inner.mu, "exp_avg_sq": inner.nu}
-    fields = {k: flatten(_to_port(v["netG"])) for k, v in fields.items()}
+    count = int(jopt[2].count)
+    fields = _jax_moments(name, jopt)
     st = trainer.state
     names = {id(p): f"netG.{n}" for n, p in flatten(st.params["netG"]).items()}
     opt_sd = st.optimizer.state_dict()
@@ -385,6 +459,16 @@ def test_5_step_trajectory_matches_jax_optimizer(rng, name):
     _check_5_step_trajectory(rng, name, fused=False)
 
 
+@pytest.mark.parametrize("name", ["rmsprop", "adam"])
+def test_5_step_trajectory_with_bf16_optimizer_state_matches_jax(rng, name):
+    """SOLVER.OPT_STATE_DTYPE bfloat16 in both packages (lvt_tpu's
+    cast_opt_state): the same five steps and tolerances, the port's moments
+    stored in bf16 after every update and within one bf16 step of lvt_tpu's
+    (the two fp32 updates differ by fp32 noise, which can round to
+    neighbouring bf16 values)."""
+    _check_5_step_trajectory(rng, name, fused=False, state_dtype="bfloat16")
+
+
 def test_5_step_trajectory_with_the_fused_layer_matches_jax(rng):
     """The same five steps with TPU.FUSED_LAYER True in both packages: every
     layer of both stacks runs fused (4 per forward), with no checkpoint."""
@@ -394,8 +478,9 @@ def test_5_step_trajectory_with_the_fused_layer_matches_jax(rng):
     assert counts[0] == 5 * 4
 
 
-def _check_5_step_trajectory(rng, name, fused):
-    jm, jp, _ = _models(_solver(name), fused=fused)
+def _check_5_step_trajectory(rng, name, fused, state_dtype="float32"):
+    solver = dict(_solver(name), OPT_STATE_DTYPE=state_dtype)
+    jm, jp, _ = _models(solver, fused=fused)
     jcfg = jm.cfg
     opt = jax_build_optimizer(jcfg)
     jax_schedule = jax_build_lr_schedule(jcfg)
@@ -407,7 +492,7 @@ def _check_5_step_trajectory(rng, name, fused):
         return jax.value_and_grad(
             lambda p: jm.loss(p, {"video": video}, jax.random.key(0), slice_idx=si)[0])(params)
 
-    trainer = Trainer(_cfg(fused=fused, **_solver(name)), iter(()), device="cpu")
+    trainer = Trainer(_cfg(fused=fused, **solver), iter(()), device="cpu")
     params, opt_state = jp, opt.init(jp)
     acc = jax.tree_util.tree_map(jnp.zeros_like, jp)
     for i in range(5):
@@ -442,6 +527,24 @@ def _check_5_step_trajectory(rng, name, fused):
         floor = 1e-2 * max(float(w.abs().max()) for w in acc_want.values())
         for n, want in acc_want.items():
             _leaf_close(f"step {i} accum {n}", acc_got[n].numpy(), want.numpy(), 1e-5, floor)
+        if state_dtype == "bfloat16" and (i + 1) % 2 == 0:
+            _check_bf16_moments(trainer, name, opt_state, i)
+
+
+def _check_bf16_moments(trainer, name, jopt, i):
+    want = _jax_moments(name, jopt)
+    st = trainer.state
+    names = {id(p): n for n, p in flatten(st.params["netG"]).items()}
+    for p, state in st.optimizer.state.items():
+        for field, moments in want.items():
+            got, ref = state[field], moments[names[id(p)]]
+            assert got.dtype == torch.bfloat16, f"step {i} {field}: {got.dtype}"
+            # one bf16 step apart at most (2^-7 of the value: two fp32
+            # values a noise apart round to neighbours across a boundary),
+            # plus fp32 noise at moments that are float noise themselves
+            bound = 2 ** -7 * ref.abs() + 1e-9
+            assert bool(((got.float() - ref).abs() <= bound).all()), \
+                f"step {i} {field} {names[id(p)]}: {float((got.float() - ref).abs().max())}"
 
 
 @pytest.mark.parametrize("sched", [
@@ -478,13 +581,64 @@ def _batches(rng, n):
              "video_idx": [0, 1]} for _ in range(n)]
 
 
-def test_resume_continues_the_same_trajectory(rng, tmp_path):
+def test_vis_period_stores_images_and_a_failing_visualization_only_warns(rng, monkeypatch,
+                                                                        caplog):
+    """cfg.VIS_PERIOD (engine/trainer.py run_step): at every positive
+    iteration that is a multiple of the period, the model's
+    visualize_training images go into the storage under the iteration, as
+    the model makes them; when visualize_training raises, training goes on
+    and one warning names the error."""
+    import lvt_tpu_torch.engine.trainer as ttrainer
+
+    cfg = _cfg()
+    cfg.VIS_PERIOD = 2
+    batches = [{"video": rng.integers(0, 8, size=(BATCH, 2, T, H, W)).astype(np.int32)}
+               for _ in range(5)]
+    tr = Trainer(cfg, batches, device="cpu")
+    tr.train(0, 5)
+    got = [(name, it) for name, _, it in tr.storage.vis_data]
+    assert got == [("gt_slice", 2), ("sampled_slice", 2), ("gt_slice", 4), ("sampled_slice", 4)]
+    want = tr.model.visualize_training(tr.state.params, tr.state.model_state, batches[4])
+    assert {name: img.shape for name, img, _ in tr.storage.vis_data} == \
+        {name: img.shape for name, img in want.items()}
+    assert all(img.dtype == np.uint8 and img.ndim == 3 for _, img, _ in tr.storage.vis_data)
+    # the ground truth of iteration 4 is batch 4's first video
+    assert np.array_equal(tr.storage.vis_data[2][1], want["gt_slice"])
+
+    def broken(*args):
+        raise RuntimeError("no images today")
+
+    tr = Trainer(cfg, batches, device="cpu")
+    monkeypatch.setattr(tr.model, "visualize_training", broken)
+    # the capture hangs on the trainer's own logger, which stops there: an
+    # earlier setup_logger (propagate off) cannot hide the record from it
+    monkeypatch.setattr(ttrainer.logger, "propagate", False)
+    ttrainer.logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING, logger=ttrainer.logger.name):
+            tr.train(0, 5)
+    finally:
+        ttrainer.logger.removeHandler(caplog.handler)
+    assert tr.state.step == 5 and tr.storage.vis_data == []
+    msgs = [r.getMessage() for r in caplog.records]
+    assert msgs == ["visualize_training failed: no images today"] * 2
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_resume_continues_the_same_trajectory(rng, tmp_path, state_dtype):
     """A run broken at step 3 (inside an accumulation window of 2) and
-    resumed from its checkpoint ends bit-identical to an unbroken one."""
+    resumed from its checkpoint ends bit-identical to an unbroken one. With
+    SOLVER.OPT_STATE_DTYPE bfloat16 the resumed moments are bf16 (the
+    load_state_dict hook rounds what torch's loader casts to the
+    parameter's fp32) and bit-equal to the ones saved."""
     from lvt_tpu_torch.checkpoint import save_checkpoint
 
+    def moments(trainer):
+        return [(k, v) for st in trainer.state.optimizer.state.values()
+                for k, v in st.items() if k != "step"]
+
     batches = _batches(rng, 5)
-    cfg = _cfg(**_solver("rmsprop"))
+    cfg = _cfg(**_solver("rmsprop"), OPT_STATE_DTYPE=state_dtype)
     cfg.OUTPUT_DIR = str(tmp_path)
     full = Trainer(cfg, iter(batches), device="cpu")
     full.train(0, 5)
@@ -493,9 +647,16 @@ def test_resume_continues_the_same_trajectory(rng, tmp_path):
     save_checkpoint(cfg.OUTPUT_DIR, 3, first.checkpoint_tree())
     second = Trainer(cfg, iter(batches[3:]), device="cpu")
     assert second.resume_or_load(resume=True) == 3
+    saved, loaded = moments(first), moments(second)
+    assert len(loaded) == len(saved) > 0
+    for (k, want), (k2, got) in zip(saved, loaded):
+        assert k == k2 and got.dtype == want.dtype == getattr(torch, state_dtype), k
+        assert torch.equal(got, want), k
     second.train(max_iter=5)
     for n, p in flatten(full.state.params).items():
         assert torch.equal(p, flatten(second.state.params)[n]), n
+    for (k, want), (_, got) in zip(moments(full), moments(second)):
+        assert got.dtype == getattr(torch, state_dtype) and torch.equal(got, want), k
     assert second.state.step == 5
 
 
@@ -541,24 +702,31 @@ def test_checkpoint_files_latest_placement_and_pruning(tmp_path):
 
 
 def test_untaken_configurations_raise(rng):
+    """Every TPU.FUSED_LAYER and TPU.REMAT_POLICY trains, and
+    SOLVER.OPT_STATE_DTYPE bfloat16 builds; the values neither package
+    knows raise, as in lvt_tpu."""
     video = torch.from_numpy(rng.integers(0, 8, size=(BATCH, 2, T, H, W)))
     losses = {}
-    for key, val, word in (("FUSED_LAYER", False, None), ("FUSED_LAYER", True, None),
-                           ("REMAT_POLICY", "dots", "dots")):
+    for key, val in (("FUSED_LAYER", False), ("FUSED_LAYER", True), ("REMAT_POLICY", "dots"),
+                     ("REMAT_POLICY", "qkv")):
         cfg = _cfg()
         setattr(cfg.TPU, key, val)
         m = VideoTransformer(cfg, T=T, H=H, W=W)
         params, _ = m.init(torch.Generator().manual_seed(0))
-        if word is None:
-            losses[val] = m.loss(params, {"video": video}, torch.Generator().manual_seed(0))[0]
-            continue
-        with pytest.raises(NotImplementedError, match=word):
-            m.loss(params, {"video": video}, torch.Generator().manual_seed(0))
+        losses[val] = m.loss(params, {"video": video}, torch.Generator().manual_seed(0))[0]
     # TPU.FUSED_LAYER True trains; this geometry (d = 24, da = 12) is outside
-    # the fused layer's gate, so it runs the unfused layers: the same loss
-    assert torch.isfinite(losses[True]) and torch.equal(losses[True], losses[False])
-    with pytest.raises(NotImplementedError):
-        Trainer(_cfg(OPT_STATE_DTYPE="bfloat16"), iter(()), device="cpu")
+    # the fused layer's gate, so it runs the unfused layers: the same loss,
+    # and the remat policies change what is saved, not the loss
+    assert torch.isfinite(losses[True])
+    assert all(torch.equal(losses[v], losses[False]) for v in (True, "dots", "qkv"))
+    opt = Trainer(_cfg(OPT_STATE_DTYPE="bfloat16"), iter(()), device="cpu").state.optimizer
+    assert isinstance(opt, torch.optim.Adam)  # _cfg's optimizer
+    cfg = _cfg()
+    cfg.TPU.REMAT_POLICY = "offload"
+    with pytest.raises(ValueError, match="REMAT_POLICY"):
+        VideoTransformer(cfg, T=T, H=H, W=W)
+    with pytest.raises(ValueError, match="OPT_STATE_DTYPE"):
+        Trainer(_cfg(OPT_STATE_DTYPE="float16"), iter(()), device="cpu")
 
 
 def test_batch_guard_refuses_codes_outside_the_vocabulary(rng):

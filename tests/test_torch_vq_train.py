@@ -38,6 +38,8 @@ from lvt_tpu_torch.models import norms as tnorms
 from lvt_tpu_torch.ops import cache_attention as tca
 from lvt_tpu_torch.ops import vq as tvq
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

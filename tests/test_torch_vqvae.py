@@ -24,6 +24,8 @@ from lvt_tpu.models.vqvae import VQVAE as JaxVQVAE
 from lvt_tpu_torch.checkpoint import from_jax_vqvae
 from lvt_tpu_torch.models.vqvae import VQVAE
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEAR_TIE = 8 * float(np.finfo(np.float32).eps)
 

@@ -35,6 +35,8 @@ from lvt_tpu_torch.models.decoders import build_generator
 from lvt_tpu_torch.models.encoders import build_encoder
 from lvt_tpu_torch.ops import vq as tvq
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {"plain": ("", False), "bn-spectral": ("BN", True), "gn": ("GN", False)}
 

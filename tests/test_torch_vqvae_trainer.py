@@ -30,6 +30,8 @@ from lvt_tpu_torch.engine.trainer import Trainer
 from lvt_tpu_torch.ops import vq as tvq
 from test_torch_vqvae_train import ROOT, _cfg, _frames, _leaf_close, _models, _port_trees
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 
 # --------------------------------------------------------------------------
 # Composed train steps against lvt_tpu's optimizer

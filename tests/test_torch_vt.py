@@ -22,6 +22,8 @@ from lvt_tpu_torch.checkpoint import from_jax_vt
 from lvt_tpu_torch.models.vt import VideoTransformer, vt_encode, vt_logits
 from lvt_tpu_torch.models.vt_incremental import sample_slice_incremental
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 NEAR_TIE = 1e-5
 # one compile per geometry instead of an eager op-by-op run
 _jax_logits = jax.jit(jax_vt_logits, static_argnums=(1,), static_argnames=("use_pallas",))

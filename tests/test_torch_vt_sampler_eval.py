@@ -42,6 +42,8 @@ from lvt_tpu_torch.models.vt import VideoTransformer
 from test_torch_evaluation import register
 from test_vt_sampler_eval import TINY_VQ_YAML
 
+torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
+
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)

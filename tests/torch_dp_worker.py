@@ -7,6 +7,7 @@ computed, and the test process reads it back and holds it to ``lvt_tpu``.
 This module imports torch and the port only: the ranks never import JAX.
 """
 
+import contextlib
 import copy
 import os
 import pickle
@@ -23,6 +24,22 @@ if ROOT not in sys.path:
 JOIN_TIMEOUT = 300
 
 
+@contextlib.contextmanager
+def one_thread_children():
+    """Processes started inside begin with one OpenMP thread
+    (``OMP_NUM_THREADS=1`` in the environment they inherit): the test
+    workers already share the cores."""
+    before = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = before
+
+
 def spawn_world(fn, payload, out_dir, world=2, join_timeout=JOIN_TIMEOUT):
     """Run ``fn(payload)`` on every rank of a gloo world of ``world`` CPU
     processes; returns the ranks' return values, in rank order."""
@@ -34,8 +51,9 @@ def spawn_world(fn, payload, out_dir, world=2, join_timeout=JOIN_TIMEOUT):
     # as bytes: torch.multiprocessing would hand every rank one shared-memory
     # storage of each tensor in the payload, and an optimizer state loaded
     # from it would be stepped by every rank at once
-    launch(_run_rank, world, backend="gloo", args=(fn, pickle.dumps(payload), out_dir),
-           timeout=datetime.timedelta(seconds=join_timeout), join_timeout=join_timeout)
+    with one_thread_children():
+        launch(_run_rank, world, backend="gloo", args=(fn, pickle.dumps(payload), out_dir),
+               timeout=datetime.timedelta(seconds=join_timeout), join_timeout=join_timeout)
     out = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
