@@ -13,7 +13,9 @@ Phases, each fatal on failure (exit code 1, no result line):
                 DSFVT shapes, with the tolerances below; times both. Kernel 2
                 also at the rollout's batch sizes (b in 1, 8, 16 x live in
                 64, 256; bf16, and fp32 at b=1) beside the library call and
-                the bound.
+                the bound. Kernels 1, 10, 2 and 6 also at the shapes of one
+                tensor-parallel rank's shard (TPU.MESH_MODEL 2: 4 heads of
+                128, 256 codes a sub-codebook), with times and bounds.
   4. main     — the generation path (PR-DVQVAE2 encode of example/*.png, DSFVT
                 KV-cached rollout, decode) at full width with seeded random
                 weights: batch 1 through scripts/generate_videos_torch.py as a
@@ -94,8 +96,7 @@ Phases, each fatal on failure (exit code 1, no result line):
  11. main i8  — the quantized sampler at full width, batch 8, bf16, all 11
                 sampled frames, greedy, through generate() (the graph) with
                 TEST.VT_SAMPLER.KV_DTYPE / ATTN_IMPL / WEIGHT_DTYPE set: a
-                native rollout for reference, and the same rollout by the
-                eager loop, its codes equal; then int8 KV + xla (PyTorch's
+                native rollout for reference; then int8 KV + xla (PyTorch's
                 ops, launches of kernels 2, 3, 4, 11 (0, 0, 0, 0)), int8 KV +
                 pallas (kernel 3), int8 KV + pallas-live (kernel 4), int8 KV +
                 pallas + int8-pallas weights (kernels 3 and 11). Launch counts
@@ -104,18 +105,20 @@ Phases, each fatal on failure (exit code 1, no result line):
                 launch per layer and pixel that also quantizes q and writes
                 the new cache row) and 90,112 of kernel 11 per rollout.
                 Seconds with the capture's share, peak device memory and
-                greedy agreement with the native rollout.
- 11b. slices  — one slice of the batch-8 bf16 rollout, greedy, in every
-                sampler mode (native; int8 KV with xla, xla + int8 mm,
-                pallas, pallas-live; int8 and int8-pallas weights; int8 KV +
-                pallas with int8-pallas weights), by the eager loop and by
-                the slice's graph: codes bit-equal; each under
+                greedy agreement with the native rollout. The last slice of
+                each rollout again, conditioned on the rollout's own frames,
+                by the eager loop (and natively by a graph captured anew):
+                codes equal.
+ 11b. slices  — one slice of the batch-8 bf16 rollout, greedy, natively and
+                in the sampler modes phase 11 does not roll out (int8 KV with
+                xla + int8 mm; int8 and int8-pallas weights), by the eager
+                loop and by the slice's graph: codes bit-equal; each under
                 torch.profiler (wall time, device busy share, activities per
                 pixel, the graph's within a share ACTIVITY_GAP of the eager
                 loop's); each hand-written kernel's launches in the graph's
                 profile exactly those its capture recorded (kernel 1: the
                 encoder's, eager).
- 12. agree i8 — fp32, batch 2, full width: every quantized mode's teacher-
+ 12. agree i8 — fp32, batch 1, full width: every quantized mode's teacher-
                 forced logits on the card against the plain path on the CPU.
  12b. bench slice — bench.py's program (b = 1024, bf16, int8 KV, xla),
                 one slice through its graph, and the same with mm_dtype
@@ -151,9 +154,9 @@ Phases, each fatal on failure (exit code 1, no result line):
                 live in (1, 64, 200, 256); tools/probe_decode_kernel_torch.py's
                 timing run, beside kernels 2 and 3.
  17. eval     — tools/train_net_torch.py --eval-only at full width on a test
-                set of 4 videos x 16 PNG frames of 64x64 written from a numpy
+                set of 2 videos x 16 PNG frames of 64x64 written from a numpy
                 seed (bair_test_seq's layout). Stage 1: PR-DVQVAE2 from phase
-                14's OUTPUT_DIR, MSE and the 4 x 16 latent files (4, 16, 16)
+                14's OUTPUT_DIR, MSE and the 2 x 16 latent files (4, 16, 16)
                 of CodesExtractor, exactly one launch of kernel 6 a video
                 (encode_indices' default on the card since phase 19's count
                 on a trained codebook); seconds, device busy share, peak
@@ -174,7 +177,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                 rollout capture each.
 
  18. data parallel — engine.launch worlds, each rank on its rows of the
-                global batches for 4 steps (the last profiled): DSFVT at full
+                global batches for 3 steps (the last profiled): DSFVT at full
                 width, fused (kernels 7, 8, 9; 16 videos), and PR-DVQVAE2 as
                 it stands (kernel 6; 32 frames). (a) 2 ranks on the one card
                 over gloo, (b) NCCL at one rank per card (up to 4). On rank 0
@@ -188,13 +191,25 @@ Phases, each fatal on failure (exit code 1, no result line):
                 average's share of the step, peak memory, per rank. Then,
                 at two ranks or more, one greedy video a rank through
                 generate_sharded (kernels 1 and 2 in the rollout's graph),
-                each equal to it generated alone.
+                each equal to it generated alone. Then the 2 gloo ranks as
+                a tensor-parallel world, data 1 x model 2 (TPU.MESH_MODEL 2):
+                2 unfused bf16 DSFVT steps at global batch 8 and 2
+                PR-DVQVAE2 steps at 32 (the codebook split over its codes,
+                kernel 6), each held on rank 0 to a one-process Trainer from
+                the same state (the gathered gradient within TP_OWN_ROUNDING
+                of bf16's own rounding, the params by the gradient rule, the
+                codes under the near-tie rule); one fp32 loss + backward of
+                DSFVT held to the whole model by the gradient rule with its
+                TF32 control; one fp32 greedy b = 8 slice through the eager
+                sampler, its codes equal to one rank's or differing only at
+                logit near-ties; exact launches per rank, seconds, the
+                collectives' share of a step.
 
  19. e2e      — the native IO library (lvt_tpu_torch/native) must build and
                 load. tools/e2e_demo_torch.py's main at its defaults, full
                 width, in both modes (BAIR: PR-DVQVAE2 -> DSFVT on 64 seeded
                 moving-squares videos; class-conditional: K-DVQVAE -> KDSFVT,
-                CLASS_NUM 600, on 3 classes x 22), but 60 + 60 steps at batch
+                CLASS_NUM 600, on 3 classes x 22), but 30 + 30 steps at batch
                 16, every count set to 0 before each mode: each stage's
                 seconds and launches, held to _e2e_expected (kernel 6 a VQ-VAE
                 step, kernels 7, 8, 9 16 a VT step, kernel 7 256 a video of
@@ -260,11 +275,16 @@ Phases, each fatal on failure (exit code 1, no result line):
                 (TorchProfiler) on 3 fused steps at batch 16, its trace read
                 by tools/trace_summary_torch.py.
 
-Phases 10 to 13 run right after phase 5, while the generation models are
-loaded (10b right after 10, 11b and 12b after 11 and 12); phases 8 and 14
-keep their OUTPUT_DIRs for phase 17. The line before the last is
+Order: 1, 2, then the phases that time kernels alone on the card (3, 10,
+10b, 6, 7, 16), then 4, 5, 5b, 13 (the generation models loaded); then
+phases 18 to 21 start in two side processes (18 then 19; 20 then 21) beside
+11, 11b, 12, 12b, 8, 9, 14, 15, 17 in the main process, whose times are
+therefore taken with the card and the host shared (see SIDE_GROUPS). Phases
+8 and 14 keep their OUTPUT_DIRs for phase 17. The line before the last is
 {"kernels": [...]}, each kernel with its main-path launches, phase 17's
-("eval_launches"), phase 18's per rank of each world ("dp_launches"),
+("eval_launches"), phase 18's per rank of each world ("dp_launches") and
+of its tensor-parallel world ("tp_launches"), phase 3's at one rank's shard
+("tp_shard"),
 phase 19's per run ("e2e_launches"), phase 20's per run
 ("geometry_launches") and phase 21's per run ("tools_launches"); the last
 line is {"ok": true, "device": {...}}.
@@ -666,7 +686,144 @@ def phase_kernels(card):
     res["decode_attention"] = dict(zip(("ms", "plain_ms"), t2[("bfloat16", 256)]), err=err2,
                                    bound_ms=b2, bound_by=by2, library_ms=lib2,
                                    sweep=decode_sweep(card))
+    res["tp_shard"] = shard_kernels(card)
     return res
+
+
+# the shapes of one rank's shard under TPU.MESH_MODEL 2 (phase 18's tensor
+# parallel world): DSFVT's 8 heads of 128 split to 4, PR-DVQVAE2's 512 codes a
+# sub-codebook split to 256
+SHARD_HEADS, SHARD_CODES = 4, 256
+
+
+def shard_kernels(card):
+    """Kernels 1, 10, 2 and 6 at the shapes of one tensor-parallel rank's
+    shard, each against its plain version on the same inputs, with times:
+    kernels 1 and 10 at nb=16, 4 heads of 128, n=256; kernel 2 at b=8 (a
+    rollout's rank), 4 heads, live 1 / 17 / 256 (its cluster plan at na=4);
+    kernel 6 at N=8192 (a PR-DVQVAE2 b32 step), G=4, Dc=64, K=256 (its code
+    split, ``nearest_plan``, at K=256). Tolerances as at the whole shapes.
+    Returns {kernel: {"ms", "plain_ms", "err", "shape"}}."""
+    import torch
+
+    from lvt_tpu_torch.ops.attention import (attention_core_bwd_plain, attention_core_plain,
+                                             block_attention_bwd_cuda, block_attention_fwd_cuda)
+    from lvt_tpu_torch.ops.cache_attention import (decode_attention_cuda, decode_attention_plain,
+                                                   decode_plan)
+    from lvt_tpu_torch.ops.vq import (nearest_indices_grouped_cuda,
+                                      nearest_indices_grouped_plain, nearest_plan)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+    nb, na, n, da = 16, SHARD_HEADS, 256, 128
+    shape = f"nb={nb}, na={na}, n={n}, da={da}"
+    err1 = err10 = 0.0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        sets = [[torch.randn((nb, na, n, da), generator=g, device=dev).to(dt) for _ in range(3)]
+                + [0.5 * torch.randn((na, n, n), generator=g, device=dev),
+                   torch.randn((nb, na, n, da), generator=g, device=dev).to(dt)]
+                for _ in range(3)]
+        for causal in (False, True):
+            x = sets[0]
+            e, ok = _err(block_attention_fwd_cuda(*x[:4], causal),
+                         attention_core_plain(*x[:4], causal), dtype, fwd_tol(dtype, x[2]))
+            check(ok, f"tp shard: block_attention_fwd disagrees with its plain version "
+                      f"({dtype}, causal={causal}, {shape}): {e}")
+            err1 = max(err1, e)
+            errs = []
+            for name, a, b in zip(("dq", "dk", "dv", "dbias"),
+                                  block_attention_bwd_cuda(*x, causal),
+                                  attention_core_bwd_plain(*x, causal)):
+                e, ok = _err(a, b, dtype, DBIAS_TOL if name == "dbias" else bwd_tol(dtype, b))
+                check(ok, f"tp shard: block_attention_bwd {name} disagrees with its plain "
+                          f"version ({dtype}, causal={causal}, {shape}): {e}")
+                errs.append(e)
+            err10 = max(err10, *errs)
+            print(f"tp shard, kernels 1 and 10 {dtype} causal={causal} ({shape}): max_abs_err "
+                  f"fwd {err1:.3g}; dq, dk, dv, dbias {', '.join(f'{e:.3g}' for e in errs)}")
+        if dtype == "bfloat16":
+            fwd = [x[:4] for x in sets]
+            out["block_attention_fwd"] = dict(zip(("ms", "plain_ms"), time_both(
+                card, [lambda x=x: block_attention_fwd_cuda(*x, False) for x in fwd],
+                [lambda x=x: attention_core_plain(*x, False) for x in fwd], 30,
+                f"kernel 1 bf16 {shape} ")), shape=shape)
+            out["block_attention_bwd"] = dict(zip(("ms", "plain_ms"), time_both(
+                card, [lambda x=x: block_attention_bwd_cuda(*x, False) for x in sets],
+                [lambda x=x: attention_core_bwd_plain(*x, False) for x in sets], 10,
+                f"kernel 10 bf16 {shape} ")), shape=shape)
+        del sets
+    out["block_attention_fwd"]["err"], out["block_attention_bwd"]["err"] = err1, err10
+    io = nb * na * n * da
+    for k, nbytes, flops in (("block_attention_fwd", 4 * io * 2 + na * n * n * 4, 4 * io * n),
+                             ("block_attention_bwd", 7 * io * 2 + 2 * na * n * n * 4,
+                              10 * io * n)):
+        out[k]["bound_ms"], out[k]["bound_by"] = bound_ms("bfloat16", nbytes, flops)
+
+    b, R = 8, 256
+    shape = f"b={b}, na={na}, R={R}, da={da}"
+    err2 = 0.0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, na, da), generator=g, device=dev).to(dt)
+        bias = 0.5 * torch.randn((na, R), generator=g, device=dev)
+        for live in (1, 17, 256):
+            sets = []
+            for _ in range(4 if live == 256 else 1):
+                kc = torch.randn((b, na, R, da), generator=g, device=dev).to(dt)
+                vc = torch.randn((b, na, R, da), generator=g, device=dev).to(dt)
+                kc[:, :, live:] = float("nan")  # rows >= live must never be read
+                vc[:, :, live:] = float("nan")
+                sets.append((kc, vc))
+            e, ok = _err(decode_attention_cuda(q, *sets[0], live, bias, da ** -0.5),
+                         decode_attention_plain(q, *sets[0], live, bias, da ** -0.5), dtype)
+            check(ok, f"tp shard: decode_attention disagrees with its plain version ({dtype}, "
+                      f"live={live}, {shape}): {e}")
+            err2 = max(err2, e)
+            print(f"tp shard, kernel 2 decode_attention {dtype} live={live} ({shape}, plan "
+                  f"(cluster, chunk) {decode_plan(b, na, live)}): max_abs_err {e:.3g}")
+            if dtype == "bfloat16" and live == 256:
+                out["decode_attention"] = dict(zip(("ms", "plain_ms"), time_both(
+                    card, [lambda c=c: decode_attention_cuda(q, *c, live, bias, da ** -0.5)
+                           for c in sets],
+                    [lambda c=c: decode_attention_plain(q, *c, live, bias, da ** -0.5)
+                     for c in sets], 200, f"kernel 2 bf16 {shape} live={live} ")),
+                    shape=shape)
+    out["decode_attention"]["err"] = err2
+    out["decode_attention"]["bound_ms"], out["decode_attention"]["bound_by"] = bound_ms(
+        "bfloat16", (2 * b * na * R * da + 2 * b * na * da) * 2 + na * R * 4, 4 * b * na * R * da)
+
+    N, G, K, Dc = 8192, 4, SHARD_CODES, 64
+    shape = f"N={N}, G={G}, K={K}, Dc={Dc}"
+    codebooks = torch.randn((G, K, Dc), generator=g, device=dev)
+    n_diff = 0
+    for dtype in ("float32", "bfloat16"):
+        sets = [torch.randn((N, G, Dc), generator=g, device=dev).to(getattr(torch, dtype))
+                for _ in range(8)]
+        z = sets[0]
+        got, want = nearest_indices_grouped_cuda(z, codebooks), nearest_indices_grouped_plain(
+            z, codebooks)
+        res = [_indices_ok(got[:, i], want[:, i], z[:, i, :], codebooks[i]) for i in range(G)]
+        check(all(r[2] for r in res), f"tp shard: nearest_indices disagrees with its plain "
+                                      f"version ({dtype}, {shape}): {res}")
+        n_diff = max(n_diff, sum(r[0] for r in res))
+        print(f"tp shard, kernel 6 nearest_indices {dtype} ({shape}, plan (ksplit, blocks) "
+              f"{nearest_plan(N, G, K)}): {sum(r[0] for r in res)} of {N * G} indices differ "
+              f"from the plain version's, {sum(r[1] for r in res)} of them no near-tie")
+        if dtype == "bfloat16":
+            out["nearest_indices"] = dict(zip(("ms", "plain_ms"), time_both(
+                card, [lambda s=s: nearest_indices_grouped_cuda(s, codebooks) for s in sets],
+                [lambda s=s: nearest_indices_grouped_plain(s, codebooks) for s in sets], 64,
+                f"kernel 6 bf16 {shape} ")), shape=shape)
+        del sets
+    out["nearest_indices"]["err"] = n_diff
+    out["nearest_indices"]["bound_ms"], out["nearest_indices"]["bound_by"] = bound_ms(
+        "float32", N * G * Dc * 2 + G * K * Dc * 4 + N * G * 4, 2 * N * G * K * Dc)
+    for k, r in out.items():
+        print(f"  tp shard {k} ({r['shape']}): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+    return out
 
 
 def decode_sweep(card):
@@ -812,16 +969,23 @@ def phase_main(card):
     return total, models, codes
 
 
-SLICE_MODES = (  # label, knobs of sample_slice_incremental: every sampler mode
+SLICE_MODES = (  # label, knobs of sample_slice_incremental: every sampler mode alone
     ("native", {}),
     ("int8 KV + xla", {"kv_dtype": "int8"}),
     ("int8 KV + xla + int8 mm", {"kv_dtype": "int8", "mm_dtype": "int8"}),
     ("int8 KV + pallas", {"kv_dtype": "int8", "attn_impl": "pallas"}),
     ("int8 KV + pallas-live", {"kv_dtype": "int8", "attn_impl": "pallas-live"}),
     ("int8 weights", {"weight_dtype": "int8"}),
-    ("int8-pallas weights", {"weight_dtype": "int8-pallas"}),
-    ("int8 KV + pallas + int8-pallas weights",
-     {"kv_dtype": "int8", "attn_impl": "pallas", "weight_dtype": "int8-pallas"}))
+    ("int8-pallas weights", {"weight_dtype": "int8-pallas"}))
+# (int8 KV + pallas with int8-pallas weights, kernels 3 and 11 together, runs as
+# a whole rollout in phase 11 and in phase 20's DSSVT; each of its kernels'
+# modes stands above, so phases 11b and 12 leave the pair out for the time
+# limit)
+# Phase 11b profiles the native slice and the modes that phase 11 does not roll
+# out (for the time limit); phase 11 holds the last slice of each of its
+# rollouts to the eager loop, so every mode's graph is held to it.
+SLICE_PROFILED = tuple(m for m in SLICE_MODES if m[0] in (
+    "native", "int8 KV + xla + int8 mm", "int8 weights", "int8-pallas weights"))
 # device activities of a slice under the graph against the eager loop's: the
 # same launches, plus the copies of the slice's inputs into the graph's
 # buffers and of its codes out (4 a slice), within a share of the eager
@@ -845,22 +1009,25 @@ PROFILES_AGREE = ACTIVITY_GAP / 4
 
 
 class _Profiles:
-    """fn() run once unprofiled (``wall``), then under torch.profiler once a
-    call of ``add``, each run synchronized: ``counts`` {device function: the
-    most launches any profile recorded}, ``totals`` the profiles' activity
-    counts, ``best`` (wall s under the profiler, device events as (name, µs))
-    of the profile with the most events. The events are the profiler's raw
-    records: turning ~100k of them into FunctionEvents took ~15 s a profile."""
+    """fn() run once unprofiled (``wall``; with ``unprofiled=False`` not, and
+    ``wall`` None), then under torch.profiler once a call of ``add``, each
+    run synchronized: ``counts`` {device function: the most launches any
+    profile recorded}, ``totals`` the profiles' activity counts, ``best``
+    (wall s under the profiler, device events as (name, µs)) of the profile
+    with the most events; ``out`` fn's result of its first run. The events
+    are the profiler's raw records: turning ~100k of them into FunctionEvents
+    took ~15 s a profile."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, unprofiled=True):
         import torch
 
-        self.fn = fn
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        self.out = fn()
-        torch.cuda.synchronize()
-        self.wall = time.perf_counter() - t0
+        self.fn, self.out, self.wall = fn, None, None
+        if unprofiled:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.out = fn()
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - t0
         self.best, self.counts, self.totals = None, {}, []
 
     def add(self):
@@ -869,9 +1036,11 @@ class _Profiles:
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            self.fn()
+            out = self.fn()
             torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t0
+        if self.out is None:
+            self.out = out
         kern = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
                 if e.device_type() == torch.autograd.DeviceType.CUDA]
         if self.best is None or len(kern) > len(self.best[1]):
@@ -1024,7 +1193,9 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
                     return dec.run(zl, sl, primed_t, None, 1.0, True)
                 return sample_slice_incremental(params["netG"], c, plan.slice_shape, zl, sl,
                                                 None, primed, 1.0, greedy=True, **knobs)
-            ways = {"eager": _Profiles(eager).fill(PROFILES, PROFILES_MAX)}
+            # the eager way profiled only (its unprofiled run, 1.3-3.7 s a mode,
+            # left out for the time limit; phase 11 times the eager loop)
+            ways = {"eager": _Profiles(eager, unprofiled=False).fill(PROFILES, PROFILES_MAX)}
             if on_graph:
                 zl, sl = encoded()
                 graph = (vts or {}).get(label, vt)._slice_graph(params, zl, sl, primed_t, knobs,
@@ -1061,9 +1232,13 @@ def phase_slices(card, models, codes, modes=SLICE_MODES, vts=None):
             n = sum(counts.values())
             acts[way] = n / thw
             print(f"profile, one slice (256 pixels) of the batch-{b} bf16 rollout, {label}, "
-                  f"{way} [{card}]: wall {wall:.3f} s ({wall_prof:.3f} s under the profiler), "
-                  f"device busy {busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled "
-                  f"wall time, {100 * busy / wall:.1f}% of the unprofiled; {n} device "
+                  f"{way} [{card}]: wall "
+                  + (f"{wall:.3f} s ({wall_prof:.3f} s under the profiler)" if wall is not None
+                     else f"{wall_prof:.3f} s under the profiler")
+                  + f", device busy {busy:.3f} s = {100 * busy / wall_prof:.1f}% of the profiled "
+                  f"wall time"
+                  + (f", {100 * busy / wall:.1f}% of the unprofiled" if wall is not None else "")
+                  + f"; {n} device "
                   f"activities = {n / thw:.2f} per pixel (each function's most in "
                   f"{len(totals)} profiles of {', '.join(map(str, totals))}), copies and casts "
                   f"{copies / thw:.2f} per pixel"
@@ -2378,28 +2553,34 @@ def phase_main_i8(card, models):
         print(f"main path batch {b} bf16 greedy, {label} [{card}]: {line}; launches of "
               f"kernels 2, 3, 4, 11 {took}; greedy codes equal to the native rollout's: "
               f"{agree:.4f} of all sampled, {first:.4f} of the first sampled frame")
-        if not knobs and hasattr(vt, "_slice_graph"):
-            # the same rollout by the eager loop and by a graph captured anew
-            # (a model with an empty graph cache), the sampler alone, its
-            # memory measured alike: the peak of allocated bytes, and the
-            # growth of reserved bytes (the graph's private pool among them)
-            start = torch.zeros_like(codes)
-            start[:, :, :N_PRIME] = primed
-            for way, m in (("eager loop", vt), ("graph, captured anew", _quantized_vt(vt))):
+        if hasattr(vt, "_slice_graph"):
+            # the rollout's last slice again, the sampler alone, conditioned on
+            # the rollout's own earlier frames: by the eager loop in every mode
+            # (phase 11b profiles the native slice and the modes this phase
+            # does not roll out), and natively also by a graph captured anew
+            # (a model with an empty graph cache); memory measured alike: the
+            # peak of allocated bytes, and the growth of reserved bytes (the
+            # graph's private pool among them)
+            s = model.cfg.TEST.VT_SAMPLER
+            ways = [("eager loop", model)] + ([("graph, captured anew", _quantized_vt(vt))]
+                                              if not knobs else [])
+            for way, m in ways:
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved()
                 torch.cuda.reset_peak_memory_stats()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                got = m.sample_video(vt_params, start, n_prime=N_PRIME, greedy=True,
+                got = m.sample_video(vt_params, codes, n_prime=T_FRAMES - 1, greedy=True,
+                                     kv_cache_dtype=s.KV_DTYPE, kv_seg_size=s.SEG,
+                                     attn_impl=s.ATTN_IMPL, weight_dtype=s.WEIGHT_DTYPE,
                                      _eager=way == "eager loop")
                 torch.cuda.synchronize()
                 took_s = time.perf_counter() - t0
-                check(torch.equal(got, codes), f"{label}, {way}: greedy codes differ from the "
-                                               "graph rollout's through generate()")
-                print(f"main path batch {b} bf16 greedy, {label}, sampler alone, {way} "
-                      f"[{card}]: rollout {took_s:.3f} s, {b * n_slices / took_s:.3f} generated "
-                      f"frames/s; max_memory_allocated "
+                check(torch.equal(got, codes), f"{label}, {way}: the last slice's greedy codes "
+                                               "differ from the graph rollout's through "
+                                               "generate()")
+                print(f"main path batch {b} bf16 greedy, {label}, sampler alone, last slice, "
+                      f"{way} [{card}]: {took_s:.3f} s; max_memory_allocated "
                       f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, reserved grew "
                       f"{(torch.cuda.max_memory_reserved() - reserved) / 2 ** 20:.1f} MiB; greedy "
                       "codes equal to the rollout's through generate()")
@@ -2484,7 +2665,7 @@ def phase_bench_slice(card, models):
 
 
 def phase_agree_i8(card):
-    """fp32, b=2, full width, one slice teacher-forced: every mode of the
+    """fp32, b=1, full width, one slice teacher-forced: every mode of the
     quantized sampler (SLICE_MODES: the kernel modes, and int8 KV with
     `xla`, `xla` + int8 mm and int8 weights, which run PyTorch's CUDA ops)
     on the card against the plain path on the CPU."""
@@ -2500,13 +2681,13 @@ def phase_agree_i8(card):
     cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"))
     dev = torch.device("cuda")
     *_, vt, params = gvt.build_models(cfg, 1, dev, torch.float32)
-    video = np.random.default_rng(0).integers(0, vt.c.nv, size=(2, vt.c.nc, T_FRAMES, 16, 16))
+    video = np.random.default_rng(0).integers(0, vt.c.nv, size=(1, vt.c.nc, T_FRAMES, 16, 16))
     modes = {label: {"kv_dtype": "native", "weight_dtype": "native", "mm_dtype": "native",
                      "attn_impl": "xla", **knobs} for label, knobs in SLICE_MODES}
     out = {}
     for name, device, p in (("card", dev, params["netG"]),
                             ("cpu", torch.device("cpu"), to_device(params["netG"], "cpu"))):
-        sidx = torch.full((2,), N_PRIME, dtype=torch.int64, device=device)
+        sidx = torch.full((len(video),), N_PRIME, dtype=torch.int64, device=device)
         ctx, sl, _ = vt.prepare_slices(torch.from_numpy(video).to(device), sidx)
         with torch.no_grad():
             zl = vt_encode(p, vt.c, ctx, sidx)
@@ -2524,7 +2705,7 @@ def phase_agree_i8(card):
         err = out["card", label] - out["cpu", label]
         ctl = out["card", "native"] - out["cpu", label]
         bound = AGREE_I8[modes[label]["weight_dtype"]] * rms(gap)
-        print(f"agree i8 fp32 b=2 full width, {label} [{card}]: teacher logits card vs cpu plain "
+        print(f"agree i8 fp32 b=1 full width, {label} [{card}]: teacher logits card vs cpu plain "
               f"rms {rms(err):.3g} (max {float(err.abs().max()):.3g}); the mode's gap to the "
               f"native sampler rms {rms(gap):.3g} (max {float(gap.abs().max()):.3g}); bound "
               f"{bound:.3g} rms; control, native logits on the card against this mode's: rms "
@@ -3054,7 +3235,7 @@ def phase_probe_kernel(card):
 # frame a slice), each through 8 + 8 fused layers, one kernel-7 launch each
 # and none of kernel 1; a rollout encodes each of its 11 sampled slices (8
 # layers of kernel 1) and decodes 256 pixels x 8 layers (kernel 2).
-EVAL_VIDEOS = 4  # cut from BAIR's 256 for the time limit
+EVAL_VIDEOS = 2  # cut from BAIR's 256 for the time limit
 EVAL_K7_PER_VIDEO = T_FRAMES * (8 + 8)
 EVAL_K1_PER_ROLLOUT = (T_FRAMES - N_PRIME) * 8
 EVAL_K2_PER_ROLLOUT = (T_FRAMES - N_PRIME) * 256 * 8
@@ -3439,7 +3620,7 @@ def phase_eval(card, vq_dir, vt_dir):
 # phase 18: data parallel. Steps of each run (the last one profiled), global
 # batches of DSFVT (videos) and PR-DVQVAE2 (frames), the most ranks NCCL
 # takes (one per card), and the seconds a world may run before launch stops it
-DP_STEPS, DP_VT_BATCH, DP_VQ_BATCH, DP_MAX_WORLD, DP_JOIN_TIMEOUT = 4, 16, 32, 4, 420
+DP_STEPS, DP_VT_BATCH, DP_VQ_BATCH, DP_MAX_WORLD, DP_JOIN_TIMEOUT = 3, 16, 32, 4, 420
 
 
 def _dp_runs():
@@ -3702,8 +3883,448 @@ def _dp_rank(spec, out_dir):
         torch.cuda.empty_cache()
     if world > 1:  # at one rank the sharded rollout is phase 4's
         res["generate"] = _dp_generate(rank, world, device, wrappers)
+    if backend_is_gloo(res["backend"]) and world == TP_MODEL:
+        res["tp"] = _tp_rank(rank, device)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+def backend_is_gloo(name):
+    return "gloo" in name.lower()
+
+
+# phase 18's tensor-parallel world: the two gloo ranks on the card as data 1 x
+# model TP_MODEL (TPU.MESH_MODEL 2). DSFVT unfused bf16 steps at global batch
+# TP_VT_BATCH, PR-DVQVAE2 steps at TP_VQ_BATCH (phase 14's batch) with the
+# codebook split over its codes, one fp32 greedy slice of the rollout at b =
+# TP_SLICE_BATCH; launches per rank of each (kernels 1 and 10 per unfused step
+# with per-layer remat: 32 and 16 on the rank's 4 heads; kernel 6 once a step on
+# the rank's 256 codes a sub-codebook; the slice's encoder pass 8 of kernel 1,
+# its 256 pixels x 8 layers of kernel 2)
+TP_MODEL, TP_STEPS, TP_VT_BATCH, TP_VQ_BATCH, TP_SLICE_BATCH = 2, 2, 8, 32, 8
+TP_PER_STEP = {"DSFVT": {"block_attention_fwd": 32, "block_attention_bwd": 16},
+               "PR-DVQVAE2": {"nearest_indices": 1}}
+TP_SLICE = {"block_attention_fwd": 8, "decode_attention": 256 * 8}
+# The bf16 TP step's gradient against the one-process bf16 step's. The TP
+# step rounds elsewhere (each rank's partial products of proj and FFN 2, and
+# of the input gradient of the column-parallel products, are rounded to bf16
+# before their sum), and a bf16 gradient of the VT is as far from another
+# rounding of itself as from fp32: at a narrowed DSFVT on the CPU the TP step
+# read 0.066-0.078 worst leaf and 0.043-0.045 whole, the one-process bf16 step
+# against fp32 0.080 and 0.046. So the gradient rule (GRAD_TOL, with its TF32
+# control) is held in fp32 (``_tp_agree``), and the bf16 step's distance is
+# held within TP_OWN_ROUNDING times bf16's own rounding measured on the same
+# state: a wrong sum over the group (a factor of 2, a missing part) reads
+# ~1 and above.
+TP_OWN_ROUNDING = 2.0
+
+
+def _tp_timed_collectives():
+    """Wrap the collectives of parallel/collectives.py with synchronized
+    timers: returns (seconds list, undo)."""
+    import torch
+
+    from lvt_tpu_torch.parallel import collectives as col
+
+    spent, inner = [], (col._all_reduce, col._all_gather)
+
+    def timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    col._all_reduce, col._all_gather = timed(inner[0]), timed(inner[1])
+
+    def undo():
+        col._all_reduce, col._all_gather = inner
+    return spent, undo
+
+
+def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
+    """TP_STEPS steps of a tensor-parallel Trainer (TPU.MESH_MODEL 2) of
+    ``config`` on the whole global batches (one data index); on rank 0 a
+    one-process Trainer from the same state (the synced scheme) on the same
+    batch, whose gradient the TP step's gathered gradient is held to; with
+    ``own_rounding`` also the one-process step in fp32 (TF32 off), whose
+    distance from the one-process step is the compute dtype's own rounding.
+    Returns per step: seconds, launches, the collectives' seconds (the last
+    step, timed by synchronized wrappers), and on rank 0 the comparisons."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.checkpoint.convert import flatten
+    from lvt_tpu_torch.engine.trainer import Trainer
+    from lvt_tpu_torch.ops import vq
+    from lvt_tpu_torch.parallel import sharding
+
+    cfg = gvt.load_config(config, opts + ["TPU.MESH_MODEL", str(TP_MODEL)])
+    tr = Trainer(cfg, iter(()), device=device)
+    ref = ref32 = None
+    if rank == 0:
+        ref = Trainer(gvt.load_config(config, opts), iter(()), device=device)
+        ref.group = None  # the one-process trainer: its batch is the whole batch
+        if own_rounding:
+            ref32 = Trainer(gvt.load_config(config, opts + ["TPU.COMPUTE_DTYPE", "float32"]),
+                            iter(()), device=device)
+            ref32.group = None
+    grads, taken = {}, []
+
+    def capture(trainer, key, tp):
+        inner = trainer._average_grads
+
+        def averaged():
+            inner()
+            g = trainer.state.accum_grads()
+            if tp:  # every rank gathers; the parts made whole
+                g = sharding.gather_tree(g, trainer.model_group, trainer._tp.params)
+            grads[key] = {k: v.float() for k, v in flatten(g).items()}
+        trainer._average_grads = averaged
+
+    capture(tr, "tp", True)
+    if ref is not None:
+        capture(ref, "ref", False)
+    if ref32 is not None:
+        capture(ref32, "ref32", False)
+    inner_q = vq.quantize_st
+
+    def recording(z_e, codebook, *a, **k):
+        res = inner_q(z_e, codebook, *a, **k)
+        taken.append((z_e.detach(), res[2]))
+        return res
+    out = {"step_s": [], "launches": [], "cmp": [], "collective_s": None, "peak": None}
+    torch.cuda.reset_peak_memory_stats()
+    vq.quantize_st = recording
+    try:
+        for i, batch in enumerate(batches):
+            if i:  # the TP state made whole (every rank gathers); step 1's is every init's
+                tree = tr.checkpoint_tree()
+                for t in (ref, ref32):
+                    if t is not None:
+                        t.load_tree(copy.deepcopy(tree))
+                del tree
+            if ref is not None:  # the codebook the step's codes are found in
+                emb = ref.state.model_state.get("netC", {}).get("embedding")
+            spent, undo = _tp_timed_collectives() if i == len(batches) - 1 else (None, None)
+            _zero_counts()
+            taken.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                metrics = tr.train_step(tr._put_batch(batch))
+                torch.cuda.synchronize()
+            finally:
+                if undo is not None:
+                    undo()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["launches"].append(_launched())
+            if spent is not None:
+                out["collective_s"] = [sum(spent), len(spent)]
+            tp_codes = list(taken)
+            if ref is None:
+                continue
+            c = {}
+            forced = vq.nearest_indices_grouped
+            if tp_codes and emb is not None:
+                # the TP step's codes against the whole codebook's search on the
+                # same z, by the near-tie rule; the one-process step then takes
+                # the TP step's codes, so that a near-tie decided the other way
+                # does not move its decoder's input (and gradient)
+                (z, got) = tp_codes[-1]
+                G = got.shape[-1]
+                got = got.reshape(-1, G)
+                z = z.reshape(got.shape[0], G, -1)
+                want_idx = vq.nearest_indices_grouped(z, emb.to(z.device))
+                counts = [_indices_ok(got[:, j].cpu(), want_idx[:, j].cpu(),
+                                      z[:, j, :].float().cpu(), emb[j].cpu()) for j in range(G)]
+                c["indices"] = [sum(x[0] for x in counts), sum(x[1] for x in counts),
+                                all(x[2] for x in counts), int(got.numel())]
+                vq.nearest_indices_grouped = lambda z_, cb, use_kernel=None: got
+            try:
+                want = ref.train_step(ref._put_batch(batch))
+            finally:
+                vq.nearest_indices_grouped = forced
+            c.update(loss=[float(sum(float(v) for v in metrics.values())),
+                           float(sum(float(v) for v in want.values()))],
+                     grads=_rel_frobenius(grads["tp"], grads["ref"]))
+            if ref32 is not None:
+                ref32.train_step(ref32._put_batch(batch))
+                c["own"] = _rel_frobenius(grads["ref"], grads["ref32"])
+            out["cmp"].append(c)
+        # after the last step: the params, made whole, against the one-process run's
+        whole = flatten(tr.checkpoint_tree()["params"])
+        if ref is not None:
+            out["params"] = _rel_frobenius({k: v.float() for k, v in whole.items()},
+                                           {k: v.float() for k, v in
+                                            flatten(ref.state.params).items()})
+        out["local_shapes"] = {k: list(v.shape) for k, v in flatten(tr.state.params).items()
+                               if k.endswith(("layers.0.wq", "layers.0.ffn_w1", "netC.embedding",
+                                              "ch_embed"))}
+        out["local_shapes"].update({k: list(v.shape) for k, v in
+                                    flatten(tr.state.model_state).items()
+                                    if k.endswith("netC.embedding")})
+    finally:
+        vq.quantize_st = inner_q
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del tr, ref, ref32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_agree(rank, device):
+    """One fp32 loss + backward of DSFVT at b = 2, unfused, tensor-parallel
+    against the whole model on the same card and inputs (phase 8b's
+    comparison), and on rank 0 the TF32 control: the whole model's gradient
+    with TF32 allowed, which must read above the bounds. Returns on rank 0
+    (tp vs whole, control vs whole) as ``_rel_frobenius`` gives them, and
+    the losses."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.checkpoint.convert import flatten
+    from lvt_tpu_torch.models import to_device
+    from lvt_tpu_torch.models.vt import VideoTransformer
+    from lvt_tpu_torch.parallel import sharding
+    from lvt_tpu_torch.parallel.mesh import model_group, tensor_parallel
+
+    cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"),
+                          ["TPU.FUSED_LAYER", "False", "TPU.MESH_MODEL", str(TP_MODEL)])
+    vt = VideoTransformer(cfg)
+    whole, _ = vt.init(torch.Generator().manual_seed(2))
+    whole = to_device(whole, device)
+    group = model_group(cfg)
+    r, size = sharding.group_rank(group)
+    dims = sharding.tp_dims(whole, size)
+    video = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 4, T_FRAMES, 16, 16)))
+    si = torch.tensor([1, 9])
+
+    def grad(params, tp, tf32=False):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in flatten(params).items()}
+        tree = _unflatten_like(params, p)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            with tensor_parallel(group if tp else None):
+                loss, _ = vt.loss(tree, {"video": video.to(device)}, slice_idx=si)
+                loss.backward()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        g = _unflatten_like(params, {k: v.grad for k, v in p.items()})
+        return float(loss.detach()), g
+
+    loss_tp, g_tp = grad(sharding.shard_tree(whole, r, size, dims), True)
+    g_tp = {k: v.float() for k, v in flatten(sharding.gather_tree(g_tp, group, dims)).items()}
+    if rank != 0:
+        return None
+    loss_w, g_w = grad(whole, False)
+    loss_c, g_c = grad(whole, False, tf32=True)
+    g_w, g_c = ({k: v.float() for k, v in flatten(g).items()} for g in (g_w, g_c))
+    return {"tp": _rel_frobenius(g_tp, g_w), "tf32": _rel_frobenius(g_c, g_w),
+            "loss": [loss_tp, loss_w, loss_c]}
+
+
+def _unflatten_like(tree, flat, prefix=""):
+    """``flat`` ({dotted name: tensor}) in the structure of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(v, flat, f"{prefix}.{k}" if prefix else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unflatten_like(v, flat, f"{prefix}.{i}") for i, v in enumerate(tree)]
+    return flat[prefix]
+
+
+def _tp_slice(rank, device):
+    """One fp32 greedy slice (slice N_PRIME, 256 pixels) of DSFVT's rollout at
+    b = TP_SLICE_BATCH, tensor-parallel through ``sample_video``'s eager
+    loop, and on rank 0 the same slice by the whole model (one rank). Where
+    the codes differ, both models' teacher-forced logits on the TP codes
+    tell whether each difference lies at a logit near-tie (the top two
+    within twice their largest difference). Returns the seconds, the
+    launches, and on rank 0 the comparison."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.models.vt import VideoTransformer, vt_encode
+    from lvt_tpu_torch.models.vt_incremental import SliceDecoder
+    from lvt_tpu_torch.parallel import sharding
+    from lvt_tpu_torch.parallel.mesh import model_group, tensor_parallel
+
+    cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"),
+                          ["TPU.MESH_MODEL", str(TP_MODEL)])
+    vt = VideoTransformer(cfg)
+    whole, _ = vt.init(torch.Generator().manual_seed(3), device)
+    group = model_group(cfg)
+    part = sharding.shard_tree(whole, *sharding.group_rank(group))
+    codes = torch.from_numpy(np.random.default_rng(19).integers(
+        0, 512, (TP_SLICE_BATCH, 4, T_FRAMES, 16, 16))).to(device)
+    c, plan, s = vt.c, vt.plan, N_PRIME
+    primed = torch.zeros(plan.slice_src[s].size, dtype=torch.bool, device=device)
+
+    def run(params, tp, teacher_of=None):
+        with torch.no_grad(), tensor_parallel(group if tp else None):
+            sidx = torch.full((TP_SLICE_BATCH,), s, dtype=torch.int64, device=device)
+            ctx, sl, _ = vt.prepare_slices(codes, sidx)
+            zl = vt_encode(params["netG"], c, ctx, sidx)
+            dec = SliceDecoder(params["netG"], c, plan.slice_shape, TP_SLICE_BATCH, device)
+            if teacher_of is not None:
+                return dec.teacher(*dec.inputs(zl, teacher_of))
+            return dec.run(zl, sl, primed, None, 1.0, True)
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(part, True)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "launches": _launched()}
+    differ = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        want = run(whole, False)
+        torch.cuda.synchronize()
+        out["one_rank_seconds"] = time.perf_counter() - t0
+        differ = int((got != want).sum())
+    n = torch.tensor([-1 if differ is None else differ], dtype=torch.int64)
+    torch.distributed.broadcast(n, 0, group=group)  # every rank takes the teacher pass, or none
+    if int(n) > 0:
+        lg_tp = run(part, True, teacher_of=got)
+        if rank == 0:
+            lg = run(whole, False, teacher_of=got)
+            top2 = lg.topk(2, dim=-1)
+            noise = float((lg_tp - lg).abs().max())
+            flat_got = got.reshape(TP_SLICE_BATCH, 4, -1).movedim(1, -1)  # (b, thw, nc)
+            flips = lg.argmax(-1) != flat_got
+            gaps = (top2.values[..., 0] - top2.values[..., 1])[flips]
+            out["teacher"] = {"noise": noise, "flips": int(flips.sum()),
+                              "worst_gap": float(gaps.max()) if len(gaps) else 0.0,
+                              "near_ties": bool((gaps <= 2 * noise).all())}
+    if rank == 0:
+        out["differ"] = differ
+        out["total"] = int(got.numel())
+        out["in_range"] = bool(got.min() >= 0 and got.max() < 512)
+    return out
+
+
+def _tp_rank(rank, device):
+    """The tensor-parallel world's scenarios on this rank (phase 18)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1918)
+    vt = os.path.join(ROOT, "configs", "vt", "DSFVT.yaml")
+    vq_cfg = os.path.join(ROOT, "configs", "vqvae", "PR-DVQVAE2.yaml")
+    videos = [{"video": rng.integers(0, 512, (TP_VT_BATCH, 4, T_FRAMES, 16, 16))
+               .astype(np.int32)} for _ in range(TP_STEPS)]
+    frames = [{"image": rng.uniform(0, 1, (TP_VQ_BATCH, 64, 64, 3)).astype(np.float32)}
+              for _ in range(TP_STEPS)]
+    res = {"DSFVT": _tp_train(rank, device, "DSFVT", vt,
+                              ["SEED", "7", "TPU.FUSED_LAYER", "False",
+                               "SOLVER.IMS_PER_BATCH", str(TP_VT_BATCH)], videos,
+                              own_rounding=True),
+           "PR-DVQVAE2": _tp_train(rank, device, "PR-DVQVAE2", vq_cfg,
+                                   ["SEED", "5", "SOLVER.IMS_PER_BATCH", str(TP_VQ_BATCH)],
+                                   frames),
+           "agree": _tp_agree(rank, device),
+           "slice": _tp_slice(rank, device)}
+    return res
+
+
+def _tp_checks(card, ranks):
+    """Phase 18's tensor-parallel world held: exact launches per rank, the
+    split leaves' shapes, on rank 0 the gradients, params, losses and codes
+    against the one-process runs, the fp32 agreement and its TF32 control,
+    the slice's codes. Returns {kernel: [launches of rank 0, rank 1]}."""
+    import numpy as np
+
+    counts = {}
+    for rk in ranks:
+        tp = rk["tp"]
+        for name in ("DSFVT", "PR-DVQVAE2"):
+            r = tp[name]
+            for i, got in enumerate(r["launches"]):
+                check(got == TP_PER_STEP[name], f"tp {name} rank {rk['rank']} step {i + 1}: "
+                                                f"launches {got}, want {TP_PER_STEP[name]}")
+            for k, n in TP_PER_STEP[name].items():
+                counts.setdefault(k, [0] * len(ranks))[rk["rank"]] += n * len(r["launches"])
+            coll, n_coll = r["collective_s"]
+            steps = ", ".join(f"{t:.4f}" for t in r["step_s"])
+            print(f"  tensor parallel {name} rank {rk['rank']} (data 1 x model {TP_MODEL}, gloo, "
+                  f"on {rk['device']}) [{card}]: steps {steps} "
+                  f"s (synchronized); the last step's {n_coll} collectives "
+                  f"{coll:.4f} s = {100 * coll / r['step_s'][-1]:.1f}% of it (each synchronized "
+                  f"and timed); launches per step {r['launches'][-1]}; max_memory_allocated "
+                  f"{r['peak'] / 2 ** 30:.2f} GiB; the rank's parts "
+                  f"{json.dumps(r['local_shapes'])}")
+        shapes = tp["DSFVT"]["local_shapes"]
+        check(shapes.get("netG.decoder.layers.0.wq") == [4, 512, 128]
+              and shapes.get("netG.decoder.layers.0.ffn_w1") == [512, 256]
+              and tp["PR-DVQVAE2"]["local_shapes"].get("netC.embedding") == [4, 256, 64],
+              f"tp rank {rk['rank']}: the split leaves' shapes {shapes}, "
+              f"{tp['PR-DVQVAE2']['local_shapes']}")
+        sl = tp["slice"]
+        check(sl["launches"] == TP_SLICE, f"tp slice rank {rk['rank']}: launches "
+                                          f"{sl['launches']}, want {TP_SLICE}")
+        for k, n in TP_SLICE.items():
+            counts.setdefault(k, [0] * len(ranks))[rk["rank"]] += n
+    tp = ranks[0]["tp"]
+    for name in ("DSFVT", "PR-DVQVAE2"):
+        r = tp[name]
+        for i, c in enumerate(r["cmp"]):
+            (e, k, w) = c["grads"]
+            line = (f"  tensor parallel {name} step {i + 1} vs one process from the same state "
+                    f"[{card}]: loss {c['loss'][0]:.6f}/{c['loss'][1]:.6f}; gathered gradient, "
+                    f"relative Frobenius worst leaf {e:.3g} ({k}), whole {w:.3g} (bounds "
+                    f"{GRAD_TOL:g}, {GRAD_TOL_WHOLE:g})")
+            if "indices" in c:
+                line += (f"; codes {c['indices'][0]} of {c['indices'][3]} differ "
+                         f"({c['indices'][1]} no near-tie)")
+            if "own" in c:
+                line += (f"; bf16's own rounding (the one-process bf16 step against its fp32 "
+                         f"step) {c['own'][0]:.3g} ({c['own'][1]}), whole {c['own'][2]:.3g}")
+            print(line)
+            if "own" in c:  # see TP_OWN_ROUNDING
+                check(e <= TP_OWN_ROUNDING * c["own"][0] and w <= TP_OWN_ROUNDING * c["own"][2],
+                      f"tp {name} step {i + 1}: gradient off by {e} ({k}), whole {w}, beyond "
+                      f"{TP_OWN_ROUNDING} x bf16's own rounding {c['own']}")
+            else:
+                check(e <= GRAD_TOL and w <= GRAD_TOL_WHOLE,
+                      f"tp {name} step {i + 1}: gradient off by {e} ({k}), whole {w}")
+            check(abs(c["loss"][0] - c["loss"][1]) <= 1e-3 * abs(c["loss"][1]),
+                  f"tp {name} step {i + 1}: loss {c['loss']}")
+            if "indices" in c:
+                check(c["indices"][2], f"tp {name} step {i + 1}: codes {c['indices']}")
+        e, k, w = r["params"]
+        print(f"  tensor parallel {name}: params after step {len(r['cmp'])} vs one process, "
+              f"worst leaf {e:.3g} ({k}), whole {w:.3g}")
+        check(e <= GRAD_TOL and w <= GRAD_TOL_WHOLE, f"tp {name}: params off by {r['params']}")
+    a = tp["agree"]
+    (e, k, w), (e_c, k_c, w_c) = a["tp"], a["tf32"]
+    print(f"  tensor parallel fp32 agreement, DSFVT b=2 one loss+backward [{card}]: TP vs the "
+          f"whole model worst leaf {e:.3g} ({k}), whole {w:.3g}; TF32 control {e_c:.3g} ({k_c}), "
+          f"{w_c:.3g}; losses TP/whole/TF32 {', '.join(f'{x:.6f}' for x in a['loss'])}")
+    check(e <= GRAD_TOL and w <= GRAD_TOL_WHOLE, f"tp agree: gradient off by {e} ({k}), {w}")
+    check(e_c > GRAD_TOL and w_c > GRAD_TOL_WHOLE,
+          f"tp agree: the TF32 control reads {e_c}, {w_c}, within the bounds")
+    sl = tp["slice"]
+    teach = sl.get("teacher")
+    print(f"  tensor parallel fp32 greedy slice, b={TP_SLICE_BATCH} [{card}]: "
+          f"{max(r['tp']['slice']['seconds'] for r in ranks):.2f} s (eager, the slowest rank; "
+          f"one rank {sl['one_rank_seconds']:.2f} s); {sl['differ']} of {sl['total']} codes "
+          f"differ from the one-rank slice's"
+          + (f"; teacher-forced on the TP codes, {teach['flips']} argmax flips, largest top-2 gap "
+             f"among them {teach['worst_gap']:.3g}, |TP - one rank| logits <= "
+             f"{teach['noise']:.3g}" if teach else ""))
+    check(sl["in_range"] and (sl["differ"] == 0 or (teach and teach["near_ties"])),
+          f"tp slice: {sl}")
+    return {k: v for k, v in counts.items() if np.sum(v)}
 
 
 def phase_data_parallel(card):
@@ -3820,6 +4441,8 @@ def phase_data_parallel(card):
                       f"process {c['loss']}")
         if world == 1:
             continue
+        if "tp" in ranks[0]:
+            launches["tp"] = _tp_checks(card, ranks)
         gens = [rk["generate"] for rk in ranks]
         per_rollout = {"block_attention_fwd": (T_FRAMES - N_PRIME) * 8,
                        "decode_attention": (T_FRAMES - N_PRIME) * 256 * 8}
@@ -3839,7 +4462,7 @@ def phase_data_parallel(card):
 
 
 # phase 19: the e2e chain of tools/e2e_demo_torch.py at its defaults
-E2E_ITERS = 60  # the tool's --iters1 and --iters2 (its defaults are 300: cut for the time limit)
+E2E_ITERS = 30  # the tool's --iters1 and --iters2 (its defaults are 300: cut for the time limit)
 E2E_VIDEOS = {"bair": 64, "class-conditional": 66}  # the tool's sets: 64 videos; 3 x 22
 E2E_BITS_VIDEOS = 4  # the tool's TEST.N_SAMPLES for bits/dim
 E2E_PIPE_STEPS = 100  # steps of each bench_pipeline_torch trainer run (native, PIL)
@@ -4488,11 +5111,11 @@ def phase_geometries(card):
 
 QI_ITERS = 20  # quality_int8_torch's DSFVT training steps (its default 300: cut for the time limit)
 QI_EVAL, QI_SAMPLE = 2, 8  # its teacher-forced videos and rollout batch
-MFU_STEPS = 8  # timed steps of each mfu_torch train run (its default 20), after its 3 warm-up steps
+MFU_STEPS = 5  # timed steps of each mfu_torch train run (its default 20), after its 3 warm-up steps
 # soak_train_torch: DSFVT b64 fused, 40 steps, a checkpoint every 10, killed
 # once the second is on disk, resumed; an evaluation every 30 steps and at the
-# end; 64 training videos, 4 held out
-SOAK_ITERS, SOAK_EVAL, SOAK_TEST = 40, 30, 4
+# end; 32 training videos, 2 held out
+SOAK_ITERS, SOAK_EVAL, SOAK_TEST = 40, 30, 2
 SOAK_ARGS = ["--iters", str(SOAK_ITERS), "--ckpt-period", "10", "--kill-after-ckpts", "2",
              "--kill-delay", "0.25", "--poll", "0.25", "--eval-period", str(SOAK_EVAL),
              "--videos", str(16 * SOAK_TEST), "--max-to-keep", "2", "--phase-timeout", "600"]
@@ -4651,7 +5274,119 @@ def phase_tools(card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# side processes: phases 18 to 21 beside phases 11 to 17
+# --------------------------------------------------------------------------
+# Phases 18 to 21 share no state with the others, and the host sets their
+# pace (Python, process start-ups, loaders), not the card. Once every phase
+# that times a kernel (3, 6, 7, 10, 13, 16) has run alone, they run in two
+# more processes, each of its phases whole and in order, beside phases 11 to
+# 17 in the main process. A side process writes its phases' launches and
+# seconds to a file and its output to a log, which the main process prints
+# when the side process has ended. So the seconds, rates and busy shares that
+# phases 11 to 21 print are taken with the card and the host's cores shared;
+# the kernels' times in the last lines are not.
+SIDE_GROUPS = (("data parallel", "e2e"), ("geometries", "tools"))
+SIDE_PHASES = {"data parallel": phase_data_parallel, "e2e": phase_e2e,
+               "geometries": phase_geometries, "tools": phase_tools}
+SIDE_TIMEOUT = 1000  # seconds from its start that a side process may take
+
+
+class _Side:
+    """``python -u chip_smoke.py --side NAMES --out FILE`` in a session of
+    its own: it and every process it starts form one process group, killed
+    when it has ended (whatever it left behind) or when the main process
+    exits first."""
+
+    def __init__(self, names, tmp):
+        import atexit
+
+        self.names = names
+        stem = os.path.join(tmp, names[0].replace(" ", "_"))
+        self.out, self.log_path = stem + ".json", stem + ".log"
+        self.log = open(self.log_path, "w")
+        self.t0, self.started = time.perf_counter(), time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--side", ",".join(names),
+             "--out", self.out], stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT,
+            start_new_session=True)
+        atexit.register(self.kill)
+
+    def kill(self):
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait()
+
+    def tail(self, n=30):
+        with open(self.log_path, errors="replace") as f:
+            return "".join(f.readlines()[-n:])
+
+    def check_alive(self):
+        """Fails at once where the side process has already failed."""
+        rc = self.proc.poll()
+        check(rc in (None, 0), f"side process {', '.join(self.names)} exited with {rc}; the "
+                               f"end of its log:\n{self.tail()}")
+
+    def join(self):
+        """Waits for the side process, prints its log, and returns
+        ({phase: result}, {phase: seconds})."""
+        try:
+            rc = self.proc.wait(timeout=max(1.0, SIDE_TIMEOUT - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            rc = "no code: stopped after its time limit"
+        self.kill()
+        self.log.close()
+        with open(self.log_path, errors="replace") as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        check(rc == 0, f"side process {', '.join(self.names)} exited with {rc}; the end of its "
+                       f"log:\n{self.tail()}")
+        self.took = os.path.getmtime(self.out) - self.started
+        with open(self.out) as f:
+            res = json.load(f)
+        return res["results"], res["seconds"]
+
+
+def side_main(names, out):
+    """A side process: the named phases in order; {"results", "seconds"}
+    written to ``out``. Exits on its own when the main process is gone."""
+    import signal
+    import threading
+
+    sys.path.insert(0, ROOT)
+    card = phase_device()
+    import lvt_tpu_torch  # noqa: F401  (TF32 off)
+    from lvt_tpu_torch.ops._lib import LIBRARY
+
+    LIBRARY.get()  # built by the main process's phase 2: loaded, not built again
+    parent = os.getppid()
+
+    def orphaned():
+        while os.getppid() == parent:
+            time.sleep(2)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    results, seconds = {}, {}
+    for name in names:
+        t0 = time.perf_counter()
+        results[name] = SIDE_PHASES[name](card)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"side process: {name} {seconds[name]} s", flush=True)
+    with open(out + ".part", "w") as f:
+        json.dump({"results": results, "seconds": seconds}, f, default=int)
+    os.replace(out + ".part", out)
+
+
 def main():
+    if "--side" in sys.argv:  # a side process, started by main() below
+        args = sys.argv[sys.argv.index("--side") + 1:]
+        side_main(args[0].split(","), args[args.index("--out") + 1])
+        return
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "lvt_tpu_torch")):
         fail(f"no lvt_tpu_torch package beside {__file__}: run from a checkout of the repo")
@@ -4663,51 +5398,65 @@ def main():
 
     laps, last = [], [time.perf_counter()]
 
+    sides = []  # the side processes, once started
+
     def lap(name):  # host seconds of each phase, printed at the end
         now = time.perf_counter()
         laps.append(f"{name} {now - last[0]:.1f}")
         last[0] = now
+        for s in sides:
+            s.check_alive()
 
     phase_build()
     lap("build")
+    # the phases that time kernels, alone on the card (see SIDE_GROUPS)
     kres = phase_kernels(card)
     lap("kernels")
-    launches, models, codes = phase_main(card)
-    lap("main")
-    phase_agree(card)
-    lap("agree")
-    phase_pth(card)
-    lap("pth")
     i8res = phase_i8_kernels(card, kres["decode_attention"]["ms"])
     lap("i8 kernels")
     fold_err = phase_i8_fold(card)
     lap("i8 fold")
     for k, name in ((3, "decode_attention_i8"), (4, "decode_attention_i8_live")):
         i8res[name]["err"] = max(i8res[name]["err"], fold_err[k])
-    i8_launches, vts = phase_main_i8(card, models)
-    lap("main i8")
-    phase_slices(card, models, codes, vts=vts)
-    lap("slices")
-    phase_agree_i8(card)
-    lap("agree i8")
-    phase_bench_slice(card, models)
-    lap("bench slice")
-    k6 = phase_vq_kernel(card, models)
-    lap("vq kernel")
-    del models, codes
     k10, err1_train, _ = phase_train_kernels(card)
     shapes = phase_attention_shapes(card)
     k10["err"] = max(k10["err"], shapes["bwd"], shapes["dbias"])
     lap("train kernels")
     fres, fbounds = phase_fused_kernels(card)
     lap("fused kernels")
-    # phases 8 and 14 hand their OUTPUT_DIRs on to phase 17
+    k12, k12_launches = phase_probe_kernel(card)
+    lap("probe kernel")
+    launches, models, codes = phase_main(card)
+    lap("main")
+    phase_agree(card)
+    lap("agree")
+    phase_pth(card)
+    lap("pth")
+    k6 = phase_vq_kernel(card, models)
+    lap("vq kernel")
+
+    # phases 18 to 21 in two side processes from here on
     import atexit
     import shutil
     import tempfile
 
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
     atexit.register(shutil.rmtree, keep, True)
+    torch.cuda.empty_cache()
+    sides.extend(_Side(names, keep) for names in SIDE_GROUPS)
+    print(f"side processes started after {time.perf_counter() - start:.1f} s: "
+          + "; ".join(", ".join(s.names) for s in sides), flush=True)
+
+    i8_launches, vts = phase_main_i8(card, models)
+    lap("main i8")
+    phase_slices(card, models, codes, modes=SLICE_PROFILED, vts=vts)
+    lap("slices")
+    phase_agree_i8(card)
+    lap("agree i8")
+    phase_bench_slice(card, models)
+    lap("bench slice")
+    del models, codes, vts
+    # phases 8 and 14 hand their OUTPUT_DIRs on to phase 17
     vt_dir, vq_dir = os.path.join(keep, "dsfvt"), os.path.join(keep, "prdvqvae2")
     fused_run, unfused_run = phase_train(card, keep=vt_dir)
     lap("train")
@@ -4717,18 +5466,20 @@ def main():
     lap("vqvae train")
     phase_vqvae_agree(card)
     lap("vqvae agree")
-    k12, k12_launches = phase_probe_kernel(card)
-    lap("probe kernel")
     eval_launches = phase_eval(card, vq_dir, vt_dir)
     lap("eval")
-    dp_launches = phase_data_parallel(card)
-    lap("data parallel")
-    e2e_launches = phase_e2e(card)
-    lap("e2e")
-    geo_launches = phase_geometries(card)
-    lap("geometries")
-    tool_launches = phase_tools(card)
-    lap("tools")
+    main_done = time.perf_counter() - start
+    side = {}
+    for s in sides:
+        results, seconds = s.join()
+        side.update(results)
+        laps.extend(f"{name} {sec:.1f} (side)" for name, sec in seconds.items())
+    dp_launches = side["data parallel"]
+    tp_launches = dp_launches.pop("tp")
+    e2e_launches, geo_launches, tool_launches = side["e2e"], side["geometries"], side["tools"]
+    print(f"main process's phases done after {main_done:.1f} s; side processes, from their "
+          "start to their result: " + "; ".join(f"{', '.join(s.names)} {s.took:.1f} s"
+                                                for s in sides))
     print("phase seconds: " + ", ".join(laps) + f"; whole run {time.perf_counter() - start:.1f} s")
 
     def entry(name, source, replaces, n_launches, r):
@@ -4792,6 +5543,12 @@ def main():
         k["eval_launches"] = eval_launches.get(k["name"], 0)
         # phase 18's, per rank of each world ("gloo2": two ranks on the card)
         k["dp_launches"] = {w: c[k["name"]] for w, c in dp_launches.items() if k["name"] in c}
+        # phase 18's tensor-parallel world (data 1 x model 2), per rank; and
+        # phase 3's check at one rank's shard shapes
+        if k["name"] in tp_launches:
+            k["tp_launches"] = tp_launches[k["name"]]
+        if k["name"] in kres["tp_shard"]:
+            k["tp_shard"] = kres["tp_shard"][k["name"]]
         # phase 19's, per run: each e2e mode (kernel 6's check apart), generate --img-size
         k["e2e_launches"] = {r: c[k["name"]] for r, c in e2e_launches.items() if k["name"] in c}
         # phase 20's, per run: DSSVT and DSTSVT rollouts, exactness, training;

@@ -10,6 +10,13 @@ into the structure (device and dtype) of a target tree.
 Across processes (``engine/launch.py``) rank 0 alone writes, and every rank
 waits for it; every rank loads, onto the CPU and from there onto the device
 of its own target (never onto card 0, where a saved CUDA tensor was).
+
+A file is layout-free: under tensor parallelism the trainer hands over its
+tree with the split leaves made whole (``engine/trainer.py``
+``checkpoint_tree``: params, model state, optimizer moments, a gradient sum,
+gathered over the model group) and splits a loaded tree for the current
+layout (``load_tree``), so a run saved at one TPU.MESH_MODEL resumes at
+another.
 """
 
 import logging

@@ -19,6 +19,7 @@ import numpy as np
 import torch.utils.data
 
 from .. import native
+from ..parallel.mesh import data_rank
 from ..utils import comm
 from .catalog import DatasetCatalog
 from .mapper import DatasetMapper
@@ -74,14 +75,15 @@ class _MappedDataset(torch.utils.data.Dataset):
     own, seeded in the worker from its DataLoader seed (which comes from the
     process's torch seed, SEED + rank), so that workers, on one rank or on
     several, do not all replace a refused sample by the same sequence;
-    without workers one generator, seeded with the rank, serves the
+    without workers one generator, seeded with the rank (the data axis's
+    under tensor parallelism: ``parallel.mesh.data_rank``), serves the
     process."""
 
-    def __init__(self, dataset_dicts, mapper, max_retries=50):
+    def __init__(self, dataset_dicts, mapper, max_retries=50, rank=None):
         self._dicts = dataset_dicts
         self._mapper = mapper
         self._max_retries = max_retries
-        self._fallback_rng = np.random.default_rng(comm.get_rank())
+        self._fallback_rng = np.random.default_rng(comm.get_rank() if rank is None else rank)
         self._worker_rng = None  # made in the worker, on its first replacement
 
     def __len__(self):
@@ -104,15 +106,33 @@ class _MappedDataset(torch.utils.data.Dataset):
         raise RuntimeError(f"Mapper failed {self._max_retries} times in a row")
 
 
+class _DataAxisInferenceSampler(InferenceSampler):
+    """``InferenceSampler``'s shard of a given rank of a given world: the data
+    axis's, under tensor parallelism (the ranks of a model group evaluate
+    the same videos together)."""
+
+    def __init__(self, size: int, n_samples: int, rank: int, world: int, seed: int = 0):
+        assert size > 0
+        self._size = size
+        shard_size = (size - 1) // world + 1
+        self._local_indices = list(range(shard_size * rank, min(shard_size * (rank + 1), size)))
+        if n_samples > 0:
+            g = np.random.default_rng(seed)
+            self._local_indices = list(g.choice(
+                self._local_indices, min(n_samples, len(self._local_indices)), replace=False))
+
+
 def build_train_loader(cfg, mapper: Optional[DatasetMapper] = None):
     """Infinite sharded training loader; global IMS_PER_BATCH split across
     processes, each rank reading its own part (reference build.py:41-107).
-    With SEED <= 0 the sampler's seed is rank 0's draw, shared by all."""
-    world = comm.get_world_size()
+    With SEED <= 0 the sampler's seed is rank 0's draw, shared by all. Under
+    tensor parallelism the batch is split over the data axis: the ranks of a
+    model group read the same rows."""
+    rank, world = data_rank(cfg)
     total = cfg.SOLVER.IMS_PER_BATCH
     assert total % world == 0 and total >= world, (
         f"SOLVER.IMS_PER_BATCH ({total}) must be divisible by the number of "
-        f"processes ({world}).")
+        f"data-parallel processes ({world}).")
     per_proc = total // world
 
     dataset_dicts = get_dataset_dicts(cfg.DATASETS.TRAIN)
@@ -123,13 +143,14 @@ def build_train_loader(cfg, mapper: Optional[DatasetMapper] = None):
     assert name == "TrainingSampler", f"Unknown training sampler: {name}"
     seed = cfg.SEED if cfg.SEED > 0 else None
     sampler = TrainingSampler(len(dataset_dicts), seed=seed)
+    sampler._rank, sampler._world_size = rank, world  # the data axis's (the process's at M = 1)
 
     logger.info(f"Train loader: {len(dataset_dicts)} samples, "
                 f"{per_proc}/process of global batch {total}")
     workers = cfg.DATALOADER.NUM_WORKERS
     native.available()
     loader = torch.utils.data.DataLoader(
-        _MappedDataset(dataset_dicts, mapper), batch_size=per_proc, sampler=sampler,
+        _MappedDataset(dataset_dicts, mapper, rank=rank), batch_size=per_proc, sampler=sampler,
         num_workers=workers, collate_fn=collate, drop_last=True,
         persistent_workers=workers > 0)
     return loader, len(dataset_dicts)
@@ -139,12 +160,14 @@ def build_test_loader(cfg, dataset_name: str, mapper: Optional[DatasetMapper] = 
                       batch_size: int = 1):
     """One finite pass over the dataset in order (or over TEST.N_SAMPLES of
     it, drawn once from a fixed seed), batch 1 by default, the last batch
-    kept (reference build.py:110-145)."""
+    kept (reference build.py:110-145); each data-parallel rank reads its
+    shard."""
     dataset_dicts = get_dataset_dicts([dataset_name])
     if mapper is None:
         mapper = DatasetMapper(cfg, is_train=False)
-    sampler = InferenceSampler(len(dataset_dicts), cfg.TEST.N_SAMPLES)
+    rank, world = data_rank(cfg)
+    sampler = _DataAxisInferenceSampler(len(dataset_dicts), cfg.TEST.N_SAMPLES, rank, world)
     native.available()
     return torch.utils.data.DataLoader(
-        _MappedDataset(dataset_dicts, mapper), batch_size=batch_size, sampler=sampler,
+        _MappedDataset(dataset_dicts, mapper, rank=rank), batch_size=batch_size, sampler=sampler,
         num_workers=cfg.DATALOADER.NUM_WORKERS, collate_fn=collate, drop_last=False)

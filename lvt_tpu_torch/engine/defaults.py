@@ -15,18 +15,21 @@ optimizer step changed them in place.
 """
 
 import argparse
+import functools
 import logging
 import os
 from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import set_global_cfg
 from ..data import build_test_loader, build_train_loader
 from ..evaluation import (
     BitsEvaluator,
     CodesExtractor,
+    DatasetEvaluator,
     DatasetEvaluators,
     FVDEvaluator,
     MSEEvaluator,
@@ -36,6 +39,7 @@ from ..evaluation import (
     verify_results,
 )
 from ..models import tree_leaves
+from ..parallel.mesh import data_rank, model_group, tensor_parallel
 from ..utils import comm
 from ..utils.collect_env import collect_env_info
 from ..utils.env import seed_all_rng
@@ -82,8 +86,10 @@ def default_argument_parser():
 def default_setup(cfg, args):
     """Logging, the environment report (utils/collect_env.py), seeding and
     the config dump (reference defaults.py:72-121). Each process seeds its
-    global generators with SEED + its rank, as lvt_tpu does, so that the
-    data workers of different ranks draw differently."""
+    global generators with SEED + its data rank (its rank // TPU.MESH_MODEL,
+    ``parallel.mesh.data_rank``), as lvt_tpu does, so that the data workers
+    of different data-parallel ranks draw differently and the ranks of a
+    model group draw alike."""
     output_dir = cfg.OUTPUT_DIR
     rank = comm.get_rank()
     if output_dir:  # every rank: the others' logs go there too
@@ -98,7 +104,7 @@ def default_setup(cfg, args):
         with open(path, "w") as f:
             f.write(cfg.dump())
         log.info(f"Full config saved to {path}")
-    seed_all_rng(None if cfg.SEED < 0 else cfg.SEED + rank)
+    seed_all_rng(None if cfg.SEED < 0 else cfg.SEED + data_rank(cfg)[0])
     set_global_cfg(cfg)
 
 
@@ -152,8 +158,8 @@ def build_vt_infer_fn(cfg, model, params, *, gen=None):
     TEST.EVALUATORS (reference VideoTransformerModel.forward
     mode='inference', vt.py:192-206). ``gen``: the sampler's generator, on
     the params' device; by default one seeded from max(SEED, 0) plus the
-    process's rank (each rank samples its own videos), which each batch's
-    draws advance."""
+    process's data rank (each data-parallel rank samples its own videos),
+    which each batch's draws advance."""
     evaluators = cfg.TEST.EVALUATORS
     want_logits = "BitsEvaluator" in evaluators
     want_samples = ("VTSampler" in evaluators) or ("FVDEvaluator" in evaluators)
@@ -163,7 +169,7 @@ def build_vt_infer_fn(cfg, model, params, *, gen=None):
     num_samples = knobs.NUM_SAMPLES
     device = params_device(params)
     if gen is None:
-        gen = torch.Generator(device=device).manual_seed(max(cfg.SEED, 0) + comm.get_rank())
+        gen = torch.Generator(device=device).manual_seed(max(cfg.SEED, 0) + data_rank(cfg)[0])
 
     @torch.no_grad()
     def infer(batch):
@@ -229,10 +235,14 @@ def run_test(cfg, model, params, state=None):
     DefaultTrainer.test, defaults.py:312-363). In a world of several
     processes each evaluates its shard of the test set (InferenceSampler)
     and the evaluators gather to rank 0, which alone returns results (the
-    others return {} per dataset)."""
+    others return {} per dataset). Under tensor parallelism ``params`` and
+    ``state`` are the rank's parts, the shards are the data axis's, every
+    rank of a model group runs the model on its group's shard, and only the
+    group's first rank hands the outputs to the evaluators."""
     from ..models.vqvae import VQVAE, AutoEncoder
     from ..models.vt import VideoTransformer
 
+    tp = model_group(cfg)
     results = OrderedDict()
     for dataset_name in cfg.DATASETS.TEST:
         loader = build_test_loader(cfg, dataset_name)
@@ -244,6 +254,10 @@ def run_test(cfg, model, params, state=None):
             infer_fn = build_vt_infer_fn(cfg, model, params)
         else:
             raise TypeError(f"Cannot infer with {type(model)}")
+        if tp is not None:
+            infer_fn = functools.partial(_in_model_group, tp, infer_fn)
+            if dist.get_rank(tp) != 0:  # the group's outputs are counted once
+                evaluator = _Unfed(evaluator)
         r = inference_on_dataset(infer_fn, loader, evaluator)
         results[dataset_name] = r
         if comm.is_main_process() and r:
@@ -252,6 +266,28 @@ def run_test(cfg, model, params, state=None):
     if len(results) == 1:
         results = list(results.values())[0]
     return results
+
+
+def _in_model_group(group, infer_fn, batch):
+    with tensor_parallel(group):
+        return infer_fn(batch)
+
+
+class _Unfed(DatasetEvaluator):
+    """An evaluator that takes no outputs but resets and evaluates (gathers)
+    with the others."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def reset(self):
+        self._inner.reset()
+
+    def process(self, inputs, outputs):
+        pass
+
+    def evaluate(self):
+        return self._inner.evaluate()
 
 
 # --------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..parallel import mesh
 from ..utils import comm
 
 logger = logging.getLogger(__name__)
@@ -114,4 +115,5 @@ def _distributed_worker(local_rank, main_func, world_size, num_gpus_per_machine,
     comm.synchronize()
     comm._gloo_group.cache_clear()
     comm._LOCAL_PROCESS_GROUP = None
+    mesh._GROUPS.clear()
     dist.destroy_process_group()

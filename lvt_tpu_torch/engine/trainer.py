@@ -22,6 +22,19 @@ and the LR schedule step.
   gradient sum by the ranks' average and stores it: avg(partial) +
   avg(rest) = avg(whole window).
 
+* Tensor parallelism (TPU.MESH_MODEL M > 1, ``parallel/mesh.py``): the world
+  is data x model processes, and the data group above is the ranks of one
+  model index. The weights are made whole, by the init from SEED, and each
+  rank keeps its part of the leaves that ``parallel/sharding.py`` splits
+  (params and model state; the optimizer is built over the parts, so its
+  moments are parts too). The ranks of a model group hold the same batch
+  rows and draw the same numbers; the forward runs inside
+  ``parallel.tensor_parallel`` too, whose collectives make the step compute
+  what the whole model's step computes. A checkpoint is layout-free: the
+  split leaves (params, model state, optimizer moments, a gradient sum) are
+  gathered whole before rank 0 writes, and a load splits them for the
+  current layout, so a run saved at one M resumes at another.
+
 * The model state (the VQ-VAE's EMA codebook, batch-norm statistics,
   spectral-norm ``u``; empty for the VT) stays fp32, is replaced by the one
   ``train_loss`` returns each step, holds no autograd graph, and is saved and
@@ -44,7 +57,7 @@ and the LR schedule step.
 import logging
 import time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,7 +66,8 @@ import torch.distributed as dist
 from ..checkpoint import resume_or_load as load_latest
 from ..checkpoint.convert import flatten
 from ..models import build_model, cast_floats, param_count, tree_leaves
-from ..parallel.mesh import data_group, global_batch
+from ..parallel import sharding
+from ..parallel.mesh import data_group, global_batch, model_group, tensor_parallel
 from ..solver import build_optimizer
 from ..utils import comm
 from ..utils.env import seed_all_rng
@@ -75,6 +89,15 @@ class TrainState:
         the params' shape (zeros where nothing has been summed)."""
         return _map_leaves(lambda p: torch.zeros_like(p) if p.grad is None
                            else p.grad.detach().clone(), self.params)
+
+
+class _Split(NamedTuple):
+    """This rank's place in its model group and the split of each leaf of the
+    whole params and model state (``parallel.sharding.tp_dims``)."""
+    rank: int
+    size: int
+    params: Any
+    model_state: Any
 
 
 def _map_leaves(fn, tree):
@@ -135,9 +158,17 @@ class Trainer(TrainerBase):
         self.model = model if model is not None else build_model(cfg)
         self.metrics_period = 20
         self.group = data_group(cfg)  # None: this process's batch is the whole batch
+        self.model_group = model_group(cfg)  # None: every weight whole
         # SEED <= 0 draws a fresh seed (reference utils/env.seed_all_rng), rank 0's on every rank
         self.seed = cfg.SEED if cfg.SEED > 0 else comm.all_gather(seed_all_rng(-1))[0]
         params, mstate = self.model.init(torch.Generator().manual_seed(self.seed), self.device)
+        self._tp = None  # a _Split under a model group
+        if self.model_group is not None:
+            rank, size = sharding.group_rank(self.model_group)
+            self._tp = tp = _Split(rank, size, sharding.tp_dims(params, size),
+                                   sharding.tp_dims(mstate, size))
+            params = sharding.shard_tree(params, rank, size, tp.params)
+            mstate = sharding.shard_tree(mstate, rank, size, tp.model_state)
         params = _map_leaves(lambda x: x.detach().float().requires_grad_(True), params)
         optimizer, scheduler = build_optimizer(cfg, flatten(params), suffix="_G")
         self.state = TrainState(params, mstate, optimizer, scheduler, 0)
@@ -150,9 +181,11 @@ class Trainer(TrainerBase):
         self._bounds = {k: b for k, b in (("video", vt.NV), ("class", vt.CLASS_NUM)) if b > 0}
         self._checked = set()
         world = 1 if self.group is None else dist.get_world_size(self.group)
-        logger.info(f"Model has {param_count(params) / 1e6:.2f}M parameters; device "
-                    f"{self.device}; compute dtype {self.compute_dtype or torch.float32}; "
-                    f"accumulation={self.accumulation}; data-parallel ranks {world}")
+        model = 1 if self._tp is None else self._tp.size
+        logger.info(f"Model has {param_count(params) / 1e6:.2f}M parameters on this rank; "
+                    f"device {self.device}; compute dtype {self.compute_dtype or torch.float32}; "
+                    f"accumulation={self.accumulation}; data-parallel ranks {world}, "
+                    f"tensor-parallel ranks {model}")
 
     # -- step ---------------------------------------------------------------
     def step_generator(self, step: int) -> torch.Generator:
@@ -165,7 +198,7 @@ class Trainer(TrainerBase):
         st = self.state
         p = st.params if self.compute_dtype is None else cast_floats(st.params,
                                                                      self.compute_dtype)
-        with global_batch(self.group):
+        with global_batch(self.group), tensor_parallel(self.model_group):
             loss, (metrics, new_mstate) = self.model.train_loss(
                 p, st.model_state, batch, self.step_generator(st.step))
             loss.float().backward()
@@ -180,14 +213,17 @@ class Trainer(TrainerBase):
 
     def _average_grads(self):
         """The masters' gradients averaged over the data group, in place (a
-        master with no gradient counts as zeros); nothing without a group."""
+        master with no gradient counts as zeros); nothing without a group.
+        Under a model group each rank averages its parts of the split
+        leaves, and the replicated leaves' gradients are alike across it."""
         if self.group is None:
             return
         masters = tree_leaves(self.state.params)
         for m in masters:
             if m.grad is None:
                 m.grad = torch.zeros_like(m)
-        average_over([m.grad for m in masters], self.group)
+        if dist.get_world_size(self.group) > 1:
+            average_over([m.grad for m in masters], self.group)
 
     def run_step(self):
         start = time.perf_counter()
@@ -198,8 +234,9 @@ class Trainer(TrainerBase):
         if (vis_period > 0 and self.iter > 0 and self.iter % vis_period == 0
                 and hasattr(self.model, "visualize_training")):
             try:  # periodic image dumps must never kill training
-                images = self.model.visualize_training(self.state.params,
-                                                       self.state.model_state, batch)
+                with tensor_parallel(self.model_group):
+                    images = self.model.visualize_training(self.state.params,
+                                                           self.state.model_state, batch)
                 for name, img in images.items():
                     self.storage.put_image(name, img)
             except Exception as e:
@@ -270,11 +307,49 @@ class Trainer(TrainerBase):
             # rank resumes from the one saved sum and continues bit for bit
             self._average_grads()
             tree["accum_grads"] = st.accum_grads()
-        return tree
+        return tree if self._tp is None else self._layout_free(tree)
+
+    def _optimizer_dims(self):
+        """(split dim, this rank's shape) of each optimizer parameter, in the
+        optimizer's index order."""
+        dims = flatten(self._tp.params)
+        by_id = {id(p): dims[n] for n, p in flatten(self.state.params).items()}
+        ps = [p for g in self.state.optimizer.param_groups for p in g["params"]]
+        return [by_id[id(p)] for p in ps], [tuple(p.shape) for p in ps]
+
+    def _layout_free(self, tree):
+        """A checkpoint tree of this rank's parts made whole over the model
+        group (every rank of it calls this)."""
+        tp, g = self._tp, self.model_group
+        out = dict(tree, params=sharding.gather_tree(tree["params"], g, tp.params),
+                   model_state=sharding.gather_tree(tree["model_state"], g, tp.model_state))
+        dims, shapes = self._optimizer_dims()
+        out["opt_state"] = dict(tree["opt_state"], optimizer=sharding.gather_optimizer_state(
+            tree["opt_state"]["optimizer"], dims, shapes, g))
+        if "accum_grads" in tree:
+            out["accum_grads"] = sharding.gather_tree(tree["accum_grads"], g, tp.params)
+        return out
+
+    def _layout_part(self, tree):
+        """This rank's parts of a whole (layout-free) checkpoint tree."""
+        rank, size, pdims, sdims = self._tp
+        out = dict(tree, params=sharding.shard_tree(tree["params"], rank, size, pdims),
+                   model_state=sharding.shard_tree(tree["model_state"], rank, size, sdims))
+        dims, shapes = self._optimizer_dims()
+        whole = [s if d is None else s[:d] + (s[d] * size,) + s[d + 1:]
+                 for d, s in zip(dims, shapes)]
+        out["opt_state"] = dict(tree["opt_state"], optimizer=sharding.shard_optimizer_state(
+            tree["opt_state"]["optimizer"], dims, whole, rank, size))
+        if "accum_grads" in tree:
+            out["accum_grads"] = sharding.shard_tree(tree["accum_grads"], rank, size, pdims)
+        return out
 
     def load_tree(self, tree):
         """Set the training state from a checkpoint tree (as
-        ``checkpoint_tree`` makes, placed into the state's structure)."""
+        ``checkpoint_tree`` makes, placed into the state's structure; whole
+        under a model group too, where each rank keeps its parts)."""
+        if self._tp is not None:
+            tree = self._layout_part(tree)
         st = self.state
         with torch.no_grad():
             _zip_leaves(lambda p, v: p.copy_(v), st.params, tree["params"])
@@ -291,10 +366,13 @@ class Trainer(TrainerBase):
     def resume_or_load(self, resume: bool = True) -> int:
         """Returns the start iteration: the latest checkpoint's step on
         resume, else the current one."""
-        target = {"params": self.state.params, "model_state": self.state.model_state,
-                  "opt_state": None, "step": None}
+        params, mstate = self.state.params, self.state.model_state
+        if self._tp is not None:  # the file holds the whole leaves
+            params = sharding.full_like(params, self._tp.params, self._tp.size)
+            mstate = sharding.full_like(mstate, self._tp.model_state, self._tp.size)
+        target = {"params": params, "model_state": mstate, "opt_state": None, "step": None}
         if self.accumulation > 1:
-            target["accum_grads"] = self.state.params
+            target["accum_grads"] = params
         tree = load_latest(self.cfg.OUTPUT_DIR, target, resume=resume)
         if tree is not target:
             self.load_tree(tree)

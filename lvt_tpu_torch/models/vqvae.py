@@ -9,6 +9,10 @@ quantizer's new one each train step. A non-EMA codebook keeps its embedding
 in ``params["netC"]`` and trains it with the codebook MSE term
 (``loss_dict``); its state keeps the running buffers and an empty
 ``embedding``. Frames are NHWC; indices (b, h, w, num).
+
+Under tensor parallelism (``parallel.mesh.tensor_parallel``) the codebook is
+the rank's part of it, split over its K codes (``ops/vq.py``); the encoder
+and the generator are replicated.
 """
 
 from typing import Any, Dict, Tuple
@@ -92,19 +96,19 @@ class VQVAE(_PixelNorm):
     def encode(self, params, state, x):
         """NHWC frames -> (b, h, w, num) int32 code indices."""
         z_e, _ = self.encode_features(params, state, x)
-        return vq_ops.encode_indices(z_e, self._codebook_state(params, state))
+        return vq_ops.encode_indices(z_e, self._codebook_state(params, state), K=self.K)
 
     def decode(self, params, state, indices):
         """(b, h, w, num) indices -> NHWC frames."""
-        z_q = vq_ops.embed_indices(indices, self._codebook_state(params, state))
+        z_q = vq_ops.embed_indices(indices, self._codebook_state(params, state), K=self.K)
         return self.decode_features(params, state, z_q)[0]
 
     def reconstruct(self, params, state, x):
         """frames -> (reconstruction, indices): the eval/inference pass."""
         z_e, _ = self.encode_features(params, state, x)
         cb = self._codebook_state(params, state)
-        idx = vq_ops.encode_indices(z_e, cb)
-        y, _ = self.decode_features(params, state, vq_ops.embed_indices(idx, cb))
+        idx = vq_ops.encode_indices(z_e, cb, K=self.K)
+        y, _ = self.decode_features(params, state, vq_ops.embed_indices(idx, cb, K=self.K))
         return y, idx
 
     def loss(self, params, state, x, *, train=True, use_kernel=None):
@@ -114,7 +118,7 @@ class VQVAE(_PixelNorm):
         z_e, se = self.encode_features(params, state, x, train=train)
         cb = self._codebook_state(params, state)
         z_q_st, z_q, _, new_cb = vq_ops.quantize_st(z_e, cb, ema=self.ema, train=train,
-                                                    use_kernel=use_kernel)
+                                                    use_kernel=use_kernel, K=self.K)
         x_tilde, sg = self.decode_features(params, state, z_q_st, train=train)
 
         loss_dict = {"loss_reconstruction": pixel_loss_core(

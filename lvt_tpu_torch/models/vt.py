@@ -13,25 +13,42 @@ Parameters are the JAX package's netG tree as torch tensors: nested dicts
 and lists, each attention layer a dict with the fields of ``BlockAttnParams``.
 Layouts: codes (b, nc, T, H, W) int at the API boundary, activations
 channels-last (b, t, h, w, d). Randomness comes from a ``torch.Generator``.
+
+Under tensor parallelism (inside ``parallel.mesh.tensor_parallel``) the
+netG tree holds the rank's part of each leaf that parallel/sharding.py
+splits, and the passes put the model group's collectives where the splits
+need them: the feature-split lookups (the encoder's context table, the slice
+and class embeddings, ``ch_embed``) are gathered before the replicated
+projector and conv; attention and FFN run on the rank's heads and columns
+(ops/attention.py ``LayerShard``), unfused; the predictor's ``U`` is
+column-parallel and ``P`` row-parallel, summed over the group before its
+bias. A TP run computes what the whole model computes, up to the order of
+the sums.
 """
 
 import functools
+import logging
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from ..ops import subscale as ss
-from ..ops.attention import (_layer_norm, block_local_attention, current_checkpoint_name,
-                             merge_blocks, relative_bias, split_blocks)
+from ..ops.attention import (LayerShard, _layer_norm, block_local_attention,
+                             current_checkpoint_name, merge_blocks, relative_bias, split_blocks)
 from ..ops.conv import masked_conv3d, subscale_context_encode
 from ..ops.embedding import take_rows
 from ..ops.fused_layer import fused_block_layer, fused_layer_supported
 from ..ops.posenc import add_positional_encoding
-from ..parallel.collectives import all_reduce
-from ..parallel.mesh import batch_rows, global_batch_group
+from ..parallel.collectives import (all_reduce, copy_to_model, gather_features, local_features,
+                                    reduce_from_model)
+from ..parallel.mesh import batch_rows, global_batch_group, model_parallel_group
+from ..parallel.sharding import tp_dim
 from . import to_device
+
+logger = logging.getLogger(__name__)
 
 
 class VTConfig(NamedTuple):
@@ -64,6 +81,40 @@ class VTConfig(NamedTuple):
             share_p=v.SHARE_P, share_embeddings=v.SHARE_EMBEDDINGS,
             class_num=v.CLASS_NUM,
         )
+
+
+class VTShard(NamedTuple):
+    """The model group of a tensor-parallel VT and which of its leaves are
+    split there (the guards of parallel/sharding.py on the whole model's
+    shapes): ``d`` the predictor's U (columns) and P (rows), ``de`` the
+    embeddings' features."""
+    group: Any
+    size: int
+    d: bool
+    de: bool
+
+
+def vt_shard(c: VTConfig) -> Optional[VTShard]:
+    """The VT's shard inside ``tensor_parallel``, else None."""
+    group = model_parallel_group()
+    if group is None:
+        return None
+    size = dist.get_world_size(group)
+    return VTShard(group, size, tp_dim("U_b", (c.d,), size) is not None,
+                   tp_dim("ch_embed", (c.nc, c.nv, c.de), size) is not None)
+
+
+def _layer_shards(c: VTConfig, heads) -> Optional[list]:
+    """Each layer's ``LayerShard`` inside ``tensor_parallel``, else None."""
+    sh = vt_shard(c)
+    if sh is None:
+        return None
+    return [LayerShard.of(sh.group, sh.size, na, c.d, c.da) for na in heads]
+
+
+def _gathered(x, sh: Optional[VTShard]):
+    """A feature-split lookup's rows made whole."""
+    return gather_features(x, sh.group) if sh is not None and sh.de else x
 
 
 # --------------------------------------------------------------------------
@@ -168,7 +219,17 @@ def _checkpoint_policy(remat):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _apply_attn_stack(x, layers, blocks, causal: bool, remat=False, fused: bool = False):
+_LOGGED = set()
+
+
+def _log_once(msg: str):
+    if msg not in _LOGGED:
+        _LOGGED.add(msg)
+        logger.info(msg)
+
+
+def _apply_attn_stack(x, layers, blocks, causal: bool, remat=False, fused: bool = False,
+                      shards=None):
     """Run a stack of BlockLocalAttention layers. remat (TPU.REMAT and
     TPU.REMAT_POLICY: False, True, "dots" or "qkv") checkpoints each layer:
     True keeps only its input for the backward and recomputes the layer
@@ -178,7 +239,20 @@ def _apply_attn_stack(x, layers, blocks, causal: bool, remat=False, fused: bool 
     than one layer and its geometry passes ``fused_layer_supported``, as
     lvt_tpu does: the token form round-trips once for the whole stack, and
     the fused layer is its own remat unit, so ``remat`` (any policy) adds no
-    checkpoint around it. Any other stack runs the unfused layers."""
+    checkpoint around it. Any other stack runs the unfused layers.
+
+    shards: each layer's ``LayerShard`` under tensor parallelism (None: the
+    layers are whole). Then the unfused layers run: kernels 7-9 fuse across
+    the point where a row-parallel product's sum over the group must come.
+    A remat recompute runs the layer's collectives again in the backward,
+    on every rank in the same order."""
+    if shards is not None:
+        if fused:
+            _log_once("tensor parallel: the fused layer (TPU.FUSED_LAYER) does not run under a "
+                      "model group; the unfused layers (kernels 1 and 10) do")
+        fused = False
+    else:
+        shards = [None] * len(layers)
     if fused and len(layers) > 1 and fused_layer_supported(layers, blocks):
         blk = tuple(blocks[0])
         tokens, geom = split_blocks(x, blk)
@@ -187,13 +261,13 @@ def _apply_attn_stack(x, layers, blocks, causal: bool, remat=False, fused: bool 
             tokens = fused_block_layer(tokens, p, bias, causal)
         return merge_blocks(tokens, geom)
     policy = _checkpoint_policy(remat) if remat else None
-    for p, blk in zip(layers, blocks):
+    for p, blk, shard in zip(layers, blocks, shards):
         if remat and torch.is_grad_enabled():
             kw = {} if policy is None else {"context_fn": policy}
             x = torch.utils.checkpoint.checkpoint(block_local_attention, x, p, tuple(blk),
-                                                  causal, use_reentrant=False, **kw)
+                                                  causal, shard, use_reentrant=False, **kw)
         else:
-            x = block_local_attention(x, p, tuple(blk), causal)
+            x = block_local_attention(x, p, tuple(blk), causal, shard)
     return x
 
 
@@ -202,13 +276,19 @@ def vt_encode(params, c: VTConfig, ctx, slice_idx, class_idx=None, remat=False,
     """Context branch. ctx: (b, nc, T', H', W') codes with pad_value at
     invisible positions; slice_idx: (b,). Returns zl (b, t, h, w, d)."""
     enc = params["encoder"]
-    x = subscale_context_encode(ctx, enc["ctx_table"], enc["ctx_bias"], c.stride, c.nv)
-    x = x + enc["slice_embedding"][slice_idx.long()][:, None, None, None, :]
+    sh = vt_shard(c)
+    if sh is not None and sh.de:  # the rank's features of each lookup, made whole
+        x = _gathered(subscale_context_encode(ctx, enc["ctx_table"], None, c.stride, c.nv), sh)
+        x = x + enc["ctx_bias"]
+    else:
+        x = subscale_context_encode(ctx, enc["ctx_table"], enc["ctx_bias"], c.stride, c.nv)
+    x = x + _gathered(enc["slice_embedding"][slice_idx.long()][:, None, None, None, :], sh)
     if c.class_num > 0 and class_idx is not None:
-        cls = enc["class_embedding"][class_idx.long()][:, None, None, None, :]
+        cls = _gathered(enc["class_embedding"][class_idx.long()][:, None, None, None, :], sh)
         x = torch.cat([x, cls.expand(x.shape)], dim=-1)
     x = x @ enc["projector"]
-    return _apply_attn_stack(x, enc["layers"], c.blocks_e, False, remat, fused)
+    return _apply_attn_stack(x, enc["layers"], c.blocks_e, False, remat, fused,
+                             _layer_shards(c, c.n_head_e))
 
 
 def _embed_sum_codes(dec, c: VTConfig, codes):
@@ -216,7 +296,7 @@ def _embed_sum_codes(dec, c: VTConfig, codes):
     out = take_rows(dec["ch_embed"][0], codes[..., 0])
     for k in range(1, c.nc):
         out = out + take_rows(dec["ch_embed"][k], codes[..., k])
-    return out
+    return _gathered(out, vt_shard(c))
 
 
 def vt_decode(params, c: VTConfig, slice_codes, zl, remat=False, fused: bool = False):
@@ -227,23 +307,44 @@ def vt_decode(params, c: VTConfig, slice_codes, zl, remat=False, fused: bool = F
     x = masked_conv3d(emb, dec["conv_w"], dec["conv_b"])
     x = add_positional_encoding(x)
     x = x + zl @ dec["projector"]
-    return _apply_attn_stack(x, dec["layers"], c.blocks_d, True, remat, fused)
+    return _apply_attn_stack(x, dec["layers"], c.blocks_d, True, remat, fused,
+                             _layer_shards(c, c.n_head_d))
+
+
+def _predictor_in(y, c: VTConfig):
+    """The predictor's (layer-normed) input as the U products take it: under
+    a split U, its gradient summed over the model group (one sum for all nc
+    channels)."""
+    sh = vt_shard(c)
+    return copy_to_model(y, sh.group) if sh is not None and sh.d else y
 
 
 def _predictor_head(pred, c: VTConfig, k: int, u, dec_params):
-    """relu(u) -> nv logits via shared / per-channel / tied head."""
+    """relu(u) -> nv logits via shared / per-channel / tied head. Under a
+    split P the rank's rows' partial product is summed over the model group
+    before the bias; a tied head reads the rank's ch_embed features, so its
+    product is summed too."""
     r = torch.relu(u)
+    sh = vt_shard(c)
+
+    def rows(w):
+        return reduce_from_model(r @ w, sh.group) if sh is not None and sh.d else r @ w
+
     if c.share_p:
-        return r @ pred["P_w"] + pred["P_b"]
+        return rows(pred["P_w"]) + pred["P_b"]
     if c.share_embeddings:
-        e = r @ pred["P_w"] + pred["P_b"]
-        return e @ dec_params["ch_embed"][k].T
-    return r @ pred["P_w"][k] + pred["P_b"][k]
+        e = rows(pred["P_w"]) + pred["P_b"]
+        ch = dec_params["ch_embed"][k]
+        if sh is not None and sh.de:
+            return reduce_from_model(local_features(e, sh.group) @ ch.T, sh.group)
+        return e @ ch.T
+    return rows(pred["P_w"][k]) + pred["P_b"][k]
 
 
 def _predictor_u(pred, c: VTConfig, k: int, y, codes):
     """u_k = U_k([y; onehot(codes_<k)]), the one-hot block as row gathers
-    (codes: (..., nc) int; only channels < k are read)."""
+    (codes: (..., nc) int; only channels < k are read). Under a split U,
+    the rank's columns of u_k (y as ``_predictor_in`` gives it)."""
     w = pred["U_w"][k]
     d, nv = y.shape[-1], c.nv
     u = y @ w[:d] + pred["U_b"][k]
@@ -259,7 +360,7 @@ def vt_logits(params, c: VTConfig, ctx, slice_codes, slice_idx, class_idx=None,
     zl = vt_encode(params, c, ctx, slice_idx, class_idx, remat, fused)
     yl = vt_decode(params, c, slice_codes, zl, remat, fused)
     pred = params["predictor"]
-    y = _layer_norm(yl, pred["ln_scale"], pred["ln_bias"])
+    y = _predictor_in(_layer_norm(yl, pred["ln_scale"], pred["ln_bias"]), c)
     codes = slice_codes.movedim(1, -1)
     outs = [_predictor_head(pred, c, k, _predictor_u(pred, c, k, y, codes), params["decoder"])
             for k in range(c.nc)]
@@ -515,6 +616,16 @@ class VideoTransformer:
         slice of a configuration; on the CPU, and with ``_eager`` (the check
         the graph is held against), the same pixel loop runs eagerly.
 
+        Under tensor parallelism (inside ``parallel.mesh.tensor_parallel``,
+        params the rank's part of the netG tree) every rank of the model
+        group calls this on the same rows: the slice runs the eager
+        ``SliceDecoder`` loop on the card too, because gloo's collectives
+        cannot be captured in a CUDA graph, and only the native sampler
+        (``kv_cache_dtype`` "native", ``attn_impl`` "xla") is ported there.
+        The logits are summed over the group into the same values on every
+        rank, so ranks whose generators are seeded alike (by their data rank)
+        sample the same codes.
+
         kv_cache_dtype ("native", "int8"), weight_dtype ("native", "int8",
         "int8-pallas"), mm_dtype ("native", "int8") and attn_impl ("xla",
         "pallas", "pallas-live") choose the quantized sampler, as
@@ -542,6 +653,10 @@ class VideoTransformer:
         knobs = dict(kv_dtype=kv_cache_dtype, weight_dtype=weight_dtype, mm_dtype=mm_dtype,
                      attn_impl=attn_impl)
         on_graph = incremental and video.is_cuda and not _eager
+        if on_graph and model_parallel_group() is not None:
+            _log_once("tensor parallel: sample_video runs each slice's eager loop (the CUDA "
+                      "graph of a slice cannot capture the model group's gloo collectives)")
+            on_graph = False
         decoder = None
         vflat = video.reshape(b, nc, -1)
         for s in range(plan.num_slices):

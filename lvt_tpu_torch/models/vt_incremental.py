@@ -33,6 +33,15 @@ and have no counterpart here: they do not change what is computed.
 With ``kv_dtype="int8"`` the caches are int8 with one absmax scale per
 (head, row), kept in the parameter dtype as the JAX package keeps them:
 (L, b, na, R) beside each cache.
+
+Under tensor parallelism (a ``SliceDecoder`` made inside
+``parallel.mesh.tensor_parallel``, on the rank's part of the netG tree) the
+caches hold the rank's heads and kernel 2 attends over them; the partial
+products after ``proj`` and after FFN 2 are summed over the model group
+before the residual, the embedding rows are gathered whole, and the
+predictor is split as in ``models/vt.py``. Only the native sampler is
+ported there: the int8 modes' per-row scales span whole rows, which no rank
+holds.
 """
 
 import math
@@ -48,8 +57,9 @@ from ..ops.cache_attention import (decode_attention, decode_attention_i8_live_st
 from ..ops.posenc import _signal_np
 from ..ops.quant import matmul_i8w, quantize_cols, quantize_rows_i8
 from ..ops.quant import quantize_cache_row as _quantize_cache_row
-from .vt import (VTConfig, _embed_sum_codes, _predictor_head, _predictor_u,
-                 vt_sample_pixel_channels)
+from ..parallel.collectives import local_features, reduce_from_model
+from .vt import (VTConfig, _embed_sum_codes, _layer_shards, _predictor_head, _predictor_u,
+                 vt_sample_pixel_channels, vt_shard)
 
 
 @lru_cache(maxsize=16)
@@ -161,7 +171,15 @@ class SliceDecoder:
                  kv_dtype: str = "native", weight_dtype: str = "native",
                  mm_dtype: str = "native", attn_impl: str = "xla"):
         _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl)
+        if vt_shard(c) is not None and (kv_dtype, weight_dtype, mm_dtype, attn_impl) != (
+                "native", "native", "native", "xla"):
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r}, weight_dtype={weight_dtype!r}, mm_dtype={mm_dtype!r}, "
+                f"attn_impl={attn_impl!r} under tensor parallelism is not ported to "
+                "lvt_tpu_torch yet (ROADMAP.md queue 1 item 9): the int8 modes' per-row scales "
+                "span whole rows, which no rank of the model group holds; use the native sampler")
         self.params, self.c = params, c
+        self.shards = _layer_shards(c, c.n_head_d) or [None] * len(params["decoder"]["layers"])
         self.weight_dtype, self.mm_dtype, self.attn_impl = weight_dtype, mm_dtype, attn_impl
         self.use_int8 = kv_dtype == "int8"
         dec = self.dec = params["decoder"]
@@ -290,10 +308,20 @@ class SliceDecoder:
                 self.vcache[l, :, :, p_loc] = qkv[:, 2]
                 out = decode_attention(qkv[:, 0], self.kcache[l], self.vcache[l], p_loc + 1, bias,
                                        self.scale)
-            x = self._mm(out, self.weights[l]["proj"]) + x
+            shard = self.shards[l]
+            if shard is not None and shard.proj:  # the rank's rows, summed before the residual
+                if not shard.heads:
+                    out = local_features(out, shard.group)
+                x = reduce_from_model(self._mm(out, self.weights[l]["proj"]), shard.group) + x
+            else:
+                x = self._mm(out, self.weights[l]["proj"]) + x
             yf = _layer_norm(x, lp["ffn_ln_scale"], lp["ffn_ln_bias"])
             yf = torch.relu(self._mm(yf, self.weights[l]["ffn1"]) + lp["ffn_b1"])
-            x = self._mm(yf, self.weights[l]["ffn2"]) + lp["ffn_b2"] + x
+            if shard is not None and shard.ffn:
+                x = (reduce_from_model(self._mm(yf, self.weights[l]["ffn2"]), shard.group)
+                     + lp["ffn_b2"] + x)
+            else:
+                x = self._mm(yf, self.weights[l]["ffn2"]) + lp["ffn_b2"] + x
         pred = self.params["predictor"]
         return _layer_norm(x, pred["ln_scale"], pred["ln_bias"])
 

@@ -14,17 +14,25 @@ tensor it launches the hand-written kernels (csrc/block_attention.cuh, and
 csrc/block_attention_bwd.cuh for the gradient), on a CPU tensor it runs the
 plain PyTorch versions of the same functions. A layer's parameters are a dict
 with the field names of lvt_tpu's ``BlockAttnParams``.
+
+Under tensor parallelism (``LayerShard``) a layer holds its rank's heads and
+FFN columns (parallel/sharding.py): kernels 1 and 10 run on the local
+(nb, na/M, n, da) and the local banks' bias, the partial ``out @ proj`` and
+``y @ ffn_w2`` are summed over the model group, and only then are the
+residual and ``ffn_b2`` added (added before, they would count M times).
 """
 
 import contextlib
 import math
 import threading
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.collectives import copy_to_model, local_features, reduce_from_model
+from ..parallel.sharding import tp_dim
 from ._lib import LIBRARY, check_launch, counted
 
 LayerParams = Dict[str, torch.Tensor]
@@ -289,11 +297,37 @@ def current_checkpoint_name():
     return getattr(_CHECKPOINT_NAME, "value", None)
 
 
-def mha_tokens(x: torch.Tensor, p: LayerParams, bias: torch.Tensor, causal: bool) -> torch.Tensor:
-    """Multi-head attention over token sequences x: (nb, n, d)."""
+class LayerShard(NamedTuple):
+    """Which leaves of one attention layer are split over the model group
+    ``group`` (the guards of parallel/sharding.py on the whole layer's
+    shapes): ``heads`` wq/wk/wv and the banks over heads; ``proj`` proj over
+    its rows (also where na does not divide but na * da does: then the
+    replicated heads' output is cut to the rank's rows); ``ffn`` ffn_w1 and
+    ffn_b1 over columns, ffn_w2 over rows."""
+    group: Any
+    heads: bool
+    proj: bool
+    ffn: bool
+
+    @staticmethod
+    def of(group, size: int, na: int, d: int, da: int) -> Optional["LayerShard"]:
+        """The layer's shard over ``group`` of ``size`` ranks, or None where
+        every leaf of it is replicated (it then takes no collective)."""
+        heads = tp_dim("wq", (na, d, da), size) is not None
+        proj = tp_dim("proj", (na * da, d), size) is not None
+        ffn = tp_dim("ffn_w1", (d, d), size) is not None
+        return LayerShard(group, heads, proj, ffn) if heads or proj or ffn else None
+
+
+def mha_tokens(x: torch.Tensor, p: LayerParams, bias: torch.Tensor, causal: bool,
+               shard: Optional[LayerShard] = None) -> torch.Tensor:
+    """Multi-head attention over token sequences x: (nb, n, d); with a
+    ``shard``, over the rank's heads."""
     nb, n, d = x.shape
     na, _, da = p["wq"].shape
     y = _layer_norm(x, p["ln_scale"], p["ln_bias"])
+    if shard is not None and shard.heads:
+        y = copy_to_model(y, shard.group)
     # under TPU.REMAT_POLICY "qkv" the three projections are what is saved
     with checkpoint_name("qkv"):
         q = torch.einsum("bnd,adk->bank", y, p["wq"])
@@ -301,20 +335,29 @@ def mha_tokens(x: torch.Tensor, p: LayerParams, bias: torch.Tensor, causal: bool
         v = torch.einsum("bnd,adk->bank", y, p["wv"])
     out = attention_core(q, k, v, bias, causal)  # (nb, na, n, da)
     out = out.permute(0, 2, 1, 3).reshape(nb, n, na * da)
-    return out @ p["proj"] + x
+    if shard is None or not shard.proj:
+        return out @ p["proj"] + x
+    if not shard.heads:  # whole heads here, the rank's rows of proj
+        out = local_features(out, shard.group)
+    return reduce_from_model(out @ p["proj"], shard.group) + x
 
 
-def ffn_tokens(x: torch.Tensor, p: LayerParams) -> torch.Tensor:
+def ffn_tokens(x: torch.Tensor, p: LayerParams,
+               shard: Optional[LayerShard] = None) -> torch.Tensor:
     y = _layer_norm(x, p["ffn_ln_scale"], p["ffn_ln_bias"])
-    y = torch.relu(y @ p["ffn_w1"] + p["ffn_b1"])
-    return y @ p["ffn_w2"] + p["ffn_b2"] + x
+    if shard is None or not shard.ffn:
+        y = torch.relu(y @ p["ffn_w1"] + p["ffn_b1"])
+        return y @ p["ffn_w2"] + p["ffn_b2"] + x
+    y = torch.relu(copy_to_model(y, shard.group) @ p["ffn_w1"] + p["ffn_b1"])
+    return reduce_from_model(y @ p["ffn_w2"], shard.group) + p["ffn_b2"] + x
 
 
 def block_local_attention(x: torch.Tensor, p: LayerParams, block_size,
-                          causal: bool) -> torch.Tensor:
-    """One full BlockLocalAttention layer on (b, T, H, W, d)."""
+                          causal: bool, shard: Optional[LayerShard] = None) -> torch.Tensor:
+    """One full BlockLocalAttention layer on (b, T, H, W, d); with a
+    ``shard``, on the rank's part of its leaves."""
     bias = relative_bias(p["dt_bank"], p["dh_bank"], p["dw_bank"], tuple(block_size))
     tokens, geom = split_blocks(x, block_size)
-    tokens = mha_tokens(tokens, p, bias, causal)
-    tokens = ffn_tokens(tokens, p)
+    tokens = mha_tokens(tokens, p, bias, causal, shard)
+    tokens = ffn_tokens(tokens, p, shard)
     return merge_blocks(tokens, geom)

@@ -24,14 +24,27 @@ differentiable ``z_q`` the embedding *after* it.
 A codebook is a dict with the fields of lvt_tpu's ``EmaCodebookState``:
 ``embedding`` (num, K, Dc), ``running_size`` (num, K), ``running_sum``
 (num, K, Dc).
+
+Under tensor parallelism (inside ``parallel.mesh.tensor_parallel``, the
+whole codebook's K given) the codebook is split over its K codes
+(parallel/sharding.py): each rank of the model group searches its K/M codes
+with kernel 6 and recomputes its winner's fp32 distance by ``_distances``'
+formula; across the group the least distance wins, on exact ties the lowest
+global index (``nearest_indices_sharded``). The EMA counts the rank's codes
+only, summed over the data group; its normaliser ``n`` is summed over the
+model group and its K is the whole codebook's. A lookup reads the owner's
+row, zeros on the other ranks, summed over the group. Indices may differ
+from the whole codebook's search only at near-ties (``index_differences``).
 """
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import global_batch_group
+from ..parallel.collectives import _all_gather, _all_reduce, reduce_from_model
+from ..parallel.mesh import global_batch_group, model_parallel_group
+from ..parallel.sharding import tp_dim
 from ._lib import CARD_SMS, LIBRARY, check_launch, counted
 from .embedding import take_rows
 
@@ -189,19 +202,83 @@ def nearest_indices_grouped(z: torch.Tensor, codebooks: torch.Tensor,
     return nearest_indices_grouped_plain(z, codebooks)
 
 
+class CodebookShard(NamedTuple):
+    """A codebook split over the K codes of a model group: this rank holds
+    codes [lo, lo + K / size) of the whole ``K``."""
+    group: dist.ProcessGroup
+    size: int
+    K: int
+    lo: int
+
+    def local(self, idx: torch.Tensor):
+        """(index into this rank's codes, clamped; whether this rank owns it)
+        for global indices ``idx``."""
+        k_local = self.K // self.size
+        local = idx.long() - self.lo
+        own = (local >= 0) & (local < k_local)
+        return local.clamp(0, k_local - 1), own
+
+
+def codebook_shard(embedding: torch.Tensor, K: Optional[int]) -> Optional[CodebookShard]:
+    """The split of a codebook whose embedding (num, K', Dc) is this rank's
+    part of a whole codebook of ``K`` codes, inside ``tensor_parallel``;
+    None where the codebook is whole (no model group, K not given, or a K
+    the group's size does not divide). Raises where the rules split it and
+    the embedding is not the rank's part."""
+    group = model_parallel_group()
+    if group is None or K is None:
+        return None
+    size = dist.get_world_size(group)
+    num, k_here, dc = embedding.shape
+    if tp_dim("embedding", (num, K, dc), size) is None:
+        return None
+    if k_here * size != K:
+        raise ValueError(f"codebook of {k_here} codes under a model group of {size}: the "
+                         f"rank's part of a codebook of K = {K} holds {K // size}")
+    return CodebookShard(group, size, K, dist.get_rank(group) * k_here)
+
+
+def nearest_indices_sharded(z: torch.Tensor, codebooks: torch.Tensor, shard: CodebookShard,
+                            use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """z (N, G, Dc) -> (N, G) int32 global nearest codes of a codebook split
+    over the model group: this rank's part codebooks (G, K/M, Dc) searched
+    by ``nearest_indices_grouped`` (kernel 6 on a CUDA tensor), the winner's
+    fp32 distance recomputed by ``_distances``' formula, and across the
+    group the least distance, the lowest global index on exact ties."""
+    local = nearest_indices_grouped(z, codebooks, use_kernel).long()  # (N, G)
+    zf, c = z.detach().float(), codebooks.detach().float()
+    cw = c[torch.arange(c.shape[0], device=c.device)[None, :], local]  # (N, G, Dc)
+    dist_w = ((cw ** 2).sum(-1) + (zf ** 2).sum(-1)) - 2.0 * (zf * cw).sum(-1)
+    both = _all_gather(torch.stack([dist_w, (local + shard.lo).float()])[None], shard.group)
+    best = torch.argmin(both[:, 0], dim=0)  # the first least: the lowest rank, the lowest index
+    return both[:, 1].gather(0, best[None])[0].to(torch.int32)
+
+
+def _owned_rows(emb: torch.Tensor, idx: torch.Tensor, shard: CodebookShard) -> torch.Tensor:
+    """Rows of this rank's embedding (num, K/M, Dc) at global indices idx
+    (N, num), zero where another rank owns the code: (N, num, Dc)."""
+    local, own = shard.local(idx)
+    rows = emb[torch.arange(emb.shape[0], device=emb.device)[None, :], local]
+    return rows * own[..., None].to(rows.dtype)
+
+
 # --------------------------------------------------------------------------
 # Straight-through quantization + EMA update
 # --------------------------------------------------------------------------
 
-def _ema_stats(z: torch.Tensor, indices: torch.Tensor, K: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ema_stats(z: torch.Tensor, indices: torch.Tensor, K: int,
+               owned: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-batch cluster size (K,) and vector sum (K, Dc), fp32, no gradient.
     A one-hot product as in the JAX package, not a scatter-add: atomics would
     sum in another order on every call on the card. Inside the trainer's
-    global batch both are summed over its ranks in one all-reduce
-    (lvt_tpu/ops/vq.py:181-183); kernel 6's indices stay per rank."""
+    global batch both are summed over its ranks (the data group) in one
+    all-reduce (lvt_tpu/ops/vq.py:181-183); kernel 6's indices stay per
+    rank. ``owned`` (N,) bool: count only those rows (a split codebook's
+    own codes)."""
     z = z.detach().float()
     one_hot = torch.nn.functional.one_hot(indices.long(), K).to(torch.float32)  # (N, K)
+    if owned is not None:
+        one_hot = one_hot * owned[:, None].to(torch.float32)
     size, vec_sum = one_hot.sum(dim=0), one_hot.T @ z
     group = global_batch_group()
     if group is not None:
@@ -211,54 +288,72 @@ def _ema_stats(z: torch.Tensor, indices: torch.Tensor, K: int
     return size, vec_sum
 
 
-def _ema_update(running_size, running_sum, size, vec_sum, decay: float, eps: float):
+def _ema_update(running_size, running_sum, size, vec_sum, decay: float, eps: float,
+                shard: Optional[CodebookShard] = None):
     """The EMA embedding follows from the running sums alone; the current
-    embedding takes no part (reference vq_embedding.py:56-59)."""
-    K = running_size.shape[0]
+    embedding takes no part (reference vq_embedding.py:56-59). With a split
+    codebook, K is the whole codebook's and n the sum over every rank's
+    codes."""
+    K = running_size.shape[0] if shard is None else shard.K
     new_size = running_size * decay + (1.0 - decay) * size
     new_sum = running_sum * decay + (1.0 - decay) * vec_sum
     n = new_size.sum()
+    if shard is not None:
+        n = _all_reduce(n.reshape(1), shard.group)[0]
     denom = (new_size + eps) / (n + K * eps) * n
     new_emb = new_sum / denom[:, None]
     return new_emb, new_size, new_sum
 
 
 def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool,
-                decay: float = 0.99, eps: float = 1e-5, use_kernel: Optional[bool] = None):
+                decay: float = 0.99, eps: float = 1e-5, use_kernel: Optional[bool] = None,
+                K: Optional[int] = None):
     """Straight-through quantization of decomposed codes.
 
     z_e: (..., D) with D = num * Dc. Returns (z_q_st, z_q, indices,
     new_codebook): z_q_st carries the identity gradient to z_e; z_q is the
     lookup in the embedding after the EMA update and carries the codebook's
     gradient (the non-EMA loss term); the new codebook holds no graph when
-    ``ema and train`` (else it is the old one's tensors).
+    ``ema and train`` (else it is the old one's tensors). K: the whole
+    codebook's size; under tensor parallelism the codebook given is the
+    rank's part of it (``codebook_shard``), and the indices are global.
     """
     emb = codebook["embedding"]
-    num, K, Dc = emb.shape
+    num, K_here, Dc = emb.shape
+    shard = codebook_shard(emb, K)
     lead = z_e.shape[:-1]
     z = z_e.reshape(-1, num, Dc)
     # every sub-codebook's indices from the embedding before the update, at once
-    idx_all = nearest_indices_grouped(z, emb, use_kernel)
+    if shard is None:
+        idx_all = nearest_indices_grouped(z, emb, use_kernel)
+        local_all, own_all = idx_all, None
+    else:  # global indices; this rank's codes among them, and their rows summed over the group
+        idx_all = nearest_indices_sharded(z, emb, shard, use_kernel)
+        local_all, own_all = shard.local(idx_all)
+        pre_all = reduce_from_model(_owned_rows(emb.detach(), idx_all, shard), shard.group)
 
     st_parts, q_parts = [], []
     new_emb, new_rs, new_rsum = [], [], []
     for i in range(num):
         zi = z[:, i, :]
         emb_i = emb[i]
-        idx = idx_all[:, i]
+        idx, own = local_all[:, i], None if own_all is None else own_all[:, i]
         # straight-through uses the embedding before the update
-        z_q_pre = emb_i.detach()[idx.long()]
+        z_q_pre = emb_i.detach()[idx.long()] if shard is None else pre_all[:, i]
         st = zi + (z_q_pre - zi.detach().to(z_q_pre.dtype)).to(zi.dtype)
 
         if ema and train:
-            size, vec_sum = _ema_stats(zi, idx, K)
+            size, vec_sum = _ema_stats(zi, idx, K_here, own)
             e, rs, rsum = _ema_update(codebook["running_size"][i], codebook["running_sum"][i],
-                                      size, vec_sum, decay, eps)
+                                      size, vec_sum, decay, eps, shard)
         else:
             e, rs, rsum = emb_i, codebook["running_size"][i], codebook["running_sum"][i]
 
-        # the differentiable lookup uses the embedding after the update
+        # the differentiable lookup uses the embedding after the update (with a
+        # split codebook the owner's row, summed over the group after the loop)
         q = take_rows(e, idx)
+        if own is not None:
+            q = q * own[:, None].to(q.dtype)
 
         st_parts.append(st)
         q_parts.append(q)
@@ -267,7 +362,10 @@ def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool
         new_rsum.append(rsum)
 
     z_q_st = torch.stack(st_parts, dim=1).reshape(z_e.shape)
-    z_q = torch.stack(q_parts, dim=1).reshape(lead + (num * Dc,)).to(z_e.dtype)
+    z_q = torch.stack(q_parts, dim=1)
+    if shard is not None:
+        z_q = reduce_from_model(z_q, shard.group)
+    z_q = z_q.reshape(lead + (num * Dc,)).to(z_e.dtype)
     indices = idx_all.reshape(lead + (num,))
     new_codebook = {"embedding": torch.stack(new_emb), "running_size": torch.stack(new_rs),
                     "running_sum": torch.stack(new_rsum)}
@@ -303,18 +401,28 @@ def index_differences(got: torch.Tensor, want: torch.Tensor, z: torch.Tensor,
 
 
 def encode_indices(z_e: torch.Tensor, codebook: Codebook,
-                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+                   use_kernel: Optional[bool] = None, K: Optional[int] = None) -> torch.Tensor:
     """(..., D) -> (..., num) int32 codebook indices: kernel 6 on a CUDA
     tensor, the plain fp32 version on a CPU tensor; ``use_kernel`` as in
-    ``nearest_indices``."""
+    ``nearest_indices``; ``K`` as in ``quantize_st``."""
     emb = codebook["embedding"]
-    num, K, Dc = emb.shape
+    num, _, Dc = emb.shape
     z = z_e.reshape(-1, num, Dc)
-    return nearest_indices_grouped(z, emb, use_kernel).reshape(z_e.shape[:-1] + (num,))
+    shard = codebook_shard(emb, K)
+    idx = (nearest_indices_grouped(z, emb, use_kernel) if shard is None
+           else nearest_indices_sharded(z, emb, shard, use_kernel))
+    return idx.reshape(z_e.shape[:-1] + (num,))
 
 
-def embed_indices(indices: torch.Tensor, codebook: Codebook) -> torch.Tensor:
-    """(..., num) int -> (..., D) embeddings, chunk-concatenated."""
+def embed_indices(indices: torch.Tensor, codebook: Codebook,
+                  K: Optional[int] = None) -> torch.Tensor:
+    """(..., num) int -> (..., D) embeddings, chunk-concatenated; ``K`` as in
+    ``quantize_st``."""
     emb = codebook["embedding"]
+    shard = codebook_shard(emb, K)
+    if shard is not None:
+        flat = indices.reshape(-1, emb.shape[0])
+        rows = reduce_from_model(_owned_rows(emb, flat, shard), shard.group)
+        return rows.reshape(indices.shape[:-1] + (-1,))
     parts = [emb[i][indices[..., i].long()] for i in range(emb.shape[0])]
     return torch.cat(parts, dim=-1)

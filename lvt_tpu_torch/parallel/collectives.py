@@ -10,6 +10,19 @@ backward. Every rank of the group calls each one, forward and backward, in
 the same order. The gathered and scattered axis is 0 and every rank's part
 has the same shape (``tiled``, as ``lvt_tpu`` calls them).
 
+Tensor parallelism takes Megatron's two conjugate operators and a feature
+gather, over a model group whose ranks compute the same replicated values:
+``copy_to_model`` (identity forward, all-reduce backward) goes before a
+column-parallel product, ``reduce_from_model`` (all-reduce forward, identity
+backward) after a row-parallel one, and ``gather_features`` (all-gather on
+the last axis forward, the rank's own slice of the gradient backward) after
+a feature-split lookup. The data-parallel ``all_reduce`` and ``all_gather``
+would be wrong there: their backward sums the gradient over the ranks, and
+each rank's gradient of a replicated value is already the whole one, so
+every gradient upstream would come out M times too large. These three sum
+and move bf16 and other narrow floats as fp32 (one rounding of the sum, and
+a dtype every backend takes).
+
 Under a gloo group, CUDA tensors go straight through ``all_reduce``; the
 gather and the reduce-scatter are staged through host copies, because gloo
 does not take CUDA tensors for them. The backend is never switched: an NCCL
@@ -21,7 +34,8 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "reduce_scatter", "all_reduce"]
+__all__ = ["all_gather", "reduce_scatter", "all_reduce", "copy_to_model", "reduce_from_model",
+           "gather_features", "local_features"]
 
 
 def _world(group) -> int:
@@ -117,3 +131,76 @@ def reduce_scatter(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -
     axis 0; the gradient is the all-gather of the chunks'
     (``jax.lax.psum_scatter``, tiled)."""
     return _ReduceScatter.apply(x, group)
+
+
+def _narrow(x: torch.Tensor) -> bool:
+    return x.is_floating_point() and x.dtype not in (torch.float32, torch.float64)
+
+
+def _sum_fp32(x: torch.Tensor, group) -> torch.Tensor:
+    """``_all_reduce`` with a narrow float summed in fp32 and rounded once."""
+    return _all_reduce(x.float(), group).to(x.dtype) if _narrow(x) else _all_reduce(x, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_fp32(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_fp32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        parts = _all_gather((x.float() if _narrow(x) else x).movedim(-1, 0), group)
+        return parts.movedim(0, -1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank = dist.get_rank(ctx.group)
+        return g.narrow(-1, rank * ctx.width, ctx.width), None
+
+
+def copy_to_model(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over the model group (before a
+    column-parallel product: each rank's product sends back its part of the
+    input's gradient)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The sum of ``x`` over the model group; the gradient passes as it is
+    (after a row-parallel product: every rank's partial product is summed,
+    and each needs the whole output's gradient, which it has)."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_features(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along the last axis in rank order; the
+    gradient is the rank's own slice of the output's (after a lookup split
+    over its features, before replicated work)."""
+    return _GatherFeatures.apply(x, group)
+
+
+def local_features(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The rank's equal consecutive part of the last axis of a replicated
+    ``x``, whose gradient (zero outside the part) is summed over the model
+    group (before a row-parallel product whose input is replicated)."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    width = x.shape[-1] // size
+    return copy_to_model(x, group).narrow(-1, rank * width, width)

@@ -1,48 +1,114 @@
-"""The data-parallel layout of a training run (counterpart of
+"""The (data, model) layout of a run across processes (counterpart of
 lvt_tpu/parallel/mesh.py).
 
 ``lvt_tpu`` jits its train step over a (data, model) mesh of devices. The
-port runs one process per GPU (``engine/launch.py``), so its data axis is the
-process group: TPU.MESH_DATA -1 means every process. Tensor parallelism
-(TPU.MESH_MODEL > 1) and spatial sharding (TPU.SHARD_SPATIAL) are not
-ported (ROADMAP.md queue 1 item 13).
+port runs one process per GPU (``engine/launch.py``) and lays the world of
+processes out the same way: with M = TPU.MESH_MODEL, rank r sits at data
+index r // M and model index r % M (``lvt_tpu``'s reshape of the device list
+to (data, model) puts adjacent devices on the model axis). The ranks of one
+data index form a model group: they hold the same batch rows and draw the
+same random numbers, and tensor parallelism (``parallel/sharding.py``) splits
+the weights over them. The ranks of one model index form a data group, over
+which the gradients are averaged. TPU.MESH_DATA is -1 or world // M; M must
+divide the world. Spatial sharding (TPU.SHARD_SPATIAL) is not ported
+(ROADMAP.md queue 1 item 9).
 
 ``lvt_tpu``'s step sees the whole global batch: under its jit every
 train-mode batch norm and the EMA codebook's statistics reduce over all of
 it, and the step's random draws are made for all of it. The port's trainer
-runs its forward pass inside ``global_batch(group)``, and the code that
+runs its forward pass inside ``global_batch(data group)``, and the code that
 reduces over the batch reads ``global_batch_group()``: None outside that
-context, where the batch is the process's own.
+context, where the batch is the process's own. Likewise the forward passes
+read ``model_parallel_group()``, which ``tensor_parallel(model group)`` sets:
+None outside it, where every weight is whole.
 """
 
 import contextlib
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch.distributed as dist
 
-_NOT_PORTED = "is not ported to lvt_tpu_torch yet (ROADMAP.md queue 1 item 13)"
+_NOT_PORTED = "is not ported to lvt_tpu_torch yet (ROADMAP.md queue 1 item 9)"
+
+
+def _world() -> Tuple[int, int]:
+    """(world size, rank): (1, 0) with no process group."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def layout(cfg, world: Optional[int] = None) -> Tuple[int, int]:
+    """(data, model) sizes of the world (this process's, or one of
+    ``world`` processes) under cfg's TPU.MESH_DATA and TPU.MESH_MODEL.
+    Refuses spatial sharding, a model axis that does not divide the world
+    and a data axis other than the rest of it."""
+    if cfg.TPU.SHARD_SPATIAL:
+        raise NotImplementedError("TPU.SHARD_SPATIAL (spatial sharding) " + _NOT_PORTED)
+    if world is None:
+        world, _ = _world()
+    model = cfg.TPU.MESH_MODEL
+    if model < 1 or world % model:
+        raise ValueError(f"TPU.MESH_MODEL {model} does not divide the world of {world} "
+                         f"process(es): start a multiple of {model} (--num-gpus)")
+    data = world // model
+    if cfg.TPU.MESH_DATA not in (-1, data):
+        raise ValueError(f"TPU.MESH_DATA {cfg.TPU.MESH_DATA}: the data axis spans the rest of "
+                         f"the world (-1 or {data} = {world} processes / TPU.MESH_MODEL {model})")
+    return data, model
+
+
+def data_rank(cfg) -> Tuple[int, int]:
+    """(this process's data index, the data axis's size): the rank and world
+    that the loader, the seeds and the trainer read (rank // M, world // M)."""
+    data, model = layout(cfg)
+    return _world()[1] // model, data
+
+
+_GROUPS: Dict[Tuple[int, int], Tuple[dist.ProcessGroup, dist.ProcessGroup]] = {}
+
+
+def _groups(model: int):
+    """(data group, model group) of this rank for a model axis of ``model``.
+    ``dist.new_group`` must be called by every rank for every group, in one
+    order: all of them are made once, on first use."""
+    world, rank = _world()
+    key = (world, model)
+    if key not in _GROUPS:
+        mine = [None, None]
+        for m in range(model):  # data groups: one model index each
+            g = dist.new_group(list(range(m, world, model)))
+            if rank % model == m:
+                mine[0] = g
+        for d in range(world // model):  # model groups: one data index each
+            g = dist.new_group(list(range(d * model, (d + 1) * model)))
+            if rank // model == d:
+                mine[1] = g
+        _GROUPS[key] = tuple(mine)
+    return _GROUPS[key]
 
 
 def data_group(cfg) -> Optional[dist.ProcessGroup]:
-    """The process group of the data axis: the default group when one is
-    initialised (at any size, one included), else None. Refuses the layouts
-    that are not ported and a data axis that is not every process."""
-    if cfg.TPU.MESH_MODEL != 1:
-        raise NotImplementedError(f"TPU.MESH_MODEL {cfg.TPU.MESH_MODEL} (tensor parallelism) "
-                                  + _NOT_PORTED)
-    if cfg.TPU.SHARD_SPATIAL:
-        raise NotImplementedError("TPU.SHARD_SPATIAL (spatial sharding) " + _NOT_PORTED)
+    """The process group of the data axis: None with no process group; the
+    default group when the model axis is 1 (at any size, one included); else
+    this rank's data subgroup."""
+    _, model = layout(cfg)
     if not (dist.is_available() and dist.is_initialized()):
-        world, group = 1, None
-    else:
-        world, group = dist.get_world_size(), dist.group.WORLD
-    if cfg.TPU.MESH_DATA not in (-1, world):
-        raise ValueError(f"TPU.MESH_DATA {cfg.TPU.MESH_DATA}: the data axis spans every "
-                         f"process (-1 or {world})")
-    return group
+        return None
+    if model == 1:
+        return dist.group.WORLD
+    return _groups(model)[0]
+
+
+def model_group(cfg) -> Optional[dist.ProcessGroup]:
+    """This rank's model group (the ranks that share its data index), or None
+    when TPU.MESH_MODEL is 1."""
+    _, model = layout(cfg)
+    return None if model == 1 else _groups(model)[1]
 
 
 _GLOBAL_BATCH: Optional[dist.ProcessGroup] = None
+_MODEL_PARALLEL: Optional[dist.ProcessGroup] = None
 
 
 @contextlib.contextmanager
@@ -61,6 +127,23 @@ def global_batch_group() -> Optional[dist.ProcessGroup]:
     """The group whose ranks hold the global batch, inside
     ``global_batch``; else None."""
     return _GLOBAL_BATCH
+
+
+@contextlib.contextmanager
+def tensor_parallel(group: Optional[dist.ProcessGroup]):
+    """Within: the weights that ``parallel/sharding.py`` splits are held as
+    this rank's part of them over ``group`` (None: whole)."""
+    global _MODEL_PARALLEL
+    outer, _MODEL_PARALLEL = _MODEL_PARALLEL, group
+    try:
+        yield
+    finally:
+        _MODEL_PARALLEL = outer
+
+
+def model_parallel_group() -> Optional[dist.ProcessGroup]:
+    """The model group inside ``tensor_parallel``; else None."""
+    return _MODEL_PARALLEL
 
 
 def batch_rows(group: Optional[dist.ProcessGroup], local: int):

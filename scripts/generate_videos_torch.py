@@ -226,6 +226,12 @@ def _main(args, device):
     from lvt_tpu_torch.utils.image import save_image
 
     cfg = load_config(args.config_file, args.opts)
+    if cfg.TPU.MESH_MODEL != 1:
+        raise NotImplementedError(
+            f"TPU.MESH_MODEL {cfg.TPU.MESH_MODEL}: this script shards videos over the processes "
+            "(data parallel); generation under tensor parallelism is not ported to it yet "
+            "(ROADMAP.md queue 1 item 9). VideoTransformer.sample_video runs tensor-parallel "
+            "inside lvt_tpu_torch.parallel.tensor_parallel")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script runs the port's CUDA kernels")

@@ -48,6 +48,16 @@ the global batch, of which each process loads its part:
 --dist-backend gloo puts the processes on gloo instead: several on one card,
 or on the CPU. Evaluation shards the test set over the processes and rank 0
 gathers the metrics. A process that fails makes the command exit non-zero.
+
+TPU.MESH_MODEL M lays the N processes out as N / M data-parallel groups of M
+tensor-parallel ranks (lvt_tpu_torch/parallel/): the attention heads, the FFN
+and predictor columns, the embeddings' features and the codebook's codes are
+split over each group of M. M must divide N:
+  python tools/train_net_torch.py --num-gpus 2 --config-file configs/vt/DSFVT.yaml \
+      TPU.MESH_MODEL 2 OUTPUT_DIR out/dsfvt_tp
+Under TPU.MESH_MODEL the VT trains with its unfused layers (kernels 1 and
+10) and samples with the eager native sampler (kernel 2); its checkpoints
+hold the whole leaves, so a run resumes under another layout.
 """
 
 import os
@@ -58,15 +68,22 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import torch
 
 
-def setup(args):
+def load_cfg(args):
+    """The frozen config of the command line: the file, then the overrides."""
     from lvt_tpu_torch.config import get_cfg
-    from lvt_tpu_torch.engine.defaults import default_setup
 
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
     cfg.freeze()
+    return cfg
+
+
+def setup(args):
+    from lvt_tpu_torch.engine.defaults import default_setup
+
+    cfg = load_cfg(args)
     default_setup(cfg, args)
     return cfg
 
@@ -104,6 +121,9 @@ def evaluate(cfg, device):
     from lvt_tpu_torch.models.vqvae import VQVAE, AutoEncoder
     from lvt_tpu_torch.utils import comm
 
+    from lvt_tpu_torch.parallel import sharding
+    from lvt_tpu_torch.parallel.mesh import model_group
+
     device = rank_device(device)
     model = build_model(cfg)
     params, state = model.init(torch.Generator().manual_seed(max(cfg.SEED, 0)), device)
@@ -119,6 +139,10 @@ def evaluate(cfg, device):
         loaded = load_vt_weights(cfg, params)
         if loaded is not None:
             params = loaded
+    group = model_group(cfg)
+    if group is not None:  # the whole weights, then this rank's parts of them
+        rank, size = sharding.group_rank(group)
+        params, state = (sharding.shard_tree(t, rank, size) for t in (params, state))
     results = run_test(cfg, model, params, state)
     if comm.is_main_process():
         verify_results(cfg, results)
@@ -132,7 +156,9 @@ def run(args, device="cuda"):
     here and returns ``main``'s result; a spawned world returns None, and a
     process that fails makes it raise."""
     from lvt_tpu_torch.engine.launch import launch
+    from lvt_tpu_torch.parallel.mesh import layout
 
+    layout(load_cfg(args), args.num_gpus * args.num_machines)  # a layout the world cannot take
     return launch(main, args.num_gpus, num_machines=args.num_machines,
                   machine_rank=args.machine_rank, dist_url=args.dist_url,
                   backend=args.dist_backend, args=(args, device))
