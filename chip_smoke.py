@@ -275,19 +275,43 @@ Phases, each fatal on failure (exit code 1, no result line):
                 (TorchProfiler) on 3 fused steps at batch 16, its trace read
                 by tools/trace_summary_torch.py.
 
+ 22. sampler modes — the int4 KV cache and multi-stream rollouts at DSFVT's
+                full width, bf16, greedy unless stated, each rollout the last
+                slice of a seeded video of b = 8 through sample_video and the
+                slice's CUDA graph, every count set to 0 just before and read
+                just after, held exactly to _modes_expected (kernel 1 8, and
+                in each of S streams kernel 2 or 3 once a layer and pixel).
+                Streams 1, 2 and 4 natively, 1 and 2 with int8 KV + pallas
+                (kernel 3; STREAM_RUNS), the graph's S parallel branches: at
+                S > 1 codes equal to the graph's eager warm-up on the S
+                streams and to one-stream eager rollouts of each block of
+                b / S rows; agreement with the one-stream b = 8 rollout; the
+                graph's nodes, a replay's seconds and busy share (the union
+                of the device activities over the streams). A temperature
+                rollout at 2 streams: codes and the generator's state equal
+                the eager loop's from the same state. int4 KV: codes equal the
+                eager loop's, agreement with the native rollout, the cache's
+                bytes exactly half of int8's; one fp32 video's teacher logits
+                (logits_for_entire_video_incremental) on the card against the
+                CPU's within MODES_LOGIT_TOL (half the int4 gap at a
+                near-tie), the int4 and int8 gaps to native; one slice of
+                bench.py's program at b = 1024 with --kv int4: capture and
+                replay seconds, peak memory.
+
 Order: 1, 2, then the phases that time kernels alone on the card (3, 10,
 10b, 6, 7, 16), then 4, 5, 5b, 13 (the generation models loaded); then
-phases 18 to 21 start in two side processes (18 then 19; 20 then 21) beside
-11, 11b, 12, 12b, 8, 9, 14, 15, 17 in the main process, whose times are
-therefore taken with the card and the host shared (see SIDE_GROUPS). Phases
+phases 18 to 22 start in two side processes (18 then 22; 20, 21 then 19)
+beside 11, 11b, 12, 12b, 8, 9, 14, 15, 17 in the main process, whose times
+are therefore taken with the card and the host shared (see SIDE_GROUPS). Phases
 8 and 14 keep their OUTPUT_DIRs for phase 17. The line before the last is
 {"kernels": [...]}, each kernel with its main-path launches, phase 17's
 ("eval_launches"), phase 18's per rank of each world ("dp_launches") and
 of its tensor-parallel world ("tp_launches"), phase 3's at one rank's shard
 ("tp_shard"),
 phase 19's per run ("e2e_launches"), phase 20's per run
-("geometry_launches") and phase 21's per run ("tools_launches"); the last
-line is {"ok": true, "device": {...}}.
+("geometry_launches"), phase 21's per run ("tools_launches") and phase 22's
+per run ("sampler_modes_launches"); the last line is {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -5275,20 +5299,354 @@ def phase_tools(card):
 
 
 # --------------------------------------------------------------------------
-# side processes: phases 18 to 21 beside phases 11 to 17
+# phase 22: the sampler's int4 KV cache and multi-stream rollouts
 # --------------------------------------------------------------------------
-# Phases 18 to 21 share no state with the others, and the host sets their
-# pace (Python, process start-ups, loaders), not the card. Once every phase
-# that times a kernel (3, 6, 7, 10, 13, 16) has run alone, they run in two
-# more processes, each of its phases whole and in order, beside phases 11 to
-# 17 in the main process. A side process writes its phases' launches and
-# seconds to a file and its output to a log, which the main process prints
-# when the side process has ended. So the seconds, rates and busy shares that
-# phases 11 to 21 print are taken with the card and the host's cores shared;
-# the kernels' times in the last lines are not.
-SIDE_GROUPS = (("data parallel", "e2e"), ("geometries", "tools"))
+MODES_B = 8
+# (label, sample_video's knobs, stream counts): streams 1, 2 and 4 natively,
+# 1 and 2 with int8 KV + pallas (kernel 3; its 4 streams left out for the
+# time limit: tests/test_torch_kernels.py holds 4 streams of it on the card)
+STREAM_RUNS = (("native", {}, (1, 2, 4)),
+               ("int8 KV + pallas", {"kv_cache_dtype": "int8", "attn_impl": "pallas"}, (1, 2)))
+# int4 teacher logits, card vs CPU: tests/test_torch_sampler_int8.py's rule.
+# Within MODES_LOGIT_TOL, unless one of the CPU run's roundings to an integer
+# came within MODES_TIE_MARGIN of x.5 (in quantization steps): there the two
+# sides' fp32 activations may round one step apart, and the bound is half the
+# int4 cache's own gap to the native cache (the card's). The gap must stand
+# at least 10x above MODES_LOGIT_TOL.
+MODES_LOGIT_TOL = 2e-5
+MODES_TIE_MARGIN = 1e-4
+
+
+def _modes_expected(knobs, streams):
+    """Launches of one b = 8 slice (256 pixels, 8 + 8 layers), stated before
+    the run: kernel 1 8 (the encoder, at b rows, outside the graph); in each
+    of the S streams kernel 2, or 3 in int8 + pallas, once a layer and
+    pixel, kernel 11 4 products a layer and pixel; the int4 cache's
+    attention launches none of them (PyTorch's ops)."""
+    steps = streams * 256 * 8
+    kv = knobs.get("kv_cache_dtype", "native")
+    want = {"block_attention_fwd": 8}
+    if kv == "native":
+        want["decode_attention"] = steps
+    elif kv == "int8":
+        want["decode_attention_i8"] = steps
+    if knobs.get("weight_dtype") == "int8-pallas":
+        want["matmul_i8w"] = 4 * steps
+    return want
+
+
+def _busy_profile(fn):
+    """fn() once unprofiled, then once under torch.profiler, each
+    synchronized: (result, wall s, wall s under the profiler, device
+    activities, their summed device s, the device's busy s: the union of
+    their intervals, so that activities overlapping on several streams count
+    once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    summed = sum(b - a for a, b in spans) / 1e9
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return out, wall, wall_prof, len(spans), summed, busy / 1e9
+
+
+def phase_sampler_modes(card):
+    """Phase 22: the int4 KV cache and multi-stream rollouts (``streams``) at
+    DSFVT's full width, bf16, greedy unless stated, each rollout the last
+    slice (256 pixels, one frame) of a seeded video of b = 8, through
+    ``sample_video`` and the slice's CUDA graph, every count set to 0 just
+    before the graph rollout and read just after, held to _modes_expected.
+    Streams (STREAM_RUNS): at S > 1 the graph's codes equal its eager warm-up's
+    (the loop run eagerly on the S branches' streams) and one-stream eager
+    rollouts of each block of b / S rows; agreement with the one-stream
+    b = 8 rollout; at every S the graph's nodes, a replay's seconds and busy
+    share. A temperature rollout at 2 streams: the graph's codes and the
+    caller's generator equal the eager loop's from the same state. int4: the
+    graph's codes equal the eager loop's, the agreement with the native
+    rollout, the cache's bytes exactly half of int8's; one fp32 video's
+    teacher logits through logits_for_entire_video_incremental on the card
+    against the CPU's (MODES_LOGIT_TOL, near-tie rule), beside the int8
+    cache's gap to native; one slice of bench.py's program (b = 1024) with
+    the int4 cache: capture and replay seconds, peak memory. (Phase 11 holds
+    the one-stream graphs of the native and int8 + pallas modes to the eager
+    loop.) Returns {run: {kernel: launches}}."""
+    import numpy as np
+    import torch
+
+    from lvt_tpu_torch.config import get_cfg
+    from lvt_tpu_torch.models import cast_floats, to_device
+    from lvt_tpu_torch.models.vt import VideoTransformer, vt_encode
+    from lvt_tpu_torch.models.vt_incremental import SliceDecoder
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    dev, b = torch.device("cuda"), MODES_B
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"))
+    vt = VideoTransformer(cfg, T=T_FRAMES, H=16, W=16)
+    c, plan = vt.c, vt.plan
+    params32, _ = vt.init(torch.Generator().manual_seed(0), dev)
+    params = cast_floats(params32, torch.bfloat16)
+    rng = np.random.default_rng(22)
+    video = torch.from_numpy(rng.integers(0, c.nv, size=(b, c.nc, T_FRAMES, 16, 16))).to(dev)
+    n_prime = T_FRAMES - 1
+    frames = [plan.slice_src[s].reshape(-1) // (16 * 16) for s in range(plan.num_slices)]
+    sampled = [s for s in range(plan.num_slices) if not (frames[s] < n_prime).all()]
+    check(len(sampled) == 1 and plan.slice_src[sampled[0]].size == 256,
+          f"sampler modes: slices {sampled} sampled, want one of 256 pixels")
+    s_last = sampled[0]
+    primed_t = torch.as_tensor(frames[s_last] < n_prime, device=dev)
+    with torch.no_grad():
+        sidx = torch.full((b,), s_last, dtype=torch.int64, device=dev)
+        ctx, sl_in, _ = vt.prepare_slices(video, sidx)
+        zl = vt_encode(params["netG"], c, ctx, sidx)
+    launches, parts, t_part = {}, [], [time.perf_counter()]
+
+    def part(name):  # seconds of each part of the phase, printed at its end
+        now = time.perf_counter()
+        parts.append(f"{name} {now - t_part[0]:.1f}")
+        t_part[0] = now
+
+    def rollout(knobs, rows=None, eager=False, gen=None, greedy=True):
+        v = video if rows is None else video[rows]
+        with torch.no_grad():
+            return vt.sample_video(params, v, gen, n_prime=n_prime, greedy=greedy, temp=1.0,
+                                   _eager=eager, **knobs)
+
+    def graph_run(label, knobs, streams=1, eager=False):
+        """The graph rollout with its counts, a profiled replay of its slice,
+        the eager loop's codes where ``eager``, else at S > 1 the warm-up's;
+        returns (codes, the graph)."""
+        run = dict(knobs, streams=streams)
+        want = _modes_expected(knobs, streams)
+        _zero_counts()
+        caps = _captures()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rollout(run)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        took = _launched()
+        n_caps = _captures()[0] - caps[0]
+        name = f"{label}, streams {streams}"
+        check(took == want, f"sampler modes, {name}: launches {took}, want {want}")
+        check(n_caps == 1, f"sampler modes, {name}: {n_caps} graph captures, want 1")
+        check(int(got.min()) >= 0 and int(got.max()) < c.nv
+              and torch.equal(got[:, :, :n_prime], video[:, :, :n_prime]),
+              f"sampler modes, {name}: codes out of range or primed frames changed")
+        launches[name] = took
+        graph = vt._slice_graph_slot.graph
+        got_sl = vt.prepare_slices(got, sidx)[1]
+        held = ""
+        if eager:
+            t0 = time.perf_counter()
+            other = rollout(run, eager=True)
+            held = f"; the eager loop {time.perf_counter() - t0:.3f} s, codes equal"
+            check(torch.equal(other, got), f"sampler modes, {name}: the graph's codes differ "
+                                           f"from the eager loop's "
+                                           f"({int((other != got).sum())} codes)")
+        elif streams > 1:
+            held = "; codes equal to the eager warm-up's on the branches' streams"
+            check(torch.equal(graph.warmup_out, got_sl),
+                  f"sampler modes, {name}: the graph's codes differ from its eager warm-up's "
+                  f"({int((graph.warmup_out != got_sl).sum())} codes)")
+        out, wall, wall_prof, n_act, summed, busy = _busy_profile(
+            lambda: graph(zl, sl_in, primed_t))
+        check(torch.equal(out, got_sl),
+              f"sampler modes, {name}: a replay of the slice's graph differs from the rollout")
+        print(f"sampler modes b={b} bf16 greedy, {name} [{card}]: first call {first:.3f} s (the "
+              f"graph's capture {graph.capture_seconds:.3f} s, its eager warm-up "
+              f"{graph.warmup_seconds:.3f} s); graph of {graph.nodes} nodes ("
+              f"{graph.nodes / 256:.1f} a pixel); one replay {wall:.4f} s ({wall_prof:.4f} s "
+              f"under the profiler), device busy {busy:.4f} s = {100 * busy / wall_prof:.1f}% "
+              f"of the profiled wall time, kernels' time summed over streams {summed:.4f} s "
+              f"({n_act} activities, {n_act / 256:.1f} a pixel){held}; launches {took}, "
+              "exactly")
+        return got, graph
+
+    # ---- streams: the graph's S branches against one-stream rollouts
+    native = None
+    for label, knobs, counts in STREAM_RUNS:
+        one = None
+        for streams in counts:
+            got, _ = graph_run(label, knobs, streams)
+            if streams == 1:
+                one = got
+                native = got if native is None else native
+                part(f"{label} S=1")
+                continue
+            bs = b // streams
+            t0 = time.perf_counter()
+            for s in range(streams):
+                rows = slice(s * bs, (s + 1) * bs)
+                block = rollout(knobs, rows, eager=True)
+                check(torch.equal(got[rows], block),
+                      f"sampler modes, {label}, streams {streams}: rows {rows.start}-"
+                      f"{rows.stop - 1} differ from their one-stream rollout "
+                      f"({int((got[rows] != block).sum())} codes)")
+            agree = float((got[:, :, n_prime:] == one[:, :, n_prime:]).float().mean())
+            print(f"  {label}, streams {streams}: every block of {bs} rows equal to its one-"
+                  f"stream eager rollout ({time.perf_counter() - t0:.2f} s); codes equal to the "
+                  f"one-stream b = {b} rollout's: {agree:.4f} of the sampled")
+            part(f"{label} S={streams}")
+        vt._slice_graph_slot = None
+        torch.cuda.empty_cache()
+
+    # ---- a temperature rollout at 2 streams: graph and eager from one state
+    outs = {}
+    for eager in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        _zero_counts()
+        codes = rollout({"streams": 2}, eager=eager, gen=gen, greedy=False)
+        if not eager:
+            launches["native, streams 2, temperature"] = _launched()
+        outs[eager] = (codes, gen.get_state())
+    check(torch.equal(outs[True][0], outs[False][0]) and torch.equal(outs[True][1],
+                                                                     outs[False][1]),
+          "sampler modes, temperature at 2 streams: the graph's draws or the generator's state "
+          "differ from the eager loop's")
+    check(not torch.equal(outs[False][0][:, :, n_prime:], native[:, :, n_prime:]),
+          "sampler modes, temperature at 2 streams: the draws equal the greedy codes")
+    print(f"sampler modes b={b} bf16, native, streams 2, temperature 1.0 [{card}]: the graph's "
+          "codes and the caller's generator state equal the eager loop's from the same state")
+    vt._slice_graph_slot = None
+    part("temperature S=2")
+
+    # ---- the int4 cache at b = 8
+    bytes8 = SliceDecoder(params["netG"], c, plan.slice_shape, b, dev,
+                          kv_dtype="int8").cache_bytes()
+    got, graph = graph_run("int4 KV", {"kv_cache_dtype": "int4"}, eager=True)
+    bytes4 = graph.decoder.cache_bytes()
+    check(2 * bytes4 == bytes8, f"sampler modes, int4: the cache holds {bytes4} bytes, int8's "
+                                f"{bytes8}; want exactly half")
+    agree = float((got[:, :, n_prime:] == native[:, :, n_prime:]).float().mean())
+    print(f"  int4 KV: K and V caches {bytes4 / 2 ** 20:.1f} MiB, exactly half of the int8 "
+          f"cache's {bytes8 / 2 ** 20:.1f} MiB; greedy codes equal to the native rollout's: "
+          f"{agree:.4f} of the sampled")
+    check(agree >= GREEDY_FLOOR, f"sampler modes, int4: greedy agreement with the native "
+                                 f"rollout {agree}, under the floor {GREEDY_FLOOR}")
+    vt._slice_graph_slot = graph = None
+    torch.cuda.empty_cache()
+    part("int4 b=8")
+
+    # ---- int4 teacher logits: one fp32 video on the card and on the CPU
+    video1 = torch.from_numpy(rng.integers(0, c.nv, size=(1, c.nc, T_FRAMES, 16, 16)))
+    lg = {}
+    for kv in ("native", "int8", "int4"):
+        _zero_counts()
+        with torch.no_grad():
+            lg[kv] = vt.logits_for_entire_video_incremental(params32, video1.to(dev),
+                                                            kv_cache_dtype=kv).cpu()
+        launches[f"teacher logits fp32, {kv} cache"] = _launched()
+    margin = [float("inf")]
+    inner_round = torch.round
+
+    def recording_round(x, *args, **kwargs):
+        frac = x.detach().float()
+        margin[0] = min(margin[0], float((frac - frac.floor() - 0.5).abs().min()))
+        return inner_round(x, *args, **kwargs)
+
+    cpu32 = to_device(params32, "cpu")
+    t0 = time.perf_counter()
+    torch.round = recording_round
+    try:
+        with torch.no_grad():
+            cpu4 = vt.logits_for_entire_video_incremental(cpu32, video1, kv_cache_dtype="int4")
+    finally:
+        torch.round = inner_round
+    cpu_s = time.perf_counter() - t0
+
+    def rms(x):
+        return float(x.pow(2).mean().sqrt())
+
+    err = float((lg["int4"] - cpu4).abs().max())
+    gap4 = float((lg["int4"] - lg["native"]).abs().max())
+    gap8 = float((lg["int8"] - lg["native"]).abs().max())
+    bound = MODES_LOGIT_TOL if margin[0] >= MODES_TIE_MARGIN else 0.5 * gap4
+    print(f"sampler modes, int4 teacher logits fp32 b=1, one video (16 slices) [{card}]: card vs "
+          f"cpu max {err:.4g} (rms {rms(lg['int4'] - cpu4):.3g}), bound {bound:.4g} (the CPU's "
+          f"roundings came within {margin[0]:.3g} of x.5, "
+          f"{'under' if margin[0] < MODES_TIE_MARGIN else 'over'} MODES_TIE_MARGIN); gap to "
+          f"the native cache max {gap4:.4g} (rms {rms(lg['int4'] - lg['native']):.3g}), the "
+          f"int8 cache's {gap8:.4g} (rms {rms(lg['int8'] - lg['native']):.3g}); |logits| <= "
+          f"{float(lg['native'].abs().max()):.3g}; the CPU's pass {cpu_s:.1f} s")
+    check(np.isfinite(lg["int4"].numpy()).all(), "sampler modes: non-finite int4 logits")
+    check(gap4 >= 10 * MODES_LOGIT_TOL, f"sampler modes: the int4 gap {gap4} is too near the bound")
+    check(err <= bound, f"sampler modes: int4 teacher logits card vs cpu {err}, bound {bound}")
+    part("int4 teacher logits")
+
+    # ---- bench.py's program with the int4 cache, one slice at b = 1024
+    B = BENCH_BATCH
+    codes = torch.from_numpy(np.random.default_rng(2).integers(
+        0, c.nv, size=(B, c.nc, T_FRAMES, 16, 16))).to(dev)
+    thw = plan.slice_src[N_PRIME].size
+    primed = torch.zeros(thw, dtype=torch.bool, device=dev)
+    knobs = {"kv_dtype": "int4", "weight_dtype": "native", "mm_dtype": "native",
+             "attn_impl": "xla", "streams": 1}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        sidx = torch.full((B,), N_PRIME, dtype=torch.int64, device=dev)
+        ctx, sl, _ = vt.prepare_slices(codes, sidx)
+        zl = vt_encode(params["netG"], c, ctx, sidx)
+        t0 = time.perf_counter()
+        graph = vt._slice_graph(params, zl, sl, primed, knobs, 1.0, True)
+        capture = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = graph(zl, sl, primed)
+        int(out[0, 0, 0, 0, 0])
+        torch.cuda.synchronize()
+        replay = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(out.shape) == tuple(sl.shape) and int(out.min()) >= 0 and int(out.max()) < c.nv,
+          "sampler modes, bench slice int4: codes of the wrong shape or out of range")
+    print(f"bench.py's program with --kv int4, one slice: DSFVT b={B} bf16 int4 KV xla greedy, "
+          f"{thw} pixels, graph [{card}]: captured in {capture:.3f} s (warm-up, one eager slice, "
+          f"{graph.warmup_seconds:.3f} s); one replay {replay:.3f} s; the K and V caches "
+          f"{graph.decoder.cache_bytes() / 2 ** 30:.3f} GiB; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; codes in [0, {c.nv})")
+    vt._slice_graph_slot = graph = None
+    torch.cuda.empty_cache()
+    part("int4 b=1024")
+    print(f"sampler modes: part seconds {', '.join(parts)}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# side processes: phases 18 to 22 beside phases 11 to 17
+# --------------------------------------------------------------------------
+# Phases 18 to 22 share no state with the others, and the host sets their
+# pace (Python, process start-ups, loaders, graph captures), not the card.
+# Once every phase that times a kernel (3, 6, 7, 10, 13, 16) has run alone,
+# they run in two more processes, each of its phases whole and in order,
+# beside phases 11 to 17 in the main process, the two groups of about equal
+# length (phase 22, 240-330 s, after phase 18; phase 19 after 20 and 21). A side
+# process writes its phases' launches and seconds to a file and its output
+# to a log, which the main process prints when the side process has ended.
+# So the seconds, rates and busy shares that phases 11 to 22 print are taken
+# with the card and the host's cores shared; the kernels' times in the last
+# lines are not.
+SIDE_GROUPS = (("data parallel", "sampler modes"), ("geometries", "tools", "e2e"))
 SIDE_PHASES = {"data parallel": phase_data_parallel, "e2e": phase_e2e,
-               "geometries": phase_geometries, "tools": phase_tools}
+               "geometries": phase_geometries, "tools": phase_tools,
+               "sampler modes": phase_sampler_modes}
 SIDE_TIMEOUT = 1000  # seconds from its start that a side process may take
 
 
@@ -5435,7 +5793,7 @@ def main():
     k6 = phase_vq_kernel(card, models)
     lap("vq kernel")
 
-    # phases 18 to 21 in two side processes from here on
+    # phases 18 to 22 in two side processes from here on
     import atexit
     import shutil
     import tempfile
@@ -5477,6 +5835,7 @@ def main():
     dp_launches = side["data parallel"]
     tp_launches = dp_launches.pop("tp")
     e2e_launches, geo_launches, tool_launches = side["e2e"], side["geometries"], side["tools"]
+    modes_launches = side["sampler modes"]
     print(f"main process's phases done after {main_done:.1f} s; side processes, from their "
           "start to their result: " + "; ".join(f"{', '.join(s.names)} {s.took:.1f} s"
                                                 for s in sides))
@@ -5559,6 +5918,10 @@ def main():
         # child, the profiler hook's three steps
         k["tools_launches"] = {r: c[k["name"]] for r, c in tool_launches.items()
                                if k["name"] in c}
+        # phase 22's, per run: the streams and int4 rollouts (one slice each),
+        # the temperature rollout, the fp32 teacher passes
+        k["sampler_modes_launches"] = {r: c[k["name"]] for r, c in modes_launches.items()
+                                       if k["name"] in c}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,10 +27,22 @@ and each replay adds what the capture recorded: a count stays the number
 of launches on the device that made the rollout's codes.
 
 Random draws. A graph holds the generator state it draws from. The graph
-owns a generator of its own, registered with it; a replay copies the
-caller's generator state into it before and back after, so the caller's
-generator advances as the eager loop would advance it, and the same state
-gives the eager loop's draws.
+owns a generator of its own for each stream, registered with it. At one
+stream a replay copies the caller's generator state into it before and back
+after, so the caller's generator advances as the eager loop would advance
+it, and the same state gives the eager loop's draws. At S streams a replay
+draws the S seeds of ``vt_incremental.stream_seeds`` from the caller's
+generator, as the eager loop does, and sets each stream's generator to the
+state of a generator seeded with its seed.
+
+Streams. With ``streams`` S > 1 the graph has S parallel branches, one a
+block of b / S rows, each captured on a CUDA stream of its own: the
+capture stream makes the slice's code copy and embedding buffer, the S
+streams wait for it (a fork), each runs its block's projection, embedding
+rows and pixel loop, and the capture stream waits for all S (a join) before
+the capture ends. The warm-up runs on the same S streams, so that what a
+stream sets up at first use (cuBLAS's workspace among it) exists before the
+capture. A branch launches the kernels of the mode at b / S rows.
 
 Weights. The graph reads the weights, its set-up's copies of them and the
 caches by address. ``graph_key`` names every decoder and predictor weight by
@@ -48,7 +60,7 @@ import time
 import torch
 
 from ..ops._lib import COUNTED
-from .vt_incremental import SliceDecoder
+from .vt_incremental import SliceDecoder, stream_seeds
 
 
 @contextlib.contextmanager
@@ -80,7 +92,8 @@ def _leaves(tree):
 def graph_key(params, slice_shape, b: int, device, knobs: dict, temp: float, greedy: bool):
     """The key of a slice graph: (the decoder's and predictor's weights by
     address and version, then the configuration: slice shape, b, dtype,
-    device, knobs, greedy and the temperature where it is read)."""
+    device, knobs (``SliceDecoder``'s, ``streams`` among them), greedy and
+    the temperature where it is read)."""
     weights = tuple((t.data_ptr(), t._version)
                     for t in _leaves((params["decoder"], params["predictor"])))
     dtype = params["decoder"]["conv_w"].dtype
@@ -104,8 +117,11 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
 class SliceGraph:
     """One slice of ``decoder`` captured as a CUDA graph, from the first
     slice's zl (b, t, h, w, d), codes sl (b, nc, t, h, w) and primed mask
-    (thw,) bool on the card. Call it on each slice's inputs. ``nodes``: the
-    graph's node count."""
+    (thw,) bool on the card; at ``decoder.streams`` S > 1 in S parallel
+    branches. Call it on each slice's inputs. ``nodes``: the graph's node
+    count; ``warmup_out``: the codes its eager warm-up sampled from the
+    first slice's inputs (on the branches' streams, from the graph's own
+    generators)."""
 
     captures = 0  # graphs captured in this process
     captures_seconds = 0.0  # their warm-ups, captures and instantiations, host clock
@@ -114,17 +130,21 @@ class SliceGraph:
         dev = zl.device
         self.decoder, self.temp, self.greedy = decoder, temp, greedy
         self.zl, self.sl, self.primed = zl.clone(), sl.clone(), primed.clone()
-        self.gen = None if greedy else torch.Generator(device=dev)
+        n = decoder.streams
+        self.gens = [None] * n if greedy else [torch.Generator(device=dev) for _ in range(n)]
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept to count its nodes
-        if self.gen is not None:
-            self.graph.register_generator_state(self.gen)
+        for gen in self.gens:
+            if gen is not None:
+                self.graph.register_generator_state(gen)
         stream = torch.cuda.Stream(dev)
+        # the branches' streams, made once for the warm-up and the capture
+        self.streams = [torch.cuda.Stream(dev) for _ in range(n)] if n > 1 else None
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         with launches_apart() as self.warmup_launches, torch.no_grad():
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                self._slice()
+                self.warmup_out = self._slice()  # the eager loop's codes of the first inputs
             torch.cuda.synchronize(dev)
         self.warmup_seconds = time.perf_counter() - t0  # of capture_seconds below
         with launches_apart() as self.launches, torch.no_grad():
@@ -138,8 +158,9 @@ class SliceGraph:
         SliceGraph.captures_seconds += self.capture_seconds
 
     def _slice(self):
-        zlproj, sl_flat, emb = self.decoder.inputs(self.zl, self.sl)
-        self.decoder.sample(zlproj, sl_flat, emb, self.primed, self.gen, self.temp, self.greedy)
+        zlproj, sl_flat, emb = self.decoder.inputs(self.zl, self.sl, self.streams)
+        self.decoder.sample(zlproj, sl_flat, emb, self.primed, self.gens, self.temp, self.greedy,
+                            self.streams)
         return sl_flat.reshape(self.sl.shape)
 
     def __call__(self, zl, sl, primed, gen=None):
@@ -149,12 +170,16 @@ class SliceGraph:
         self.zl.copy_(zl)
         self.sl.copy_(sl)
         self.primed.copy_(primed)
-        if self.gen is not None:
+        if not self.greedy:
             gen = gen if gen is not None else torch.cuda.default_generators[zl.device.index]
-            self.gen.set_state(gen.get_state())
+            if len(self.gens) == 1:
+                self.gens[0].set_state(gen.get_state())
+            else:
+                for own, seed in zip(self.gens, stream_seeds(gen, len(self.gens), zl.device)):
+                    own.set_state(torch.Generator(device=zl.device).manual_seed(seed).get_state())
         self.graph.replay()
-        if self.gen is not None:
-            gen.set_state(self.gen.get_state())
+        if not self.greedy and len(self.gens) == 1:
+            gen.set_state(self.gens[0].get_state())
         for fn, n in self.launches.items():
             fn.launches += n
         return self.out.clone()
@@ -174,7 +199,7 @@ class SliceGraphSlot:
             greedy: bool) -> SliceGraph:
         """The graph of this configuration, captured on these inputs if it is
         not the kept one. params: the netG tree; knobs: ``SliceDecoder``'s
-        kv_dtype, weight_dtype, mm_dtype and attn_impl."""
+        kv_dtype, weight_dtype, mm_dtype, attn_impl and streams."""
         key = graph_key(params, slice_shape, sl.shape[0], zl.device, knobs, temp, greedy)
         if key != self.key:
             self.key, self.graph, self.weights = None, None, ()  # its memory before the new one

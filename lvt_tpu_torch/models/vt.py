@@ -535,8 +535,8 @@ class VideoTransformer:
         (``SliceDecoder.teacher``), eagerly: the contract of
         ``logits_for_entire_video``, (b, T, H, W, nc, nv) fp32. With
         kv_cache_dtype "native" the result is that function's up to
-        accumulation order; with "int8" it carries the logit error the
-        quantized cache injects ("int4" raises NotImplementedError).
+        accumulation order; with "int8" or "int4" it carries the logit error
+        the quantized cache injects.
         kv_seg_size is accepted and ignored, as in ``sample_video``.
 
         Given the video every slice's inputs are known, so the S slices run
@@ -601,7 +601,7 @@ class VideoTransformer:
                      incremental: bool = True, greedy: bool = False,
                      kv_cache_dtype: str = "native", kv_seg_size: int = 0,
                      weight_dtype: str = "native", mm_dtype: str = "native",
-                     attn_impl: str = "xla", _eager: bool = False):
+                     attn_impl: str = "xla", streams: int = 1, _eager: bool = False):
         """AR-sample all non-primed positions, slice by slice.
 
         video: (b, nc, T, H, W) with primed frames filled, others arbitrary.
@@ -626,12 +626,13 @@ class VideoTransformer:
         rank, so ranks whose generators are seeded alike (by their data rank)
         sample the same codes.
 
-        kv_cache_dtype ("native", "int8"), weight_dtype ("native", "int8",
-        "int8-pallas"), mm_dtype ("native", "int8") and attn_impl ("xla",
-        "pallas", "pallas-live") choose the quantized sampler, as
-        ``sample_slice_incremental`` documents them. kv_cache_dtype="int4"
-        raises NotImplementedError; the JAX package's ``streams`` has no
-        counterpart (its greedy output equals one stream's).
+        kv_cache_dtype ("native", "int8", "int4"), weight_dtype ("native",
+        "int8", "int8-pallas"), mm_dtype ("native", "int8") and attn_impl
+        ("xla", "pallas", "pallas-live") choose the quantized sampler, and
+        ``streams`` splits the batch into independent rollouts (on the card
+        the parallel branches of each slice's graph), as
+        ``sample_slice_incremental`` documents them. Under tensor parallelism
+        ``streams`` other than 1 raises NotImplementedError.
         """
         if not incremental:
             # the full-recompute path has no KV cache: refuse the knobs it
@@ -639,7 +640,8 @@ class VideoTransformer:
             # the cache and mean nothing here)
             for name, val, default in (("weight_dtype", weight_dtype, "native"),
                                        ("mm_dtype", mm_dtype, "native"),
-                                       ("attn_impl", attn_impl, "xla")):
+                                       ("attn_impl", attn_impl, "xla"),
+                                       ("streams", streams, 1)):
                 if val != default:
                     raise ValueError(
                         f"sample_video(incremental=False) ignores {name}; got {name}={val!r}: "
@@ -651,7 +653,7 @@ class VideoTransformer:
         b, nc, T, H, W = video.shape
         plan = self._plan_for(T, H, W)
         knobs = dict(kv_dtype=kv_cache_dtype, weight_dtype=weight_dtype, mm_dtype=mm_dtype,
-                     attn_impl=attn_impl)
+                     attn_impl=attn_impl, streams=streams)
         on_graph = incremental and video.is_cuda and not _eager
         if on_graph and model_parallel_group() is not None:
             _log_once("tensor parallel: sample_video runs each slice's eager loop (the CUDA "

@@ -38,22 +38,27 @@ def matmul_i8w_plan(b: int, K: int, N: int):
     return cpb, -(-N // cpb), groups
 
 
+# the largest integer of each quantized width: int8 (127 levels each side)
+# and int4 (7; the sampler's int4 KV cache)
+QMAX = {"int8": 127, "int4": 7}
+
+
 @lru_cache(maxsize=None)
-def _qmax(device, dtype):
+def _qmax(device, dtype, qmax=127):
     # made by a kernel at first use: inside a CUDA graph's capture that kernel
     # would only be recorded, and the cached tensor left unwritten
     if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("absmax_scale: first use inside a CUDA graph capture; run the "
                            "captured work once before capturing it")
-    return torch.full((), 127.0, device=device, dtype=dtype)
+    return torch.full((), float(qmax), device=device, dtype=dtype)
 
 
-def absmax_scale(amax):
-    """amax / 127 by a true division on every device. Dividing a CUDA tensor
+def absmax_scale(amax, qmax: int = 127):
+    """amax / qmax by a true division on every device. Dividing a CUDA tensor
     by a Python number multiplies by its reciprocal instead, an ulp apart
     from the CPU's and the kernels' quotient in some cases, and a scale an
     ulp apart rounds a value at a near-tie to another integer."""
-    return amax / _qmax(amax.device, amax.dtype)
+    return amax / _qmax(amax.device, amax.dtype, qmax)
 
 
 def quantize_rows_i8(y):
@@ -64,15 +69,39 @@ def quantize_rows_i8(y):
     return yi, sy
 
 
-def quantize_cache_row(x, cdtype):
-    """New K or V rows per head, (..., da) -> (int8 rows, (...) scales).
-    The scale and the division stay in the parameter dtype on purpose (not
-    fp32 as in ``quantize_rows_i8``): these are the numerics the JAX
-    package's int8 cache was measured and tested at
-    (lvt_tpu/models/vt_incremental.py, the int8 cache write)."""
-    s = absmax_scale(x.abs().amax(dim=-1).to(cdtype))
-    x8 = torch.clamp(torch.round(x / (s[..., None] + 1e-8)), -127.0, 127.0).to(torch.int8)
-    return x8, s
+def quantize_cache_row(x, cdtype, qmax: int = 127):
+    """New K or V rows per head, (..., da) -> (int8 rows, (...) scales):
+    absmax / qmax per row, round half to even, clip to +-qmax (127: the int8
+    cache, 7: the int4 cache's levels, still one per int8 byte here). The
+    scale and the division stay in the parameter dtype on purpose (not fp32
+    as in ``quantize_rows_i8``): these are the numerics the JAX package's
+    quantized caches were measured and tested at
+    (lvt_tpu/models/vt_incremental.py, the int8 and int4 cache write)."""
+    s = absmax_scale(x.abs().amax(dim=-1).to(cdtype), qmax)
+    x8 = torch.clamp(torch.round(x / (s[..., None] + 1e-8)), -float(qmax), float(qmax))
+    return x8.to(torch.int8), s
+
+
+def pack_int4(x8):
+    """(..., da) int8 values in [-8, 7] -> (..., da / 2) int8, two signed
+    nibbles a byte: element 2i in the low nibble, 2i + 1 in the high one.
+    Exact: the high nibble's value times 16 fits the byte, and the low
+    nibble is the value's two's complement masked to 4 bits."""
+    return (x8[..., 1::2] << 4) | (x8[..., 0::2] & 15)
+
+
+def unpack_int4(packed, out, scratch):
+    """``pack_int4`` undone into ``out`` (..., da), any float or int dtype,
+    by arithmetic shifts through ``scratch``, an int8 tensor of packed's
+    shape: the high nibble is the byte shifted right by 4, the low one the
+    byte shifted left by 4 and back. Nothing is allocated, so a CUDA graph
+    that unpacks a growing prefix of a cache takes no block per call."""
+    torch.bitwise_right_shift(packed, 4, out=scratch)
+    out[..., 1::2].copy_(scratch)
+    torch.bitwise_left_shift(packed, 4, out=scratch)
+    scratch.bitwise_right_shift_(4)
+    out[..., 0::2].copy_(scratch)
+    return out
 
 
 def quantize_cols(w, cdtype):

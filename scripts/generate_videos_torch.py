@@ -8,10 +8,12 @@ VQ-VAE decode -> save pngs. The attention of the encoder stack and of every
 decoded pixel runs in the port's hand-written CUDA kernels, and each slice's
 256 pixel steps run as one replay of a CUDA graph.
 
-TEST.VT_SAMPLER.KV_DTYPE (native | int8), ATTN_IMPL (xla | pallas |
+TEST.VT_SAMPLER.KV_DTYPE (native | int8 | int4), ATTN_IMPL (xla | pallas |
 pallas-live) and WEIGHT_DTYPE (native | int8 | int8-pallas) choose the
-quantized sampler, e.g. an int8 KV cache read by the int8 decode kernel:
+quantized sampler, e.g. an int8 KV cache read by the int8 decode kernel, or
+an int4 cache (packed pairs, ATTN_IMPL xla):
   ... TEST.VT_SAMPLER.KV_DTYPE int8 TEST.VT_SAMPLER.ATTN_IMPL pallas
+  ... TEST.VT_SAMPLER.KV_DTYPE int4
 
 Weights: TEST.VT_SAMPLER.VQ_VAE.{ENCODER,GENERATOR,CODEBOOK}_WEIGHTS for the
 VQ-VAE, MODEL.GENERATOR.WEIGHTS or else the latest checkpoint under

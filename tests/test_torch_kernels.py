@@ -801,7 +801,8 @@ def test_quantized_sampler_on_the_card_matches_the_cpu(cuda):
              "int8-pallas": dict(kv_dtype="int8", attn_impl="pallas", weight_dtype="int8-pallas"),
              "xla": dict(kv_dtype="int8"),
              "xla-mm8": dict(kv_dtype="int8", mm_dtype="int8"),
-             "int8": dict(weight_dtype="int8")}
+             "int8": dict(weight_dtype="int8"),
+             "int4": dict(kv_dtype="int4")}
     out = {}
     for dev in ("cpu", "cuda"):
         p = to_device(params, dev)["netG"]
@@ -843,7 +844,11 @@ GRAPH_MODES = {  # sample_video's knobs of every sampler mode
     "pallas-live": dict(kv_cache_dtype="int8", attn_impl="pallas-live"),
     "int8": dict(weight_dtype="int8"), "int8-pallas": dict(weight_dtype="int8-pallas"),
     "pallas+int8-pallas": dict(kv_cache_dtype="int8", attn_impl="pallas",
-                               weight_dtype="int8-pallas")}
+                               weight_dtype="int8-pallas"),
+    "int4": dict(kv_cache_dtype="int4"), "int4+int8-pallas": dict(kv_cache_dtype="int4",
+                                                                  weight_dtype="int8-pallas"),
+    "streams2": dict(streams=2), "streams4-pallas": dict(kv_cache_dtype="int8",
+                                                         attn_impl="pallas", streams=4)}
 GRAPH_GEOMETRIES = {  # (stride, kernel, blocks, T, n_prime)
     "dsfvt": ((4, 1, 1), (3, 1, 1), (1, 8, 8), 4, 1),  # every sampled slice unprimed
     "mixed-primed": ((4, 2, 2), (3, 3, 3), (1, 4, 4), 8, 2)}  # half the slices half primed
@@ -909,6 +914,63 @@ def test_slice_graph_draws_as_the_eager_loop_and_advances_the_generator(cuda):
     assert torch.equal(runs[True][2], runs[False][2])
     first, second = runs[False][:2]
     assert not torch.equal(first[:, :, n_prime:], second[:, :, n_prime:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["streams2", "streams4-pallas"])
+def test_slice_graph_streams_equal_one_stream_rollouts_of_their_blocks(cuda, mode):
+    """A rollout whose slices are graphs of S parallel branches equals, bit
+    for bit, one-stream rollouts of each block of b / S rows (the same
+    shapes on the card), and its graph has S times a one-stream graph's
+    launches at b / S rows."""
+    from lvt_tpu_torch.models.rollout_graph import SliceGraph
+
+    vt, params, video, n_prime = _graph_case(cuda, "mixed-primed")
+    knobs = dict(GRAPH_MODES[mode])
+    streams = knobs.pop("streams")
+    bs = video.shape[0] // streams
+    got = vt.sample_video(params, video, n_prime=n_prime, greedy=True, streams=streams, **knobs)
+    launches = vt._slice_graph_slot.graph.launches
+    for s in range(streams):
+        want = vt.sample_video(params, video[s * bs:(s + 1) * bs], n_prime=n_prime, greedy=True,
+                               **knobs)
+        assert torch.equal(got[s * bs:(s + 1) * bs], want), s
+    one = vt._slice_graph_slot.graph.launches
+    assert {fn: n * streams for fn, n in one.items()} == launches
+    assert SliceGraph.captures > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["native", "int4"])
+def test_slice_graph_streams_draw_as_the_eager_loop(cuda, kv):
+    """Temperature sampling at two streams: from the same generator state
+    the graph's branches draw what the eager loop's streams draw, and the
+    caller's generator is left where the eager loop leaves it."""
+    vt, params, video, n_prime = _graph_case(cuda, "mixed-primed")
+    runs = {}
+    for eager in (True, False):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        runs[eager] = [vt.sample_video(params, video, gen, n_prime=n_prime, temp=1.0, streams=2,
+                                       kv_cache_dtype=kv, _eager=eager) for _ in range(2)]
+        runs[eager].append(gen.get_state())
+    for a, b in zip(runs[True], runs[False]):
+        assert torch.equal(a, b)
+    assert not torch.equal(runs[False][0][:, :, n_prime:], runs[False][1][:, :, n_prime:])
+
+
+@pytest.mark.cuda
+def test_int4_packing_is_exact_on_the_card(cuda):
+    """Every pair of levels -7..7 through ``pack_int4`` and ``unpack_int4``
+    on the card, equal to the CPU's bytes."""
+    from lvt_tpu_torch.ops.quant import pack_int4, unpack_int4
+
+    levels = torch.arange(-7, 8, dtype=torch.int8)
+    pairs = torch.cartesian_prod(levels, levels).reshape(15, 30)
+    packed = pack_int4(pairs.to(cuda))
+    assert torch.equal(packed.cpu(), pack_int4(pairs))
+    out = torch.empty((15, 30), dtype=torch.float32, device=cuda)
+    unpack_int4(packed, out, torch.empty_like(packed))
+    assert torch.equal(out.cpu().to(torch.int8), pairs)
 
 
 @pytest.mark.cuda

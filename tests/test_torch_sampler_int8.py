@@ -17,6 +17,9 @@ lvt_tpu's Pallas kernels run in interpret mode (its default off the TPU).
   half the mode's own gap instead.
 * Greedy ``sample_video`` codes: tests/test_torch_sampler_int8_greedy.py.
 * One bf16 case: the cache's scales are computed and kept in bf16.
+* The int4 cache (MODES "kv4", "kv4-w8-pallas"): its rows quantized as
+  lvt_tpu quantizes them, every level -7..7 through the packing and back,
+  and half of the int8 cache's bytes.
 * The refusals, each with lvt_tpu's error class.
 """
 
@@ -80,8 +83,11 @@ MODES = [  # (kv, weights, mm, attn)
     ("native", "int8", "native", "xla"),
     ("native", "int8-pallas", "native", "xla"),
     ("int8", "int8-pallas", "native", "pallas"),
+    ("int4", "native", "native", "xla"),
+    ("int4", "int8-pallas", "native", "xla"),
 ]
-MODE_IDS = ["kv8", "kv8-mm8", "kv8-pallas", "kv8-live", "w8", "w8-pallas", "kv8-w8-pallas"]
+MODE_IDS = ["kv8", "kv8-mm8", "kv8-pallas", "kv8-live", "w8", "w8-pallas", "kv8-w8-pallas", "kv4",
+            "kv4-w8-pallas"]
 GEOMETRIES = {"dsfvt": 0, "dssvt": 1, "subblock": 3, "nonsquare": 4}
 
 
@@ -223,10 +229,55 @@ def test_refusals_match_jax(rng, kwargs, error, match):
 
 
 def test_int4_is_not_ported(rng):
-    _, _, tm, tp, video = _tiny(rng)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tm.sample_video(tp, torch.from_numpy(video), n_prime=1, greedy=True,
-                        kv_cache_dtype="int4")
+    """The int4 cache runs through ``sample_video`` with native and int8
+    weights (codes in range, the primed frame kept), and refuses what
+    lvt_tpu refuses with it: int8 attention products and the live kernel,
+    each with lvt_tpu's class."""
+    jm, jp, tm, tp, video = _tiny(rng)
+    tv = torch.from_numpy(video)
+    for weights in ("native", "int8"):
+        got = tm.sample_video(tp, tv, n_prime=1, greedy=True, kv_cache_dtype="int4",
+                              weight_dtype=weights)
+        assert got.shape == tv.shape and int(got.min()) >= 0 and int(got.max()) < tm.c.nv
+        assert torch.equal(got[:, :, :1], tv[:, :, :1])
+    for kwargs, match in ((dict(mm_dtype="int8"), "mm_dtype"),
+                          (dict(attn_impl="pallas-live"), "pallas-live")):
+        with pytest.raises(ValueError, match=match):
+            tm.sample_video(tp, tv, n_prime=1, greedy=True, kv_cache_dtype="int4", **kwargs)
+        with pytest.raises(ValueError, match=match):
+            jm.sample_video(jp, jnp.asarray(video), jax.random.key(0), n_prime=1, greedy=True,
+                            kv_cache_dtype="int4", **kwargs)
+
+
+def test_int4_rows_quantize_as_jax_and_pack_exactly():
+    """The int4 cache's row quantization equals lvt_tpu's (qmax 7, the scale
+    in the parameter dtype), every level -7..7 survives the packing and the
+    unpack exactly (the extremes, and all pairs of neighbours), and the
+    packed cache holds half the int8 cache's bytes."""
+    from lvt_tpu_torch.models.vt_incremental import SliceDecoder, _quantize_cache_row
+    from lvt_tpu_torch.ops.quant import pack_int4, unpack_int4
+
+    x = np.random.default_rng(4).standard_normal((3, 2, 16)).astype(np.float32)
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
+        xj = jnp.asarray(x).astype(jdt)
+        sk = jnp.max(jnp.abs(xj), axis=-1).astype(jdt) / 7.0
+        k4 = jnp.clip(jnp.round(xj / (sk[..., None] + 1e-8)), -7.0, 7.0).astype(jnp.int4)
+        g4, gs = _quantize_cache_row(torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt),
+                                     tdt, 7)
+        assert np.array_equal(g4.numpy(), np.asarray(k4).astype(np.int8))
+        assert np.array_equal(gs.float().numpy(), np.asarray(sk.astype(jnp.float32)))
+    levels = torch.arange(-7, 8, dtype=torch.int8)
+    pairs = torch.cartesian_prod(levels, levels).reshape(15, 30)  # every (even, odd) pair
+    packed = pack_int4(pairs)
+    assert packed.dtype == torch.int8 and packed.shape == (15, 15)
+    for dtype in (torch.float32, torch.int8):
+        out = torch.full((15, 30), 99, dtype=dtype)
+        unpack_int4(packed, out, torch.empty_like(packed))
+        assert torch.equal(out.to(torch.int8), pairs)
+    _, _, tm, tp, _ = _tiny(np.random.default_rng(0))
+    bytes_ = {kv: SliceDecoder(tp["netG"], tm.c, tm.plan.slice_shape, 4, "cpu", kv_dtype=kv)
+              .cache_bytes() for kv in ("int8", "int4")}
+    assert 2 * bytes_["int4"] == bytes_["int8"] > 0
 
 
 def test_full_recompute_ignores_the_cache_dtype(rng):

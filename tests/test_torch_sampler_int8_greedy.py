@@ -1,8 +1,9 @@
 """Greedy ``sample_video`` of the port's quantized sampler against lvt_tpu's
 in the same mode, on the tiny geometries and modes of
 tests/test_torch_sampler_int8.py: the codes agree with lvt_tpu's at >= 98%
-and with the port's native codes at >= 90% (lvt_tpu's own bar for its
-quantized modes, tests/test_vt_incremental.py)."""
+and with the port's native codes at lvt_tpu's own bar for the mode
+(tests/test_vt_incremental.py): >= 90%, and >= 75% with the int4 cache,
+whose rounding is 16x coarser."""
 
 import jax
 import jax.numpy as jnp
@@ -31,4 +32,5 @@ def test_greedy_codes_track_jax_and_native(rng, geometry, mode):
     assert got.shape == want.shape and got.min() >= 0 and got.max() < tm.c.nv
     assert np.array_equal(got[:, :, :1], video[:, :, :1])  # the primed frame is kept
     assert float((got == want).mean()) >= 0.98, float((got == want).mean())
-    assert float((got == native).mean()) >= 0.90, float((got == native).mean())
+    floor = 0.75 if kv == "int4" else 0.90
+    assert float((got == native).mean()) >= floor, float((got == native).mean())

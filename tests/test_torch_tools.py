@@ -16,7 +16,7 @@ against lvt_tpu's tools on the same seeded inputs:
 * the profiler hook (engine/hooks.py TorchProfiler): a readable trace, and a
   dangling one stopped in after_train;
 * tools/mfu_torch.py: the analytic FLOPs equal to tools/mfu.py's function,
-  both modes' keys, the refusals;
+  both modes' keys, the int4 cache's bytes, the --probe-dot refusal;
 * tools/soak_train_torch.py at a tiny size in subprocesses: killed,
   resumed at the checkpoint, its checks and keys;
 * each tool's CLI asks for the card unless --device cpu.
@@ -127,9 +127,13 @@ def test_quality_int8_keys_and_a_tiny_run(monkeypatch):
 
 
 def test_quality_int8_int4_refused(monkeypatch):
+    """--kv int4 runs the whole tool with the int4 cache: the reference's
+    keys, the mode named, and the int4 cache's logit error above zero."""
     monkeypatch.setattr(qi, "THW", (8, 8, 8))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        qi.main(["--device", "cpu", "--kv", "int4"] + QI_OPTS)
+    res = qi.main(["--device", "cpu", "--kv", "int4", "--iters", "2"] + QI_OPTS)
+    _has_keys(res, _source_keys("tools/quality_int8.py", "main", ("out", "fvd")))
+    assert res["kv"] == "int4" and res["tf_logit_rel_err_max"] > 0
+    assert 0.5 < res["greedy_code_agreement"] <= 1.0
 
 
 def _jax_tf_metrics(ln, lq, lx, video, n_prime, nv):
@@ -413,9 +417,19 @@ def test_mfu_sample_roofline_keys_and_refusals(tmp_path):
     assert res["mean_cache_rows"] == 128.5 and res["bytes_per_step_mb"]["cache_concat_copies"] == 0
     assert res["measured_step_ms"] > 0
     assert os.listdir(tmp_path) == ["mfu_torch_sample_trace.json"]
-    for argv in (["--probe-dot"], ["--kv", "int4"]):
-        with pytest.raises(NotImplementedError):
-            mfu_torch.main(["--device", "cpu", "--sample"] + argv + TINY_VT)
+    with pytest.raises(NotImplementedError):
+        mfu_torch.main(["--device", "cpu", "--sample", "--probe-dot"] + TINY_VT)
+    # the int4 cache: half a byte an element, as tools/mfu.py counts it, with
+    # the quantized cache's scales, beside a measured int4 rollout
+    # (the byte counts at batch 1024, analytic only: the JSON rounds them to 0.01 MB)
+    terms = {k: mfu_torch.main(["--device", "cpu", "--sample", "--kv", k, "--batch", "1024"]
+                               + TINY_VT)["bytes_per_step_mb"] for k in ("int8", "int4")}
+    assert terms["int4"]["kv_cache_reads"] * 2 == pytest.approx(terms["int8"]["kv_cache_reads"],
+                                                               abs=0.011)
+    assert terms["int4"]["kv_scale_reads"] == terms["int8"]["kv_scale_reads"] > 0
+    res = mfu_torch.main(["--device", "cpu", "--sample", "--kv", "int4", "--batch", "2",
+                          "--measure", "--iters", "1"] + TINY_VT)
+    assert res["kv"] == "int4" and res["measured_step_ms"] > 0
 
 
 # --------------------------------------------------------------------------

@@ -14,13 +14,17 @@ torch.cuda.synchronize() and a host read of one code.
   python tools/bench_sample_torch.py --config configs/vt/DSSVT.yaml --batch 8
   python tools/bench_sample_torch.py --config configs/vt/DSTSVT.yaml --batch 8 \\
       --kv int8 --attn pallas-live
+  python tools/bench_sample_torch.py --config configs/vt/DSFVT.yaml --batch 8 --kv int4
+  python tools/bench_sample_torch.py --config configs/vt/DSFVT.yaml --batch 8 --streams 2
 
---kv int4 raises NotImplementedError (not ported); --streams other than 1
-is refused: the port has no counterpart, and the reference's greedy output
-equals one stream's. --seg is accepted and ignored, as ``sample_video``
-ignores kv_seg_size. The output is one JSON line with the reference's keys
-and, beside them, capture_seconds, peak_memory_gb and device, the graph's
-own capture seconds (its eager warm-up slice included) and node count.
+--kv int4 keeps the cache as packed int4 pairs (attention through the
+plain PyTorch path, as --attn xla); --streams S splits the batch into S
+independent rollouts, on the card S parallel branches of each slice's
+graph (greedy codes equal one stream's). --seg is accepted and ignored, as
+``sample_video`` ignores kv_seg_size. The output is one JSON line with the
+reference's keys and, beside them, capture_seconds, peak_memory_gb and
+device, the graph's own capture seconds (its eager warm-up slice included)
+and node count.
 """
 
 import argparse
@@ -56,7 +60,8 @@ def parse_args(argv=None):
                    help="accepted and ignored: the port's cache is preallocated")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--streams", type=int, default=1,
-                   help="only 1: the port has no multi-stream rollout")
+                   help="independent rollouts of batch / streams rows each (must divide the "
+                        "batch); on the card the parallel branches of each slice's graph")
     p.add_argument("--class-num", type=int, default=0,
                    help="class-conditional sampling with this many classes (KDSFVT: 600)")
     p.add_argument("--greedy", action="store_true",
@@ -90,10 +95,6 @@ def run(cfg, args, device):
     from lvt_tpu_torch.models import cast_floats
     from lvt_tpu_torch.models.vt import VideoTransformer
 
-    if args.streams != 1:
-        raise NotImplementedError(
-            f"--streams {args.streams}: the port has no counterpart of the reference's "
-            "multi-stream rollout (its greedy output equals one stream's); use --streams 1")
     device = torch.device(device)
     T, H, W = THW
     model = VideoTransformer(cfg, T=T, H=H, W=W)
@@ -113,7 +114,8 @@ def run(cfg, args, device):
             out = model.sample_video(params, video, gen, n_prime=n_prime, class_idx=class_idx,
                                      greedy=args.greedy, kv_cache_dtype=args.kv,
                                      kv_seg_size=args.seg, weight_dtype=args.weights,
-                                     mm_dtype=args.mm, attn_impl=args.attn)
+                                     mm_dtype=args.mm, attn_impl=args.attn,
+                                     streams=args.streams)
         _ = int(out[0, 0, -1, 0, 0])  # host read = hard fence
         return out
 

@@ -25,9 +25,11 @@ sampler, for the port's cache layout: one preallocated buffer of a block
 run's rows, pixel p attending to its run's rows [0, p], so no segment
 copies (``cache_concat_copies`` is 0 and --seg is accepted and ignored);
 ``--measure`` times ``sample_video`` (the rollout's CUDA graph) here.
-``--probe-dot`` (a probe of the TPU compiler's dot formulation) and
-``--kv int4`` (not ported) raise NotImplementedError. ``--device cpu`` runs
-on the CPU (the tests; the percentages mean nothing there).
+``--kv int4`` counts the cache at half a byte an element, as the reference
+does (the packed int4 pairs), with the int8 cache's per-row scales.
+``--probe-dot`` (a probe of the TPU compiler's dot formulation) raises
+NotImplementedError. ``--device cpu`` runs on the CPU (the tests; the
+percentages mean nothing there).
 """
 
 import argparse
@@ -116,9 +118,6 @@ def sample_roofline(args, device):
         raise NotImplementedError(
             "--probe-dot times the TPU compiler's formulation of the cache dots: a TPU "
             "probe, not ported (ROADMAP queue 1: the TPU-only probes stay unported)")
-    if args.kv == "int4":
-        raise NotImplementedError("--kv int4: the int4 cache is not ported to lvt_tpu_torch "
-                                  "(ROADMAP queue 1 item 8)")
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(ROOT, args.config))
     cfg.merge_from_list(list(args.opts))
@@ -133,7 +132,7 @@ def sample_roofline(args, device):
     na, da, d, de = c.n_head_d[0], c.da, c.d, c.de
     nada = na * da
     act = 2 if args.dtype == "bfloat16" else 4
-    kv_bytes = {"int8": 1.0, "native": float(act)}[args.kv]
+    kv_bytes = {"int8": 1.0, "int4": 0.5, "native": float(act)}[args.kv]
 
     # --- schedule: one buffer of a block run's R rows, pixel p of a run
     # attends to rows [0, p]
@@ -154,7 +153,7 @@ def sample_roofline(args, device):
     # --- bytes per pixel step (averaged over the rollout)
     row = 2 * L * b * na * da * kv_bytes          # one K+V row, all layers
     scale_row = 2 * L * b * na * act              # per-row absmax scales
-    int8 = args.kv == "int8"
+    int8 = args.kv in ("int8", "int4")  # a quantized cache: per-row scales
     terms = {}
     terms["kv_cache_reads"] = 2 * L * b * na * mean_cl * da * kv_bytes
     terms["kv_scale_reads"] = 2 * L * b * na * mean_cl * act if int8 else 0.0

@@ -31,8 +31,9 @@ native teacher pass and rollouts kernels 1 and 2, the int8 ones kernel 1
 (the int8 cache's attention is PyTorch's ops there, as in lvt_tpu's
 default ``attn_impl="xla"``), the anchor and the scoring kernel 7.
 
---kv int4 raises NotImplementedError (not ported: ROADMAP queue 1 item 8).
---seg is accepted and ignored: the port's cache is preallocated.
+--kv int4 measures the int4 cache the same way (packed int4 pairs, its
+attention PyTorch's ops as the int8 cache's). --seg is accepted and ignored:
+the port's cache is preallocated.
 ``--device cpu`` runs the whole tool on the CPU at the smoke sizes the
 reference's --cpu picks (5 iterations, batches of 8 / 2 / 2).
 
@@ -185,9 +186,6 @@ def run(cfg, args, device):
     from lvt_tpu_torch.models import cast_floats
     from lvt_tpu_torch.models.vt import VideoTransformer
 
-    if args.kv == "int4":
-        raise NotImplementedError("--kv int4: the int4 cache is not ported to lvt_tpu_torch "
-                                  "(ROADMAP queue 1 item 8)")
     device = torch.device(device)
     T, H, W = THW
     vt = VideoTransformer(cfg, T=T, H=H, W=W)
