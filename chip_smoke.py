@@ -298,11 +298,32 @@ Phases, each fatal on failure (exit code 1, no result line):
                 bench.py's program at b = 1024 with --kv int4: capture and
                 replay seconds, peak memory.
 
+ 23. item 8   — ROADMAP item 8's three pieces at full width. (a) Before the
+                side processes start, alone on the card: one slice's
+                subscale_context_encode of DSSVT and DSTSVT (bf16) and DSFVT
+                (fp32) at b = CTX_B = 1024 in every LVT_CTX_IMPL formulation
+                (gather_sum, chunk, chain, onehot, minor, auto): ms (CUDA
+                events around eager calls), peak memory above the inputs
+                beside _ctx_predicted_bytes, the auto choice (chain in all
+                three, its peak under a quarter of gather_sum's), the gap to
+                gather_sum (fp32 CTX_FP32_TOL; bf16 S roundings of sum|rows|).
+                (b) After phase 17: the per-slot table backward (one-hot
+                products) against autograd through the plain gather at DSFVT
+                and DSTSVT b = 64 (fp32 within CTX_GRAD_TOL), timed in fp32
+                and bf16 beside it and beside per-slot index_put_ sums (a
+                yardstick); fused bf16 train steps of each at b = 64 with the
+                three backwards in turns (medians, peak memory, exactly 16
+                launches of kernels 7, 8, 9 a step); the UNet at b = 8
+                on 16 x 16 codes, card vs CPU in train and eval mode (fp32,
+                TF32 off, UNET_TOL); tests/test_torch_gan.py's toy GAN through
+                GanTrainer on the card, 400 iterations: 5 supervised, 395 D
+                and 196 G steps exactly, the toy learning.
+
 Order: 1, 2, then the phases that time kernels alone on the card (3, 10,
-10b, 6, 7, 16), then 4, 5, 5b, 13 (the generation models loaded); then
-phases 18 to 22 start in two side processes (18 then 22; 20, 21 then 19)
-beside 11, 11b, 12, 12b, 8, 9, 14, 15, 17 in the main process, whose times
-are therefore taken with the card and the host shared (see SIDE_GROUPS). Phases
+10b, 6, 7, 16), then 4, 5, 5b, 13 (the generation models loaded), 23a;
+then phases 18 to 22 start in two side processes (18 then 22; 20, 21 then
+19) beside 11, 11b, 12, 12b, 8, 9, 14, 15, 17, 23b in the main process, whose
+times are therefore taken with the card and the host shared (see SIDE_GROUPS). Phases
 8 and 14 keep their OUTPUT_DIRs for phase 17. The line before the last is
 {"kernels": [...]}, each kernel with its main-path launches, phase 17's
 ("eval_launches"), phase 18's per rank of each world ("dp_launches") and
@@ -5630,6 +5651,433 @@ def phase_sampler_modes(card):
 
 
 # --------------------------------------------------------------------------
+# phase 23: ROADMAP item 8 (the context-encode formulations, the UNet, GanTrainer)
+# --------------------------------------------------------------------------
+# one slice's context encode at b = CTX_B: (config, dtype)
+CTX_CASES = (("DSSVT", "bfloat16"), ("DSTSVT", "bfloat16"), ("DSFVT", "float32"))
+CTX_B, CTX_ITERS = 1024, 3
+CTX_FORMS = ("gather_sum", "chunk", "chain", "onehot", "minor", "")  # "" is auto
+# fp32, every formulation against gather_sum: sums of the same rows in
+# another order, |diff| / max |gather_sum|. bf16: chain, chunk and onehot
+# round their accumulator after each of up to S - 1 adds and gather_sum
+# rounds once, so |diff| <= S * 2^-8 * sum |rows| elementwise (S = nc * K
+# terms).
+CTX_FP32_TOL = 1e-5
+# the per-slot backward against autograd through the plain gather, fp32,
+# relative Frobenius: the same fp32 sums in another order
+CTX_GRAD_TOL = 1e-5
+ITEM8_TRAIN, ITEM8_B, ITEM8_STEPS = ("DSFVT", "DSTSVT"), 64, 3
+UNET_B, UNET_TOL = 8, 1e-4  # the UNet card vs CPU, fp32, TF32 off
+GAN_ITERS = 400
+
+
+def _ctx_case(name, b, dtype, seed):
+    """One slice's context encode of ``name`` on its 16 x 16 x 16 latent
+    grid, on the card: (ctx, table, VTConfig); codes uniform in [-1, nv)
+    (-1 a pad), the table N(0, 1) in ``dtype``."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    from lvt_tpu_torch.models.vt import VTConfig
+    from lvt_tpu_torch.ops.subscale import shifted_shape
+
+    c = VTConfig.from_cfg(gvt.load_config(os.path.join(ROOT, "configs", "vt", f"{name}.yaml")))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = shifted_shape(*c.stride, T_FRAMES, 16, 16, *c.kernel)
+    ctx = torch.randint(-1, c.nv, (b, c.nc, *shape), generator=g, device="cuda",
+                        dtype=torch.int32)
+    table = torch.randn((c.nc, *c.kernel, c.nv, c.de), generator=g, device="cuda")
+    return ctx, table.to(getattr(torch, dtype)), c
+
+
+def _ctx_predicted_bytes(impl, b, S, thw, de, nv, isz):
+    """Device bytes a formulation holds at its peak beyond its inputs: the
+    int32 indices, the padded table, the output and what the formulation
+    makes (ops/conv.py _ctx_encode_impl)."""
+    from lvt_tpu_torch.ops.conv import ctx_chunk
+
+    idx, flat, out = 4 * b * S * thw, S * (nv + 1) * de * isz, b * thw * de * isz
+    # a bf16 sum over the slot axis adds in an fp32 temporary of the output's shape
+    tmp32 = 4 * b * thw * de if isz < 4 else 0
+    if impl == "chain":  # the accumulator, one slot's rows and its indices
+        return idx + flat + 2 * out + 4 * b * thw
+    if impl == "chunk":  # one chunk's rows, or its indices, beside its sum
+        ch = ctx_chunk(b, S, thw, de, isz) * b * thw
+        return idx + flat + out + ch * de * isz + max(4 * ch, out + tmp32)
+    if impl == "onehot":  # one slot's one-hot as bool and cast, its product
+        return idx + flat + 2 * out + b * thw * (nv + 1) * (1 + isz) + 8 * b * thw
+    if impl == "minor":  # the indices' transposed copy, then the sum's output
+        return idx + flat + b * S * thw * de * isz + max(idx, out + tmp32)
+    return idx + flat + b * S * thw * de * isz + out + tmp32  # gather_sum
+
+
+def phase_ctx_encode(card):
+    """Phase 23, first part: one slice's subscale_context_encode in every
+    LVT_CTX_IMPL formulation at b = CTX_B (alone on the card)."""
+    import torch
+
+    from lvt_tpu_torch.ops import conv
+
+    saved = {k: os.environ.pop(k, None) for k in ("LVT_CTX_IMPL", "LVT_CTX_CHUNK")}
+    try:
+        for case, (name, dtype) in enumerate(CTX_CASES):
+            ctx, table, c = _ctx_case(name, CTX_B, dtype, 30 + case)
+            kt, kh, kw = c.kernel
+            S = c.nc * kt * kh * kw
+            t, h, w = (n // s for n, s in zip((T_FRAMES, 16, 16), c.stride))
+            thw, isz = t * h * w, table.element_size()
+            auto = conv.ctx_encode_impl(CTX_B, S, thw, c.de, isz)
+            check(auto == "chain", f"ctx encode {name} b={CTX_B} {dtype}: auto picks {auto}")
+            with torch.no_grad():
+                os.environ["LVT_CTX_IMPL"] = "chain"
+                absum = conv._ctx_encode_impl(ctx, table.float().abs(), c.stride)
+                rows = []
+                ref = None
+                for impl in CTX_FORMS:
+                    os.environ["LVT_CTX_IMPL"] = impl
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    out = conv.subscale_context_encode(ctx, table, None, c.stride, c.nv)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    ms = host_ms([lambda: conv.subscale_context_encode(ctx, table, None, c.stride,
+                                                                      c.nv)], CTX_ITERS)
+                    check(tuple(out.shape) == (CTX_B, t, h, w, c.de) and out.dtype == table.dtype
+                          and bool(torch.isfinite(out).all()),
+                          f"ctx encode {name} {impl or 'auto'}: output {tuple(out.shape)} "
+                          f"{out.dtype}, or not finite")
+                    if ref is None:
+                        ref = out
+                    diff = (out.float() - ref.float()).abs()
+                    if dtype == "float32":
+                        gap = float(diff.max()) / float(ref.abs().max())
+                        ok = gap <= CTX_FP32_TOL
+                    else:  # in bf16 roundings (2^-8) of sum |rows|
+                        gap = float((diff / absum.clamp_min(1e-30)).max()) / 2 ** -8
+                        ok = gap <= S
+                    pred = _ctx_predicted_bytes(auto if not impl else impl, CTX_B, S, thw,
+                                                c.de, c.nv, isz)
+                    rows.append(f"{impl or 'auto (' + auto + ')'} {ms:.3f} ms, peak "
+                                f"{peak / 2 ** 30:.3f} GiB (predicted {pred / 2 ** 30:.3f}), gap "
+                                f"{gap:.3g}")
+                    check(ok, f"ctx encode {name} {dtype} {impl or 'auto'}: gap to gather_sum "
+                              f"{gap:.3g}")
+                    if not impl:
+                        check(peak < 0.25 * _ctx_predicted_bytes("gather_sum", CTX_B, S, thw,
+                                                                 c.de, c.nv, isz),
+                              f"ctx encode {name}: auto's peak {peak / 2 ** 30:.2f} GiB")
+                    del out
+            gap_unit = ("max|diff| / max|gather_sum| (bound "
+                        f"{CTX_FP32_TOL:g})" if dtype == "float32" else
+                        f"in bf16 roundings of sum|rows| (bound S = {S})")
+            print(f"ctx encode {name} one slice b={CTX_B} {dtype} [{card}]: S = nc*K = {S} slots "
+                  f"x {thw} positions, de {c.de}, gather_sum's intermediate "
+                  f"{CTX_B * S * thw * c.de * isz / 2 ** 30:.2f} GiB, auto picks {auto}; ms "
+                  f"(CUDA events around {CTX_ITERS} eager calls), peak above the inputs, gap to "
+                  f"gather_sum {gap_unit}: " + "; ".join(rows))
+            del ctx, table, absum, ref
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _index_put_table_grad(ctx, g, stride, kernel, nv, dtype):
+    """The table gradient as per-slot segment sums by ``index_put_`` with
+    accumulate (sorted, so the same from run to run) instead of the port's
+    one-hot products: a yardstick, never on a path (on the card each call
+    waits for the device, which stalls a train step)."""
+    from lvt_tpu_torch.ops import conv
+
+    kt, kh, kw = kernel
+    nc, de = ctx.shape[1], g.shape[-1]
+    S = nc * kt * kh * kw
+    gidx, _ = conv._ctx_gather_indices(ctx, stride, (nc, kt, kh, kw, nv, de))
+    gf = g.reshape(-1, de).float()
+    dflat = gf.new_zeros(S, nv + 1, de)
+    for s in range(S):
+        dflat[s].index_put_((gidx[:, s].reshape(-1) - s * (nv + 1),), gf, accumulate=True)
+    return dflat[:, 1:].reshape(nc, kt, kh, kw, nv, de).to(dtype)
+
+
+def _plain_ctx_encode(ctx, table, bias, stride, nv):
+    """The context sum as the port computed it before LVT_CTX_IMPL: the
+    (b, nc*K, thw, de) gather summed, with autograd through take_rows."""
+    from lvt_tpu_torch.ops import conv
+    from lvt_tpu_torch.ops.embedding import take_rows
+
+    gidx, (t, h, w) = conv._ctx_gather_indices(ctx, stride, table.shape)
+    emb = take_rows(conv._slot_rows(table), gidx).sum(dim=1)
+    emb = emb.reshape(ctx.shape[0], t, h, w, table.shape[-1])
+    return emb + bias if bias is not None else emb
+
+
+class _ToyGan:
+    """tests/test_torch_gan.py's toy GAN on ``device``: G a 2-layer MLP
+    noise -> sample, D a 2-layer MLP sample -> logit, the noise drawn from
+    the step's generator."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def init(self, gen, device):
+        import torch
+
+        return {"w1": (torch.randn(4, 16, generator=gen) * 0.5).to(device),
+                "w2": (torch.randn(16, 2, generator=gen) * 0.5).to(device),
+                "b2": torch.zeros(2, device=device)}, {}
+
+    def init_discriminator(self, gen, device):
+        import torch
+
+        return {"w1": (torch.randn(2, 16, generator=gen) * 0.5).to(device),
+                "w2": (torch.randn(16, 1, generator=gen) * 0.5).to(device)}
+
+    def gen_samples(self, params, z):
+        import torch
+
+        return torch.tanh(z @ params["w1"]) @ params["w2"] + params["b2"]
+
+    def _fake(self, params, batch, gen):
+        import torch
+
+        x = batch["x"]
+        return self.gen_samples(params, torch.randn(x.shape[0], 4, generator=gen).to(x.device))
+
+    def _disc(self, d_params, x):
+        import torch
+
+        return (torch.tanh(x @ d_params["w1"]) @ d_params["w2"])[:, 0]
+
+    def train_loss(self, params, state, batch, gen):
+        fake = self._fake(params, batch, gen)
+        loss = ((fake.mean(0) - batch["x"].mean(0)) ** 2).mean()
+        return loss, ({"loss_sup": loss}, state)
+
+    def generator_loss(self, params, d_params, state, batch, gen):
+        from lvt_tpu_torch.models.loss import gan_loss
+
+        loss = gan_loss(self.cfg, self._disc(d_params, self._fake(params, batch, gen)), True)
+        return loss, ({"loss_g": loss}, state)
+
+    def discriminator_loss(self, params, d_params, state, batch, gen):
+        from lvt_tpu_torch.models.loss import gan_loss
+
+        fake = self._fake(params, batch, gen).detach()
+        loss = (gan_loss(self.cfg, self._disc(d_params, batch["x"]), True)
+                + gan_loss(self.cfg, self._disc(d_params, fake), False))
+        return loss, {"loss_d": loss}
+
+
+def phase_item8(card):
+    """Phase 23, second part: the per-slot backward and a bf16 train step
+    (DSFVT, DSTSVT b = 64), the UNet card vs CPU, the toy GAN on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import generate_videos_torch as gvt
+    import lvt_tpu_torch.models.vt as vt_mod
+    from lvt_tpu_torch.engine.trainer import Trainer
+    from lvt_tpu_torch.models import to_device
+    from lvt_tpu_torch.ops import conv
+
+    parts, t_part = [], [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts.append(f"{name} {now - t_part[0]:.1f}")
+        t_part[0] = now
+
+    # ---- the per-slot backward against autograd through the plain gather
+    for case, name in enumerate(ITEM8_TRAIN):
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            ctx, table, c = _ctx_case(name, ITEM8_B, dtype, 40 + case)
+            t, h, w = (n // s for n, s in zip((T_FRAMES, 16, 16), c.stride))
+            g = torch.randn((ITEM8_B, t, h, w, c.de), generator=torch.Generator(
+                device="cuda").manual_seed(50 + case), device="cuda").to(table.dtype)
+            mine = table.clone().requires_grad_(True)
+            plain = table.clone().requires_grad_(True)
+            out = conv.subscale_context_encode(ctx, mine, None, c.stride, c.nv)
+            ref = _plain_ctx_encode(ctx, plain, None, c.stride, c.nv)
+            out.backward(g)
+            ref.backward(g, retain_graph=True)  # timed again below
+            rel = float((mine.grad.float() - plain.grad.float()).norm()
+                        / plain.grad.float().norm())
+            other = _index_put_table_grad(ctx, g, c.stride, c.kernel, c.nv, table.dtype)
+            rel_ip = float((other.float() - plain.grad.float()).norm()
+                           / plain.grad.float().norm())
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            conv.ctx_table_grad(ctx, g, c.stride, c.kernel, c.nv, table.dtype)
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = [host_ms([f], CTX_ITERS) for f in (
+                lambda: conv.ctx_table_grad(ctx, g, c.stride, c.kernel, c.nv, table.dtype),
+                lambda: _index_put_table_grad(ctx, g, c.stride, c.kernel, c.nv, table.dtype),
+                lambda: torch.autograd.grad(ref, plain, g, retain_graph=True))]
+            res[dtype] = (rel, rel_ip, peak, ms)
+            del ctx, table, g, mine, plain, out, ref, other
+        rel = res["float32"][0]
+        print(f"ctx encode backward {name} b={ITEM8_B} one slice [{card}]: table gradient vs "
+              f"autograd through the plain gather (take_rows), relative Frobenius: the port's "
+              f"per-slot one-hot products fp32 {rel:.3g} (bound {CTX_GRAD_TOL:g}), bf16 "
+              f"{res['bfloat16'][0]:.3g}; per-slot index_put_ (yardstick) fp32 "
+              f"{res['float32'][1]:.3g}, bf16 {res['bfloat16'][1]:.3g}; ms (CUDA events around "
+              f"{CTX_ITERS} eager calls), one-hot / index_put_ / plain gather's autograd: "
+              + "; ".join(
+                  f"{dt} {m[0]:.3f} / {m[1]:.3f} / {m[2]:.3f}, one-hot peak above its inputs "
+                  f"{p / 2 ** 20:.1f} MiB" for dt, (_, _, p, m) in res.items()))
+        check(rel <= CTX_GRAD_TOL, f"ctx encode backward {name}: off by {rel} (relative)")
+    torch.cuda.empty_cache()
+    part("backward")
+
+    # ---- one bf16 train step, DSFVT and DSTSVT at b = 64, beside the plain gather's
+    fused = {"fused_layer_fwd": 16, "ffn_half_bwd": 16, "attn_half_bwd": 16}
+    port_grad = conv.ctx_table_grad
+    for case, name in enumerate(ITEM8_TRAIN):
+        cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", f"{name}.yaml"))
+        tr = Trainer(cfg, iter(()), device="cuda")
+        check(tr.model.fused and tr.compute_dtype == torch.bfloat16,
+              f"item 8 train {name}: not the config's fused bf16 step")
+        batch = {"video": torch.randint(0, tr.model.c.nv, (ITEM8_B, tr.model.c.nc, T_FRAMES, 16,
+                                                           16), device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(60))}
+        res = {k: ([], 0, []) for k in ("one-hot (the port)", "plain gather", "index_put_")}
+        tr.train_step(batch)  # warm-up
+        # in turns, each from the state the turn before left
+        for label in ("one-hot (the port)", "plain gather", "index_put_", "index_put_",
+                      "plain gather", "one-hot (the port)"):
+            secs, peak, losses = res[label]
+            if label == "plain gather":
+                vt_mod.subscale_context_encode = _plain_ctx_encode
+            elif label == "index_put_":
+                conv.ctx_table_grad = _index_put_table_grad
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(ITEM8_STEPS):
+                    c0 = _launched()
+                    t0 = time.perf_counter()
+                    losses.append(float(tr.train_step(batch)["loss_cross_entropy"]))
+                    secs.append(time.perf_counter() - t0)
+                    took = {k: v - c0.get(k, 0) for k, v in _launched().items()
+                            if v != c0.get(k, 0)}
+                    check(took == fused, f"item 8 train {name} ({label}): launches {took}, "
+                                         f"want {fused}")
+                res[label] = (secs, max(peak, torch.cuda.max_memory_allocated()), losses)
+            finally:
+                vt_mod.subscale_context_encode = conv.subscale_context_encode
+                conv.ctx_table_grad = port_grad
+            check(all(np.isfinite(losses)), f"item 8 train {name} ({label}): losses {losses}")
+        print(f"item 8 train {name} b={ITEM8_B} bf16 fused [{card}], one step (train_step, "
+              f"synchronized by its loss; the context encode's backward in turns one-hot, plain "
+              f"gather, index_put_, index_put_, plain gather, one-hot, {ITEM8_STEPS} steps each "
+              f"after one warm-up): " + "; ".join(
+                  f"{label} median {np.median(s):.4f} s (range {min(s):.4f}-{max(s):.4f}), "
+                  f"max_memory_allocated {p / 2 ** 30:.2f} GiB, losses {ls[0]:.4f} -> "
+                  f"{ls[-1]:.4f}" for label, (s, p, ls) in res.items())
+              + f"; launches per step {fused}, exactly")
+        del tr, batch
+        torch.cuda.empty_cache()
+    part("train steps")
+
+    # ---- the UNet, card vs CPU, fp32 with TF32 off
+    import lvt_tpu_torch.models.unet as unet
+
+    ucfg = gvt.load_config(os.path.join(ROOT, "configs", "vqvae", "PR-DVQVAE2.yaml"),
+                           ["MODEL.ENCODER.NAME", "UNet", "MODEL.ENCODER.OUT_CHANNELS", "2"])
+    from lvt_tpu_torch.models.encoders import build_encoder
+
+    net = build_encoder(ucfg)
+    check(isinstance(net, unet.UNetNet), "UNet: the registry built another encoder")
+    p, s = net.init(torch.Generator().manual_seed(4))
+    codes = torch.from_numpy(np.random.default_rng(5).integers(0, 512, (UNET_B, 16, 16)))
+    errs = {}
+    with torch.no_grad():
+        for train in (True, False):
+            y_cpu, s_cpu = net.apply(p, s, codes, train=train)
+            pc, sc = to_device(copy.deepcopy(p), "cuda"), to_device(copy.deepcopy(s), "cuda")
+            y, s_card = net.apply(pc, sc, codes.cuda(), train=train)
+            ms = host_ms([lambda: net.apply(pc, sc, codes.cuda(), train=train)], CTX_ITERS)
+            check(tuple(y.shape) == (UNET_B, 16, 16, 2) and float(y.min()) >= 0
+                  and float(y.max()) <= 1, "UNet: output of the wrong shape or outside [0, 1]")
+            err = float((y.cpu() - y_cpu).abs().max())
+            st_err = max(float((a.cpu() - b).abs().max() / max(1.0, float(b.abs().max())))
+                         for a, b in zip(_leaves(s_card), _leaves(s_cpu)))
+            errs["train" if train else "eval"] = (err, st_err, ms)
+    print(f"UNet b={UNET_B} 16x16 codes fp32, TF32 off [{card}]: card vs CPU " + "; ".join(
+        f"{k} output {e:.3g}, batch-norm state {se:.3g} (of max(1, |state|)), card {ms:.3f} ms"
+        for k, (e, se, ms) in errs.items()) + f"; bound {UNET_TOL:g}")
+    for k, (e, se, _) in errs.items():
+        check(e <= UNET_TOL and se <= UNET_TOL, f"UNet {k}: card vs CPU {e}, state {se}")
+    part("UNet")
+
+    # ---- the toy GAN through GanTrainer on the card
+    from lvt_tpu_torch.config import get_cfg
+    from lvt_tpu_torch.engine.gan import GanTrainer
+
+    gcfg = get_cfg()  # tests/test_gan_trainer.py's settings
+    gcfg.GAN_MODE_ON, gcfg.LOSS.GAN.MODE, gcfg.SEED = True, "lsgan", 1
+    gcfg.TPU.COMPUTE_DTYPE = "float32"
+    sol = gcfg.SOLVER
+    sol.OPTIMIZER_NAME, sol.LR_G, sol.LR_D = "adam", 1e-2, 2e-2
+    sol.ADAM.BETA2_G = sol.ADAM.BETA2_D = 0.999
+    sol.SUPERVISED_MAX_ITER, sol.D_UPDATE_RATIO, sol.D_INIT_ITERS = 5, 2, 7
+    target = np.array([2.0, -1.0], np.float32)
+
+    def loader():
+        r = np.random.default_rng(0)
+        while True:
+            yield {"x": (r.standard_normal((64, 2)) * 0.3 + target).astype(np.float32)}
+
+    tr = GanTrainer(gcfg, loader(), model=_ToyGan(gcfg), device="cuda")
+    z = torch.randn(512, 4, generator=torch.Generator().manual_seed(123)).cuda()
+
+    def dist():
+        with torch.no_grad():
+            return float(np.linalg.norm(tr.model.gen_samples(tr.state.params, z).mean(0).cpu()
+                                        .numpy() - target))
+
+    d0 = dist()
+    t0 = time.perf_counter()
+    tr.train(0, GAN_ITERS)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    tr.flush_metrics()
+    hists = tr.storage.histories()
+    counts = tuple(len(hists[k].values()) for k in ("loss_sup", "loss_d", "loss_g"))
+    want = (5, GAN_ITERS - 5, len([i for i in range(5, GAN_ITERS) if i % 2 == 0 and i >= 7]))
+    d1 = dist()
+    print(f"GanTrainer toy GAN [{card}]: {GAN_ITERS} iterations in {took:.2f} s "
+          f"({1e3 * took / GAN_ITERS:.2f} ms each); supervised, D and G steps {counts} (want "
+          f"{want}); the sample mean's distance to the target {d0:.4f} -> {d1:.4f}; D on "
+          f"{tr.d_params['w1'].device}")
+    check(counts == want, f"GanTrainer: steps {counts}, want {want}")
+    check(tr.state.step == GAN_ITERS and tr.d_params["w1"].is_cuda,
+          f"GanTrainer: step {tr.state.step}, D on {tr.d_params['w1'].device}")
+    check(d1 < 0.9 * d0, f"GanTrainer: the toy GAN did not learn ({d0} -> {d1})")
+    part("GAN")
+    print(f"item 8: part seconds {', '.join(parts)}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+# --------------------------------------------------------------------------
 # side processes: phases 18 to 22 beside phases 11 to 17
 # --------------------------------------------------------------------------
 # Phases 18 to 22 share no state with the others, and the host sets their
@@ -5792,6 +6240,8 @@ def main():
     lap("pth")
     k6 = phase_vq_kernel(card, models)
     lap("vq kernel")
+    phase_ctx_encode(card)
+    lap("ctx encode")
 
     # phases 18 to 22 in two side processes from here on
     import atexit
@@ -5826,6 +6276,8 @@ def main():
     lap("vqvae agree")
     eval_launches = phase_eval(card, vq_dir, vt_dir)
     lap("eval")
+    phase_item8(card)
+    lap("item 8")
     main_done = time.perf_counter() - start
     side = {}
     for s in sides:

@@ -1,9 +1,9 @@
 """Weights carried across from the JAX package.
 
-``from_jax_vt``, ``from_jax_vqvae``, ``from_jax_autoencoder`` and
-``from_jax_i3d`` take the JAX
-package's parameter trees with numpy leaves
-(``jax.tree_util.tree_map(np.asarray, tree)``) and return the port's trees: the same nested dicts and lists, NamedTuples
+``from_jax_vt``, ``from_jax_vqvae``, ``from_jax_autoencoder``,
+``from_jax_unet`` and ``from_jax_i3d`` take the JAX package's parameter
+trees with numpy leaves (``jax.tree_util.tree_map(np.asarray, tree)``) and
+return the port's trees: the same nested dicts and lists, NamedTuples
 (``BlockAttnParams``, ``EmaCodebookState``) as dicts of their fields, and
 torch tensors of the same dtype and shape. Nothing here imports JAX; with
 them both packages compute the same function on the same weights.
@@ -87,6 +87,19 @@ def from_jax_autoencoder(params, state) -> Tuple[Dict[str, Any], Dict[str, Any]]
     p, s = _convert(params), _convert(state)
     if set(p) != {"netE", "netG"} or set(s) != {"netE", "netG"}:
         raise ValueError(f"from_jax_autoencoder: want netE and netG, got {sorted(p)}, {sorted(s)}")
+    return p, s
+
+
+_UNET_BLOCKS = {"emb", "inc", "down1", "down2", "down3", "down4", "up1", "up2", "up3", "up4",
+                "outc"}
+
+
+def from_jax_unet(params, state) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """lvt_tpu's UNet (``models/unet.py``) (params, batch-norm state) -> the
+    port's: the same blocks, weights HWIO as in both packages."""
+    p, s = _convert(params), _convert(state)
+    if set(p) != _UNET_BLOCKS or set(s) != _UNET_BLOCKS - {"emb", "outc"}:
+        raise ValueError(f"from_jax_unet: not a UNet's (params, state): {sorted(p)}, {sorted(s)}")
     return p, s
 
 

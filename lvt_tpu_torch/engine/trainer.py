@@ -211,14 +211,15 @@ class Trainer(TrainerBase):
             st.optimizer.zero_grad(set_to_none=True)
         return {k: v.detach() for k, v in metrics.items()}
 
-    def _average_grads(self):
-        """The masters' gradients averaged over the data group, in place (a
-        master with no gradient counts as zeros); nothing without a group.
-        Under a model group each rank averages its parts of the split
-        leaves, and the replicated leaves' gradients are alike across it."""
+    def _average_grads(self, params=None):
+        """The gradients of ``params`` (default: the masters) averaged over
+        the data group, in place (a leaf with no gradient counts as zeros);
+        nothing without a group. Under a model group each rank averages its
+        parts of the split leaves, and the replicated leaves' gradients are
+        alike across it."""
         if self.group is None:
             return
-        masters = tree_leaves(self.state.params)
+        masters = tree_leaves(self.state.params if params is None else params)
         for m in masters:
             if m.grad is None:
                 m.grad = torch.zeros_like(m)
@@ -363,6 +364,14 @@ class Trainer(TrainerBase):
                 p.grad = g.to(p.device, p.dtype).clone()
             _zip_leaves(set_grad, st.params, tree["accum_grads"])
 
+    def _checkpoint_target(self, params, mstate):
+        """The structure a checkpoint file is placed into (``checkpoint_tree``'s
+        keys; None takes the saved value as it is)."""
+        target = {"params": params, "model_state": mstate, "opt_state": None, "step": None}
+        if self.accumulation > 1:
+            target["accum_grads"] = params
+        return target
+
     def resume_or_load(self, resume: bool = True) -> int:
         """Returns the start iteration: the latest checkpoint's step on
         resume, else the current one."""
@@ -370,9 +379,7 @@ class Trainer(TrainerBase):
         if self._tp is not None:  # the file holds the whole leaves
             params = sharding.full_like(params, self._tp.params, self._tp.size)
             mstate = sharding.full_like(mstate, self._tp.model_state, self._tp.size)
-        target = {"params": params, "model_state": mstate, "opt_state": None, "step": None}
-        if self.accumulation > 1:
-            target["accum_grads"] = params
+        target = self._checkpoint_target(params, mstate)
         tree = load_latest(self.cfg.OUTPUT_DIR, target, resume=resume)
         if tree is not target:
             self.load_tree(tree)
