@@ -3948,7 +3948,26 @@ def backend_is_gloo(name):
 # its 256 pixels x 8 layers of kernel 2)
 TP_MODEL, TP_STEPS, TP_VT_BATCH, TP_VQ_BATCH, TP_SLICE_BATCH = 2, 2, 8, 32, 8
 TP_PER_STEP = {"DSFVT": {"block_attention_fwd": 32, "block_attention_bwd": 16},
-               "PR-DVQVAE2": {"nearest_indices": 1}}
+               "PR-DVQVAE2": {"nearest_indices": 1}, "PR-DVQVAE2 rows": {"nearest_indices": 1},
+               "PR-DVQVAE2 rows bf16": {"nearest_indices": 1}}
+# Spatial parallelism in the same world (TPU.SHARD_SPATIAL True): PR-DVQVAE2
+# at full width on rows of each 64 x 64 frame split over the model group, 32
+# rows and 8 of the 16 latent rows a rank, the codebook split over its codes
+# as well. Kernel 6 runs once a step on each rank, over the group's gathered
+# latent rows. A step makes SP_HALOS halo exchanges (the encoder's 3
+# convolutions and 2 resblocks' 3 x 3, the decoder's 3 x 3, 2 resblocks' 3 x 3
+# and 2 transposed convolutions; backward, all but the first convolution's,
+# whose input needs no gradient). The fp32 steps (TF32 off) are held to the
+# one-process trainer from the same state at lvt_tpu's bounds of
+# tests/test_tp.py:188-189: loss rtol SP_LOSS_RTOL, every parameter and EMA
+# buffer rtol SP_RTOL / atol SP_ATOL; the bf16 steps' gradient within
+# TP_OWN_ROUNDING as the TP steps'. SP_STEPS steps a run: the first warms
+# cuDNN up, the last is timed part by part (synchronized), so s/step is the
+# median of those between.
+SP_LATENT_ROWS, SP_STEPS = 16 // TP_MODEL, 3
+SP_HALOS = {"forward": 10, "backward": 9}
+SP_LOSS_RTOL, SP_RTOL, SP_ATOL = 1e-4, 1e-3, 5e-5
+TP_RUNS = tuple(TP_PER_STEP)
 TP_SLICE = {"block_attention_fwd": 8, "decode_attention": 256 * 8}
 # The bf16 TP step's gradient against the one-process bf16 step's. The TP
 # step rounds elsewhere (each rank's partial products of proj and FFN 2, and
@@ -3990,15 +4009,58 @@ def _tp_timed_collectives():
     return spent, undo
 
 
-def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
+def _sp_timed_halos():
+    """Wrap the halo exchanges' collective (parallel/spatial.py ``exchange``,
+    as the halo Function calls it) with synchronized timers: returns
+    (seconds list, undo)."""
+    import torch
+
+    from lvt_tpu_torch.parallel import spatial
+
+    spent, inner = [], spatial.exchange
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+    spatial.exchange = timed
+
+    def undo():
+        spatial.exchange = inner
+    return spent, undo
+
+
+def _within(got, ref, rtol, atol):
+    """(elements beyond atol + rtol |ref|, elements, the leaf with the
+    largest excess) over the leaves of two {name: tensor} dicts."""
+    bad, n, worst = 0, 0, (0.0, None)
+    for k, r in ref.items():
+        g, r = got[k].float().cpu(), r.float().cpu()
+        excess = (g - r).abs() - (atol + rtol * r.abs())
+        bad += int((excess > 0).sum())
+        n += r.numel()
+        if r.numel() and float(excess.max()) > worst[0]:
+            worst = (float(excess.max()), k)
+    return bad, n, worst[1]
+
+
+def _tp_train(rank, device, name, config, opts, batches, own_rounding=False, rows=False):
     """TP_STEPS steps of a tensor-parallel Trainer (TPU.MESH_MODEL 2) of
     ``config`` on the whole global batches (one data index); on rank 0 a
     one-process Trainer from the same state (the synced scheme) on the same
     batch, whose gradient the TP step's gathered gradient is held to; with
     ``own_rounding`` also the one-process step in fp32 (TF32 off), whose
     distance from the one-process step is the compute dtype's own rounding.
-    Returns per step: seconds, launches, the collectives' seconds (the last
-    step, timed by synchronized wrappers), and on rank 0 the comparisons."""
+    With ``rows`` the frames' rows are split over the model group too
+    (TPU.SHARD_SPATIAL): the step's codes and z are gathered whole for the
+    comparison, and each step's halo exchanges, the latent rows quantized on
+    this rank and the peak memory of each step are kept; the params and
+    model state after the last step are held elementwise. Returns per step:
+    seconds, launches, the collectives' seconds (the last step, timed by
+    synchronized wrappers), and on rank 0 the comparisons."""
     import copy
 
     import torch
@@ -4008,9 +4070,10 @@ def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
     from lvt_tpu_torch.checkpoint.convert import flatten
     from lvt_tpu_torch.engine.trainer import Trainer
     from lvt_tpu_torch.ops import vq
-    from lvt_tpu_torch.parallel import sharding
+    from lvt_tpu_torch.parallel import sharding, spatial
 
-    cfg = gvt.load_config(config, opts + ["TPU.MESH_MODEL", str(TP_MODEL)])
+    cfg = gvt.load_config(config, opts + ["TPU.MESH_MODEL", str(TP_MODEL)]
+                          + (["TPU.SHARD_SPATIAL", "True"] if rows else []))
     tr = Trainer(cfg, iter(()), device=device)
     ref = ref32 = None
     if rank == 0:
@@ -4044,7 +4107,8 @@ def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
         res = inner_q(z_e, codebook, *a, **k)
         taken.append((z_e.detach(), res[2]))
         return res
-    out = {"step_s": [], "launches": [], "cmp": [], "collective_s": None, "peak": None}
+    out = {"step_s": [], "launches": [], "cmp": [], "collective_s": None, "peak": None,
+           "step_peak": [], "ref_peak": [], "halos": [], "halo_s": None, "latent_rows": []}
     torch.cuda.reset_peak_memory_stats()
     vq.quantize_st = recording
     try:
@@ -4057,22 +4121,37 @@ def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
                 del tree
             if ref is not None:  # the codebook the step's codes are found in
                 emb = ref.state.model_state.get("netC", {}).get("embedding")
-            spent, undo = _tp_timed_collectives() if i == len(batches) - 1 else (None, None)
+            last = i == len(batches) - 1
+            spent, undo = _tp_timed_collectives() if last else (None, None)
+            halo_spent, halo_undo = _sp_timed_halos() if last and rows else (None, None)
             _zero_counts()
             taken.clear()
+            halos = dict(spatial.CALLS)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             try:
                 metrics = tr.train_step(tr._put_batch(batch))
                 torch.cuda.synchronize()
             finally:
-                if undo is not None:
-                    undo()
+                for u in (undo, halo_undo):
+                    if u is not None:
+                        u()
             out["step_s"].append(time.perf_counter() - t0)
+            out["step_peak"].append(torch.cuda.max_memory_allocated() - held)
             out["launches"].append(_launched())
             if spent is not None:
                 out["collective_s"] = [sum(spent), len(spent)]
+            if halo_spent is not None:
+                out["halo_s"] = [sum(halo_spent), len(halo_spent)]
             tp_codes = list(taken)
+            if rows:  # this rank's band of z and codes, then the group's made whole
+                out["halos"].append({k: spatial.CALLS[k] - halos.get(k, 0)
+                                     for k in ("forward", "backward")})
+                out["latent_rows"].append([int(z.shape[1]) for z, _ in tp_codes])
+                tp_codes = [tuple(torch.cat(list(spatial.exchange(t, tr.model_group)), dim=1)
+                                  for t in pair) for pair in tp_codes]
             if ref is None:
                 continue
             c = {}
@@ -4092,10 +4171,14 @@ def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
                 c["indices"] = [sum(x[0] for x in counts), sum(x[1] for x in counts),
                                 all(x[2] for x in counts), int(got.numel())]
                 vq.nearest_indices_grouped = lambda z_, cb, use_kernel=None: got
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
             try:
                 want = ref.train_step(ref._put_batch(batch))
             finally:
                 vq.nearest_indices_grouped = forced
+            out["ref_peak"].append(torch.cuda.max_memory_allocated() - held)
             c.update(loss=[float(sum(float(v) for v in metrics.values())),
                            float(sum(float(v) for v in want.values()))],
                      grads=_rel_frobenius(grads["tp"], grads["ref"]))
@@ -4104,11 +4187,18 @@ def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
                 c["own"] = _rel_frobenius(grads["ref"], grads["ref32"])
             out["cmp"].append(c)
         # after the last step: the params, made whole, against the one-process run's
-        whole = flatten(tr.checkpoint_tree()["params"])
+        saved = tr.checkpoint_tree()
+        whole = flatten(saved["params"])
         if ref is not None:
             out["params"] = _rel_frobenius({k: v.float() for k, v in whole.items()},
                                            {k: v.float() for k, v in
                                             flatten(ref.state.params).items()})
+            if rows:  # elementwise, at lvt_tpu's bounds
+                out["within"] = {
+                    "params": _within(whole, flatten(ref.state.params), SP_RTOL, SP_ATOL),
+                    "model state": _within(flatten(saved["model_state"]),
+                                           flatten(ref.state.model_state), SP_RTOL, SP_ATOL)}
+        del saved
         out["local_shapes"] = {k: list(v.shape) for k, v in flatten(tr.state.params).items()
                                if k.endswith(("layers.0.wq", "layers.0.ffn_w1", "netC.embedding",
                                               "ch_embed"))}
@@ -4117,7 +4207,7 @@ def _tp_train(rank, device, name, config, opts, batches, own_rounding=False):
                                     if k.endswith("netC.embedding")})
     finally:
         vq.quantize_st = inner_q
-    out["peak"] = torch.cuda.max_memory_allocated()
+    out["peak"] = max(out["step_peak"])
     del tr, ref, ref32
     torch.cuda.empty_cache()
     return out
@@ -4269,14 +4359,21 @@ def _tp_rank(rank, device):
     videos = [{"video": rng.integers(0, 512, (TP_VT_BATCH, 4, T_FRAMES, 16, 16))
                .astype(np.int32)} for _ in range(TP_STEPS)]
     frames = [{"image": rng.uniform(0, 1, (TP_VQ_BATCH, 64, 64, 3)).astype(np.float32)}
-              for _ in range(TP_STEPS)]
+              for _ in range(SP_STEPS)]
     res = {"DSFVT": _tp_train(rank, device, "DSFVT", vt,
                               ["SEED", "7", "TPU.FUSED_LAYER", "False",
                                "SOLVER.IMS_PER_BATCH", str(TP_VT_BATCH)], videos,
                               own_rounding=True),
            "PR-DVQVAE2": _tp_train(rank, device, "PR-DVQVAE2", vq_cfg,
                                    ["SEED", "5", "SOLVER.IMS_PER_BATCH", str(TP_VQ_BATCH)],
-                                   frames),
+                                   frames[:TP_STEPS]),
+           "PR-DVQVAE2 rows": _tp_train(rank, device, "PR-DVQVAE2 rows", vq_cfg,
+                                        ["SEED", "5", "SOLVER.IMS_PER_BATCH", str(TP_VQ_BATCH),
+                                         "TPU.COMPUTE_DTYPE", "float32"], frames, rows=True),
+           "PR-DVQVAE2 rows bf16": _tp_train(rank, device, "PR-DVQVAE2 rows bf16", vq_cfg,
+                                             ["SEED", "5", "SOLVER.IMS_PER_BATCH",
+                                              str(TP_VQ_BATCH), "TPU.COMPUTE_DTYPE", "bfloat16"],
+                                             frames, own_rounding=True, rows=True),
            "agree": _tp_agree(rank, device),
            "slice": _tp_slice(rank, device)}
     return res
@@ -4286,13 +4383,15 @@ def _tp_checks(card, ranks):
     """Phase 18's tensor-parallel world held: exact launches per rank, the
     split leaves' shapes, on rank 0 the gradients, params, losses and codes
     against the one-process runs, the fp32 agreement and its TF32 control,
-    the slice's codes. Returns {kernel: [launches of rank 0, rank 1]}."""
+    the slice's codes; the row-split PR-DVQVAE2 runs' halo exchanges and
+    latent rows on every rank, their params and EMA state elementwise on rank
+    0. Returns {kernel: [launches of rank 0, rank 1]}."""
     import numpy as np
 
     counts = {}
     for rk in ranks:
         tp = rk["tp"]
-        for name in ("DSFVT", "PR-DVQVAE2"):
+        for name in TP_RUNS:
             r = tp[name]
             for i, got in enumerate(r["launches"]):
                 check(got == TP_PER_STEP[name], f"tp {name} rank {rk['rank']} step {i + 1}: "
@@ -4306,8 +4405,27 @@ def _tp_checks(card, ranks):
                   f"s (synchronized); the last step's {n_coll} collectives "
                   f"{coll:.4f} s = {100 * coll / r['step_s'][-1]:.1f}% of it (each synchronized "
                   f"and timed); launches per step {r['launches'][-1]}; max_memory_allocated "
-                  f"{r['peak'] / 2 ** 30:.2f} GiB; the rank's parts "
+                  f"{r['peak'] / 2 ** 30:.2f} GiB above what the process held before the step; "
+                  f"the rank's parts "
                   f"{json.dumps(r['local_shapes'])}")
+            if not r["halos"]:
+                continue
+            halo, n_halo = r["halo_s"]
+            ref_peak = (f", the one-process step's {max(r['ref_peak']) / 2 ** 30:.2f} GiB"
+                        if r["ref_peak"] else "")
+            print(f"  spatial parallel {name} rank {rk['rank']} [{card}]: "
+                  f"{float(np.median(r['step_s'][1:-1])):.4f} s/step (median of steps 2-"
+                  f"{len(r['step_s']) - 1}, synchronized); "
+                  f"halo exchanges per step {r['halos'][-1]}, the last step's {n_halo} "
+                  f"{halo:.4f} s = {100 * halo / r['step_s'][-1]:.1f}% of it (each synchronized "
+                  f"and timed); latent rows quantized {r['latent_rows'][-1]} of "
+                  f"{SP_LATENT_ROWS * TP_MODEL}; kernel 6 launches per step "
+                  f"{r['launches'][-1].get('nearest_indices', 0)}; step peak above the memory "
+                  f"held before it {r['peak'] / 2 ** 30:.2f} GiB{ref_peak}")
+            for i, (h, lr) in enumerate(zip(r["halos"], r["latent_rows"])):
+                check(h == SP_HALOS and lr == [SP_LATENT_ROWS],
+                      f"sp {name} rank {rk['rank']} step {i + 1}: halo exchanges {h} (want "
+                      f"{SP_HALOS}), latent rows {lr} (want [{SP_LATENT_ROWS}])")
         shapes = tp["DSFVT"]["local_shapes"]
         check(shapes.get("netG.decoder.layers.0.wq") == [4, 512, 128]
               and shapes.get("netG.decoder.layers.0.ffn_w1") == [512, 256]
@@ -4320,8 +4438,9 @@ def _tp_checks(card, ranks):
         for k, n in TP_SLICE.items():
             counts.setdefault(k, [0] * len(ranks))[rk["rank"]] += n
     tp = ranks[0]["tp"]
-    for name in ("DSFVT", "PR-DVQVAE2"):
+    for name in TP_RUNS:
         r = tp[name]
+        strict = bool(r["halos"]) and "own" not in r["cmp"][0]  # the fp32 row-split steps
         for i, c in enumerate(r["cmp"]):
             (e, k, w) = c["grads"]
             line = (f"  tensor parallel {name} step {i + 1} vs one process from the same state "
@@ -4342,7 +4461,8 @@ def _tp_checks(card, ranks):
             else:
                 check(e <= GRAD_TOL and w <= GRAD_TOL_WHOLE,
                       f"tp {name} step {i + 1}: gradient off by {e} ({k}), whole {w}")
-            check(abs(c["loss"][0] - c["loss"][1]) <= 1e-3 * abs(c["loss"][1]),
+            check(abs(c["loss"][0] - c["loss"][1])
+                  <= (SP_LOSS_RTOL if strict else 1e-3) * abs(c["loss"][1]),
                   f"tp {name} step {i + 1}: loss {c['loss']}")
             if "indices" in c:
                 check(c["indices"][2], f"tp {name} step {i + 1}: codes {c['indices']}")
@@ -4350,6 +4470,12 @@ def _tp_checks(card, ranks):
         print(f"  tensor parallel {name}: params after step {len(r['cmp'])} vs one process, "
               f"worst leaf {e:.3g} ({k}), whole {w:.3g}")
         check(e <= GRAD_TOL and w <= GRAD_TOL_WHOLE, f"tp {name}: params off by {r['params']}")
+        if strict:
+            for what, (bad, n, leaf) in r["within"].items():
+                print(f"  spatial parallel {name}: {what} after step {len(r['cmp'])} vs one "
+                      f"process, {bad} of {n} elements beyond rtol {SP_RTOL:g} / atol "
+                      f"{SP_ATOL:g} (the worst leaf {leaf})")
+                check(bad == 0, f"sp {name}: {what} off in {bad} elements (worst {leaf})")
     a = tp["agree"]
     (e, k, w), (e_c, k_c, w_c) = a["tp"], a["tf32"]
     print(f"  tensor parallel fp32 agreement, DSFVT b=2 one loss+backward [{card}]: TP vs the "

@@ -35,6 +35,17 @@ and the LR schedule step.
   gathered whole before rank 0 writes, and a load splits them for the
   current layout, so a run saved at one M resumes at another.
 
+* Spatial parallelism (TPU.SHARD_SPATIAL under a model group; ``lvt_tpu``'s
+  ``spatial_batch_sharding``): ``_put_batch`` gives model rank r its band of
+  rows of a 4-D ``image`` batch, rows [r H / M, (r + 1) H / M), and the
+  step runs inside ``parallel.spatial_parallel(model group)``
+  (``parallel/spatial.py``). Each rank then holds its band's share of a
+  replicated leaf's gradient: after each step's backward the shares are
+  summed over the model group, so that the replicated leaves' gradients are
+  alike across it again before anything else reads them. Every other batch
+  (``image_sequence``, the VT's ``video``) stays whole, and its step is the
+  step without the key. Checkpoints are unchanged: rows split no leaf.
+
 * The model state (the VQ-VAE's EMA codebook, batch-norm statistics,
   spectral-norm ``u``; empty for the VT) stays fp32, is replaced by the one
   ``train_loss`` returns each step, holds no autograd graph, and is saved and
@@ -67,7 +78,9 @@ from ..checkpoint import resume_or_load as load_latest
 from ..checkpoint.convert import flatten
 from ..models import build_model, cast_floats, param_count, tree_leaves
 from ..parallel import sharding
-from ..parallel.mesh import data_group, global_batch, model_group, tensor_parallel
+from ..parallel.mesh import (data_group, global_batch, model_group, spatial_parallel,
+                             tensor_parallel)
+from ..parallel.spatial import gather_rows, split_rows
 from ..solver import build_optimizer
 from ..utils import comm
 from ..utils.env import seed_all_rng
@@ -123,16 +136,18 @@ def _zip_leaves(fn, a, b):
 GRAD_BUCKET_BYTES = 25 * 2 ** 20
 
 
-def average_over(tensors, group) -> None:
-    """Replace each fp32 tensor by its mean over ``group``'s ranks, in place:
-    one all-reduce per run of tensors of at most GRAD_BUCKET_BYTES, flat."""
+def average_over(tensors, group, mean: bool = True) -> None:
+    """Replace each fp32 tensor by its mean (``mean=False``: its sum) over
+    ``group``'s ranks, in place: one all-reduce per run of tensors of at most
+    GRAD_BUCKET_BYTES, flat."""
     world = dist.get_world_size(group)
     bucket, size = [], 0
     for t in list(tensors) + [None]:
         if bucket and (t is None or size + 4 * t.numel() > GRAD_BUCKET_BYTES):
             flat = torch.cat([b.reshape(-1) for b in bucket])
             dist.all_reduce(flat, group=group)
-            flat.div_(world)
+            if mean:
+                flat.div_(world)
             for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
                 b.copy_(part.view_as(b))
             bucket, size = [], 0
@@ -159,6 +174,8 @@ class Trainer(TrainerBase):
         self.metrics_period = 20
         self.group = data_group(cfg)  # None: this process's batch is the whole batch
         self.model_group = model_group(cfg)  # None: every weight whole
+        # the group over which image rows are split (None: whole frames)
+        self._spatial = self.model_group if cfg.TPU.SHARD_SPATIAL else None
         # SEED <= 0 draws a fresh seed (reference utils/env.seed_all_rng), rank 0's on every rank
         self.seed = cfg.SEED if cfg.SEED > 0 else comm.all_gather(seed_all_rng(-1))[0]
         params, mstate = self.model.init(torch.Generator().manual_seed(self.seed), self.device)
@@ -185,7 +202,8 @@ class Trainer(TrainerBase):
         logger.info(f"Model has {param_count(params) / 1e6:.2f}M parameters on this rank; "
                     f"device {self.device}; compute dtype {self.compute_dtype or torch.float32}; "
                     f"accumulation={self.accumulation}; data-parallel ranks {world}, "
-                    f"tensor-parallel ranks {model}")
+                    f"tensor-parallel ranks {model}"
+                    + (", image rows split over them" if self._spatial is not None else ""))
 
     # -- step ---------------------------------------------------------------
     def step_generator(self, step: int) -> torch.Generator:
@@ -198,10 +216,15 @@ class Trainer(TrainerBase):
         st = self.state
         p = st.params if self.compute_dtype is None else cast_floats(st.params,
                                                                      self.compute_dtype)
-        with global_batch(self.group), tensor_parallel(self.model_group):
+        rows = self._spatial if self._rows_split(batch) else None
+        held = self._hold_replicated_grads() if rows is not None else None
+        with global_batch(self.group), tensor_parallel(self.model_group), \
+                spatial_parallel(rows):
             loss, (metrics, new_mstate) = self.model.train_loss(
                 p, st.model_state, batch, self.step_generator(st.step))
             loss.float().backward()
+        if rows is not None:
+            self._sum_row_shares(held)
         st.model_state = _map_leaves(lambda x: x.detach(), new_mstate)
         st.step += 1
         if st.step % self.accumulation == 0:
@@ -211,12 +234,47 @@ class Trainer(TrainerBase):
             st.optimizer.zero_grad(set_to_none=True)
         return {k: v.detach() for k, v in metrics.items()}
 
+    def _rows_split(self, batch) -> bool:
+        """Whether ``_put_batch`` split this batch's rows (a 4-D ``image``
+        under TPU.SHARD_SPATIAL with a model group)."""
+        return self._spatial is not None and "image" in batch and batch["image"].dim() == 4
+
+    def _replicated(self):
+        """The masters that no rank of the model group splits."""
+        return [m for m, d in zip(tree_leaves(self.state.params), tree_leaves(self._tp.params))
+                if d is None]
+
+    def _hold_replicated_grads(self):
+        """The replicated masters' gradient sums of the open window, taken
+        off them (their ``.grad`` None) for a row-split step's backward."""
+        held = []
+        for m in self._replicated():
+            held.append(m.grad)
+            m.grad = None
+        return held
+
+    def _sum_row_shares(self, held) -> None:
+        """After a row-split step's backward: each replicated master's
+        gradient, its rank's band's share, summed over the model group (one
+        flat all-reduce per bucket; zeros where a rank has none), then added
+        to the window's sum ``held``. The split leaves' gradients are whole
+        already (``ops/vq.py``)."""
+        masters = self._replicated()
+        for m in masters:
+            if m.grad is None:
+                m.grad = torch.zeros_like(m)
+        average_over([m.grad for m in masters], self.model_group, mean=False)
+        for m, h in zip(masters, held):
+            if h is not None:
+                m.grad.add_(h)
+
     def _average_grads(self, params=None):
         """The gradients of ``params`` (default: the masters) averaged over
         the data group, in place (a leaf with no gradient counts as zeros);
         nothing without a group. Under a model group each rank averages its
         parts of the split leaves, and the replicated leaves' gradients are
-        alike across it."""
+        alike across it (with rows split, once ``_sum_row_shares`` has summed
+        each step's shares)."""
         if self.group is None:
             return
         masters = tree_leaves(self.state.params if params is None else params)
@@ -235,6 +293,8 @@ class Trainer(TrainerBase):
         if (vis_period > 0 and self.iter > 0 and self.iter % vis_period == 0
                 and hasattr(self.model, "visualize_training")):
             try:  # periodic image dumps must never kill training
+                if self._rows_split(batch):  # the first frames made whole on every rank
+                    batch = {"image": gather_rows(batch["image"][:3], self._spatial)}
                 with tensor_parallel(self.model_group):
                     images = self.model.visualize_training(self.state.params,
                                                            self.state.model_state, batch)
@@ -250,7 +310,9 @@ class Trainer(TrainerBase):
         """Numeric batch fields onto the device; host metadata (file names,
         video indices) dropped. Code and class fields are checked once each
         against the config's vocabulary: a dataset made for another
-        codebook size would otherwise index out of range."""
+        codebook size would otherwise index out of range. Under
+        TPU.SHARD_SPATIAL with a model group a 4-D ``image`` field keeps
+        this rank's band of rows (``parallel.spatial.split_rows``)."""
         out = {}
         for k, v in batch.items():
             arr = v if isinstance(v, torch.Tensor) else np.asarray(v)
@@ -264,6 +326,8 @@ class Trainer(TrainerBase):
                         f"batch field '{k}' has values in [{lo}, {hi}] but the config bounds "
                         f"it to [0, {self._bounds[k]}): mismatched dataset and config")
                 self._checked.add(k)
+            if self._spatial is not None and k == "image" and t.dim() == 4:
+                t = split_rows(t, self._spatial)
             out[k] = t.to(self.device, non_blocking=True)
         return out
 

@@ -17,6 +17,12 @@ Descriptor forms:
 
 Reference quirk preserved: a conv followed by a norm is created without a
 bias (vidgen/layers/wrappers.py:48-50).
+
+Inside ``parallel.mesh.spatial_parallel`` x is this rank's band of rows:
+the convolutions take their halos (``ops/conv.py``), the norms sum their
+moments over the group (``norms.py``), and "avgpool", "upsample" and
+"pixelshuffle" stay within the band, which "avgpool" checks its height
+divides into. Spectral norm works on the replicated weights, unchanged.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -26,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv import conv2d, conv_transpose2d
+from ..parallel.mesh import spatial_group
+from ..parallel.spatial import check_rows
 from .norms import apply_norm, init_norm
 
 
@@ -188,6 +196,8 @@ def apply_seq(spec, params, state, x, *, norm: str, use_spectral: bool = False,
         elif kind == "sigmoid":
             x = torch.sigmoid(x)
         elif kind == "avgpool":
+            if spatial_group() is not None:
+                check_rows(x, layer[1], "avgpool")
             x = _avg_pool(x, layer[1])
         elif kind == "upsample":
             x = _upsample_nearest(x, layer[1])

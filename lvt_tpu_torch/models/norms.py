@@ -20,7 +20,7 @@ State (running mean/var) is threaded explicitly: ``apply_norm`` returns
 (y, new_state), and the new state's tensors hold no autograd graph.
 Channels-last layouts: x is (..., C).
 
-Statistics across processes follow two rules, both of ``lvt_tpu``, both
+Statistics across processes follow three rules, all of ``lvt_tpu``, all
 differentiable (``parallel.collectives.all_reduce``):
   * ``group=g`` is ``lvt_tpu``'s ``axis_name`` under ``shard_map``: "SyncBN"
     and "nnSyncBN" average their statistics over g's ranks (n is the global
@@ -30,6 +30,11 @@ differentiable (``parallel.collectives.all_reduce``):
     step jitted over its data mesh sees it: every train-mode batch norm
     reduces over the whole global batch and takes the n / (n - 1) running
     variance of a batch norm of one process.
+  * Frames split by rows over a group (``parallel.spatial_parallel``): every
+    moment over H x W is summed over the group too. A train-mode batch norm
+    reduces over the rows of every rank (n counts them all), and "IN",
+    "StdN", "StdNV2" and "GN" take each sample's moments over its whole
+    frame: the mean first, then the centred second moment.
 """
 
 from typing import Optional, Tuple
@@ -38,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.collectives import all_reduce
-from ..parallel.mesh import global_batch_group
+from ..parallel.mesh import global_batch_group, spatial_group
 
 VALID_NORMS = ("", "BN", "SyncBN", "nnSyncBN", "FrozenBN", "IN", "GN", "StdN", "StdNV2")
 _BATCH_NORMS = ("BN", "SyncBN", "nnSyncBN", "FrozenBN")
@@ -64,6 +69,9 @@ def apply_norm(norm: str, params: dict, state: dict, x: torch.Tensor, train: boo
     if norm == "":
         return x, state
     spatial = tuple(range(1, x.dim() - 1))
+    rows = spatial_group()
+    if rows is not None and norm in ("IN", "StdN", "StdNV2", "GN"):
+        return _frame_norm(norm, params, state, x, eps, rows)
 
     if norm == "IN":
         mean = x.mean(dim=spatial, keepdim=True)
@@ -95,10 +103,11 @@ def apply_norm(norm: str, params: dict, state: dict, x: torch.Tensor, train: boo
                 synced = over is not None
             else:  # the trainer's global batch, one batch to lvt_tpu's jit
                 over, synced = global_batch_group(), False
-            if over is not None:
-                w = dist.get_world_size(over)
-                stats = all_reduce(torch.stack([mean, meansqr]), over) / w
-                mean, meansqr, n = stats[0], stats[1], n * w
+            for g in (over, rows):  # the data group's batch, the rows of the frames
+                if g is not None:
+                    w = dist.get_world_size(g)
+                    stats = all_reduce(torch.stack([mean, meansqr]), g) / w
+                    mean, meansqr, n = stats[0], stats[1], n * w
             var = meansqr - mean * mean
             # the running variance takes the unbiased batch variance
             # (n / (n - 1)) while the batch is normalized with the biased
@@ -117,13 +126,44 @@ def apply_norm(norm: str, params: dict, state: dict, x: torch.Tensor, train: boo
         return y, new_state
 
     # GN
-    c = x.shape[-1]
-    g = min(32, c)
-    while c % g != 0:
-        g -= 1
-    xs = x.reshape(x.shape[:-1] + (g, c // g))
+    xs = _channel_groups(x)
     axes = spatial + (x.dim(),)
     mean = xs.mean(dim=axes, keepdim=True)
     var = xs.var(dim=axes, keepdim=True, unbiased=False)
     y = ((xs - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     return y * scale + bias, state
+
+
+def _channel_groups(x: torch.Tensor) -> torch.Tensor:
+    """x (..., C) as (..., g, C / g): GN's groups, the most up to 32 that
+    divide C."""
+    c = x.shape[-1]
+    g = min(32, c)
+    while c % g != 0:
+        g -= 1
+    return x.reshape(x.shape[:-1] + (g, c // g))
+
+
+def _frame_norm(norm: str, params: dict, state: dict, x: torch.Tensor, eps: float,
+                group: dist.ProcessGroup) -> Tuple[torch.Tensor, dict]:
+    """"IN", "StdN", "StdNV2" or "GN" on a band of rows x (b, h, W, C),
+    with each sample's moments over the whole frame, summed over ``group``
+    (equal bands: the mean of the ranks' means)."""
+    size = dist.get_world_size(group)
+    xs = _channel_groups(x) if norm == "GN" else x
+    axes = tuple(range(1, x.dim() - 1)) + ((x.dim(),) if norm == "GN" else ())
+
+    def frame_mean(v):
+        return all_reduce(v.mean(dim=axes, keepdim=True), group) / size
+
+    if norm == "StdNV2":
+        return x * torch.rsqrt(frame_mean(x * x) + 1e-8), state
+    mean = frame_mean(xs)
+    var = frame_mean((xs - mean) ** 2)
+    if norm == "StdN":  # the unbiased variance of the frame's n elements
+        n = size * xs[0].numel() // x.shape[-1]
+        return x * torch.rsqrt(var * (n / (n - 1)) + eps), state
+    y = (xs - mean) * torch.rsqrt(var + eps)
+    if norm == "IN":
+        return y, state
+    return y.reshape(x.shape) * params["scale"] + params["bias"], state

@@ -12,7 +12,12 @@ in ``params["netC"]`` and trains it with the codebook MSE term
 
 Under tensor parallelism (``parallel.mesh.tensor_parallel``) the codebook is
 the rank's part of it, split over its K codes (``ops/vq.py``); the encoder
-and the generator are replicated.
+and the generator are replicated. With frames split by rows
+(``parallel.mesh.spatial_parallel``) x is this rank's band of rows: the
+convolutions exchange halos, and each loss term is the whole frames' mean
+(``parallel.spatial.row_mean``), whose backward gives each rank its band's
+share. ``visualize_training`` and ``reconstruct`` take whole frames (the
+trainer gathers the rows first).
 """
 
 from typing import Any, Dict, Tuple
@@ -20,6 +25,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..ops import vq as vq_ops
+from ..parallel.mesh import spatial_group
+from ..parallel.spatial import row_mean
 from . import to_device
 from .decoders import build_generator
 from .encoders import build_encoder
@@ -127,6 +134,8 @@ class VQVAE(_PixelNorm):
             loss_dict["loss_dict"] = ((z_q.float() - z_e.detach().float()) ** 2).mean()
         loss_dict["loss_commitment"] = self.beta * (
             (z_e.float() - z_q.detach().float()) ** 2).mean()
+        rows = spatial_group()
+        loss_dict = {k: row_mean(v, rows) for k, v in loss_dict.items()}
 
         new_state = {"netE": se, "netG": sg, "netC": new_cb if self.ema else state["netC"]}
         return sum(loss_dict.values()), (loss_dict, new_state)
@@ -197,7 +206,7 @@ class AutoEncoder(_PixelNorm):
         ae.py:170-181)."""
         z, se = self.encode(params, state, x, train=train)
         out, sg = self.decode(params, state, z, train=train)
-        loss = ((out - x) ** 2).mean()
+        loss = row_mean(((out - x) ** 2).mean(), spatial_group())
         return loss, ({"loss_ae_mse": loss}, {"netE": se, "netG": sg})
 
     def train_loss(self, params, model_state, batch, gen=None):

@@ -8,6 +8,11 @@ around one ``torch.nn.functional`` call; the bias is added afterwards, as
 the JAX package adds it. These are plain PyTorch: the JAX package leaves
 them to XLA, outside any kernel.
 
+Inside ``parallel.mesh.spatial_parallel`` (frames split by rows over a
+group, ``parallel/spatial.py``) ``conv2d`` and ``conv_transpose2d`` take
+their band's halo rows from the neighbouring ranks and compute this rank's
+band of the whole frame's output; the columns are padded as before.
+
 * ``conv2d`` / ``conv_transpose2d``: torch.nn.Conv2d / ConvTranspose2d
   arithmetic (ResEncoder / ResDecoder).
 * ``masked_conv3d``: the decoder's causal 3-D conv, a constant binary mask
@@ -30,6 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import spatial_group
+from ..parallel.spatial import conv_rows, conv_transpose_rows
+
 
 def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
@@ -37,8 +45,13 @@ def _pair(v):
 
 def conv2d(x, w, b=None, stride=1, padding=0):
     """NHWC conv. w: (kh, kw, in, out); inputs follow the weight dtype."""
-    x = x.to(w.dtype).permute(0, 3, 1, 2)
-    out = F.conv2d(x, w.permute(3, 2, 0, 1), stride=_pair(stride), padding=_pair(padding))
+    stride, padding = _pair(stride), _pair(padding)
+    x = x.to(w.dtype)
+    group = spatial_group()
+    if group is not None:  # the band with its halo rows; no row padding
+        x, padding = conv_rows(x, w.shape[0], stride[0], padding[0], group), (0, padding[1])
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
+                   padding=padding)
     out = out.permute(0, 2, 3, 1)
     return out + b if b is not None else out
 
@@ -47,10 +60,19 @@ def conv_transpose2d(x, w, b=None, stride=2, padding=1):
     """torch.nn.ConvTranspose2d semantics on NHWC. w: (kh, kw, out, in),
     i.e. torch's (in, out, kh, kw) weight permuted. Output size =
     (n-1)*s - 2p + k."""
-    x = x.to(w.dtype).permute(0, 3, 1, 2)
-    out = F.conv_transpose2d(x, w.permute(3, 2, 0, 1), stride=_pair(stride),
-                             padding=_pair(padding))
+    stride, padding = _pair(stride), _pair(padding)
+    x = x.to(w.dtype)
+    group = spatial_group()
+    first = None
+    if group is not None:  # the widened band, cropped to this rank's output rows
+        rows = stride[0] * x.shape[1]
+        x, first = conv_transpose_rows(x, w.shape[0], stride[0], padding[0], group)
+        padding = (0, padding[1])
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
+                             padding=padding)
     out = out.permute(0, 2, 3, 1)
+    if first is not None:
+        out = out[:, first:first + rows]
     return out + b if b is not None else out
 
 

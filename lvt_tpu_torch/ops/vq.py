@@ -35,6 +35,18 @@ only, summed over the data group; its normaliser ``n`` is summed over the
 model group and its K is the whole codebook's. A lookup reads the owner's
 row, zeros on the other ranks, summed over the group. Indices may differ
 from the whole codebook's search only at near-ties (``index_differences``).
+
+Where the frames are also split by rows over the model group
+(``parallel.mesh.spatial_parallel``, TPU.SHARD_SPATIAL), the ranks hold
+different rows of z and the split search above would compare distances of
+different rows. So the group's rows are gathered first (``_group_rows``),
+every rank searches its codes on all of them and the least distance wins as
+above; each rank keeps its band's indices. The lookups are formed for all
+the group's rows, summed over the group (a sum whose backward is the sum of
+the ranks' gradients, so that a code's owner gets the gradient of every
+rank's rows) and cut to the band. The EMA statistics count a rank's codes
+over the group's gathered rows; with a whole codebook, over the band's rows,
+summed over the rows' group. Both are summed over the data group as before.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -42,8 +54,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..parallel.collectives import _all_gather, _all_reduce, reduce_from_model
-from ..parallel.mesh import global_batch_group, model_parallel_group
+from ..parallel.collectives import _all_gather, _all_reduce, all_reduce, reduce_from_model
+from ..parallel.mesh import global_batch_group, model_parallel_group, spatial_group
+from ..parallel.spatial import exchange
 from ..parallel.sharding import tp_dim
 from ._lib import CARD_SMS, LIBRARY, check_launch, counted
 from .embedding import take_rows
@@ -254,6 +267,41 @@ def nearest_indices_sharded(z: torch.Tensor, codebooks: torch.Tensor, shard: Cod
     return both[:, 1].gather(0, best[None])[0].to(torch.int32)
 
 
+def _group_rows(x: torch.Tensor, shard: CodebookShard):
+    """(x's rows (N, ...) of every rank of the model group, (M N, ...) in
+    rank order, and the slice of them that is this rank's) where the frames
+    are split by rows over that group; (x, None) where every rank holds the
+    same rows. No gradient."""
+    rows = spatial_group()
+    if rows is None:
+        return x, None
+    if dist.get_process_group_ranks(rows) != dist.get_process_group_ranks(shard.group):
+        raise ValueError("a codebook split over one group of ranks and frames split by rows "
+                         "over another")
+    n = x.shape[0]
+    rank = dist.get_rank(rows)
+    return exchange(x.detach(), rows).reshape((-1,) + tuple(x.shape[1:])), \
+        slice(rank * n, (rank + 1) * n)
+
+
+def _search_rows(z: torch.Tensor, codebooks: torch.Tensor, shard: CodebookShard,
+                 use_kernel: Optional[bool]):
+    """(the global nearest codes of the rows ``_group_rows`` gives, those
+    rows, the slice of them that is this rank's)."""
+    z_rows, band = _group_rows(z, shard)
+    return nearest_indices_sharded(z_rows, codebooks, shard, use_kernel), z_rows, band
+
+
+def _sum_owned(x: torch.Tensor, shard: CodebookShard, band: Optional[slice]) -> torch.Tensor:
+    """The owners' lookups x (zeros elsewhere) summed over the model group:
+    with the same rows on every rank, a sum whose gradient passes as it is;
+    with the group's rows (``band``: this rank's), a sum whose gradient is
+    summed over the ranks, cut to the band."""
+    if band is None:
+        return reduce_from_model(x, shard.group)
+    return all_reduce(x.float(), shard.group)[band].to(x.dtype)
+
+
 def _owned_rows(emb: torch.Tensor, idx: torch.Tensor, shard: CodebookShard) -> torch.Tensor:
     """Rows of this rank's embedding (num, K/M, Dc) at global indices idx
     (N, num), zero where another rank owns the code: (N, num, Dc)."""
@@ -267,24 +315,27 @@ def _owned_rows(emb: torch.Tensor, idx: torch.Tensor, shard: CodebookShard) -> t
 # --------------------------------------------------------------------------
 
 def _ema_stats(z: torch.Tensor, indices: torch.Tensor, K: int,
-               owned: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+               owned: Optional[torch.Tensor] = None,
+               rows: Optional[dist.ProcessGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-batch cluster size (K,) and vector sum (K, Dc), fp32, no gradient.
     A one-hot product as in the JAX package, not a scatter-add: atomics would
     sum in another order on every call on the card. Inside the trainer's
     global batch both are summed over its ranks (the data group) in one
-    all-reduce (lvt_tpu/ops/vq.py:181-183); kernel 6's indices stay per
-    rank. ``owned`` (N,) bool: count only those rows (a split codebook's
-    own codes)."""
+    all-reduce (lvt_tpu/ops/vq.py:181-183), and over ``rows``, the group
+    whose ranks hold the other bands of rows of the same frames; kernel 6's
+    indices stay per rank. ``owned`` (N,) bool: count only those rows (a
+    split codebook's own codes; its rows are then every band's, and
+    ``rows`` None)."""
     z = z.detach().float()
     one_hot = torch.nn.functional.one_hot(indices.long(), K).to(torch.float32)  # (N, K)
     if owned is not None:
         one_hot = one_hot * owned[:, None].to(torch.float32)
     size, vec_sum = one_hot.sum(dim=0), one_hot.T @ z
-    group = global_batch_group()
-    if group is not None:
-        both = torch.cat([size[:, None], vec_sum], dim=1)
-        dist.all_reduce(both, group=group)
-        size, vec_sum = both[:, 0], both[:, 1:]
+    for group in (global_batch_group(), rows):
+        if group is not None:
+            both = torch.cat([size[:, None], vec_sum], dim=1)
+            dist.all_reduce(both, group=group)
+            size, vec_sum = both[:, 0], both[:, 1:]
     return size, vec_sum
 
 
@@ -326,24 +377,29 @@ def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool
     # every sub-codebook's indices from the embedding before the update, at once
     if shard is None:
         idx_all = nearest_indices_grouped(z, emb, use_kernel)
-        local_all, own_all = idx_all, None
+        # the rows the lookups and the EMA statistics read (their codes, whether
+        # this rank owns them), and the group holding the frames' other rows
+        q_local, q_own = idx_all, None
+        stats_z, stats_rows = z, spatial_group()
     else:  # global indices; this rank's codes among them, and their rows summed over the group
-        idx_all = nearest_indices_sharded(z, emb, shard, use_kernel)
-        local_all, own_all = shard.local(idx_all)
-        pre_all = reduce_from_model(_owned_rows(emb.detach(), idx_all, shard), shard.group)
+        idx_rows, stats_z, band = _search_rows(z, emb, shard, use_kernel)
+        idx_all = idx_rows if band is None else idx_rows[band]
+        q_local, q_own = shard.local(idx_rows)
+        stats_rows = None  # a rank's codes, counted over the group's rows
+        pre_all = _sum_owned(_owned_rows(emb.detach(), idx_rows, shard), shard, band)
 
     st_parts, q_parts = [], []
     new_emb, new_rs, new_rsum = [], [], []
     for i in range(num):
         zi = z[:, i, :]
         emb_i = emb[i]
-        idx, own = local_all[:, i], None if own_all is None else own_all[:, i]
         # straight-through uses the embedding before the update
-        z_q_pre = emb_i.detach()[idx.long()] if shard is None else pre_all[:, i]
+        z_q_pre = emb_i.detach()[idx_all[:, i].long()] if shard is None else pre_all[:, i]
         st = zi + (z_q_pre - zi.detach().to(z_q_pre.dtype)).to(zi.dtype)
 
         if ema and train:
-            size, vec_sum = _ema_stats(zi, idx, K_here, own)
+            size, vec_sum = _ema_stats(stats_z[:, i, :], q_local[:, i], K_here,
+                                       None if q_own is None else q_own[:, i], stats_rows)
             e, rs, rsum = _ema_update(codebook["running_size"][i], codebook["running_sum"][i],
                                       size, vec_sum, decay, eps, shard)
         else:
@@ -351,9 +407,9 @@ def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool
 
         # the differentiable lookup uses the embedding after the update (with a
         # split codebook the owner's row, summed over the group after the loop)
-        q = take_rows(e, idx)
-        if own is not None:
-            q = q * own[:, None].to(q.dtype)
+        q = take_rows(e, q_local[:, i])
+        if q_own is not None:
+            q = q * q_own[:, i, None].to(q.dtype)
 
         st_parts.append(st)
         q_parts.append(q)
@@ -364,7 +420,7 @@ def quantize_st(z_e: torch.Tensor, codebook: Codebook, *, ema: bool, train: bool
     z_q_st = torch.stack(st_parts, dim=1).reshape(z_e.shape)
     z_q = torch.stack(q_parts, dim=1)
     if shard is not None:
-        z_q = reduce_from_model(z_q, shard.group)
+        z_q = _sum_owned(z_q, shard, band)
     z_q = z_q.reshape(lead + (num * Dc,)).to(z_e.dtype)
     indices = idx_all.reshape(lead + (num,))
     new_codebook = {"embedding": torch.stack(new_emb), "running_size": torch.stack(new_rs),
@@ -409,8 +465,11 @@ def encode_indices(z_e: torch.Tensor, codebook: Codebook,
     num, _, Dc = emb.shape
     z = z_e.reshape(-1, num, Dc)
     shard = codebook_shard(emb, K)
-    idx = (nearest_indices_grouped(z, emb, use_kernel) if shard is None
-           else nearest_indices_sharded(z, emb, shard, use_kernel))
+    if shard is None:
+        idx = nearest_indices_grouped(z, emb, use_kernel)
+    else:
+        idx, _, band = _search_rows(z, emb, shard, use_kernel)
+        idx = idx if band is None else idx[band]
     return idx.reshape(z_e.shape[:-1] + (num,))
 
 
@@ -421,8 +480,8 @@ def embed_indices(indices: torch.Tensor, codebook: Codebook,
     emb = codebook["embedding"]
     shard = codebook_shard(emb, K)
     if shard is not None:
-        flat = indices.reshape(-1, emb.shape[0])
-        rows = reduce_from_model(_owned_rows(emb, flat, shard), shard.group)
+        flat, band = _group_rows(indices.reshape(-1, emb.shape[0]), shard)
+        rows = _sum_owned(_owned_rows(emb, flat, shard), shard, band)
         return rows.reshape(indices.shape[:-1] + (-1,))
     parts = [emb[i][indices[..., i].long()] for i in range(emb.shape[0])]
     return torch.cat(parts, dim=-1)

@@ -10,8 +10,11 @@ data index form a model group: they hold the same batch rows and draw the
 same random numbers, and tensor parallelism (``parallel/sharding.py``) splits
 the weights over them. The ranks of one model index form a data group, over
 which the gradients are averaged. TPU.MESH_DATA is -1 or world // M; M must
-divide the world. Spatial sharding (TPU.SHARD_SPATIAL) is not ported
-(ROADMAP.md queue 1 item 9).
+divide the world. With TPU.SHARD_SPATIAL the ranks of a model group hold
+different rows of the same frames instead: the trainer gives rank r the
+(r % M)-th of M equal bands of rows of each 4-D ``image`` batch
+(``lvt_tpu``'s ``spatial_batch_sharding``), and the VQ-VAE's step runs inside
+``spatial_parallel(model group)`` (``parallel/spatial.py``).
 
 ``lvt_tpu``'s step sees the whole global batch: under its jit every
 train-mode batch norm and the EMA codebook's statistics reduce over all of
@@ -20,16 +23,15 @@ runs its forward pass inside ``global_batch(data group)``, and the code that
 reduces over the batch reads ``global_batch_group()``: None outside that
 context, where the batch is the process's own. Likewise the forward passes
 read ``model_parallel_group()``, which ``tensor_parallel(model group)`` sets:
-None outside it, where every weight is whole.
+None outside it, where every weight is whole; and ``spatial_group()``,
+which ``spatial_parallel(model group)`` sets: None outside it, where every
+rank holds whole frames.
 """
 
 import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch.distributed as dist
-
-_NOT_PORTED = "is not ported to lvt_tpu_torch yet (ROADMAP.md queue 1 item 9)"
-
 
 def _world() -> Tuple[int, int]:
     """(world size, rank): (1, 0) with no process group."""
@@ -41,10 +43,8 @@ def _world() -> Tuple[int, int]:
 def layout(cfg, world: Optional[int] = None) -> Tuple[int, int]:
     """(data, model) sizes of the world (this process's, or one of
     ``world`` processes) under cfg's TPU.MESH_DATA and TPU.MESH_MODEL.
-    Refuses spatial sharding, a model axis that does not divide the world
-    and a data axis other than the rest of it."""
-    if cfg.TPU.SHARD_SPATIAL:
-        raise NotImplementedError("TPU.SHARD_SPATIAL (spatial sharding) " + _NOT_PORTED)
+    Refuses a model axis that does not divide the world and a data axis
+    other than the rest of it."""
     if world is None:
         world, _ = _world()
     model = cfg.TPU.MESH_MODEL
@@ -109,6 +109,7 @@ def model_group(cfg) -> Optional[dist.ProcessGroup]:
 
 _GLOBAL_BATCH: Optional[dist.ProcessGroup] = None
 _MODEL_PARALLEL: Optional[dist.ProcessGroup] = None
+_SPATIAL: Optional[dist.ProcessGroup] = None
 
 
 @contextlib.contextmanager
@@ -144,6 +145,24 @@ def tensor_parallel(group: Optional[dist.ProcessGroup]):
 def model_parallel_group() -> Optional[dist.ProcessGroup]:
     """The model group inside ``tensor_parallel``; else None."""
     return _MODEL_PARALLEL
+
+
+@contextlib.contextmanager
+def spatial_parallel(group: Optional[dist.ProcessGroup]):
+    """Within: each rank of ``group`` holds its band of rows of the same
+    frames, the bands in rank order (None: whole frames)."""
+    global _SPATIAL
+    outer, _SPATIAL = _SPATIAL, group
+    try:
+        yield
+    finally:
+        _SPATIAL = outer
+
+
+def spatial_group() -> Optional[dist.ProcessGroup]:
+    """The group whose ranks hold bands of rows, inside
+    ``spatial_parallel``; else None."""
+    return _SPATIAL
 
 
 def batch_rows(group: Optional[dist.ProcessGroup], local: int):

@@ -23,8 +23,9 @@ tests/conftest.py.
   resumed in a world of one (this process), and saved by a world of one and
   resumed in the world; the next step within (b)'s bounds of the unbroken
   run. A resume in the same layout is bit-equal.
-* (f) The refusals: TPU.SHARD_SPATIAL, the int8 sampler knobs under a model
-  group, a model axis that does not divide the world.
+* (f) The refusals: the int8 sampler knobs under a model group, a model
+  axis that does not divide the world; TPU.SHARD_SPATIAL is accepted
+  (tests/test_torch_sp.py holds it).
 * tools/train_net_torch.py's main in the world with TPU.MESH_MODEL 2: the
   narrow VQ-VAE and VT of tests/test_torch_data_parallel.py train 2 steps,
   split, and --eval-only there gives the world of one's bits/dim (1e-6) and
@@ -468,9 +469,8 @@ def test_int8_sampler_knobs_refuse_under_a_model_group(tp, knobs):
 
 def test_the_layouts_the_port_refuses():
     cfg = _vt_cfg()
-    cfg.TPU.SHARD_SPATIAL = True
-    with pytest.raises(NotImplementedError, match="SHARD_SPATIAL.*queue 1 item 9"):
-        tmesh.data_group(cfg)
+    cfg.TPU.SHARD_SPATIAL = True  # spatial sharding is accepted: a world of one, no group
+    assert tmesh.data_group(cfg) is None and tmesh.layout(cfg, 4) == (4, 1)
     cfg.TPU.SHARD_SPATIAL = False
     cfg.TPU.MESH_MODEL = 2
     with pytest.raises(ValueError, match="MESH_MODEL 2 does not divide the world of 3"):

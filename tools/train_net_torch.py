@@ -58,6 +58,15 @@ split over each group of M. M must divide N:
 Under TPU.MESH_MODEL the VT trains with its unfused layers (kernels 1 and
 10) and samples with the eager native sampler (kernel 2); its checkpoints
 hold the whole leaves, so a run resumes under another layout.
+TPU.SHARD_SPATIAL True adds spatial parallelism: each rank of a group of M
+trains a VQ-VAE on its band of H / M rows of every frame, its convolutions
+exchanging the rows at the bands' edges (lvt_tpu_torch/parallel/spatial.py);
+H / M must be a multiple of every stride the encoder takes. Only 4-D image
+batches are split: image sequences and the VT's videos train as without the
+key, and so does --eval-only. With a group of 2 on one card over gloo:
+  python tools/train_net_torch.py --num-gpus 2 --dist-backend gloo \
+      --config-file configs/vqvae/PR-DVQVAE2.yaml TPU.MESH_MODEL 2 \
+      TPU.SHARD_SPATIAL True OUTPUT_DIR out/prdvqvae2_sp
 """
 
 import os
