@@ -86,13 +86,20 @@ Phases, each fatal on failure (exit code 1, no result line):
                 time at that shape; kernel 5 beside kernel 2's and swept over
                 b in (1, 16, 256) x live in (1, 64, 200, 256), kernel 11
                 beside torch._int_mm plus the scaling (yardsticks, never on a
-                path).
+                path). Kernel 11 also at one tensor-parallel rank's four
+                shard shapes (b 8: qkv 512 x 768, FFN 1 512 x 256, proj and
+                FFN 2 256 x 512), with and without row_amax (the model
+                group's absmax of each activation row; fp32 and int32 output),
+                bit-equal to its plain version, timed beside the bound; the
+                two halves' int32 sums of the whole 512 x 512 product, added
+                and scaled, bit-equal to the kernel on the whole rows.
  10b. i8 fold — kernels 3 and 4 with the quantization of q and of the new
                 cache row folded in (the sampler's call) against the PyTorch
                 sequence they replace: q8, sq, the written cache rows and
                 scales bit-equal, the outputs within the kernels' bound, at b
                 in (1, 8, 16) x live in (1, 64, 65, 256), fp32 and bf16, rows
-                at and next to x.5 and tiny rows among them.
+                at and next to x.5 and tiny rows among them; na = 8, and at
+                b = 8 also na = 4 (a tensor-parallel rank's heads).
  11. main i8  — the quantized sampler at full width, batch 8, bf16, all 11
                 sampled frames, greedy, through generate() (the graph) with
                 TEST.VT_SAMPLER.KV_DTYPE / ATTN_IMPL / WEIGHT_DTYPE set: a
@@ -204,6 +211,24 @@ Phases, each fatal on failure (exit code 1, no result line):
                 sampler, its codes equal to one rank's or differing only at
                 logit near-ties; exact launches per rank, seconds, the
                 collectives' share of a step.
+ 18c. tp sampler — the sampler's modes and GanTrainer under a model group,
+                in a gloo world of its own (data 1 x model 2, both ranks on
+                the card): one full-width DSFVT bf16 greedy b = 8 slice in
+                each mode of TP_MODES (int8 KV with xla, pallas and
+                pallas-live; int8 and int8-pallas weights; int4 KV; 2 streams
+                natively and with int8 KV + pallas) through the eager
+                sampler on the rank's 4 heads, its codes held to the same
+                mode's one-rank eager slice (the one-rank model's decisions
+                teacher-forced on the TP codes at least TP_MODES_AGREE
+                equal, or apart in at most TP_OWN_ROUNDING x the share its
+                fp32 model's decisions part from them; native streams
+                equal or apart only at logit near-ties; the free-running
+                agreement printed);
+                exact launches per rank and slice (kernel 3 or 4 once a
+                layer, pixel and stream; kernel 11 4 times a layer and pixel,
+                2 of them given the group's row_amax), seconds a slice; the
+                toy GAN for TP_GAN_ITERS iterations, G and D equal on both
+                ranks and within TP_GAN_TOL of a world of one's.
 
  19. e2e      — the native IO library (lvt_tpu_torch/native) must build and
                 load. tools/e2e_demo_torch.py's main at its defaults, full
@@ -321,14 +346,14 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 Order: 1, 2, then the phases that time kernels alone on the card (3, 10,
 10b, 6, 7, 16), then 4, 5, 5b, 13 (the generation models loaded), 23a;
-then phases 18 to 22 start in two side processes (18 then 22; 20, 21 then
-19) beside 11, 11b, 12, 12b, 8, 9, 14, 15, 17, 23b in the main process, whose
+then phases 18 to 22 start in three side processes (18 then 22; 20, 21 then
+19; 18c) beside 11, 11b, 12, 12b, 8, 9, 14, 15, 17, 23b in the main process, whose
 times are therefore taken with the card and the host shared (see SIDE_GROUPS). Phases
 8 and 14 keep their OUTPUT_DIRs for phase 17. The line before the last is
 {"kernels": [...]}, each kernel with its main-path launches, phase 17's
 ("eval_launches"), phase 18's per rank of each world ("dp_launches") and
 of its tensor-parallel world ("tp_launches"), phase 3's at one rank's shard
-("tp_shard"),
+("tp_shard"), phase 18c's per rank of each mode ("tp_sampler_launches"),
 phase 19's per run ("e2e_launches"), phase 20's per run
 ("geometry_launches"), phase 21's per run ("tools_launches") and phase 22's
 per run ("sampler_modes_launches"); the last line is {"ok": true,
@@ -2452,16 +2477,102 @@ def phase_i8_kernels(card, kernel2_ms=None):
                                               "cast_matmul_ms": dense}
             del sets
     main = shapes["8x512x3072"]
-    res["matmul_i8w"] = dict(main, err=err11, shapes=shapes)
+    res["matmul_i8w"] = dict(main, err=err11, shapes=shapes, tp_shard=i8w_shard(card, g))
     return res
+
+
+# kernel 11 at one tensor-parallel rank's products of DSFVT (TPU.MESH_MODEL 2,
+# b = 8): (K, N, row-split); qkv and FFN 1 split by columns, proj and FFN 2
+# (one shape) by rows, which also take the group's row_amax and write int32
+I8W_SHARD_SHAPES = ((512, 768, False), (512, 256, False), (256, 512, True))
+
+
+def i8w_shard(card, g, b=8):
+    """Kernel 11 at I8W_SHARD_SHAPES, fp32 and bf16, without row_amax and,
+    at the row-split shape (one rank's half of DSFVT's proj and FFN 2),
+    with it (the whole rows' absmax, as the group hands it over) into fp32
+    and into int32 (the unscaled sums the sampler adds over the group): each
+    bit-equal to the plain version; given the rows' own absmax bit-equal to
+    the kernel without it; the two halves' int32 sums, added and scaled, bit-
+    equal to the kernel on the whole rows. bf16 timed beside the plain
+    version and the bound: without row_amax, and the sampler's row-split
+    call (row_amax, int32). Returns {shape: {ms, plain_ms, bound_ms,
+    bound_by}}."""
+    import torch
+
+    from lvt_tpu_torch.ops import quant
+
+    dev, out = torch.device("cuda"), {}
+    for K, N, split in I8W_SHARD_SHAPES:
+        n_sets = min(256, -(-64 * 2 ** 20 // (K * N)))  # weights of 64 MB in all
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            whole_k = 2 * K if split else K  # a split product's rank holds half of each row
+            wholes = [quant.quantize_cols(torch.randn((whole_k, N), generator=g, device=dev)
+                                          .to(dt), dt)
+                      for _ in range(n_sets if dtype == "bfloat16" else 1)]
+            sets = [(wi[:K].t().contiguous(), sw) for wi, sw in wholes]
+            y_whole = torch.randn((b, whole_k), generator=g, device=dev).to(dt)
+            y = y_whole[:, :K].contiguous()
+            group = y_whole.abs().amax(dim=-1).float()  # the group's absmax of each row
+            runs = [("", None, dt)]
+            if split:
+                runs += [(" row_amax", group, torch.float32),
+                         (" row_amax int32", group, torch.int32)]
+            for label, amax, odt in runs:
+                wt, sw = sets[0]
+                got = quant.matmul_i8w_cuda(y, wt, sw, odt, amax)
+                want = quant.matmul_i8w_plain(y, wt, sw, odt, amax)
+                torch.cuda.synchronize()
+                equal = torch.equal(got, want)
+                print(f"kernel 11 matmul_i8w tensor-parallel shard {dtype} ({b}, {K}) x ({K}, "
+                      f"{N}){label}, out {str(odt).split('.')[-1]}: bit-equal to its plain "
+                      f"version {equal}")
+                check(equal, f"matmul_i8w{label} differs from its plain version ({dtype}, "
+                             f"b={b}, K={K}, N={N})")
+                if dtype == "bfloat16" and label != " row_amax":
+                    kd, pd = time_both(
+                        card, [lambda s=s: quant.matmul_i8w_cuda(y, s[0], s[1], odt, amax)
+                               for s in sets],
+                        [lambda s=s: quant.matmul_i8w_plain(y, s[0], s[1], odt, amax)
+                         for s in sets], 2 * n_sets, f"kernel 11 shard ({b}, {K}) x ({K}, {N})"
+                                                     f"{label} ")
+                    nbytes = (K * N + b * K * 2 + N * 2 + b * N * (2 if odt == dt else 4)
+                              + (b * 4 if amax is not None else 0))
+                    bd, by = bound_ms("int8", nbytes, 2 * b * K * N)
+                    print(f"  kernel 11 shard ({b}, {K}) x ({K}, {N}){label} bf16: bound "
+                          f"{bd:.4f} ms ({by}) [{card}]")
+                    out[f"{b}x{K}x{N}{label.replace(' ', '_')}"] = {
+                        "ms": kd, "plain_ms": pd, "bound_ms": bd, "bound_by": by}
+            if split:
+                wi, sw = wholes[0]
+                own = quant.matmul_i8w_cuda(y, sets[0][0], sw, dt,
+                                            y.abs().amax(dim=-1).float())
+                check(torch.equal(own, quant.matmul_i8w_cuda(y, sets[0][0], sw, dt)),
+                      f"matmul_i8w: row_amax equal to the rows' own absmax is not the "
+                      f"kernel's own output ({dtype}, K={K}, N={N})")
+                acc = sum(quant.matmul_i8w_cuda(y_whole[:, h].contiguous(),
+                                                wi[h].t().contiguous(), sw, torch.int32, group)
+                          for h in (slice(0, K), slice(K, 2 * K)))
+                summed = (acc.float() * quant.absmax_scale(group)[:, None] * sw.float()).to(dt)
+                same = torch.equal(summed, quant.matmul_i8w_cuda(y_whole, wi.t().contiguous(),
+                                                                 sw, dt))
+                print(f"kernel 11 {dtype}: the two halves' int32 sums of ({b}, {2 * K}) x "
+                      f"({2 * K}, {N}), added and scaled, bit-equal to the whole rows' "
+                      f"product {same}")
+                check(same, f"matmul_i8w: the row-split sums differ from the whole product "
+                            f"({dtype}, K={2 * K}, N={N})")
+            del sets, wholes
+    return out
 
 
 def phase_i8_fold(card):
     """Kernels 3 and 4 with the quantization of q and of the new cache row
     folded in (the sampler's call) against the PyTorch sequence they replace
     (quantize_cache_row, the row writes, quantize_rows_i8, the plain kernel)
-    on the card: b in (1, 8, 16), live in (1, 64, 65, 256), na=8, R=256,
-    da=128, the io dtype fp32 and bf16, rows from randn, rows of scale 1 at
+    on the card: b in (1, 8, 16) at na=8 and b=8 at na=4 (a tensor-parallel
+    rank's heads), live in (1, 64, 65, 256), R=256, da=128, the io dtype fp32
+    and bf16, rows from randn, rows of scale 1 at
     and next to x.5, and tiny rows. q8, sq, the cache rows and scales equal
     bit for bit (the rest of the cache untouched), the output within the
     kernel's bound of the sequence's, one launch a call. Returns the largest
@@ -2472,12 +2583,12 @@ def phase_i8_fold(card):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(36)
-    na, R, da, scale = 8, 256, 128, 128 ** -0.5
+    R, da, scale = 256, 128, 128 ** -0.5
     errs = {3: 0.0, 4: 0.0}
     entries = {3: (ca.decode_attention_i8_step_cuda, ca.decode_attention_i8_step_plain),
                4: (ca.decode_attention_i8_live_step_cuda, ca.decode_attention_i8_live_step_plain)}
     checked = 0
-    for b in (1, 8, 16):
+    for b, na in ((1, 8), (8, 8), (16, 8), (8, 4)):  # na 4: a tensor-parallel rank's heads
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             for rows in ("randn", "halves", "tiny"):
@@ -2506,7 +2617,7 @@ def phase_i8_fold(card):
                         want, q8w, sqw = plain(qkv[:, 0], qkv[:, 1:], *theirs, live, bias, scale,
                                                dt, q_out=True)
                         torch.cuda.synchronize()
-                        what = f"kernel {k} fused, {dtype} {rows} b={b} live={live}"
+                        what = f"kernel {k} fused, {dtype} {rows} b={b} na={na} live={live}"
                         check(fused.launches == before + 1, f"{what}: launches")
                         check(torch.equal(q8, q8w) and torch.equal(sq, sqw),
                               f"{what}: q8 or sq differ from quantize_rows_i8's")
@@ -4276,77 +4387,118 @@ def _unflatten_like(tree, flat, prefix=""):
     return flat[prefix]
 
 
-def _tp_slice(rank, device):
-    """One fp32 greedy slice (slice N_PRIME, 256 pixels) of DSFVT's rollout at
-    b = TP_SLICE_BATCH, tensor-parallel through ``sample_video``'s eager
-    loop, and on rank 0 the same slice by the whole model (one rank). Where
-    the codes differ, both models' teacher-forced logits on the TP codes
-    tell whether each difference lies at a logit near-tie (the top two
-    within twice their largest difference). Returns the seconds, the
-    launches, and on rank 0 the comparison."""
-    import numpy as np
-    import torch
+class _TPSlice:
+    """One greedy slice (slice N_PRIME, 256 pixels) of DSFVT's rollout at b =
+    TP_SLICE_BATCH on this rank of the tensor-parallel world, eagerly through
+    SliceDecoder under the model group, and on rank 0 the same slice by the
+    whole model (one rank) in the same mode: the set-up every mode shares,
+    the weights from ``seed`` in ``dtype`` (and in fp32, ``whole32``), the
+    codes from numpy seeded with ``codes_seed``."""
 
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    import generate_videos_torch as gvt
-    from lvt_tpu_torch.models.vt import VideoTransformer, vt_encode
-    from lvt_tpu_torch.models.vt_incremental import SliceDecoder
-    from lvt_tpu_torch.parallel import sharding
-    from lvt_tpu_torch.parallel.mesh import model_group, tensor_parallel
+    def __init__(self, rank, device, dtype="float32", seed=3, codes_seed=19):
+        import numpy as np
+        import torch
 
-    cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"),
-                          ["TPU.MESH_MODEL", str(TP_MODEL)])
-    vt = VideoTransformer(cfg)
-    whole, _ = vt.init(torch.Generator().manual_seed(3), device)
-    group = model_group(cfg)
-    part = sharding.shard_tree(whole, *sharding.group_rank(group))
-    codes = torch.from_numpy(np.random.default_rng(19).integers(
-        0, 512, (TP_SLICE_BATCH, 4, T_FRAMES, 16, 16))).to(device)
-    c, plan, s = vt.c, vt.plan, N_PRIME
-    primed = torch.zeros(plan.slice_src[s].size, dtype=torch.bool, device=device)
+        sys.path.insert(0, os.path.join(ROOT, "scripts"))
+        import generate_videos_torch as gvt
+        from lvt_tpu_torch.models import cast_floats
+        from lvt_tpu_torch.models.vt import VideoTransformer
+        from lvt_tpu_torch.parallel import sharding
+        from lvt_tpu_torch.parallel.mesh import model_group
 
-    def run(params, tp, teacher_of=None):
-        with torch.no_grad(), tensor_parallel(group if tp else None):
-            sidx = torch.full((TP_SLICE_BATCH,), s, dtype=torch.int64, device=device)
-            ctx, sl, _ = vt.prepare_slices(codes, sidx)
-            zl = vt_encode(params["netG"], c, ctx, sidx)
-            dec = SliceDecoder(params["netG"], c, plan.slice_shape, TP_SLICE_BATCH, device)
+        cfg = gvt.load_config(os.path.join(ROOT, "configs", "vt", "DSFVT.yaml"),
+                              ["TPU.MESH_MODEL", str(TP_MODEL)])
+        self.rank, self.device, self.vt = rank, device, VideoTransformer(cfg)
+        self.whole32, _ = self.vt.init(torch.Generator().manual_seed(seed), device)
+        self.whole = cast_floats(self.whole32, getattr(torch, dtype))
+        self.group = model_group(cfg)
+        self.part = sharding.shard_tree(self.whole, *sharding.group_rank(self.group))
+        self.codes = torch.from_numpy(np.random.default_rng(codes_seed).integers(
+            0, 512, (TP_SLICE_BATCH, 4, T_FRAMES, 16, 16))).to(device)
+        self.primed = torch.zeros(self.vt.plan.slice_src[N_PRIME].size, dtype=torch.bool,
+                                  device=device)
+
+    def run(self, params, tp, knobs, teacher_of=None):
+        import torch
+
+        from lvt_tpu_torch.models.vt import vt_encode
+        from lvt_tpu_torch.models.vt_incremental import SliceDecoder
+        from lvt_tpu_torch.parallel.mesh import tensor_parallel
+
+        vt, b = self.vt, TP_SLICE_BATCH
+        with torch.no_grad(), tensor_parallel(self.group if tp else None):
+            sidx = torch.full((b,), N_PRIME, dtype=torch.int64, device=self.device)
+            ctx, sl, _ = vt.prepare_slices(self.codes, sidx)
+            zl = vt_encode(params["netG"], vt.c, ctx, sidx)
+            dec = SliceDecoder(params["netG"], vt.c, vt.plan.slice_shape, b, self.device,
+                               **knobs)
             if teacher_of is not None:
                 return dec.teacher(*dec.inputs(zl, teacher_of))
-            return dec.run(zl, sl, primed, None, 1.0, True)
+            return dec.run(zl, sl, self.primed, None, 1.0, True)
 
-    _zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = run(part, True)
-    torch.cuda.synchronize()
-    out = {"seconds": time.perf_counter() - t0, "launches": _launched()}
-    differ = None
-    if rank == 0:
-        t0 = time.perf_counter()
-        want = run(whole, False)
+    def compare(self, knobs, native):
+        """The TP slice in the mode ``knobs`` (seconds, launches, kernel 11's
+        launches given row_amax), and on rank 0 the one-rank slice's codes
+        against it. ``native`` (a mode that rounds nothing to integers):
+        where codes differ, both models' teacher-forced logits on the TP
+        codes tell whether each difference lies at a logit near-tie (the top
+        two within twice their largest difference). Otherwise rank 0 takes
+        the one-rank model's greedy decision at every pixel and channel
+        teacher-forced on the TP codes (its logits' argmax given the same
+        history), which the TP slice's codes are: the share of them equal,
+        free of the cascade by which one flipped code moves every later
+        pixel of a free-running slice; and the dtype's own rounding, the
+        share of those decisions that the one-rank model in fp32 makes
+        otherwise, teacher-forced on the same codes."""
+        import torch
+
+        from lvt_tpu_torch.ops.quant import matmul_i8w_cuda
+
+        _zero_counts()
         torch.cuda.synchronize()
-        out["one_rank_seconds"] = time.perf_counter() - t0
-        differ = int((got != want).sum())
-    n = torch.tensor([-1 if differ is None else differ], dtype=torch.int64)
-    torch.distributed.broadcast(n, 0, group=group)  # every rank takes the teacher pass, or none
-    if int(n) > 0:
-        lg_tp = run(part, True, teacher_of=got)
-        if rank == 0:
-            lg = run(whole, False, teacher_of=got)
-            top2 = lg.topk(2, dim=-1)
-            noise = float((lg_tp - lg).abs().max())
-            flat_got = got.reshape(TP_SLICE_BATCH, 4, -1).movedim(1, -1)  # (b, thw, nc)
-            flips = lg.argmax(-1) != flat_got
-            gaps = (top2.values[..., 0] - top2.values[..., 1])[flips]
-            out["teacher"] = {"noise": noise, "flips": int(flips.sum()),
-                              "worst_gap": float(gaps.max()) if len(gaps) else 0.0,
-                              "near_ties": bool((gaps <= 2 * noise).all())}
-    if rank == 0:
-        out["differ"] = differ
-        out["total"] = int(got.numel())
-        out["in_range"] = bool(got.min() >= 0 and got.max() < 512)
-    return out
+        t0 = time.perf_counter()
+        got = self.run(self.part, True, knobs)
+        torch.cuda.synchronize()
+        out = {"seconds": time.perf_counter() - t0, "launches": _launched(),
+               "row_amax": matmul_i8w_cuda.row_amax_launches}
+        flat_got = got.reshape(TP_SLICE_BATCH, 4, -1).movedim(1, -1)  # (b, thw, nc)
+        differ = None
+        if self.rank == 0:
+            t0 = time.perf_counter()
+            want = self.run(self.whole, False, knobs)
+            torch.cuda.synchronize()
+            out["one_rank_seconds"] = time.perf_counter() - t0
+            differ = int((got != want).sum())
+            if not native:
+                mine, fp32 = (self.run(p, False, knobs, teacher_of=got).argmax(-1)
+                              for p in (self.whole, self.whole32))
+                out["decisions_equal"] = float((mine == flat_got).float().mean())
+                out["own_rounding"] = float((mine != fp32).float().mean())
+        n = torch.tensor([-1 if differ is None else differ], dtype=torch.int64)
+        # every rank takes the teacher pass, or none
+        torch.distributed.broadcast(n, 0, group=self.group)
+        if native and int(n) > 0:
+            lg_tp = self.run(self.part, True, knobs, teacher_of=got)
+            if self.rank == 0:
+                lg = self.run(self.whole, False, knobs, teacher_of=got)
+                top2 = lg.topk(2, dim=-1)
+                noise = float((lg_tp - lg).abs().max())
+                flips = lg.argmax(-1) != flat_got
+                gaps = (top2.values[..., 0] - top2.values[..., 1])[flips]
+                out["teacher"] = {"noise": noise, "flips": int(flips.sum()),
+                                  "worst_gap": float(gaps.max()) if len(gaps) else 0.0,
+                                  "near_ties": bool((gaps <= 2 * noise).all())}
+        if self.rank == 0:
+            out["differ"] = differ
+            out["total"] = int(got.numel())
+            out["in_range"] = bool(got.min() >= 0 and got.max() < 512)
+        return out
+
+
+def _tp_slice(rank, device):
+    """Phase 18's fp32 native slice (``_TPSlice``, the one-rank slice held
+    by the near-tie rule)."""
+    return _TPSlice(rank, device).compare({}, native=True)
 
 
 def _tp_rank(rank, device):
@@ -4496,6 +4648,218 @@ def _tp_checks(card, ranks):
     check(sl["in_range"] and (sl["differ"] == 0 or (teach and teach["near_ties"])),
           f"tp slice: {sl}")
     return {k: v for k, v in counts.items() if np.sum(v)}
+
+
+# phase 18c: the sampler's modes and the toy GAN under tensor parallelism, in
+# a gloo world of their own (data 1 x model TP_MODEL, both ranks on the card)
+# in a third side process. One full-width DSFVT greedy slice (_TPSlice, slice
+# N_PRIME, TP_MODES_DTYPE, DSFVT's compute dtype) in each mode of TP_MODES on
+# each rank; on rank 0 the same mode's one-rank eager slice. Native streams
+# is held as the native TP slice (equal, or every difference at a logit
+# near-tie); a quantized mode by the quantized sampler's rule (ROADMAP.md's
+# sampler invariants) on the one-rank model's decisions teacher-forced on the
+# TP codes: at least TP_MODES_AGREE of them equal, or as many apart as at
+# most TP_OWN_ROUNDING times bf16's own rounding, the share of the one-rank
+# bf16 model's decisions that its fp32 model makes otherwise on the same codes
+# (the rule phase 18 holds the bf16 TP steps to; int4's coarse steps turn an
+# ulp of K or V into a whole step, so its decisions move most). A free-running
+# slice's agreement is printed, not held: one flipped code moves every later
+# pixel of its row, and the ulps by which other kernel shapes (a rank's 4
+# heads and half the columns) move the activations flip a code wherever an
+# activation rounded to an integer sits at a near-tie (PERF.md). Launches
+# per rank and slice (_tp_modes_expected): the encoder's 8 of kernel 1, one
+# launch of the mode's attention kernel per pixel, layer and stream (2, 3 or
+# 4), 4 of kernel 11 per pixel and layer with int8-pallas weights, 2 of them
+# given the group's row_amax (proj and FFN 2; counted by the wrapper,
+# matmul_i8w_cuda.row_amax_launches). Then GanTrainer's toy GAN for
+# TP_GAN_ITERS iterations in the same world: G and D equal on both ranks and
+# within TP_GAN_TOL of a world of one's (rank 0, the same trainer without
+# groups).
+TP_MODES = {
+    "int8 xla": {"kv_dtype": "int8"},
+    "int8 pallas": {"kv_dtype": "int8", "attn_impl": "pallas"},
+    "int8 pallas-live": {"kv_dtype": "int8", "attn_impl": "pallas-live"},
+    "int8 weights": {"weight_dtype": "int8"},
+    "int8-pallas weights": {"weight_dtype": "int8-pallas"},
+    "int4": {"kv_dtype": "int4"},
+    "streams 2": {"streams": 2},
+    "streams 2 int8 pallas": {"kv_dtype": "int8", "attn_impl": "pallas", "streams": 2},
+}
+TP_MODES_AGREE = 0.98
+TP_MODES_DTYPE = "bfloat16"
+TP_GAN_ITERS, TP_GAN_TOL = 20, 1e-6
+TP_MODES_JOIN_TIMEOUT = 850  # seconds the world may take
+
+
+def _tp_modes_expected(knobs):
+    """(launches of each kernel, kernel 11's launches given row_amax) per
+    rank of one TP slice in the mode ``knobs``."""
+    steps = 256 * 8 * knobs.get("streams", 1)  # pixels x layers x streams
+    want = {"block_attention_fwd": 8}
+    kv, attn = knobs.get("kv_dtype", "native"), knobs.get("attn_impl", "xla")
+    if kv == "native":
+        want["decode_attention"] = steps
+    elif attn != "xla":
+        want["decode_attention_i8" if attn == "pallas" else "decode_attention_i8_live"] = steps
+    rows = 0
+    if knobs.get("weight_dtype") == "int8-pallas":
+        want["matmul_i8w"], rows = 4 * steps, 2 * steps
+    return want, rows
+
+
+def _tp_mode_native(knobs):
+    """Whether a mode of TP_MODES rounds nothing to integers (native streams):
+    held as the native TP slice is."""
+    return knobs.get("kv_dtype", "native") == "native" and "weight_dtype" not in knobs
+
+
+def _toy_gan_cfg(model=1):
+    """tests/test_gan_trainer.py's settings, on the port's config."""
+    from lvt_tpu_torch.config import get_cfg
+
+    gcfg = get_cfg()
+    gcfg.GAN_MODE_ON, gcfg.LOSS.GAN.MODE, gcfg.SEED = True, "lsgan", 1
+    gcfg.TPU.COMPUTE_DTYPE = "float32"
+    gcfg.TPU.MESH_MODEL = model
+    sol = gcfg.SOLVER
+    sol.OPTIMIZER_NAME, sol.LR_G, sol.LR_D = "adam", 1e-2, 2e-2
+    sol.ADAM.BETA2_G = sol.ADAM.BETA2_D = 0.999
+    sol.SUPERVISED_MAX_ITER, sol.D_UPDATE_RATIO, sol.D_INIT_ITERS = 5, 2, 7
+    return gcfg
+
+
+def _toy_gan_loader():
+    import numpy as np
+
+    r = np.random.default_rng(0)
+    while True:
+        yield {"x": (r.standard_normal((64, 2)) * 0.3 + np.asarray(GAN_TARGET)).astype(np.float32)}
+
+
+def _tp_gan(rank, device):
+    """The toy GAN for TP_GAN_ITERS iterations through GanTrainer under the
+    model group (TPU.MESH_MODEL 2), and on rank 0 the same trainer as a world
+    of one. Returns this rank's G and D, seconds, and on rank 0 the world of
+    one's."""
+    import torch
+
+    from lvt_tpu_torch.engine.gan import GanTrainer
+
+    def leaves(tr):
+        return {f"{side}.{k}": v.detach().cpu().tolist()
+                for side, tree in (("G", tr.state.params), ("D", tr.d_params))
+                for k, v in tree.items()}
+
+    cfg = _toy_gan_cfg(TP_MODEL)
+    tr = GanTrainer(cfg, _toy_gan_loader(), model=_ToyGan(cfg), device=device)
+    t0 = time.perf_counter()
+    tr.train(0, TP_GAN_ITERS)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "leaves": leaves(tr),
+           "split": tr.model_group is not None, "step": tr.state.step}
+    if rank == 0:
+        one = GanTrainer(_toy_gan_cfg(), _toy_gan_loader(), model=_ToyGan(cfg), device=device)
+        one.group = None  # the world of one: its batch is the whole batch
+        one.train(0, TP_GAN_ITERS)
+        out["one"] = leaves(one)
+    return out
+
+
+def _tp_sampler_rank(out_dir):
+    """One rank of phase 18c's world: every mode's slice, then the GAN.
+    Writes rank<r>.json into ``out_dir``."""
+    import torch
+
+    from lvt_tpu_torch.engine.defaults import rank_device
+    from lvt_tpu_torch.utils import comm
+
+    torch.set_num_threads(1)  # the ranks' work is on the card; the host's cores are shared
+    rank, device = comm.get_rank(), rank_device("cuda")
+    sl = _TPSlice(rank, device, TP_MODES_DTYPE, seed=23, codes_seed=1823)
+    res = {"rank": rank, "device": str(device), "modes": {}}
+    for name, knobs in TP_MODES.items():
+        res["modes"][name] = sl.compare(knobs, native=_tp_mode_native(knobs))
+    del sl
+    torch.cuda.empty_cache()
+    res["gan"] = _tp_gan(rank, device)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_tp_sampler(card):
+    """Phase 18c (see TP_MODES): the sampler's modes and the toy GAN under
+    tensor parallelism, in a gloo world of TP_MODEL ranks on the card
+    through engine.launch. Returns {mode: {kernel: [launches of rank 0,
+    rank 1]}}."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from lvt_tpu_torch.engine.launch import launch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_sampler_")
+    try:
+        t0 = time.perf_counter()
+        launch(_tp_sampler_rank, TP_MODEL, backend="gloo", args=(tmp,),
+               timeout=datetime.timedelta(seconds=TP_MODES_JOIN_TIMEOUT),
+               join_timeout=TP_MODES_JOIN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_MODEL):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tensor-parallel sampler modes (data 1 x model {TP_MODEL}, gloo, both ranks on the "
+          f"card) [{card}]: {wall:.1f} s with the spawn")
+    launches = {}
+    for name, knobs in TP_MODES.items():
+        want, want_rows = _tp_modes_expected(knobs)
+        per = [rk["modes"][name] for rk in ranks]
+        for rk, r in zip(ranks, per):
+            check(r["launches"] == want and r["row_amax"] == want_rows,
+                  f"tp {name} rank {rk['rank']}: launches {r['launches']} ({r['row_amax']} of "
+                  f"kernel 11 given row_amax), want {want} ({want_rows})")
+            for k, n in r["launches"].items():
+                launches.setdefault(name, {}).setdefault(k, [0] * len(ranks))[rk["rank"]] = n
+        r0 = per[0]
+        share = 1.0 - r0["differ"] / r0["total"]
+        teach, decided, own = r0.get("teacher"), r0.get("decisions_equal"), r0.get("own_rounding")
+        print(f"  tensor parallel {TP_MODES_DTYPE} greedy slice {name}, b={TP_SLICE_BATCH} [{card}]: "
+              f"{max(r['seconds'] for r in per):.2f} s (eager, the slowest rank; one rank "
+              f"{r0['one_rank_seconds']:.2f} s); {r0['differ']} of {r0['total']} codes differ "
+              f"from the one-rank slice's in the same mode, free-running ({100 * share:.2f}% "
+              f"equal); launches per rank {r0['launches']}, kernel 11 given row_amax "
+              f"{r0['row_amax']}"
+              + (f"; the one-rank model's decisions teacher-forced on the TP codes "
+                 f"{100 * decided:.2f}% equal to them; bf16's own rounding (its decisions "
+                 f"apart from the fp32 model's on the same codes) {100 * own:.2f}%"
+                 if decided is not None else "")
+              + (f"; teacher-forced on the TP codes, {teach['flips']} argmax flips, largest "
+                 f"top-2 gap among them {teach['worst_gap']:.3g}, |TP - one rank| logits <= "
+                 f"{teach['noise']:.3g}" if teach else ""))
+        check(r0["in_range"], f"tp {name}: codes out of range")
+        if _tp_mode_native(knobs):
+            check(r0["differ"] == 0 or (teach and teach["near_ties"]), f"tp {name}: {r0}")
+        else:
+            check(1.0 - decided <= max(1.0 - TP_MODES_AGREE, TP_OWN_ROUNDING * own),
+                  f"tp {name}: {100 * decided:.2f}% of the one-rank model's teacher-forced "
+                  f"decisions equal the TP codes, want {100 * TP_MODES_AGREE}% or as many "
+                  f"apart as {TP_OWN_ROUNDING} x bf16's own rounding ({100 * own:.2f}% apart)")
+    gans = [rk["gan"] for rk in ranks]
+    ranks_equal = all(g["leaves"] == gans[0]["leaves"] for g in gans[1:])
+    off = max(float(np.abs(np.asarray(gans[0]["leaves"][k]) - np.asarray(v)).max())
+              for k, v in gans[0]["one"].items())
+    print(f"  tensor parallel GanTrainer toy GAN [{card}]: {TP_GAN_ITERS} iterations in "
+          f"{max(g['seconds'] for g in gans):.2f} s (the slowest rank); G and D equal on both "
+          f"ranks: {ranks_equal}; largest |model group - world of one| {off:.3g} (bound "
+          f"{TP_GAN_TOL:g})")
+    check(all(g["split"] and g["step"] == TP_GAN_ITERS for g in gans) and ranks_equal
+          and off <= TP_GAN_TOL, f"tp GAN: {[(g['split'], g['step']) for g in gans]}, ranks "
+                                 f"equal {ranks_equal}, off {off}")
+    return launches
 
 
 def phase_data_parallel(card):
@@ -4969,9 +5333,11 @@ def _geo_names():
 
 def _zero_counts():
     from lvt_tpu_torch.ops._lib import COUNTED
+    from lvt_tpu_torch.ops.quant import matmul_i8w_cuda
 
     for f in COUNTED:
         f.launches = 0
+    matmul_i8w_cuda.row_amax_launches = 0
 
 
 def _launched():
@@ -5795,6 +6161,7 @@ CTX_GRAD_TOL = 1e-5
 ITEM8_TRAIN, ITEM8_B, ITEM8_STEPS = ("DSFVT", "DSTSVT"), 64, 3
 UNET_B, UNET_TOL = 8, 1e-4  # the UNet card vs CPU, fp32, TF32 off
 GAN_ITERS = 400
+GAN_TARGET = (2.0, -1.0)  # the toy GAN's sample mean
 
 
 def _ctx_case(name, b, dtype, seed):
@@ -6150,24 +6517,11 @@ def phase_item8(card):
     part("UNet")
 
     # ---- the toy GAN through GanTrainer on the card
-    from lvt_tpu_torch.config import get_cfg
     from lvt_tpu_torch.engine.gan import GanTrainer
 
-    gcfg = get_cfg()  # tests/test_gan_trainer.py's settings
-    gcfg.GAN_MODE_ON, gcfg.LOSS.GAN.MODE, gcfg.SEED = True, "lsgan", 1
-    gcfg.TPU.COMPUTE_DTYPE = "float32"
-    sol = gcfg.SOLVER
-    sol.OPTIMIZER_NAME, sol.LR_G, sol.LR_D = "adam", 1e-2, 2e-2
-    sol.ADAM.BETA2_G = sol.ADAM.BETA2_D = 0.999
-    sol.SUPERVISED_MAX_ITER, sol.D_UPDATE_RATIO, sol.D_INIT_ITERS = 5, 2, 7
-    target = np.array([2.0, -1.0], np.float32)
-
-    def loader():
-        r = np.random.default_rng(0)
-        while True:
-            yield {"x": (r.standard_normal((64, 2)) * 0.3 + target).astype(np.float32)}
-
-    tr = GanTrainer(gcfg, loader(), model=_ToyGan(gcfg), device="cuda")
+    gcfg = _toy_gan_cfg()
+    target = np.asarray(GAN_TARGET, np.float32)
+    tr = GanTrainer(gcfg, _toy_gan_loader(), model=_ToyGan(gcfg), device="cuda")
     z = torch.randn(512, 4, generator=torch.Generator().manual_seed(123)).cuda()
 
     def dist():
@@ -6217,10 +6571,11 @@ def _leaves(tree):
 # So the seconds, rates and busy shares that phases 11 to 22 print are taken
 # with the card and the host's cores shared; the kernels' times in the last
 # lines are not.
-SIDE_GROUPS = (("data parallel", "sampler modes"), ("geometries", "tools", "e2e"))
+SIDE_GROUPS = (("data parallel", "sampler modes"), ("geometries", "tools", "e2e"),
+               ("tp sampler",))
 SIDE_PHASES = {"data parallel": phase_data_parallel, "e2e": phase_e2e,
                "geometries": phase_geometries, "tools": phase_tools,
-               "sampler modes": phase_sampler_modes}
+               "sampler modes": phase_sampler_modes, "tp sampler": phase_tp_sampler}
 SIDE_TIMEOUT = 1000  # seconds from its start that a side process may take
 
 
@@ -6414,6 +6769,7 @@ def main():
     tp_launches = dp_launches.pop("tp")
     e2e_launches, geo_launches, tool_launches = side["e2e"], side["geometries"], side["tools"]
     modes_launches = side["sampler modes"]
+    tp_modes_launches = side["tp sampler"]
     print(f"main process's phases done after {main_done:.1f} s; side processes, from their "
           "start to their result: " + "; ".join(f"{', '.join(s.names)} {s.took:.1f} s"
                                                 for s in sides))
@@ -6486,6 +6842,9 @@ def main():
             k["tp_launches"] = tp_launches[k["name"]]
         if k["name"] in kres["tp_shard"]:
             k["tp_shard"] = kres["tp_shard"][k["name"]]
+        # phase 18c's, per rank of each sampler mode's tensor-parallel slice
+        k["tp_sampler_launches"] = {r: c[k["name"]] for r, c in tp_modes_launches.items()
+                                    if k["name"] in c}
         # phase 19's, per run: each e2e mode (kernel 6's check apart), generate --img-size
         k["e2e_launches"] = {r: c[k["name"]] for r, c in e2e_launches.items() if k["name"] in c}
         # phase 20's, per run: DSSVT and DSTSVT rollouts, exactness, training;

@@ -2,6 +2,14 @@
 //   sy_r  = max_k |y_rk| / 127                      (fp32, per activation row)
 //   y8_rk = clip(rint(y_rk / (sy_r + 1e-8)), +-127)
 //   out_rn = float(int32 sum_k y8_rk W8_kn) * sy_r * sw_n, rounded once.
+// Given row_amax (b,) fp32, sy_r = row_amax_r / 127 instead: under tensor
+// parallelism y holds one rank's part of each row of a row-split product
+// (proj, FFN 2), row_amax is the whole row's absmax over the model group,
+// and the rank's int8 values are its part of the whole row's
+// (lvt_tpu_torch/ops/quant.py matmul_i8w_split). The kernel then skips its
+// own absmax of each row. With an int32 output it stores the integer sums
+// unscaled: the group adds the ranks' exact sums, and the epilogue's two
+// products, applied after that, give the whole row's output bit for bit.
 //
 // Replaces the TPU kernel lvt_tpu/ops/quant_matmul.py: matmul_i8w_pallas (its
 // pl.pallas_call at :99), which quantizes the activation tile in the kernel's
@@ -61,6 +69,7 @@ constexpr int YCH = 4;     // 8-value pieces of a row per lane held in registers
 constexpr int KREG = 32 * 8 * YCH;  // rows up to this long are read once
 constexpr int RPW = BT / NWARPS;  // rows a warp quantizes
 static_assert(RPW * NWARPS == BT, "the warps share the rows evenly");
+constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_I32 = 2;  // out_type
 
 __device__ __forceinline__ uint4 ld_weight(const int8_t* p) {
   uint4 v;
@@ -157,8 +166,9 @@ __device__ __forceinline__ int reduce_scatter(int (&v)[V], int lane) {
 template <int CPB, bool YREG>
 __global__ void __launch_bounds__(NTHREADS)
 matmul_i8w_kernel(const void* __restrict__ y, const int8_t* __restrict__ wt,
-                  const void* __restrict__ sw, void* __restrict__ out, int b, int K, int N,
-                  int y_bf16, int sw_bf16, int out_bf16) {
+                  const void* __restrict__ sw, const float* __restrict__ row_amax,
+                  void* __restrict__ out, int b, int K, int N, int y_bf16, int sw_bf16,
+                  int out_type) {
   constexpr int TPC = NTHREADS / CPB;      // threads of one column: 8 to 64
   constexpr int G = TPC < 32 ? TPC : 32;   // its lanes within one warp
   constexpr int WPC = TPC / G;             // its warps
@@ -204,12 +214,17 @@ matmul_i8w_kernel(const void* __restrict__ y, const int8_t* __restrict__ wt,
 #pragma unroll
     for (int h = 0; h < RPW; ++h) {
       const int r = warp + NWARPS * h;
-      float amax = 0.f;
+      float s;
+      if (row_amax != nullptr) {  // kernel-uniform
+        s = (r < rows ? row_amax[row0 + r] : 0.f) / 127.f;
+      } else {
+        float amax = 0.f;
 #pragma unroll
-      for (int c = 0; c < YCH; ++c)
+        for (int c = 0; c < YCH; ++c)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[h][c][e]));
-      const float s = warp_max(amax) / 127.f;
+          for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[h][c][e]));
+        s = warp_max(amax) / 127.f;
+      }
       const float q = __fadd_rn(s, 1e-8f), rq = 1.f / q;
       if (r < rows) {
 #pragma unroll
@@ -225,13 +240,18 @@ matmul_i8w_kernel(const void* __restrict__ y, const int8_t* __restrict__ wt,
       const int r = warp + NWARPS * h;
       if (r >= rows) continue;  // warp-uniform
       const size_t base = (size_t)(row0 + r) * K;
-      float v[8], amax = 0.f;
-      for (int i = lane * 8; i < K; i += 256) {
-        load8(y, base + i, y_bf16, v);
+      float v[8], s;
+      if (row_amax != nullptr) {  // kernel-uniform: no pass over the row for its absmax
+        s = row_amax[row0 + r] / 127.f;
+      } else {
+        float amax = 0.f;
+        for (int i = lane * 8; i < K; i += 256) {
+          load8(y, base + i, y_bf16, v);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+          for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+        }
+        s = warp_max(amax) / 127.f;
       }
-      const float s = warp_max(amax) / 127.f;
       const float q = __fadd_rn(s, 1e-8f), rq = 1.f / q;
       for (int i = lane * 8; i < K; i += 256) {
         load8(y, base + i, y_bf16, v);
@@ -285,15 +305,21 @@ matmul_i8w_kernel(const void* __restrict__ y, const int8_t* __restrict__ wt,
       int sum = 0;
 #pragma unroll
       for (int s = 0; s < WPC; ++s) sum += part[(c * BT + r) * WPC + s];
-      const float o = __fmul_rn(__fmul_rn((float)sum, sy[r]), load_scalar(sw, nn, sw_bf16));
-      store_scalar(out, (size_t)(row0 + r) * N + nn, o, out_bf16);
+      const size_t at = (size_t)(row0 + r) * N + nn;
+      if (out_type == OUT_I32) {
+        static_cast<int*>(out)[at] = sum;
+      } else {
+        const float o = __fmul_rn(__fmul_rn((float)sum, sy[r]), load_scalar(sw, nn, sw_bf16));
+        store_scalar(out, at, o, out_type == OUT_BF16);
+      }
     }
   }
 }
 
 template <int CPB, bool YREG>
-cudaError_t launch(const void* y, const void* wt, const void* sw, void* out, int b, int K, int N,
-                   int y_bf16, int sw_bf16, int out_bf16, cudaStream_t stream) {
+cudaError_t launch(const void* y, const void* wt, const void* sw, const float* row_amax,
+                   void* out, int b, int K, int N, int y_bf16, int sw_bf16, int out_type,
+                   cudaStream_t stream) {
   auto kernel = matmul_i8w_kernel<CPB, YREG>;
   constexpr int WPC = NTHREADS / CPB > 32 ? NTHREADS / CPB / 32 : 1;
   const size_t smem = (size_t)BT * K + BT * sizeof(float) + CPB * BT * WPC * sizeof(int);
@@ -305,37 +331,42 @@ cudaError_t launch(const void* y, const void* wt, const void* sw, void* out, int
     smem_set = smem;
   }
   const dim3 grid((N + CPB - 1) / CPB, (b + BT - 1) / BT);
-  kernel<<<grid, NTHREADS, smem, stream>>>(y, static_cast<const int8_t*>(wt), sw, out, b, K, N,
-                                           y_bf16, sw_bf16, out_bf16);
+  kernel<<<grid, NTHREADS, smem, stream>>>(y, static_cast<const int8_t*>(wt), sw, row_amax,
+                                           out, b, K, N, y_bf16, sw_bf16, out_type);
   return cudaGetLastError();
 }
 
 template <int CPB>
-cudaError_t launch_rows(const void* y, const void* wt, const void* sw, void* out, int b, int K,
-                        int N, int y_bf16, int sw_bf16, int out_bf16, cudaStream_t stream) {
+cudaError_t launch_rows(const void* y, const void* wt, const void* sw, const float* row_amax,
+                        void* out, int b, int K, int N, int y_bf16, int sw_bf16, int out_type,
+                        cudaStream_t stream) {
   if (K <= KREG)
-    return launch<CPB, true>(y, wt, sw, out, b, K, N, y_bf16, sw_bf16, out_bf16, stream);
-  return launch<CPB, false>(y, wt, sw, out, b, K, N, y_bf16, sw_bf16, out_bf16, stream);
+    return launch<CPB, true>(y, wt, sw, row_amax, out, b, K, N, y_bf16, sw_bf16, out_type,
+                             stream);
+  return launch<CPB, false>(y, wt, sw, row_amax, out, b, K, N, y_bf16, sw_bf16, out_type,
+                            stream);
 }
 
 }  // namespace
 
 // y (b, K) fp32 or bf16 (y_bf16), 16-byte aligned; wt (N, K) int8, the
 // (K, N) weight transposed, 16-byte aligned; sw (N,) fp32 or bf16 (sw_bf16);
-// out (b, N) fp32 or bf16 (out_bf16). K a multiple of 16 up to 16,384. cpb:
-// output columns per block, 2, 4, 8 or 16 (ops/quant.py matmul_i8w_plan).
-// Returns the cudaError_t of the launch.
-extern "C" int lvt_matmul_i8w(const void* y, const void* wt, const void* sw, void* out, int b,
-                              int K, int N, int y_bf16, int sw_bf16, int out_bf16, int cpb,
-                              cudaStream_t stream) {
-  if (b < 1 || K < 16 || K % 16 != 0 || N < 1 || K > 16384 || (b + BT - 1) / BT > 65535)
+// row_amax (b,) fp32, or null (each row's own absmax); out (b, N) fp32,
+// bf16 or int32 (out_type 0, 1, 2; int32: the integer sums, unscaled). K a
+// multiple of 16 up to 16,384. cpb: output columns per block, 2, 4, 8 or 16
+// (ops/quant.py matmul_i8w_plan). Returns the cudaError_t of the launch.
+extern "C" int lvt_matmul_i8w(const void* y, const void* wt, const void* sw,
+                              const float* row_amax, void* out, int b, int K, int N, int y_bf16,
+                              int sw_bf16, int out_type, int cpb, cudaStream_t stream) {
+  if (b < 1 || K < 16 || K % 16 != 0 || N < 1 || K > 16384 || (b + BT - 1) / BT > 65535 ||
+      out_type < OUT_F32 || out_type > OUT_I32)
     return (int)cudaErrorInvalidValue;
-  cudaError_t (*run)(const void*, const void*, const void*, void*, int, int, int, int, int, int,
-                     cudaStream_t) = nullptr;
+  cudaError_t (*run)(const void*, const void*, const void*, const float*, void*, int, int, int,
+                     int, int, int, cudaStream_t) = nullptr;
   if (cpb == 16) run = launch_rows<16>;
   if (cpb == 8) run = launch_rows<8>;
   if (cpb == 4) run = launch_rows<4>;
   if (cpb == 2) run = launch_rows<2>;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(y, wt, sw, out, b, K, N, y_bf16, sw_bf16, out_bf16, stream);
+  return (int)run(y, wt, sw, row_amax, out, b, K, N, y_bf16, sw_bf16, out_type, stream);
 }

@@ -20,8 +20,15 @@ G and D steps run on the fp32 masters, as lvt_tpu's ``_make_g_step`` and
 ``_make_d_step`` do (no compute-dtype copy); each side's gradient is
 averaged over the data group before its update. D has its own optimizer and
 LR schedule (the SOLVER keys with the "_D" suffix) and is saved and restored
-with every checkpoint. Not under tensor parallelism (ROADMAP.md queue 1
-item 9).
+with every checkpoint.
+
+Under a model group (TPU.MESH_MODEL > 1) G is the base trainer's: its split
+leaves are the rank's parts, every forward pass that reads G runs inside
+``tensor_parallel(model group)``, and its checkpoints are whole. D is
+replicated over the model group, as lvt_tpu leaves ``d_params`` unplaced:
+every rank of a group holds all of it and computes the same gradient from
+the same rows, so it too is averaged over the data group only, and it is
+saved and restored as it is, whatever the layout.
 """
 
 import time
@@ -29,7 +36,7 @@ import time
 import torch
 
 from ..checkpoint.convert import flatten
-from ..parallel.mesh import global_batch
+from ..parallel.mesh import global_batch, tensor_parallel
 from ..solver import build_optimizer
 from .trainer import Trainer, _map_leaves, _zip_leaves
 
@@ -39,10 +46,6 @@ class GanTrainer(Trainer):
     discriminator_loss and init_discriminator."""
 
     def __init__(self, cfg, data_loader, model=None, device="cuda"):
-        if cfg.TPU.MESH_MODEL != 1:
-            raise NotImplementedError(
-                f"GanTrainer under a model group (TPU.MESH_MODEL {cfg.TPU.MESH_MODEL}) is not "
-                "ported to lvt_tpu_torch yet (ROADMAP.md queue 1 item 9)")
         super().__init__(cfg, data_loader, model=model, device=device)
         assert hasattr(self.model, "discriminator_loss"), (
             "GAN_MODE_ON needs a model with a discriminator; the reference "
@@ -64,7 +67,7 @@ class GanTrainer(Trainer):
     def _g_step(self, batch):
         st = self.state
         d_params = _map_leaves(lambda x: x.detach(), self.d_params)
-        with global_batch(self.group):
+        with global_batch(self.group), tensor_parallel(self.model_group):
             loss, (metrics, ms) = self.model.generator_loss(
                 st.params, d_params, st.model_state, batch, self.step_generator(st.step))
             loss.float().backward()
@@ -76,7 +79,7 @@ class GanTrainer(Trainer):
     def _d_step(self, batch):
         st = self.state
         params = _map_leaves(lambda x: x.detach(), st.params)
-        with global_batch(self.group):
+        with global_batch(self.group), tensor_parallel(self.model_group):
             loss, metrics = self.model.discriminator_loss(
                 params, self.d_params, st.model_state, batch, self.step_generator(st.step))
             loss.float().backward()
@@ -121,7 +124,8 @@ class GanTrainer(Trainer):
 
     def load_tree(self, tree):
         """The base trainer's state and D's weights, optimizer and schedule
-        (lvt_tpu's resume restores G's fields only)."""
+        (lvt_tpu's resume restores G's fields only). D is whole in every
+        layout, so it loads as it was saved."""
         super().load_tree(tree)
         with torch.no_grad():
             _zip_leaves(lambda p, v: p.copy_(v), self.d_params, tree["d_params"])

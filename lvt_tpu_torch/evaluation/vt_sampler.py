@@ -104,7 +104,7 @@ def load_vqvae_weights(model, params, state, enc_path: str, gen_path: str, cb_pa
 _PAIRED_VQVAE_CACHE = {}
 
 
-def load_paired_vqvae(cfg, gen: Optional[torch.Generator] = None, device="cpu"):
+def load_paired_vqvae(cfg, gen: Optional[torch.Generator] = None, device="cuda"):
     """(model, params, state, vq_cfg, loaded): the VQ-VAE named in
     TEST.VT_SAMPLER.VQ_VAE.CFG, initialised from ``gen`` and then given the
     weights of TEST.VT_SAMPLER.VQ_VAE.{ENCODER,GENERATOR,CODEBOOK}_WEIGHTS.

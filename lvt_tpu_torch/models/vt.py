@@ -536,7 +536,9 @@ class VideoTransformer:
         ``logits_for_entire_video``, (b, T, H, W, nc, nv) fp32. With
         kv_cache_dtype "native" the result is that function's up to
         accumulation order; with "int8" or "int4" it carries the logit error
-        the quantized cache injects.
+        the quantized cache injects. Under tensor parallelism every rank of
+        the model group calls it on the same rows, in every kv_cache_dtype,
+        and each gets the whole logits.
         kv_seg_size is accepted and ignored, as in ``sample_video``.
 
         Given the video every slice's inputs are known, so the S slices run
@@ -620,19 +622,19 @@ class VideoTransformer:
         params the rank's part of the netG tree) every rank of the model
         group calls this on the same rows: the slice runs the eager
         ``SliceDecoder`` loop on the card too, because gloo's collectives
-        cannot be captured in a CUDA graph, and only the native sampler
-        (``kv_cache_dtype`` "native", ``attn_impl`` "xla") is ported there.
-        The logits are summed over the group into the same values on every
-        rank, so ranks whose generators are seeded alike (by their data rank)
-        sample the same codes.
+        cannot be captured in a CUDA graph. Every mode below runs there, on
+        the rank's heads and rows (``models/vt_incremental.py`` says where
+        the group's scales come in). The logits are summed over the group
+        into the same values on every rank, so ranks whose generators are
+        seeded alike (by their data rank) sample the same codes; with
+        ``streams`` they draw the same stream seeds from them.
 
         kv_cache_dtype ("native", "int8", "int4"), weight_dtype ("native",
         "int8", "int8-pallas"), mm_dtype ("native", "int8") and attn_impl
         ("xla", "pallas", "pallas-live") choose the quantized sampler, and
         ``streams`` splits the batch into independent rollouts (on the card
-        the parallel branches of each slice's graph), as
-        ``sample_slice_incremental`` documents them. Under tensor parallelism
-        ``streams`` other than 1 raises NotImplementedError.
+        the parallel branches of each slice's graph, eagerly in turn under
+        tensor parallelism), as ``sample_slice_incremental`` documents them.
         """
         if not incremental:
             # the full-recompute path has no KV cache: refuse the knobs it

@@ -48,12 +48,24 @@ slice's CUDA graph, on a CUDA stream of its own (``models/rollout_graph.py``).
 
 Under tensor parallelism (a ``SliceDecoder`` made inside
 ``parallel.mesh.tensor_parallel``, on the rank's part of the netG tree) the
-caches hold the rank's heads and kernel 2 attends over them; the partial
-products after ``proj`` and after FFN 2 are summed over the model group
-before the residual, the embedding rows are gathered whole, and the
-predictor is split as in ``models/vt.py``. Only the native one-stream
-sampler is ported there: the quantized modes' per-row scales span whole
-rows, which no rank holds.
+caches hold the rank's heads and kernels 2, 3 and 4 attend over them; the
+partial products after ``proj`` and after FFN 2 are summed over the model
+group in fp32 before the residual and rounded once, as the whole product
+is; the embedding rows are gathered whole, and the
+predictor is split as in ``models/vt.py``. Every mode runs there. The
+quantized caches' scales, and q's in ``mm_dtype`` "int8", are per (head,
+row), so a rank computes its heads' own. Two scales span what no rank holds
+whole, and are taken over the group (``parallel.collectives.max_over_model``):
+the column scales of the row-split weights (``proj``, FFN 2: each column's
+absmax over every rank's rows, so a rank's integers are its rows of the
+whole weight's), and, with kernel 11, the absmax of each activation row
+before them (``row_amax``). Kernel 11 then writes its exact int32 sums, the
+group adds them and the scales apply once, so the product is the whole
+rows' bit for bit, as the JAX package computes it in one kernel call; with
+"int8" weights the column scale multiplies the group's sum, as the JAX
+package's (y @ W8) * s does with its sum inside the product. With
+``streams`` the blocks run in turn, each block's collectives in order, on
+every rank of the group.
 """
 
 import contextlib
@@ -68,11 +80,12 @@ from ..ops.attention import _layer_norm, relative_bias
 from ..ops.cache_attention import (decode_attention, decode_attention_i8_live_step,
                                    decode_attention_i8_plain, decode_attention_i8_step)
 from ..ops.posenc import _signal_np
-from ..ops.quant import QMAX, matmul_i8w, pack_int4, quantize_cols, quantize_rows_i8, unpack_int4
+from ..ops.quant import (QMAX, matmul_i8w, matmul_i8w_split, pack_int4, quantize_cols,
+                         quantize_rows_i8, unpack_int4)
 from ..ops.quant import quantize_cache_row as _quantize_cache_row
 from ..parallel.collectives import local_features, reduce_from_model
 from .vt import (VTConfig, _embed_sum_codes, _layer_shards, _predictor_head, _predictor_u,
-                 vt_sample_pixel_channels, vt_shard)
+                 vt_sample_pixel_channels)
 
 
 @lru_cache(maxsize=16)
@@ -259,19 +272,6 @@ class SliceDecoder:
                  kv_dtype: str = "native", weight_dtype: str = "native",
                  mm_dtype: str = "native", attn_impl: str = "xla", streams: int = 1):
         _check_knobs(kv_dtype, weight_dtype, mm_dtype, attn_impl, streams, b)
-        if vt_shard(c) is not None and (kv_dtype, weight_dtype, mm_dtype, attn_impl) != (
-                "native", "native", "native", "xla"):
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}, weight_dtype={weight_dtype!r}, mm_dtype={mm_dtype!r}, "
-                f"attn_impl={attn_impl!r} under tensor parallelism is not ported to "
-                "lvt_tpu_torch yet (ROADMAP.md queue 1 item 9): the quantized modes' per-row "
-                "scales span whole rows, which no rank of the model group holds; use the native "
-                "sampler")
-        if vt_shard(c) is not None and streams != 1:
-            raise NotImplementedError(
-                f"streams={streams} under tensor parallelism is not ported to lvt_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 9): the tensor-parallel slice runs the eager loop over "
-                "gloo; use streams=1")
         self.params, self.c = params, c
         self.shards = _layer_shards(c, c.n_head_d) or [None] * len(params["decoder"]["layers"])
         self.weight_dtype, self.mm_dtype, self.attn_impl = weight_dtype, mm_dtype, attn_impl
@@ -314,8 +314,10 @@ class SliceDecoder:
                    for lp in layers]
         if weight_dtype != "native":
             # quantized once here; each product reads the int8 bytes. Kernel
-            # 11 takes the weight transposed, (N, K).
-            weights = [{k: quantize_cols(w, cdtype) for k, w in lw.items()} for lw in weights]
+            # 11 takes the weight transposed, (N, K). A row-split weight's
+            # column scales are the model group's.
+            weights = [{k: quantize_cols(w, cdtype, self._row_group(l, k)) for k, w in lw.items()}
+                       for l, lw in enumerate(weights)]
             if weight_dtype == "int8-pallas":
                 weights = [{k: (wi.t().contiguous(), s) for k, (wi, s) in lw.items()}
                            for lw in weights]
@@ -330,12 +332,34 @@ class SliceDecoder:
         size; the scales and the buffers of the plain path apart)."""
         return sum(t.numel() * t.element_size() for st in self.caches for t in (st.k, st.v))
 
+    def _row_group(self, l, name):
+        """The model group over which layer l's product ``name`` is split by
+        its input rows (proj, FFN 2), or None where the rank holds it whole
+        or split by its columns."""
+        shard = self.shards[l]
+        split = shard is not None and {"proj": shard.proj, "ffn2": shard.ffn}.get(name, False)
+        return shard.group if split else None
+
     def _mm(self, y, w):
         if self.weight_dtype == "native":
             return y @ w
         if self.weight_dtype == "int8-pallas":
             return matmul_i8w(y, w[0], w[1], self.cdtype)
         return (y @ w[0].to(self.cdtype)) * w[1]
+
+    def _mm_rows(self, y, w, group):
+        """A row-split product, y the rank's features and w its rows of the
+        weight, summed over the model group and rounded to the compute dtype
+        once, after the sum, as the whole product is: the ranks' partial
+        products are fp32. With kernel 11 the whole rows' product, bit for
+        bit (``matmul_i8w_split``); with int8 weights the column scale
+        multiplies the rounded sum, as it multiplies the whole product."""
+        if self.weight_dtype == "int8-pallas":
+            return matmul_i8w_split(y, w[0], w[1], group, self.cdtype)
+        native = self.weight_dtype == "native"
+        acc = reduce_from_model(y.float() @ (w if native else w[0]).float(), group)
+        acc = acc.to(self.cdtype)
+        return acc if native else acc * w[1]
 
     def _attend_q(self, st: _Caches, l, qkv, live, bias):
         """Write the new rows (row live - 1) into layer l's quantized cache of
@@ -420,14 +444,13 @@ class SliceDecoder:
             if shard is not None and shard.proj:  # the rank's rows, summed before the residual
                 if not shard.heads:
                     out = local_features(out, shard.group)
-                x = reduce_from_model(self._mm(out, self.weights[l]["proj"]), shard.group) + x
+                x = self._mm_rows(out, self.weights[l]["proj"], shard.group) + x
             else:
                 x = self._mm(out, self.weights[l]["proj"]) + x
             yf = _layer_norm(x, lp["ffn_ln_scale"], lp["ffn_ln_bias"])
             yf = torch.relu(self._mm(yf, self.weights[l]["ffn1"]) + lp["ffn_b1"])
             if shard is not None and shard.ffn:
-                x = (reduce_from_model(self._mm(yf, self.weights[l]["ffn2"]), shard.group)
-                     + lp["ffn_b2"] + x)
+                x = self._mm_rows(yf, self.weights[l]["ffn2"], shard.group) + lp["ffn_b2"] + x
             else:
                 x = self._mm(yf, self.weights[l]["ffn2"]) + lp["ffn_b2"] + x
         pred = self.params["predictor"]

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "lvt_decode_attention_i8_step": [_P, _P, _L, _L] + [_P] * 8 + [_I] * 10 + [_F, _P],
     "lvt_decode_attention_i8_live_step": [_P, _P, _L, _L] + [_P] * 8 + [_I] * 12 + [_F, _P],
     "lvt_cache_attention_i8": [_P] * 7 + [_I] * 11 + [_F, _P],
-    "lvt_matmul_i8w": [_P] * 4 + [_I] * 7 + [_P],
+    "lvt_matmul_i8w": [_P] * 5 + [_I] * 7 + [_P],
     "lvt_nearest_indices_grouped": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     "lvt_decode_attention_i8kv": [_P] * 7 + [_I] * 11 + [_F, _P],
 }

@@ -7,6 +7,16 @@ CUDA tensor and runs the plain PyTorch version of the same function on a CPU
 tensor. The int8 weight is held transposed, (N, K), so that the kernel finds
 four consecutive K of one output column in one word. ``matmul_i8w_plan``
 picks the kernel's columns per block on the host.
+
+Under tensor parallelism a rank holds part of a row-split weight (proj, FFN
+2: some of its input rows) and the matching part of each activation row.
+The scales that span whole rows or columns are then taken over the model
+group: ``quantize_cols(group=)`` takes each column's absmax over every
+rank's rows, so that a rank's integers are those rows of the whole weight's
+quantization, and ``row_amax`` hands kernel 11 each activation row's absmax
+over the group's parts, so that a rank's int8 row is its part of the whole
+row's. ``matmul_i8w_split`` then has the kernel write its exact int32 sums,
+adds them over the group and scales once: the whole product, bit for bit.
 """
 
 from functools import lru_cache
@@ -14,9 +24,11 @@ from typing import Optional
 
 import torch
 
+from ..parallel.collectives import max_over_model, reduce_from_model
 from ._lib import CARD_SMS, LIBRARY, check_launch, counted
 
 _FLOATS = (torch.float32, torch.bfloat16)
+_OUT_TYPES = (torch.float32, torch.bfloat16, torch.int32)  # kernel 11's out_type 0, 1, 2
 
 # Kernel 11's grid: blocks of 256 threads over I8W_ROWS activation rows and
 # `cpb` output columns, the 256 / cpb threads of a column splitting its K.
@@ -61,10 +73,13 @@ def absmax_scale(amax, qmax: int = 127):
     return amax / _qmax(amax.device, amax.dtype, qmax)
 
 
-def quantize_rows_i8(y):
+def quantize_rows_i8(y, amax=None):
     """(..., d) float -> ((..., d) int8, (..., 1) fp32 scales): absmax / 127
-    per row, round half to even, clip to +-127."""
-    sy = absmax_scale(y.abs().amax(dim=-1, keepdim=True).float())
+    per row, round half to even, clip to +-127. ``amax`` (...) takes the
+    place of each row's own absmax (a row split over a model group: the
+    group's)."""
+    amax = y.abs().amax(dim=-1, keepdim=True) if amax is None else amax[..., None]
+    sy = absmax_scale(amax.float())
     yi = torch.clamp(torch.round(y.float() / (sy + 1e-8)), -127.0, 127.0).to(torch.int8)
     return yi, sy
 
@@ -104,37 +119,47 @@ def unpack_int4(packed, out, scratch):
     return out
 
 
-def quantize_cols(w, cdtype):
+def quantize_cols(w, cdtype, group=None):
     """(in, out) weight -> ((in, out) int8, (out,) scale in ``cdtype``), the
-    arithmetic in w's dtype. Exact fold: y @ (W8 * s) == (y @ W8) * s."""
-    s = absmax_scale(w.abs().amax(dim=0))
+    arithmetic in w's dtype. Exact fold: y @ (W8 * s) == (y @ W8) * s. With
+    a model ``group`` w is the rank's rows of a row-split weight, and each
+    column's absmax is the maximum over the group's rows."""
+    amax = w.abs().amax(dim=0)
+    s = absmax_scale(amax if group is None else max_over_model(amax, group))
     wi = torch.clamp(torch.round(w / (s[None, :] + 1e-8)), -127, 127).to(torch.int8)
     return wi, s.to(cdtype)
 
 
-def matmul_i8w_plain(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def matmul_i8w_plain(y, wt, sw, out_dtype: Optional[torch.dtype] = None,
+                     row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel 11. y (b, K) float; wt (N, K) int8, the
-    quantized (K, N) weight transposed; sw (N,) column scales. The rows of y
-    are quantized to int8, the integer product is exact (summed in float64),
-    and the output is scaled by sy, then sw, in fp32 and rounded once."""
-    yi, sy = quantize_rows_i8(y)
-    acc = (yi.double() @ wt.double().t()).float()
-    return (acc * sy * sw.reshape(1, -1).float()).to(out_dtype or y.dtype)
+    quantized (K, N) weight transposed; sw (N,) column scales; row_amax (b,)
+    fp32 or None. The rows of y are quantized to int8 (by row_amax / 127
+    where it is given, else by their own absmax), the integer product is
+    exact (summed in float64), and the output is scaled by sy, then sw, in
+    fp32 and rounded once; out_dtype int32 gives the integer sums unscaled."""
+    yi, sy = quantize_rows_i8(y, row_amax)
+    acc = yi.double() @ wt.double().t()
+    if out_dtype == torch.int32:
+        return acc.to(torch.int32)
+    return (acc.float() * sy * sw.reshape(1, -1).float()).to(out_dtype or y.dtype)
 
 
 @counted
-def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None,
+                    row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel 11 (csrc/matmul_i8w.cu) on CUDA tensors: the shapes and types of
     ``matmul_i8w_plain``, all contiguous, y and wt 16-byte aligned, K a
-    multiple of 16. One launch, its grid from ``matmul_i8w_plan``."""
+    multiple of 16, row_amax fp32. One launch, its grid from
+    ``matmul_i8w_plan``."""
     out_dtype = out_dtype or y.dtype
     if not (y.is_cuda and wt.device == y.device and sw.device == y.device):
         raise ValueError("matmul_i8w_cuda: all inputs must be on one CUDA device")
-    if y.dtype not in _FLOATS or sw.dtype not in _FLOATS or out_dtype not in _FLOATS \
+    if y.dtype not in _FLOATS or sw.dtype not in _FLOATS or out_dtype not in _OUT_TYPES \
             or wt.dtype != torch.int8:
-        raise ValueError(f"matmul_i8w_cuda: wants y, sw and the output in float32 or bfloat16 "
-                         f"and an int8 weight, got {y.dtype}, {sw.dtype}, {out_dtype}, "
-                         f"{wt.dtype}")
+        raise ValueError(f"matmul_i8w_cuda: wants y and sw in float32 or bfloat16, the output "
+                         f"in float32, bfloat16 or int32 and an int8 weight, got {y.dtype}, "
+                         f"{sw.dtype}, {out_dtype}, {wt.dtype}")
     if y.dim() != 2 or wt.dim() != 2 or wt.shape[1] != y.shape[1] \
             or tuple(sw.shape) != (wt.shape[0],):
         raise ValueError(f"matmul_i8w_cuda: want y (b, K), wt (N, K), sw (N,), got "
@@ -150,23 +175,51 @@ def matmul_i8w_cuda(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch
         raise ValueError("matmul_i8w_cuda: y and wt must be 16-byte aligned")
     if y.device.index != torch.cuda.current_device():
         raise ValueError("matmul_i8w_cuda: inputs must lie on the current CUDA device")
+    if row_amax is not None and (row_amax.device != y.device or row_amax.dtype != torch.float32
+                                 or tuple(row_amax.shape) != (b,)
+                                 or not row_amax.is_contiguous()):
+        raise ValueError(f"matmul_i8w_cuda: row_amax must be contiguous float32 {(b,)} on y's "
+                         f"device, got {row_amax.dtype} {tuple(row_amax.shape)} on "
+                         f"{row_amax.device}")
     lib = LIBRARY.get()
     out = torch.empty((b, N), dtype=out_dtype, device=y.device)
     err = lib.lvt_matmul_i8w(
-        y.data_ptr(), wt.data_ptr(), sw.data_ptr(), out.data_ptr(), b, K, N,
+        y.data_ptr(), wt.data_ptr(), sw.data_ptr(),
+        0 if row_amax is None else row_amax.data_ptr(), out.data_ptr(), b, K, N,
         int(y.dtype == torch.bfloat16), int(sw.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), matmul_i8w_plan(b, K, N)[0],
+        _OUT_TYPES.index(out_dtype), matmul_i8w_plan(b, K, N)[0],
         torch.cuda.current_stream().cuda_stream)
     check_launch("matmul_i8w", err)
     matmul_i8w_cuda.launches += 1
+    if row_amax is not None:
+        matmul_i8w_cuda.row_amax_launches += 1
     return out
 
 
-def matmul_i8w(y, wt, sw, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+matmul_i8w_cuda.row_amax_launches = 0  # the launches given row_amax (a model group's)
+
+
+def matmul_i8w(y, wt, sw, out_dtype: Optional[torch.dtype] = None,
+               row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel 11 on a CUDA tensor, its plain version on a CPU tensor."""
     if y.device.type == "cuda":
         y = y.contiguous()
-        return matmul_i8w_cuda(y if y.data_ptr() % 16 == 0 else y.clone(), wt, sw, out_dtype)
+        return matmul_i8w_cuda(y if y.data_ptr() % 16 == 0 else y.clone(), wt, sw, out_dtype,
+                               row_amax)
     if y.device.type == "cpu":
-        return matmul_i8w_plain(y, wt, sw, out_dtype)
+        return matmul_i8w_plain(y, wt, sw, out_dtype, row_amax)
     raise ValueError(f"matmul_i8w: no kernel for device {y.device}")
+
+
+def matmul_i8w_split(y, wt, sw, group, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Kernel 11 over a product split by its input rows over a model group
+    (proj, FFN 2 under tensor parallelism): y (b, K / M) the rank's features
+    of each row, wt (N, K / M) its rows of the weight, transposed, sw (N,)
+    the whole weight's column scales (``quantize_cols`` with the group).
+    Each row of y is quantized by the group's absmax of the whole row, the
+    kernel writes the rank's int32 sums, the group adds them exactly, and
+    sy and sw apply once as the kernel's epilogue applies them: the output
+    of ``matmul_i8w`` on the whole rows, bit for bit."""
+    amax = max_over_model(y.abs().amax(dim=-1).float(), group)
+    acc = reduce_from_model(matmul_i8w(y, wt, sw, torch.int32, row_amax=amax), group)
+    return (acc.float() * absmax_scale(amax)[:, None] * sw.float()).to(out_dtype or y.dtype)

@@ -2,7 +2,7 @@
 lvt_tpu/parallel/)."""
 
 from .collectives import (all_gather, all_reduce, copy_to_model, gather_features,
-                          reduce_from_model, reduce_scatter)
+                          max_over_model, reduce_from_model, reduce_scatter)
 from .mesh import (batch_rows, data_group, data_rank, global_batch, global_batch_group, layout,
                    model_group, model_parallel_group, tensor_parallel)
 from .sharding import gather_tree, shard_tree, sharded_field_names, tp_dim, tp_dims
@@ -19,6 +19,7 @@ __all__ = [
     "global_batch",
     "global_batch_group",
     "layout",
+    "max_over_model",
     "model_group",
     "model_parallel_group",
     "reduce_from_model",

@@ -23,10 +23,15 @@ every gradient upstream would come out M times too large. These three sum
 and move bf16 and other narrow floats as fp32 (one rounding of the sum, and
 a dtype every backend takes).
 
-Under a gloo group, CUDA tensors go straight through ``all_reduce``; the
-gather and the reduce-scatter are staged through host copies, because gloo
-does not take CUDA tensors for them. The backend is never switched: an NCCL
-group runs every op on the card.
+Under a gloo group, CUDA tensors go straight through the all-reduces (sum
+and ``max_over_model``'s maximum); the gather and the reduce-scatter are
+staged through host copies, because gloo does not take CUDA tensors for
+them. The backend is never switched: an NCCL group runs every op on the
+card.
+
+``max_over_model`` is no autograd Function: it takes the maximum of the
+quantized sampler's absmax scales over the model group (``ops/quant.py``),
+whose rows and columns no rank holds whole.
 """
 
 from typing import List, Optional
@@ -35,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "reduce_scatter", "all_reduce", "copy_to_model", "reduce_from_model",
-           "gather_features", "local_features"]
+           "gather_features", "local_features", "max_over_model"]
 
 
 def _world(group) -> int:
@@ -48,9 +53,9 @@ def _staged(group, x: torch.Tensor) -> bool:
     return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = x.contiguous().clone()
-    dist.all_reduce(y, group=group)
+    dist.all_reduce(y, op=op, group=group)
     return y
 
 
@@ -204,3 +209,11 @@ def local_features(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     rank, size = dist.get_rank(group), dist.get_world_size(group)
     width = x.shape[-1] // size
     return copy_to_model(x, group).narrow(-1, rank * width, width)
+
+
+def max_over_model(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the model group, on every rank;
+    no gradient. A narrow float is taken as fp32, which loses nothing: the
+    maximum is one of the values."""
+    return _all_reduce((x.float() if _narrow(x) else x).detach(), group,
+                       dist.ReduceOp.MAX).to(x.dtype)

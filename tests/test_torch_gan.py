@@ -2,7 +2,9 @@
 lvt_tpu's schedule over 400 iterations (tests/test_gan_trainer.py's
 settings) with the toy learning, the losses and weights of 20 iterations
 against lvt_tpu's GanTrainer on twins that read their noise from the batch,
-the refusals, and the checkpoint tree with a --resume that restores D."""
+the refusals, the checkpoint tree with a --resume that restores D, and the
+twins under a model group: a gloo world of data 2 x model 2 against lvt_tpu's
+GanTrainer on its (2, 2) mesh, and its checkpoint resumed in a world of one."""
 
 import jax
 import jax.numpy as jnp
@@ -17,107 +19,13 @@ from lvt_tpu.parallel.mesh import build_mesh
 from lvt_tpu_torch.checkpoint import save_checkpoint
 from lvt_tpu_torch.config import get_cfg
 from lvt_tpu_torch.engine.gan import GanTrainer
-from lvt_tpu_torch.models.loss import gan_loss
+from torch_dp_worker import spawn_world
+from torch_gan_worker import (D_KEYS, G_KEYS, ITERS, TARGET, Loader, ToyGan, gan_model_group,
+                              histories)
+from torch_gan_worker import gan_cfg as _cfg
+from torch_gan_worker import toy_weights as _weights
 
 torch.set_num_threads(1)  # one intra-op thread: the test workers share the cores
-
-TARGET = np.array([2.0, -1.0], np.float32)
-G_KEYS, D_KEYS = ("w1", "w2", "b2"), ("w1", "w2")
-
-
-def _cfg(get, tmp_path):
-    """tests/test_gan_trainer.py's settings."""
-    cfg = get()
-    cfg.GAN_MODE_ON = True
-    cfg.LOSS.GAN.MODE = "lsgan"
-    cfg.SOLVER.OPTIMIZER_NAME = "adam"
-    cfg.SOLVER.ADAM.BETA2_G = 0.999
-    cfg.SOLVER.ADAM.BETA2_D = 0.999
-    cfg.SOLVER.LR_G = 1e-2
-    cfg.SOLVER.LR_D = 2e-2
-    cfg.SOLVER.SUPERVISED_MAX_ITER = 5
-    cfg.SOLVER.D_UPDATE_RATIO = 2
-    cfg.SOLVER.D_INIT_ITERS = 7
-    cfg.SOLVER.IMS_PER_BATCH = 64
-    cfg.OUTPUT_DIR = str(tmp_path)
-    cfg.SEED = 1
-    cfg.TPU.COMPUTE_DTYPE = "float32"
-    return cfg
-
-
-def _weights(seed=5):
-    r = np.random.default_rng(seed)
-    g = {"w1": r.standard_normal((4, 16)) * 0.5, "w2": r.standard_normal((16, 2)) * 0.5,
-         "b2": np.zeros(2)}
-    d = {"w1": r.standard_normal((2, 16)) * 0.5, "w2": r.standard_normal((16, 1)) * 0.5}
-    return ({k: v.astype(np.float32) for k, v in g.items()},
-            {k: v.astype(np.float32) for k, v in d.items()})
-
-
-class Loader:
-    """Batch i: 64 samples around TARGET and, for the twins, 64 noise rows,
-    from numpy seeded with i (a resumed loader starts at its iteration)."""
-
-    def __init__(self, start=0, noise=True):
-        self.start, self.noise = start, noise
-
-    def __iter__(self):
-        i = self.start
-        while True:
-            r = np.random.default_rng(i)
-            batch = {"x": (r.standard_normal((64, 2)) * 0.3 + TARGET).astype(np.float32)}
-            if self.noise:
-                batch["z"] = r.standard_normal((64, 4)).astype(np.float32)
-            yield batch
-            i += 1
-
-
-class ToyGan:
-    """The port's toy: G a 2-layer MLP noise -> sample, D a 2-layer MLP
-    sample -> logit. Noise from the batch's "z" where it has one, else
-    drawn from the step's generator; weights from ``weights`` or drawn."""
-
-    def __init__(self, cfg, weights=None):
-        self.cfg, self.weights = cfg, weights
-
-    def init(self, gen, device="cpu"):
-        if self.weights is not None:
-            return {k: torch.tensor(v, device=device) for k, v in self.weights[0].items()}, {}
-        return {"w1": torch.randn(4, 16, generator=gen) * 0.5,
-                "w2": torch.randn(16, 2, generator=gen) * 0.5, "b2": torch.zeros(2)}, {}
-
-    def init_discriminator(self, gen, device="cpu"):
-        if self.weights is not None:
-            return {k: torch.tensor(v, device=device) for k, v in self.weights[1].items()}
-        return {"w1": torch.randn(2, 16, generator=gen) * 0.5,
-                "w2": torch.randn(16, 1, generator=gen) * 0.5}
-
-    def gen_samples(self, params, z):
-        return torch.tanh(z @ params["w1"]) @ params["w2"] + params["b2"]
-
-    def _fake(self, params, batch, gen):
-        z = batch.get("z")
-        if z is None:
-            z = torch.randn(batch["x"].shape[0], 4, generator=gen)
-        return self.gen_samples(params, z)
-
-    def _disc(self, d_params, x):
-        return (torch.tanh(x @ d_params["w1"]) @ d_params["w2"])[:, 0]
-
-    def train_loss(self, params, state, batch, gen):
-        fake = self._fake(params, batch, gen)
-        loss = ((fake.mean(0) - batch["x"].mean(0)) ** 2).mean()
-        return loss, ({"loss_sup": loss}, state)
-
-    def generator_loss(self, params, d_params, state, batch, gen):
-        loss = gan_loss(self.cfg, self._disc(d_params, self._fake(params, batch, gen)), True)
-        return loss, ({"loss_g": loss}, state)
-
-    def discriminator_loss(self, params, d_params, state, batch, gen):
-        fake = self._fake(params, batch, gen).detach()
-        loss = (gan_loss(self.cfg, self._disc(d_params, batch["x"]), True)
-                + gan_loss(self.cfg, self._disc(d_params, fake), False))
-        return loss, {"loss_d": loss}
 
 
 class JaxToyTwin:
@@ -153,11 +61,6 @@ class JaxToyTwin:
         loss = (jax_gan_loss(self.cfg, self._disc(d_params, batch["x"]), True)
                 + jax_gan_loss(self.cfg, self._disc(d_params, fake), False))
         return loss, {"loss_d": loss}
-
-
-def _histories(trainer):
-    h = trainer.storage.histories()
-    return {k: np.array([v for v, _ in h[k].values()]) for k in ("loss_sup", "loss_d", "loss_g")}
 
 
 def test_schedule_counts_and_learning(tmp_path):
@@ -203,7 +106,7 @@ def test_matches_lvt_tpu_gan_trainer(tmp_path):
     tr.metrics_period = 1
     tr.train(0, 20)
     tr.flush_metrics()
-    want, got = _histories(jtr), _histories(tr)
+    want, got = histories(jtr), histories(tr)
     assert [len(got[k]) for k in got] == [5, 15, 6]
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
@@ -222,17 +125,13 @@ class _NoDiscriminator(ToyGan):
 
 def test_refusals(tmp_path):
     """lvt_tpu's two asserts (a model with a discriminator; no gradient
-    accumulation), and a model group (ROADMAP item 9)."""
+    accumulation)."""
     cfg = _cfg(get_cfg, tmp_path)
     model = ToyGan(cfg)
     with pytest.raises(AssertionError, match="discriminator"):
         GanTrainer(cfg, Loader(), model=_NoDiscriminator(cfg), device="cpu")
     cfg.SOLVER.ACCUMULATION_STEPS = 2
     with pytest.raises(AssertionError, match="accumulation"):
-        GanTrainer(cfg, Loader(), model=model, device="cpu")
-    cfg.SOLVER.ACCUMULATION_STEPS = 1
-    cfg.TPU.MESH_MODEL = 2
-    with pytest.raises(NotImplementedError, match="item 9"):
         GanTrainer(cfg, Loader(), model=model, device="cpu")
 
 
@@ -266,3 +165,62 @@ def test_checkpoint_tree_and_resume_restore_d(tmp_path):
                                (resumed.d_params, whole.d_params, D_KEYS)):
         for k in keys:
             assert torch.equal(mine[k], theirs[k]), k
+
+
+def test_under_a_model_group_matches_lvt_tpu_and_resumes_in_a_world_of_one(tmp_path):
+    """ITERS iterations of the twins in a gloo world of 4 (data 2 x model 2,
+    TPU.MESH_MODEL 2: G through the base trainer's split machinery, D
+    replicated over the model group) against lvt_tpu's GanTrainer on its
+    (2, 2) mesh: the histories and the final G and D within
+    test_matches_lvt_tpu_gan_trainer's bounds on every rank, every rank's G
+    and D bit-equal. The checkpoint the world saved resumes in a world of
+    one (TPU.MESH_MODEL 1) with G, D and D's optimizer as the world left
+    them, and its next iteration equals lvt_tpu's."""
+    weights = _weights()
+    jcfg = _cfg(jax_get_cfg, tmp_path / "jax")
+    jtr = JaxGanTrainer(jcfg, Loader(), model=JaxToyTwin(jcfg, weights),
+                        mesh=build_mesh(data=2, model=2, devices=jax.devices()[:4]))
+    jtr.metrics_period = 1
+    jtr.train(0, ITERS + 1)
+    jtr.flush_metrics()
+    want = histories(jtr)
+    out = str(tmp_path / "world")
+    res = spawn_world(gan_model_group, {"out_dir": out, "model": 2, "weights": weights},
+                      str(tmp_path / "ranks"), world=4)
+    for r in res:
+        assert r["model_group"] and r["step"] == ITERS
+        assert [len(v) for v in r["histories"].values()] == [
+            5, ITERS - 5, len([i for i in range(5, ITERS) if i % 2 == 0 and i >= 7])]
+        for k, v in r["histories"].items():
+            np.testing.assert_allclose(v, want[k][:len(v)], rtol=1e-4, err_msg=k)
+        for mine, theirs in ((r["g"], res[0]["g"]), (r["d"], res[0]["d"])):
+            for k in mine:
+                np.testing.assert_array_equal(mine[k], theirs[k], err_msg=k)
+    # lvt_tpu's weights after ITERS iterations: a second run stopped there
+    jstop = JaxGanTrainer(jcfg, Loader(), model=JaxToyTwin(jcfg, weights),
+                          mesh=build_mesh(data=2, model=2, devices=jax.devices()[:4]))
+    jstop.train(0, ITERS)
+    for mine, theirs, keys in ((res[0]["g"], jstop.state.params, G_KEYS),
+                               (res[0]["d"], jstop.d_params, D_KEYS)):
+        for k in keys:
+            np.testing.assert_allclose(mine[k], np.asarray(theirs[k]), rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+    # the world's checkpoint in a world of one
+    cfg = _cfg(get_cfg, out)
+    one = GanTrainer(cfg, Loader(start=ITERS), model=ToyGan(cfg, weights), device="cpu")
+    assert one.model_group is None
+    assert one.resume_or_load(resume=True) == ITERS
+    for mine, theirs in ((one.state.params, res[0]["g"]), (one.d_params, res[0]["d"])):
+        for k in theirs:
+            assert np.array_equal(mine[k].detach().numpy(), theirs[k]), k
+    assert one.d_optimizer.state_dict()["state"], "D's Adam moments are restored"
+    one.metrics_period = 1
+    one.train(ITERS, ITERS + 1)
+    one.flush_metrics()
+    got = histories(one)
+    np.testing.assert_allclose(got["loss_d"], want["loss_d"][-1:], rtol=1e-4)
+    for mine, theirs, keys in ((one.state.params, jtr.state.params, G_KEYS),
+                               (one.d_params, jtr.d_params, D_KEYS)):
+        for k in keys:
+            np.testing.assert_allclose(mine[k].detach().numpy(), np.asarray(theirs[k]),
+                                       rtol=1e-4, atol=1e-6, err_msg=k)

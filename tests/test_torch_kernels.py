@@ -760,6 +760,63 @@ def test_matmul_i8w_kernel_rounds_at_half_integers_as_plain(cuda, dtype):
     assert torch.equal(got, tq.matmul_i8w_plain(y, wt, sw, dtype))
 
 
+# DSFVT's four products on one rank of a model group of 2 (b 8): qkv and FFN 1
+# split by columns, proj and FFN 2 by rows (these take row_amax)
+I8W_SHARD_SHAPES = [(8, 512, 768), (8, 512, 256), (8, 256, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["io", "float32", "int32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,K,N", I8W_SHARD_SHAPES + [(19, 1040, 40), (3, 2048, 7)])
+def test_matmul_i8w_row_amax_matches_plain(cuda, dtype, out, b, K, N):
+    """Kernel 11 with and without row_amax at a tensor-parallel rank's
+    shapes (and past one block's rows, past the rows held in registers),
+    each bit-equal to its plain version, with the output in the io dtype,
+    fp32 or int32 (the unscaled sums of a row-split product). row_amax
+    equal to the rows' own absmax gives the kernel's own output; a larger
+    one, the group's, scales each row by it."""
+    import lvt_tpu_torch.ops.quant as tq
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    out_dtype = {"io": dtype, "float32": torch.float32, "int32": torch.int32}[out]
+    y = torch.randn((b, K), generator=g, device=cuda).to(dtype)
+    wi, sw = tq.quantize_cols(torch.randn((K, N), generator=g, device=cuda).to(dtype), dtype)
+    wt = wi.t().contiguous()
+    own = y.abs().amax(dim=-1).float()
+    group = own * (1.0 + 3.0 * torch.rand((b,), generator=g, device=cuda))
+    plain = tq.matmul_i8w_plain(y, wt, sw, out_dtype)
+    for amax, want in ((None, plain), (own, plain),
+                       (group, tq.matmul_i8w_plain(y, wt, sw, out_dtype, row_amax=group))):
+        before = tq.matmul_i8w_cuda.launches
+        got = tq.matmul_i8w(y, wt, sw, out_dtype, row_amax=amax)
+        assert tq.matmul_i8w_cuda.launches == before + 1
+        assert got.dtype == out_dtype and got.shape == (b, N)
+        assert torch.equal(got, want)
+    assert not torch.equal(want, plain)  # the group's scale moves the output
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,K,N", [(8, 512, 512), (8, 1024, 512), (19, 1056, 40)])
+def test_matmul_i8w_row_split_sums_to_the_whole_product(cuda, dtype, b, K, N):
+    """A product split in two over its input rows, as a model group of 2
+    computes proj and FFN 2 (ops/quant.py matmul_i8w_split without the
+    collectives): each half's int32 sums given the whole row's absmax, added,
+    then scaled as the kernel's epilogue scales, equal the kernel's output
+    on the whole rows bit for bit."""
+    import lvt_tpu_torch.ops.quant as tq
+
+    g = torch.Generator(device=cuda).manual_seed(29)
+    y = torch.randn((b, K), generator=g, device=cuda).to(dtype)
+    wi, sw = tq.quantize_cols(torch.randn((K, N), generator=g, device=cuda).to(dtype), dtype)
+    amax = y.abs().amax(dim=-1).float()
+    acc = sum(tq.matmul_i8w(y[:, h].contiguous(), wi[h].t().contiguous(), sw, torch.int32,
+                            row_amax=amax) for h in (slice(0, K // 2), slice(K // 2, K)))
+    got = (acc.float() * tq.absmax_scale(amax)[:, None] * sw.float()).to(dtype)
+    assert torch.equal(got, tq.matmul_i8w(y, wi.t().contiguous(), sw, dtype))
+
+
 def _card_vt(stride=(4, 1, 1), kernel=(3, 1, 1), blocks=(1, 8, 8), T=4):
     """A small VT whose decoder the card's kernels take (da = 64, d = 128),
     on an 8x8 grid, and its fp32 weights from a seed."""

@@ -146,6 +146,88 @@ def test_matmul_i8w_integer_sum_is_exact():
 
 
 # --------------------------------------------------------------------------
+# kernel 11's row_amax: a row split over a model group
+# --------------------------------------------------------------------------
+
+def _rows_case(dtype, b=6, K=64, N=40, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn((b, K), generator=g).to(dtype)
+    y[0, 3] = 0.0  # a row with a zero and a row of zeros
+    y[1] = 0.0
+    wi, sw = tq.quantize_cols(torch.randn((K, N), generator=g).to(dtype), dtype)
+    return y, wi.t().contiguous(), sw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_amax_equal_to_the_rows_own_is_bit_equal(dtype):
+    y, wt, sw = _rows_case(dtype)
+    amax = y.abs().amax(dim=-1).float()
+    assert torch.equal(tq.matmul_i8w_plain(y, wt, sw, dtype, row_amax=amax),
+                       tq.matmul_i8w_plain(y, wt, sw, dtype))
+    assert torch.equal(tq.matmul_i8w(y, wt, sw, dtype, row_amax=amax),
+                       tq.matmul_i8w(y, wt, sw, dtype))
+    q8, sq = tq.quantize_rows_i8(y, amax)
+    w8, wq = tq.quantize_rows_i8(y)
+    assert torch.equal(q8, w8) and torch.equal(sq, wq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_larger_row_amax_quantizes_with_that_scale(dtype):
+    """row_amax above the row's own absmax: the row is quantized by
+    row_amax / 127 (true division), the product scaled by it; and the two
+    halves of a row quantized with the whole row's absmax are the whole
+    row's integers, their int32 sums adding to the whole row's."""
+    y, wt, sw = _rows_case(dtype)
+    amax = 3.0 * y.abs().amax(dim=-1).float() + 0.25
+    sy = amax[:, None] / torch.tensor(127.0)
+    y8 = torch.clamp(torch.round(y.float() / (sy + 1e-8)), -127, 127).to(torch.int8)
+    q8, sq = tq.quantize_rows_i8(y, amax)
+    assert torch.equal(q8, y8) and torch.equal(sq, sy)
+    acc = (y8.double() @ wt.double().t()).float()
+    want = (acc * sy * sw.float()).to(dtype)
+    assert torch.equal(tq.matmul_i8w_plain(y, wt, sw, dtype, row_amax=amax), want)
+    assert not torch.equal(want, tq.matmul_i8w_plain(y, wt, sw, dtype))  # the scale counts
+    # a row split in two over its K: the group's absmax, the parts' integers
+    whole_amax = y.abs().amax(dim=-1).float()
+    K = y.shape[1]
+    halves = (slice(0, K // 2), slice(K // 2, K))
+    for h in halves:
+        assert torch.equal(tq.quantize_rows_i8(y[:, h], whole_amax)[0],
+                           tq.quantize_rows_i8(y)[0][:, h])
+    parts = [tq.matmul_i8w_plain(y[:, h], wt[:, h].contiguous(), sw, torch.int32,
+                                 row_amax=whole_amax) for h in halves]
+    assert torch.equal(parts[0] + parts[1], tq.matmul_i8w_plain(y, wt, sw, torch.int32))
+
+
+def test_matmul_i8w_writes_the_integer_sums_unscaled():
+    """out_dtype int32: the exact integer sums of the int8 rows and weight
+    columns, which the epilogue (x sy, then x sw, in fp32) turns into the
+    scaled output bit for bit."""
+    y, wt, sw = _rows_case(torch.bfloat16)
+    got = tq.matmul_i8w_plain(y, wt, sw, torch.int32)
+    q8, sq = tq.quantize_rows_i8(y)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, (q8.long() @ wt.long().t()).int())
+    assert torch.equal((got.float() * sq * sw.float()).to(torch.bfloat16),
+                       tq.matmul_i8w_plain(y, wt, sw, torch.bfloat16))
+    assert torch.equal(tq.matmul_i8w(y, wt, sw, torch.int32), got)
+
+
+def test_matmul_i8w_writes_fp32_from_bf16_inputs():
+    """out_dtype float32 from bf16 activations and scales: the fp32 epilogue
+    unrounded, which a row-split product sums over its group before the one
+    rounding to bf16."""
+    y, wt, sw = _rows_case(torch.bfloat16)
+    got = tq.matmul_i8w_plain(y, wt, sw, torch.float32)
+    assert got.dtype == torch.float32
+    q8, sq = tq.quantize_rows_i8(y)
+    want = (q8.double() @ wt.double().t()).float() * sq * sw.float()
+    assert torch.equal(got, want)
+    assert torch.equal(got.to(torch.bfloat16), tq.matmul_i8w_plain(y, wt, sw, torch.bfloat16))
+    assert torch.equal(tq.matmul_i8w(y, wt, sw, torch.float32), got)
+
+
+# --------------------------------------------------------------------------
 # kernels 3, 4, 5: the layouts of the two packages
 # --------------------------------------------------------------------------
 

@@ -185,12 +185,3 @@ def test_refusals_match_jax(kwargs, match):
     with pytest.raises(ValueError, match=match):  # lvt_tpu refuses the same call the same way
         jm.sample_video(jp, jnp.asarray(video), jax.random.key(0), n_prime=1, greedy=True,
                         **kwargs)
-
-
-def test_streams_under_tensor_parallelism_raise(monkeypatch):
-    """Under a model group (a VT whose config carries a shard) streams other
-    than 1 raise NotImplementedError naming ROADMAP.md's item 9."""
-    tm, tp, zl, sl, n = _slice("dsfvt")
-    monkeypatch.setattr(tvti, "vt_shard", lambda c: object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tvti.SliceDecoder(tp["netG"], tm.c, tm.plan.slice_shape, 4, "cpu", streams=2)

@@ -23,9 +23,10 @@ tests/conftest.py.
   resumed in a world of one (this process), and saved by a world of one and
   resumed in the world; the next step within (b)'s bounds of the unbroken
   run. A resume in the same layout is bit-equal.
-* (f) The refusals: the int8 sampler knobs under a model group, a model
-  axis that does not divide the world; TPU.SHARD_SPATIAL is accepted
-  (tests/test_torch_sp.py holds it).
+* (f) The refusals: a model axis that does not divide the world, the
+  generation script's model axis; TPU.SHARD_SPATIAL is accepted
+  (tests/test_torch_sp.py holds it). Every sampler mode under the model
+  group: tests/test_torch_tp_sampler.py.
 * tools/train_net_torch.py's main in the world with TPU.MESH_MODEL 2: the
   narrow VQ-VAE and VT of tests/test_torch_data_parallel.py train 2 steps,
   split, and --eval-only there gives the world of one's bits/dim (1e-6) and
@@ -73,8 +74,6 @@ WORLD, MODEL = 4, 2  # data 2 x model 2
 GLOBAL = 8  # global batch: 4 rows a data rank, 1 on each of lvt_tpu's 8 devices
 STEPS = 2
 RTOL, ATOL = 1e-3, 5e-5  # tests/test_tp.py:80-91
-INT8_KNOBS = [{"kv_cache_dtype": "int8"}, {"weight_dtype": "int8"},
-              {"kv_cache_dtype": "int8", "mm_dtype": "int8"}, {"attn_impl": "pallas"}]
 
 
 def _vt_cfg(get=get_cfg, model=1, out=""):
@@ -235,7 +234,6 @@ def tp(tmp_path_factory):
             {"image": rng.uniform(0, 1, (GLOBAL, 16, 16, 3)).astype(np.float32)}]},
         "resume": {"cfg": _vt_cfg(model=MODEL, out=os.path.join(tmp, "saved_in_world")),
                    "batches": batches, "si": si, "one_dir": os.path.join(tmp, "saved_by_one")},
-        "refusals": {"cfg": sample_cfg, "knobs": INT8_KNOBS},
         "cli": _tp_cli_payload(tmp, rng),
     }
     # a world of one saves after step 1, for the world to resume, and steps on
@@ -458,14 +456,6 @@ def test_saved_by_a_world_of_one_resumes_in_the_world(tp):
 # --------------------------------------------------------------------------
 # (f) Refusals
 # --------------------------------------------------------------------------
-
-@pytest.mark.parametrize("knobs", INT8_KNOBS, ids=str)
-def test_int8_sampler_knobs_refuse_under_a_model_group(tp, knobs):
-    for r in tp["res"]:
-        got = r["refusals"][str(knobs)]
-        assert got is not None and got[0] == "NotImplementedError", got
-        assert "tensor parallelism" in got[1] and "queue 1 item 9" in got[1], got
-
 
 def test_the_layouts_the_port_refuses():
     cfg = _vt_cfg()

@@ -105,7 +105,7 @@ def build():
                 print(f"  ptxas {name}: {line.strip()}")
         lib = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
         if name.startswith("i8w"):
-            lib.lvt_matmul_i8w.argtypes = [P] * 4 + [I] * 7 + [P]
+            lib.lvt_matmul_i8w.argtypes = [P] * 5 + [I] * 7 + [P]
         else:
             lib.lvt_nearest_indices_grouped.argtypes = [P, P, P, I, I, I, I, L, L, I, I, P]
         libs[name] = lib
@@ -136,7 +136,7 @@ def main():
 
             def run(name, wt, sw, cpb=plan):
                 out = torch.empty((b, N), dtype=dt, device="cuda")
-                err = libs[name].lvt_matmul_i8w(y.data_ptr(), wt.data_ptr(), sw.data_ptr(),
+                err = libs[name].lvt_matmul_i8w(y.data_ptr(), wt.data_ptr(), sw.data_ptr(), None,
                                                 out.data_ptr(), b, K, N, 1, 1, 1, cpb, stream())
                 if err:
                     raise RuntimeError(f"{name}: cudaError_t {err}")
